@@ -1,0 +1,375 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``mode_diffusion_policy_tpu_torch/csrc``
+(plain nvcc), holds each kernel against its plain PyTorch version at the
+served shapes, drives the ``parity`` serving path at full flagship width
+(12 layers, D=1024, 2x FiLM-ResNet-50 at 224 px, seeded random weights made
+on the card) through ``RolloutPolicy`` at b=128 and b=1, checks the
+launch counts and the kernel-vs-plain action error, times the kernel, its
+plain version, a PyTorch-library composition of the same layer and whole
+chunks, and prints one JSON line per the kernels and a final status line.
+Every phase that fails exits non-zero; without CUDA nothing is run.
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import re
+import statistics
+import subprocess
+import time
+import warnings
+
+T0 = time.perf_counter()
+
+# H100 SXM peak rates (NVIDIA data sheet, dense) used for the bounds
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+PEAK_BYTES = 3.35e12
+
+# kernel vs plain version, one layer, in bf16. Both round every cast the
+# same way and their int8 products are exact, but their f32 sums of bf16
+# products run in another order (tensor-core tiles vs cuBLAS), and the
+# layer amplifies last-bit differences: a bf16 flip in q/k moves the
+# softmax, a flip in x_mid moves an int8 input, and one int8 step moves a
+# whole output row. So some outputs land one bf16 step apart, and the gate
+# counts bf16 steps relative to the output's size: mean |diff| <= 2^-8 *
+# mean |out| (about one step on half the elements), max |diff| <= 2^-5 *
+# max |out| (four steps at the largest value). A wrong expert, scale or
+# hidden block changes the MoE contribution itself, far beyond that.
+LAYER_MEAN_REL = 2.0 ** -8
+LAYER_MAX_REL = 2.0 ** -5
+# kernel path vs plain path, whole chunk: the parity preset's budget, or
+# twice the distance between two valid plain evaluations (products
+# accumulated in f32 vs f64) when that noise floor is larger. 120 layer
+# calls per chunk each inject the last-bit differences described above;
+# the floor measures how far they carry on this model and these weights.
+CHUNK_MAE_TOL = 1e-3
+CHUNK_FLOOR_FACTOR = 2.0
+
+
+def phase(name, start):
+    print(f"[{time.perf_counter() - T0:8.1f} s] {name} "
+          f"({time.perf_counter() - start:.1f} s)", flush=True)
+
+
+def cuda_time_ms(fn, iters):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def layer_cost(B, T, D, H, HH):
+    """(bf16 flops, int8 ops, bytes) of one fused layer call with top-2
+    routing: every input read once, the output written once, only the two
+    selected experts' weights counted."""
+    N, hd = B * T, D // H
+    pairs = T * (T + 1) // 2                  # causal (query, key) pairs
+    bf16 = 2 * N * D * 3 * D + 2 * N * D * D + B * H * pairs * hd * 4
+    int8 = 2 * N * D * 2 * HH * 2 + 2 * N * HH * D * 2
+    expert = D * 2 * HH + 2 * HH * 8 + HH * D + D * 4
+    nbytes = (2 * N * D * 2 + 2 * (3 * D * D + D * D) + 3 * D * 4
+              + 4 * D * 4 + 2 * expert)
+    return bf16, int8, nbytes
+
+
+def kernel_stages(fn, iters=10):
+    """Device time per __global__ stage of one launch, from torch.profiler
+    (CUPTI); prints 'not measured' when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the profiler's cycle notice
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+    rows = {}
+    for ev in averages:
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        m = re.search(r"(\w+_kernel)(<\d+>)?", ev.key)
+        if us and m:
+            name = m.group(1) + (m.group(2) or "")
+            rows[name] = rows.get(name, 0.0) + us / iters / 1e3
+    if not rows:
+        print("  per-stage device time: not measured (no device time in the "
+              "profiler trace)", flush=True)
+        return None
+    total = sum(rows.values())
+    print("  per-stage device time, b=128, ms per launch: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(rows.items(), key=lambda r: -r[1]))
+        + f"; sum {total:.4f}", flush=True)
+    return rows
+
+
+def library_layer(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, deq, e,
+                  p):
+    """The same layer as stock PyTorch calls (bf16 matmuls, SDPA, experts
+    dequantized to bf16 ahead of time): a speed yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    B, T, D = x.shape
+    hd = q_g.shape[0]
+    H = D // hd
+
+    def rms(a, g):
+        a = a.float()
+        return a * torch.rsqrt(a.pow(2).mean(-1, keepdim=True) + 1e-12) * g
+
+    h = (rms(x, ln1_g) + c.float()).to(x.dtype)
+    qkv = torch.matmul(h, wqkv) + bqkv
+    q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    q = (rms(q, q_g)).to(x.dtype)
+    k = (rms(k, k_g)).to(x.dtype)
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    xmid = x + torch.matmul(o.transpose(1, 2).reshape(B, T, D), wout)
+    xm = rms(xmid, ln2_g).to(x.dtype)
+    out = xm.float()
+    for slot in range(2):
+        w1, b1, w2 = deq[e[slot]]
+        hcat = torch.matmul(xm, w1) + b1
+        val, gate = hcat.chunk(2, dim=-1)
+        out = out + p[slot] * torch.matmul(val * F.silu(gate), w2).float()
+    return out.to(x.dtype)
+
+
+def main():
+    import torch
+
+    t = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; nothing run")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    # full-f32 plain versions: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    phase("phase 1: card facts", t)
+
+    t = time.perf_counter()
+    from mode_diffusion_policy_tpu_torch.ops.kernels import _build
+    lib = _build.build()
+    phase(f"phase 2: built {lib.name}", t)
+
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        MoDEAgent, MoDEAgentConfig, RolloutPolicy)
+    from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_layer_q8c, fused_layer_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.quant import dequantize_experts
+
+    dev = torch.device("cuda", 0)
+    cfg = MoDEAgentConfig(latent_dim=1024, n_layers=12, n_heads=8,
+                          cond_dim=512, resnet_type="50", num_experts=4,
+                          top_k=2, dtype=torch.bfloat16)
+    t = time.perf_counter()
+    agent = MoDEAgent(cfg, device=dev)
+    policy = RolloutPolicy.with_serving_mode(agent, mode="parity", seed=0)
+    dit = agent.inner_model
+    phase("setup: full-width agent, parity preset", t)
+
+    # ---- phase 3: the kernel against its plain version ------------------
+    t = time.perf_counter()
+    blk = dit.blocks[0]
+    routing = agent.precompute_routing()
+    idx, probs = routing[0]
+    sched = torch.as_tensor(agent.sigmas[:-1], device=dev)
+    emb_all = dit.process_sigma_embeddings(sched)
+    steps = [0, len(agent.sigmas) - 2]
+    rows = {tuple(idx[s].tolist()) for s in steps}
+    D, H, HH = cfg.latent_dim, cfg.n_heads, 4 * cfg.latent_dim
+    T = dit.cfg.goal_seq_len + 2 + cfg.act_window_size + 1
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a = blk.attn
+
+    def layer_args(B, step):
+        x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+        return ((x, emb_all[step][None], blk.ln_1.g, a.wqkv.kernel,
+                 a.wqkv.bias, a.q_norm.g, a.k_norm.g, a.c_proj.kernel,
+                 blk.ln_2.g, blk.experts_q, idx, probs),
+                dict(step=step, eps1=blk.ln_1.eps, eps_qk=a.q_norm.eps,
+                     eps2=blk.ln_2.eps))
+
+    max_err = 0.0
+    for B in (128, 1):
+        for s in steps:
+            args, kw = layer_args(B, s)
+            got = fused_layer_q8c(*args, **kw)
+            torch.cuda.synchronize()
+            want = fused_layer_q8c_ref(*args, **kw)
+            d = (got.float() - want.float()).abs()
+            mean_tol = LAYER_MEAN_REL * want.float().abs().mean().item()
+            max_tol = LAYER_MAX_REL * want.float().abs().max().item()
+            ok = (bool(torch.isfinite(got).all()) and
+                  d.mean().item() <= mean_tol and d.max().item() <= max_tol)
+            print(f"  fused_layer_q8c b={B} step={s} experts="
+                  f"{idx[s].tolist()}: max {d.max().item():.3e} (tol "
+                  f"{max_tol:.3e}), mean {d.mean().item():.3e} (tol "
+                  f"{mean_tol:.3e}), elements differing "
+                  f"{(d > 0).float().mean().item():.3f}", flush=True)
+            if not ok:
+                raise SystemExit("kernel disagrees with its plain version")
+            max_err = max(max_err, d.max().item())
+    if len(rows) < 2:
+        print("  note: both checked steps route to the same experts",
+              flush=True)
+    phase("phase 3: kernel vs plain version", t)
+
+    # ---- phases 4-5: the served path at b=128 and b=1 -------------------
+    rng = torch.Generator(device=dev).manual_seed(2)
+    results = {}
+    for ph, B in ((4, 128), (5, 1)):
+        t = time.perf_counter()
+        frames = {k: torch.randint(0, 256, (B, 1, 224, 224, 3), generator=rng,
+                                   device=dev, dtype=torch.uint8)
+                  for k in ("rgb_static", "rgb_gripper")}
+        goal = {"lang_emb": torch.randn(B, 1, cfg.cond_dim, generator=rng,
+                                        device=dev)}
+        policy.reset()
+        chunks = 2
+        fused_layer_q8c.launches = 0
+        actions = []
+        for _ in range(chunks * cfg.multistep):
+            obs = {k: preprocess_camera(v) for k, v in frames.items()}
+            actions.append(policy.step(obs, goal))
+        torch.cuda.synchronize()
+        launches = fused_layer_q8c.launches
+        want_launches = chunks * cfg.n_layers * cfg.num_sampling_steps
+        for act in actions:
+            if tuple(act.shape) != (B, cfg.action_dim) or \
+                    not bool(torch.isfinite(act).all()):
+                raise SystemExit(f"bad action {tuple(act.shape)} at b={B}")
+        if launches != want_launches:
+            raise SystemExit(f"b={B}: {launches} kernel launches, expected "
+                             f"{want_launches}")
+        # kernel path vs plain path: same weights, frames and noise
+        obs = {k: preprocess_camera(v) for k, v in frames.items()}
+        noise = torch.randn(B, cfg.act_window_size, cfg.action_dim,
+                            generator=rng, device=dev)
+        kern = policy.predict_chunk(obs, goal, noise)
+        again = policy.predict_chunk(obs, goal, noise)
+        dit.layer_impl = fused_layer_q8c_ref
+        plain = policy.predict_chunk(obs, goal, noise)
+        dit.layer_impl = functools.partial(fused_layer_q8c_ref,
+                                           acc_dtype=torch.float64)
+        exact = policy.predict_chunk(obs, goal, noise)
+        dit.layer_impl = fused_layer_q8c
+
+        def mae_of(a, b):
+            return (a - b).abs().mean().item()
+
+        mae = mae_of(kern, plain)
+        floor = mae_of(plain, exact)
+        tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * floor)
+        print(f"  b={B}: {chunks} chunks, {launches} launches, chunk "
+              f"{tuple(kern.shape)}, |action| mean "
+              f"{plain.abs().mean().item():.3f}; action MAE kernel-vs-plain "
+              f"{mae:.3e} (tol {tol:.3e}), plain-f32-vs-plain-f64 {floor:.3e}, "
+              f"kernel-vs-plain-f64 {mae_of(kern, exact):.3e}, kernel run "
+              f"twice max diff {(kern - again).abs().max().item():.3e}",
+              flush=True)
+        if not (mae <= tol and bool(torch.isfinite(kern).all())):
+            raise SystemExit(f"b={B}: kernel path disagrees with plain path")
+        results[B] = dict(obs=obs, goal=goal, noise=noise, launches=launches,
+                          action_mae=mae, action_floor=floor)
+        phase(f"phase {ph}: parity path at b={B}", t)
+
+    # ---- phase 6: timing -------------------------------------------------
+    t = time.perf_counter()
+    w1, b1, w2 = dequantize_experts(blk.experts_q)
+    deq = [(w1[e].to(torch.bfloat16), b1[e].to(torch.bfloat16),
+            w2[e].to(torch.bfloat16)) for e in range(cfg.num_experts)]
+    timing = {}
+    for B in (128, 1):
+        args, kw = layer_args(B, 0)
+        e = idx[0].tolist()
+        p = probs[0].tolist()
+        lib_args = (*args[:9], deq, e, p)
+        k_ms = cuda_time_ms(lambda: fused_layer_q8c(*args, **kw), 50)
+        p_ms = cuda_time_ms(lambda: fused_layer_q8c_ref(*args, **kw), 5)
+        l_ms = cuda_time_ms(lambda: library_layer(*lib_args), 20)
+        bf16, int8, nbytes = layer_cost(B, T, D, H, HH)
+        ops_ms = (bf16 / PEAK_BF16 + int8 / PEAK_INT8) * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        r = results[B]
+        chunk = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+            torch.cuda.synchronize()
+            chunk.append((time.perf_counter() - c0) * 1e3)
+        timing[B] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         bound_ms=max(ops_ms, bytes_ms),
+                         bound_by="operations" if ops_ms >= bytes_ms
+                         else "bytes", chunk_ms=statistics.median(chunk),
+                         bf16_gflop=bf16 / 1e9, int8_gop=int8 / 1e9,
+                         mbytes=nbytes / 1e6)
+        print(f"  b={B}: kernel {k_ms:.4f} ms/launch, bound "
+              f"{timing[B]['bound_ms']:.4f} ms ({timing[B]['bound_by']}; "
+              f"{bf16 / 1e9:.2f} GFLOP bf16, {int8 / 1e9:.2f} GOP int8, "
+              f"{nbytes / 1e6:.1f} MB), plain {p_ms:.3f} ms, library "
+              f"{l_ms:.4f} ms; chunk end to end {timing[B]['chunk_ms']:.2f} ms "
+              f"(median of 3: {', '.join(f'{c:.2f}' for c in chunk)})",
+              flush=True)
+    args, kw = layer_args(128, 0)
+    stages = kernel_stages(lambda: fused_layer_q8c(*args, **kw))
+    phase("phase 6: timing", t)
+
+    # ---- phase 7-8: results ----------------------------------------------
+    t128 = timing[128]
+    kernels = [{
+        "name": "fused_layer_q8c",
+        "route": "cuda",
+        "source": "mode_diffusion_policy_tpu_torch/csrc/fused_layer_q8c.cu",
+        "replaces": "mode_diffusion_policy_tpu/ops/pallas/layer_kernel.py:162",
+        "launches": results[128]["launches"],
+        "max_abs_err": max_err,
+        "ms": t128["ms"],
+        "plain_ms": t128["plain_ms"],
+        "bound_ms": t128["bound_ms"],
+        "bound_by": t128["bound_by"],
+        "library_ms": t128["library_ms"],
+        "shape": "b=128 x 14 tokens, D=1024, hidden 4096, top-2 of 4",
+        "b1": {"launches": results[1]["launches"], **{
+            k: timing[1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}},
+        "chunk_ms": {"b128": t128["chunk_ms"], "b1": timing[1]["chunk_ms"]},
+        "action_mae": {"b128": results[128]["action_mae"],
+                       "b1": results[1]["action_mae"]},
+        "action_floor": {"b128": results[128]["action_floor"],
+                         "b1": results[1]["action_floor"]},
+        "stages_ms": stages,
+    }]
+    phase("done", T0)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

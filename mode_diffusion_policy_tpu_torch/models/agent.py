@@ -1,0 +1,286 @@
+"""MoDEAgent (inference) and RolloutPolicy, in PyTorch.
+
+Counterpart of ``mode_diffusion_policy_tpu/models/agent.py``. The JAX agent
+is a set of pure functions over a caller-held variables tree; here the agent
+is an ``nn.Module`` that owns its weights, and the serving transforms
+(``fold_encoders_for_inference``, ``quantize_for_inference``,
+``precast_for_serving``) update it in place rather than returning a new tree,
+which saves a copy of the weights.
+
+Served path (``RolloutPolicy`` under the ``parity`` preset): camera frames ->
+2x BN-folded FiLM-ResNet-50 -> per-sigma top-2 routing tables -> hoisted
+chunk invariants (static tokens, sigma tokens, EDM scalings) -> 10-step DDIM
+of ``MoDeDiT.forward_precomputed``, one whole-layer kernel launch per layer
+and step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..utils.device import resolve_device
+from .edm.precond import denoiser_forward, edm_scalings
+from .edm.samplers import sample_loop
+from .edm.schedules import get_noise_schedule
+from .encoders.resnet import FiLMResNetPolicy, fold_resnet_params
+from .modedit import MoDeDiT, MoDeDiTConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class MoDEAgentConfig:
+    """The inference fields of the JAX ``MoDEAgentConfig``."""
+
+    latent_dim: int = 1024
+    multistep: int = 10
+    sampler_type: str = "ddim"
+    num_sampling_steps: int = 10
+    sigma_data: float = 0.5
+    sigma_min: float = 0.001
+    sigma_max: float = 80.0
+    noise_scheduler: str = "exponential"
+    cond_dim: int = 512
+    resnet_type: str = "50"
+    act_window_size: int = 10
+    action_dim: int = 7
+    obs_seq_len: int = 1
+    goal_seq_len: int = 1
+    n_layers: int = 12
+    n_heads: int = 8
+    num_experts: int = 4
+    top_k: int = 2
+    seed: int = 42
+    dtype: Any = torch.float32
+    use_int8_moe: bool = False
+    use_fused_layer: bool = False
+
+    @property
+    def obs_dim(self) -> int:
+        return 2048                  # FiLM-ResNet-50 feature dim
+
+    def dit_config(self) -> MoDeDiTConfig:
+        return MoDeDiTConfig(
+            obs_dim=self.obs_dim, goal_dim=self.cond_dim,
+            action_dim=self.action_dim, embed_dim=self.latent_dim,
+            n_layers=self.n_layers, n_heads=self.n_heads,
+            goal_seq_len=self.goal_seq_len, obs_seq_len=self.obs_seq_len,
+            action_seq_len=self.act_window_size,
+            num_experts=self.num_experts, top_k=self.top_k, dtype=self.dtype,
+            use_int8_moe=self.use_int8_moe,
+            use_fused_layer=self.use_fused_layer)
+
+
+ENCODERS = ("static_resnet", "gripper_resnet")
+
+
+class MoDEAgent(nn.Module):
+    """The DiT denoiser plus two FiLM-ResNet-50 camera encoders, with
+    seeded random weights (``utils/weights.from_jax_params`` loads a JAX
+    parameter tree instead)."""
+
+    def __init__(self, cfg: MoDEAgentConfig, *, device="cuda"):
+        super().__init__()
+        if cfg.resnet_type != "50":
+            raise NotImplementedError(
+                f"resnet_type {cfg.resnet_type!r} is not ported yet; only "
+                "the FiLM-ResNet-50 encoders are (ROADMAP.md Queue 1)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.inner_model = MoDeDiT(cfg.dit_config(), self.device)
+        for name in ENCODERS:
+            self.add_module(name, FiLMResNetPolicy(
+                cfg.cond_dim, 50, cfg.dtype, device=self.device))
+        self.folded = None   # nn.ModuleDict of BN-folded encoders, once built
+        self.sigmas = get_noise_schedule(cfg.num_sampling_steps,
+                                         cfg.noise_scheduler, cfg.sigma_min,
+                                         cfg.sigma_max)
+        self.init_weights_(cfg.seed)
+
+    @torch.no_grad()
+    def init_weights_(self, seed: int):
+        """Seeded random weights, drawn on the agent's device."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.inner_model.init_weights_(gen)
+        for name in ENCODERS:
+            for p in getattr(self, name).parameters():
+                if p.ndim == 4:    # conv OIHW: lecun normal
+                    fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                    p.normal_(0.0, fan_in ** -0.5, generator=gen)
+
+    def configure_(self, **flags):
+        """Replace config flags (``use_int8_moe``, ``use_fused_layer``) in
+        place, on the agent and on every DiT module that reads them."""
+        self.cfg = dataclasses.replace(self.cfg, **flags)
+        dit_cfg = self.cfg.dit_config()
+        for m in self.inner_model.modules():
+            if isinstance(getattr(m, "cfg", None), MoDeDiTConfig):
+                m.cfg = dit_cfg
+        return self
+
+    @torch.no_grad()
+    def fold_encoders_for_inference(self):
+        """Fold the encoder BatchNorms into their convs and rewrite the 7x7/2
+        stems as 4x4/1 convs over a space-to-depth input (exact rewrites).
+        ``embed_visual_obs`` then prefers the folded encoders."""
+        folded = {}
+        for name in ENCODERS:
+            mod = FiLMResNetPolicy(self.cfg.cond_dim, 50, self.cfg.dtype,
+                                   folded=True, device=self.device)
+            mod.load_state_dict(fold_resnet_params(
+                getattr(self, name).state_dict()))
+            folded[name] = mod
+        self.folded = nn.ModuleDict(folded)
+        return self
+
+    @torch.no_grad()
+    def quantize_for_inference(self):
+        """(Re)build the int8 experts from the current f32 weights; call
+        after loading weights when ``cfg.use_int8_moe`` is set."""
+        if self.cfg.use_int8_moe:
+            self.inner_model.quantize_experts_()
+        return self
+
+    @torch.no_grad()
+    def precast_for_serving(self):
+        """Cast the DiT matmul weights to the compute dtype once (in place);
+        bit-identical to casting per use."""
+        if self.cfg.dtype != torch.float32:
+            self.inner_model.precast_(self.cfg.dtype)
+        return self
+
+    @torch.no_grad()
+    def embed_visual_obs(self, rgb_static, rgb_gripper, latent_goal):
+        """rgb_*: preprocessed [B, T, H, W, 3] NHWC; latent_goal [B,1,cond] or
+        [B,cond]. Returns {'state_images': [B, 2T, obs_dim]}."""
+        B, T = rgb_static.shape[:2]
+        cond = latent_goal[:, 0] if latent_goal.ndim == 3 else latent_goal
+        cond_rep = cond.repeat_interleave(T, dim=0) if T > 1 else cond
+        feats = []
+        for name, imgs in zip(ENCODERS, (rgb_static, rgb_gripper)):
+            mod = (self.folded[name] if self.folded is not None
+                   else getattr(self, name))
+            x = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
+            feats.append(mod(x, cond_rep).reshape(B, T, -1))
+        return {"state_images": torch.cat(feats, dim=1)}
+
+    @torch.no_grad()
+    def precompute_routing(self, sigmas: Optional[np.ndarray] = None):
+        """Per-layer top-2 routing tables over the scheduled sigmas (the
+        trailing 0 excluded)."""
+        if sigmas is None:
+            sigmas = self.sigmas[:-1]
+        s = torch.as_tensor(np.asarray(sigmas, np.float32), device=self.device)
+        return self.inner_model.precompute_routing(s)
+
+    def make_denoiser(self, perceptual_emb, latent_goal,
+                      routing=None) -> Callable:
+        """``denoiser(x, sigma_vec, step_idx)`` for the samplers. With
+        ``routing`` the camera/goal tokens, the per-step sigma tokens and the
+        EDM scalings are computed once per chunk, and each step runs
+        ``MoDeDiT.forward_precomputed`` with the step's routing row."""
+        cfg = self.cfg
+        dit = self.inner_model
+        if routing is None:
+            def denoiser(x, sigma, step_idx):
+                return denoiser_forward(dit, perceptual_emb, x, latent_goal,
+                                        sigma, sigma_data=cfg.sigma_data)
+            return denoiser
+
+        sched = torch.as_tensor(self.sigmas[:-1], device=self.device)
+        static_x, goal_embed = dit.embed_static_tokens(perceptual_emb,
+                                                       latent_goal)
+        emb_all = dit.process_sigma_embeddings(sched)              # [S,1,D]
+        scal_all = torch.stack(edm_scalings(sched, cfg.sigma_data), dim=1)
+
+        def denoiser(x, sigma, step_idx):
+            cs, co, ci = scal_all[step_idx]
+            overrides = [(idx, p, step_idx) for idx, p in routing]
+            pred = dit.forward_precomputed(
+                static_x, goal_embed, emb_all[step_idx][None], x * ci,
+                moe_overrides=overrides)
+            return pred.float() * co + x * cs
+
+        return denoiser
+
+    @torch.no_grad()
+    def denoise_actions(self, perceptual_emb, latent_goal, *,
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None,
+                        use_routing_precompute: bool = False):
+        """Sample one action chunk [B, act_window, action_dim]. ``noise``
+        (unit normal, [B, act_window, action_dim]) overrides the initial
+        draw from ``generator``; it is scaled by ``sigma_max``."""
+        cfg = self.cfg
+        B = latent_goal.shape[0]
+        if noise is None:
+            noise = torch.randn(B, cfg.act_window_size, cfg.action_dim,
+                                generator=generator, device=self.device)
+        x = noise.to(self.device, torch.float32) * cfg.sigma_max
+        routing = self.precompute_routing() if use_routing_precompute else None
+        denoiser = self.make_denoiser(perceptual_emb, latent_goal, routing)
+        return sample_loop(cfg.sampler_type, denoiser, x, self.sigmas,
+                           generator)
+
+
+class RolloutPolicy:
+    """Chunked inference for env stepping: ``step(obs, goal)`` returns one
+    action [B, action_dim] per call; the model runs once every
+    ``multistep`` calls and produces an action chunk."""
+
+    def __init__(self, agent: MoDEAgent, lang_encoder=None,
+                 use_routing_precompute: bool = True, seed: int = 0):
+        self.agent = agent.precast_for_serving()
+        self.lang = lang_encoder   # callable: list[str] -> [B,1,cond]
+        self.multistep = agent.cfg.multistep
+        self.generator = torch.Generator(device=agent.device).manual_seed(seed)
+        self.use_routing_precompute = use_routing_precompute
+        self._counter = 0
+        self._chunk = None
+
+    @classmethod
+    def with_serving_mode(cls, agent: MoDEAgent, lang_encoder=None,
+                          mode: str = "auto", **kw):
+        """Apply a serving preset (``serving.apply_serving_mode``) to the
+        agent, in place, and build the policy on it."""
+        from ..serving import apply_serving_mode
+        return cls(apply_serving_mode(agent, mode), lang_encoder, **kw)
+
+    def reset(self):
+        self._counter = 0
+        self._chunk = None
+
+    @torch.no_grad()
+    def predict_chunk(self, obs: Dict[str, Any], goal: Dict[str, Any],
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One action chunk [B, act_window, action_dim] for preprocessed
+        camera frames ``obs['rgb_static'|'rgb_gripper']`` [B,T,H,W,3] and a
+        goal (``lang_emb`` [B,1,cond], or ``lang_text`` with a lang
+        encoder)."""
+        ag = self.agent
+        dev = ag.device
+        if "lang_text" in goal:
+            text = goal["lang_text"]
+            lang_emb = self.lang([text] if isinstance(text, str) else text)
+        else:
+            lang_emb = goal["lang_emb"]
+        lang_emb = torch.as_tensor(lang_emb, device=dev)
+        emb = ag.embed_visual_obs(torch.as_tensor(obs["rgb_static"], device=dev),
+                                  torch.as_tensor(obs["rgb_gripper"], device=dev),
+                                  lang_emb)
+        return ag.denoise_actions(
+            emb, lang_emb, generator=self.generator, noise=noise,
+            use_routing_precompute=self.use_routing_precompute)
+
+    def step(self, obs: Dict[str, Any], goal: Dict[str, Any],
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self._counter % self.multistep == 0:
+            self._chunk = self.predict_chunk(obs, goal, noise)
+            self._counter = 0
+        action = self._chunk[:, self._counter]
+        self._counter += 1
+        if self._counter == self.multistep:
+            self._counter = 0
+        return action

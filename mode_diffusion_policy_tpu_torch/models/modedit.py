@@ -1,0 +1,333 @@
+"""MoDeDiT, the Mixture-of-Denoising-Experts diffusion transformer, in PyTorch.
+
+Counterpart of ``mode_diffusion_policy_tpu/models/modedit.py`` (inference
+paths). Token layout (B batch, D embed):
+
+    [ sigma_token | goal_token | static_cam_token gripper_cam_token | a_1 .. a_10 ]
+
+with learned positional embeddings and causal self-attention. Expert weights
+are stacked (``experts_w1`` [E, D, 2H], ``experts_b1`` [E, 2H],
+``experts_w2`` [E, H, D]). Routing depends on sigma only (the router sees the
+noise token), so inference precomputes per-sigma top-2 tables
+(``precompute_routing``) and each block then runs either the plain top-2
+gather or, with ``use_fused_layer``, the whole layer as one kernel launch
+(``ops/kernels/layer_kernel.py``).
+
+Parameter names and layouts follow the JAX tree (``blocks_{i}`` becomes
+``blocks.{i}``), which ``utils/weights.py`` relies on.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.kernels.layer_kernel import fused_layer_q8c
+from ..ops.moe import moe_ffn_dense, moe_ffn_top2_gather
+from ..ops.primitives import DenseP, RMSNorm
+from ..ops.quant import QuantizedExperts, quantize_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class MoDeDiTConfig:
+    """The inference hyperparameters of the JAX ``MoDeDiTConfig`` at the
+    values the served model uses: goal-conditioned, causal, a cond-only
+    router (temperature 1, renormalized top-k) and the noise token as the
+    first input token. The JAX config's other options (proprio, shared or
+    identity experts, cross-attention, goal-in-routing, the other kernels)
+    are not fields here; ROADMAP.md lists them."""
+
+    obs_dim: int = 2048            # FiLM-ResNet-50 feature dim
+    goal_dim: int = 512            # CLIP text embedding dim
+    action_dim: int = 7
+    embed_dim: int = 1024
+    n_layers: int = 12
+    n_heads: int = 8
+    goal_seq_len: int = 1
+    obs_seq_len: int = 1
+    action_seq_len: int = 10
+    num_experts: int = 4
+    top_k: int = 2
+    dtype: torch.dtype = torch.float32
+    use_int8_moe: bool = False     # int8 experts (quantized once, see
+                                   # NoiseBlockMoE.quantize_experts_)
+    use_fused_layer: bool = False  # whole-layer kernel on the routed
+                                   # inference path; needs use_int8_moe
+
+    def __post_init__(self):
+        if self.use_int8_moe and not self.use_fused_layer:
+            raise NotImplementedError(
+                "int8 experts outside the whole-layer kernel need the "
+                "fused_top2_mlp_q8c kernel, which is not ported yet "
+                "(ROADMAP.md Queue 2)")
+        if self.use_fused_layer and not (self.use_int8_moe
+                                         and self.top_k == 2):
+            raise ValueError("use_fused_layer needs use_int8_moe and "
+                             "top_k == 2")
+
+    @property
+    def seq_size(self) -> int:
+        return self.goal_seq_len + self.obs_seq_len - 1 + self.action_seq_len
+
+
+class Attention(nn.Module):
+    """Causal multi-head self-attention with per-head QK RMSNorm; QKV is one
+    fused projection."""
+
+    def __init__(self, cfg: MoDeDiTConfig, device=None):
+        super().__init__()
+        D, H = cfg.embed_dim, cfg.n_heads
+        self.H, self.hd, self.dtype = H, D // H, cfg.dtype
+        self.wqkv = DenseP(D, 3 * D, True, cfg.dtype, device)
+        self.c_proj = DenseP(D, D, False, cfg.dtype, device)
+        self.q_norm = RMSNorm(self.hd, eps=1e-6, device=device)
+        self.k_norm = RMSNorm(self.hd, eps=1e-6, device=device)
+
+    def forward(self, x):
+        B, T, D = x.shape
+        q, k, v = (t.reshape(B, T, self.H, self.hd)
+                   for t in self.wqkv(x).chunk(3, dim=-1))
+        q, k = self.q_norm(q), self.k_norm(k)
+        logits = torch.einsum("bthd,bshd->bhts", q, k).float() \
+            / math.sqrt(self.hd)
+        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+        logits = logits.masked_fill(~mask, float("-inf"))
+        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        y = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, D)
+        return self.c_proj(y)
+
+
+class CondRouterMLP(nn.Module):
+    """Linear(D -> 2D) -> exact GELU -> Linear(2D -> E)."""
+
+    def __init__(self, in_dim, num_experts, dtype, device=None):
+        super().__init__()
+        self.fc1 = DenseP(in_dim, 2 * in_dim, True, dtype, device)
+        self.fc2 = DenseP(2 * in_dim, num_experts, True, dtype, device)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class RouterCond(nn.Module):
+    """Noise-conditioned top-k router (eval: deterministic top-k): it sees
+    only the cond token, broadcast over the tokens. Returns
+    (mask [B,T,E], idx [B,T,k], router_probs [B,T,E] masked and
+    renormalized, probs [B,T,E], shifted logits [B,T,E])."""
+
+    def __init__(self, cfg: MoDeDiTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.mlp = CondRouterMLP(cfg.embed_dim, cfg.num_experts, cfg.dtype,
+                                 device)
+
+    def forward(self, inputs, cond):
+        cfg = self.cfg
+        T = inputs.shape[1]
+        router_in = (cond.repeat_interleave(T // cond.shape[1], dim=1)
+                     if cond.shape[1] != T else cond)
+        logits = self.mlp(router_in).float()
+        logits = logits - logits.amax(dim=-1, keepdim=True)
+        probs = torch.softmax(logits, dim=-1).clamp(1e-9, 1 - 1e-9)
+        idx = torch.topk(probs, cfg.top_k, dim=-1).indices
+        mask = F.one_hot(idx, cfg.num_experts).to(probs.dtype).sum(dim=-2)
+        router_probs = probs * mask
+        router_probs = router_probs / router_probs.sum(dim=-1, keepdim=True)
+        return mask, idx, router_probs, probs, logits
+
+
+def _routing_row(idx, p, step):
+    if step is None:
+        return idx, p
+    return idx[step], p[step]
+
+
+class NoiseBlockMoE(nn.Module):
+    """``x += attn(ln_1(x) + c); x = ln_2(x); x += MoE(x)``: the second norm
+    REPLACES the residual stream before the MoE, as in the reference."""
+
+    def __init__(self, cfg: MoDeDiTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D, Hh, E = cfg.embed_dim, 4 * cfg.embed_dim, cfg.num_experts
+        self.ln_1 = RMSNorm(D, eps=1e-6, device=device)
+        self.ln_2 = RMSNorm(D, eps=1e-6, device=device)
+        self.attn = Attention(cfg, device)
+        self.router = RouterCond(cfg, device)
+        self.experts_w1 = nn.Parameter(torch.empty(E, D, 2 * Hh, device=device))
+        self.experts_b1 = nn.Parameter(torch.zeros(E, 2 * Hh, device=device))
+        self.experts_w2 = nn.Parameter(torch.empty(E, Hh, D, device=device))
+        self.experts_q: Optional[QuantizedExperts] = None
+
+    def quantize_experts_(self):
+        """(Re)build the int8 experts from the current f32 weights."""
+        with torch.no_grad():
+            self.experts_q = quantize_experts(
+                self.experts_w1.float(), self.experts_b1.float(),
+                self.experts_w2.float())
+
+    def forward(self, x, c, *, moe_override=None, layer_impl=fused_layer_q8c):
+        """moe_override: (idx [k], p [k]) rows, or (idx [S,k], p [S,k],
+        step) sigma tables with the scheduled step. ``layer_impl`` is the
+        whole-layer function used when ``cfg.use_fused_layer`` is set."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        if cfg.use_fused_layer and moe_override is not None:
+            if self.experts_q is None:
+                raise RuntimeError("int8 experts missing: call "
+                                   "MoDEAgent.quantize_for_inference()")
+            idx, p, *rest = moe_override
+            a = self.attn
+            return layer_impl(
+                x, c, self.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
+                a.k_norm.g, a.c_proj.kernel, self.ln_2.g, self.experts_q,
+                idx, p, step=rest[0] if rest else None, eps1=self.ln_1.eps,
+                eps_qk=a.q_norm.eps, eps2=self.ln_2.eps)
+        x = x + self.attn(self.ln_1(x) + c)
+        w1, b1, w2 = (w.to(dt) for w in (self.experts_w1, self.experts_b1,
+                                         self.experts_w2))
+        x = self.ln_2(x)
+        if moe_override is not None:
+            idx, p, *rest = moe_override
+            idx, p = _routing_row(idx, p, rest[0] if rest else None)
+            return x + moe_ffn_top2_gather(x, idx, p.to(dt), w1, b1, w2)
+        _, _, router_probs, _, _ = self.router(x, c)
+        return x + moe_ffn_dense(x, router_probs.to(dt), w1, b1, w2)
+
+    def route_for_cond(self, c):
+        """Router only, on cond tokens [S,1,D]: top-k (idx [S,k] int32,
+        probs [S,k] f32) for the per-sigma routing precompute."""
+        _, idx, router_probs, _, _ = self.router(c, c)
+        idx = idx[:, 0]
+        p = torch.gather(router_probs[:, 0], 1, idx)
+        return idx.to(torch.int32), p
+
+
+class MoDeDiT(nn.Module):
+    """The full MoDE DiT denoiser (inference)."""
+
+    def __init__(self, cfg: MoDeDiTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D, dt = cfg.embed_dim, cfg.dtype
+        self.sigma_emb = DenseP(1, D, True, dt, device)
+        self.sigma_linear = DenseP(D, D, False, dt, device)
+        self.tok_emb = DenseP(cfg.obs_dim, D, False, dt, device)
+        self.goal_emb = DenseP(cfg.goal_dim, D, False, dt, device)
+        self.action_emb = DenseP(cfg.action_dim, D, False, dt, device)
+        self.pos_emb = nn.Parameter(torch.empty(1, cfg.seq_size, D,
+                                                device=device))
+        self.blocks = nn.ModuleList(NoiseBlockMoE(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        self.ln = RMSNorm(D, eps=1e-6, device=device)
+        self.out = DenseP(D, cfg.action_dim, True, dt, device)
+        # the whole-layer function of the fused path: the CUDA kernel's
+        # wrapper; a caller may set fused_layer_q8c_ref to run the plain
+        # version on the same weights (chip_smoke.py compares the two)
+        self.layer_impl = fused_layer_q8c
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator):
+        """Random init as in the JAX package (``init_style="olmoe"``):
+        kernels normal(0, 0.02) clipped to +-0.04, router kernels
+        normal(0, 0.02), norm scales one, biases zero."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "g":
+                p.fill_(1.0)
+            elif leaf in ("bias", "experts_b1"):
+                p.zero_()
+            elif ".router." in name:
+                p.normal_(0.0, 0.02, generator=generator)
+            else:
+                p.normal_(0.0, 0.02, generator=generator).clamp_(-0.04, 0.04)
+
+    @torch.no_grad()
+    def quantize_experts_(self):
+        for blk in self.blocks:
+            blk.quantize_experts_()
+
+    @torch.no_grad()
+    def precast_(self, dtype: torch.dtype):
+        """Cast the matmul leaves (dense kernels and biases, pos_emb, the
+        f32 expert weights) to ``dtype`` in place, once, for serving; norm
+        scales stay f32. Every consumer casts these leaves to the compute
+        dtype anyway, so the result is bit-identical and the per-step casts
+        become no-ops."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("kernel", "bias", "pos_emb") or \
+                    leaf.startswith("experts_"):
+                p.data = p.data.to(dtype)
+
+    def process_sigma_embeddings(self, sigma):
+        """log(sigma)/4 -> Linear -> Linear; sigma [S] -> [S,1,D]."""
+        s = (torch.log(sigma.float()) / 4.0).reshape(-1, 1).to(self.cfg.dtype)
+        return self.sigma_linear(self.sigma_emb(s))[:, None, :]
+
+    def preprocess_goals(self, goals):
+        cfg = self.cfg
+        if goals.ndim == 2:
+            goals = goals[:, None, :]
+        if goals.shape[-1] == 2 * cfg.obs_dim:
+            goals = goals[..., : cfg.obs_dim]
+        return goals
+
+    def _blocks(self, x, cond_token, moe_overrides):
+        for i, block in enumerate(self.blocks):
+            ov = None if moe_overrides is None else moe_overrides[i]
+            x = block(x, cond_token, moe_override=ov,
+                      layer_impl=self.layer_impl)
+        return x
+
+    def forward(self, states: Dict[str, torch.Tensor], actions, goals, sigma,
+                *, moe_overrides=None):
+        """Predict denoised actions (eval). states['state_images'] [B,2,obs];
+        actions [B,W,act] (pre-scaled by c_in); goals [B,(1,)goal]; sigma [B]."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        emb_t = self.process_sigma_embeddings(sigma)
+        static_x, _ = self.embed_static_tokens(states, goals)
+        g = cfg.goal_seq_len
+        action_x = self.action_emb(actions.to(dt)) + self.pos_emb.to(dt)[:, g:, :]
+        x = self._blocks(torch.cat([emb_t, static_x, action_x], dim=1), emb_t,
+                         moe_overrides)
+        return self.out(self.ln(x)[:, -cfg.action_seq_len:, :])
+
+    def embed_static_tokens(self, states, goals):
+        """Step-invariant tokens [B, g+2, D] (goal token + both camera tokens,
+        position-embedded) and the raw goal embedding."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        goals = self.preprocess_goals(goals)
+        state_embed = self.tok_emb(states["state_images"].to(dt))
+        goal_embed = self.goal_emb(goals.to(dt))
+        pos = self.pos_emb.to(dt)
+        g = cfg.goal_seq_len
+        state_x = state_embed + pos[:, g:g + 1, :]
+        return torch.cat([goal_embed + pos[:, :g, :], state_x], dim=1), \
+            goal_embed
+
+    def forward_precomputed(self, static_x, goal_embed, emb_t, actions, *,
+                            moe_overrides=None):
+        """One denoise step from the hoisted invariants: embeds only the
+        action tokens; ``emb_t`` [1,1,D] is the step's sigma token and also
+        the (shared) cond token of every block."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        B = actions.shape[0]
+        g = cfg.goal_seq_len
+        action_x = self.action_emb(actions.to(dt)) + self.pos_emb.to(dt)[:, g:, :]
+        x = torch.cat([emb_t.expand(B, -1, -1), static_x.expand(B, -1, -1),
+                       action_x], dim=1)
+        x = self._blocks(x, emb_t, moe_overrides)
+        return self.out(self.ln(x[:, -cfg.action_seq_len:, :]))
+
+    def precompute_routing(self, sigmas):
+        """Per layer (idx [S,k] int32, probs [S,k] f32) for sigmas [S]."""
+        emb = self.process_sigma_embeddings(sigmas)
+        return [block.route_for_cond(emb) for block in self.blocks]

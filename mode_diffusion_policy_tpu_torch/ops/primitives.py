@@ -1,0 +1,67 @@
+"""Core NN primitives (counterpart of ``mode_diffusion_policy_tpu/ops/primitives.py``).
+
+Parameters keep the JAX package's names and layouts (a dense ``kernel`` is
+[in, out]), so ``utils/weights.py`` maps a JAX parameter tree onto these
+modules leaf by leaf.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class RMSNorm(nn.Module):
+    """``x / max(||x||_2 * d^-0.5, eps) * g``, computed in f32 and cast back
+    to the input dtype. The eps clamps the scaled L2 norm itself; this is
+    not ``x * rsqrt(mean(x^2) + eps)``."""
+
+    def __init__(self, dim: int, eps: float = 1e-8, device=None):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(dim, dtype=torch.float32,
+                                         device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        norm = torch.linalg.vector_norm(x32, dim=-1, keepdim=True) \
+            * (self.dim ** -0.5)
+        return (x32 / norm.clamp_min(self.eps) * self.g).to(x.dtype)
+
+
+def swish_glu(h: torch.Tensor) -> torch.Tensor:
+    """SwishGLU on a pre-projected ``[..., 2*out]`` tensor: the first half is
+    the value branch, the second half the gate."""
+    value, gate = h.chunk(2, dim=-1)
+    return value * F.silu(gate)
+
+
+def append_dims(x: torch.Tensor, target_ndim: int) -> torch.Tensor:
+    """Append trailing singleton dims until x has ``target_ndim`` dims."""
+    n = target_ndim - x.ndim
+    if n < 0:
+        raise ValueError(
+            f"input has {x.ndim} dims but target_ndim is {target_ndim}")
+    return x[(...,) + (None,) * n]
+
+
+class DenseP(nn.Module):
+    """``flax.linen.Dense`` semantics: ``x.to(dtype) @ kernel.to(dtype) +
+    bias.to(dtype)`` with ``kernel`` stored [in, out] in f32 (the serving
+    precast may leave it in ``dtype`` already, making the cast a no-op)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features,
+                                               device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y

@@ -1,0 +1,63 @@
+"""Load the JAX package's parameter tree into the port's modules.
+
+The port keeps the JAX tree's names and layouts (dense kernels [in, out],
+stacked experts), so the mapping is by path: ``blocks_{i}`` becomes
+``blocks.{i}``, and a 4-d conv ``kernel`` (HWIO) becomes the OIHW
+``weight``. Encoder BatchNorm statistics come from the ``batch_stats``
+collection. Leaves are numpy arrays (``jax.tree.map(np.asarray, ...)``);
+this module imports no JAX.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def dit_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``MoDeDiT`` params -> ``models.modedit.MoDeDiT`` state dict."""
+    return {re.sub(r"^blocks_(\d+)\.", r"blocks.\1.", k):
+            torch.from_numpy(np.array(v, np.float32))
+            for k, v in _flatten(params).items()}
+
+
+def resnet_state_dict(params: Mapping, batch_stats: Mapping
+                      ) -> Dict[str, torch.Tensor]:
+    """JAX ``FiLMResNetPolicy`` params + batch_stats -> the unfolded
+    ``models.encoders.resnet.FiLMResNetPolicy`` state dict."""
+    sd = {}
+    for k, v in {**_flatten(params), **_flatten(batch_stats)}.items():
+        v = np.array(v, np.float32)
+        if k.endswith(".kernel") and v.ndim == 4:
+            k, v = k[: -len("kernel")] + "weight", v.transpose(3, 2, 0, 1)
+        sd[k] = torch.from_numpy(np.ascontiguousarray(v))
+    return sd
+
+
+def from_jax_params(variables: Mapping, cfg, *, device="cuda"):
+    """Build a ``MoDEAgent`` for ``cfg`` holding the weights of a JAX
+    ``MoDEAgent.init_variables``-style tree (``params`` with
+    ``inner_model``/``static_resnet``/``gripper_resnet``, and
+    ``batch_stats``)."""
+    from ..models.agent import ENCODERS, MoDEAgent
+
+    agent = MoDEAgent(cfg, device=device)
+    agent.inner_model.load_state_dict(
+        dit_state_dict(variables["params"]["inner_model"]))
+    for name in ENCODERS:
+        getattr(agent, name).load_state_dict(resnet_state_dict(
+            variables["params"][name], variables["batch_stats"][name]))
+    return agent

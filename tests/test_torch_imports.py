@@ -1,0 +1,130 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+its entry points refuse to run without CUDA unless asked for the CPU, and
+the presets and samplers it has not ported raise instead of running
+another path."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mode_diffusion_policy_tpu_torch import resolve_device
+from mode_diffusion_policy_tpu_torch.models.agent import (MoDEAgent,
+                                                          MoDEAgentConfig,
+                                                          RolloutPolicy)
+from mode_diffusion_policy_tpu_torch.models.edm.samplers import (
+    UNPORTED_SAMPLERS, sample_loop)
+from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+    fused_layer_q8c)
+from mode_diffusion_policy_tpu_torch.serving import (SERVING_MODES,
+                                                     UNPORTED_MODES,
+                                                     apply_serving_mode,
+                                                     resolve_serving_mode)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "mode_diffusion_policy_tpu_torch"
+BANNED = ("jax", "flax", "optax", "orbax", "chex", "mode_diffusion_policy_tpu")
+
+TINY = dict(latent_dim=128, n_layers=1, n_heads=1, cond_dim=16,
+            num_experts=4, top_k=2)
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(BANNED))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    """Import every port module and chip_smoke.py's module-level code with
+    jax and the JAX package made unimportable."""
+    code = f"""
+import importlib, pkgutil, sys
+for name in {BANNED!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(ROOT)!r})
+import mode_diffusion_policy_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import runpy
+runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="chip_smoke_import")
+print(len(names), "modules")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "modules" in proc.stdout
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without CUDA the smoke run exits non-zero and prints no result."""
+    code = (f"import sys, torch; torch.cuda.is_available = lambda: False; "
+            f"sys.argv = ['chip_smoke.py']; import runpy; "
+            f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, "
+            f"run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoDEAgent(MoDEAgentConfig(**TINY))
+    assert resolve_device("cpu") == torch.device("cpu")
+    agent = MoDEAgent(MoDEAgentConfig(**TINY), device="cpu")
+    assert next(agent.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("mode", sorted(UNPORTED_MODES))
+def test_unported_presets_raise(mode):
+    agent = MoDEAgent(MoDEAgentConfig(**TINY), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        apply_serving_mode(agent, mode)
+    with pytest.raises(NotImplementedError):
+        RolloutPolicy.with_serving_mode(agent, mode=mode)
+    assert not agent.cfg.use_fused_layer
+
+
+def test_serving_mode_names():
+    assert set(UNPORTED_MODES) | {"reference", "parity", "auto"} == \
+        set(SERVING_MODES)
+    assert resolve_serving_mode("auto", "cuda") == "parity"
+    assert resolve_serving_mode("auto", "cpu") == "reference"
+    with pytest.raises(ValueError, match="unknown serving mode"):
+        resolve_serving_mode("warp-speed")
+
+
+@pytest.mark.parametrize("name", ["heun", "dpmpp_2m", "euler_ancestral"])
+def test_unported_samplers_raise(name):
+    x = torch.zeros(1, 2, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sample_loop(name, lambda x, s, i: x, x, np.array([1.0, 0.0]))
+    assert name in UNPORTED_SAMPLERS
+    with pytest.raises(ValueError, match="not found"):
+        sample_loop("no-such-sampler", lambda x, s, i: x, x,
+                    np.array([1.0, 0.0]))
+
+
+def test_layer_wrapper_rejects_other_devices():
+    x = torch.zeros(1, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fused_layer_q8c(x, *([None] * 11))
