@@ -3,15 +3,25 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``mode_diffusion_policy_tpu_torch/csrc``
-(plain nvcc), holds each kernel against its plain PyTorch version at the
-served shapes, drives the ``parity`` serving path at full flagship width
-(12 layers, D=1024, 2x FiLM-ResNet-50 at 224 px, seeded random weights made
-on the card) through ``RolloutPolicy`` at b=128 and b=1, checks the
-launch counts and the kernel-vs-plain action error, times the kernel, its
-plain version, a PyTorch-library composition of the same layer and whole
-chunks, and prints one JSON line per the kernels and a final status line.
-Every phase that fails exits non-zero; without CUDA nothing is run.
-Imports nothing of JAX.
+(plain nvcc, one process per source, started together), holds each kernel
+against its plain PyTorch version at the served shapes, and drives the
+served paths at full flagship width (12 layers, D=1024, 2x FiLM-ResNet-50 at
+224 px, seeded random weights made on the card) through ``RolloutPolicy``:
+
+- ``parity`` at b=128 and b=1 (the whole-layer kernel ``fused_layer_q8c``,
+  120 launches per chunk);
+- ``b1-latency`` and ``b1-latency-max`` at b=1 (the DiT megakernel
+  ``fused_dit_q8c``, 10 launches per chunk, bf16 or int8 attention
+  projections), applied in turn to the same agent.
+
+For the megakernel it also checks each layer against the plain layer, the
+whole stack against the plain stack and (bf16 projections) against 12
+chained ``fused_layer_q8c`` launches, bit for bit. It checks the launch
+counts of every path and the kernel-vs-plain action error, times the
+kernels, their plain versions, a PyTorch-library composition of the same
+work and whole chunks, and prints one JSON line for the kernels and a
+final status line. Every phase that fails exits non-zero; without CUDA
+nothing is run. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -47,8 +57,23 @@ LAYER_MAX_REL = 2.0 ** -5
 # accumulated in f32 vs f64) when that noise floor is larger. 120 layer
 # calls per chunk each inject the last-bit differences described above;
 # the floor measures how far they carry on this model and these weights.
+# On the megakernel paths the floor is the larger of two such distances:
+# products in f64, and products, norms' sums of squares and softmax in
+# f64. With int8 attention projections (b1-latency-max) the only float
+# products left are short bf16 dot products that f32 holds exactly, so the
+# products-only floor is zero there, while the kernel's last bits still
+# move in its norms and softmax sums.
 CHUNK_MAE_TOL = 1e-3
 CHUNK_FLOOR_FACTOR = 2.0
+# megakernel vs its plain version: each layer (a one-layer launch of the
+# same kernel) is held to the layer gates above on its own input, and the
+# whole 12-layer launch must equal those launches chained, bit for bit. The
+# whole stack against the plain stack is printed, not gated: each layer
+# carries its last-bit differences into the next, and over 12 layers even
+# two plain stacks (products accumulated in f32 vs f64) differ by more
+# than the layer gate (mean 8.3e-3 against a gate of 3.2e-3 at b=1 on an
+# H100 80GB HBM3 at 700 W), so the layer gate cannot hold there for any two
+# implementations.
 
 
 def phase(name, start):
@@ -84,7 +109,62 @@ def layer_cost(B, T, D, H, HH):
     return bf16, int8, nbytes
 
 
-def kernel_stages(fn, iters=10):
+def dit_cost(B, T, D, H, HH, L, int8_attn):
+    """(bf16 flops, int8 ops, bytes) of one megakernel call: L layers of
+    layer_cost, but the activation read once and the output written once,
+    and the attention weights in int8 with their scales when int8_attn."""
+    bf16, int8, nbytes = layer_cost(B, T, D, H, HH)
+    N = B * T
+    proj = 2 * N * D * 3 * D + 2 * N * D * D
+    nbytes -= 2 * N * D * 2
+    if int8_attn:
+        bf16, int8 = bf16 - proj, int8 + proj
+        nbytes -= (3 * D * D + D * D) + (-4 * D * 4)
+    return L * bf16, L * int8, L * nbytes + 2 * N * D * 2
+
+
+def bound_of(bf16, int8, nbytes):
+    ops_ms = (bf16 / PEAK_BF16 + int8 / PEAK_INT8) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def chunk_split(policy, obs, goal, noise, chunk_ms):
+    """One b=1 chunk under torch.profiler: device time in the DiT kernels
+    (the megakernel or the layer kernel's stages) and in the rest (encoders,
+    glue). The device idle share is one minus the device busy time over
+    ``chunk_ms``, the chunk's wall time measured without the profiler (the
+    profiler's own host overhead lengthens the chunk it traces)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    policy.predict_chunk(obs, goal, noise)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            policy.predict_chunk(obs, goal, noise)
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+    dit = other = 0.0
+    for ev in averages:
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if not us:
+            continue
+        if re.search(r"fused_dit_kernel|(ln1|gemm_bf16|attn|ln2_quant|moe_up|"
+                     r"act_quant|moe_down|moe_sum)_kernel", ev.key):
+            dit += us / 1e3
+        else:
+            other += us / 1e3
+    if dit + other == 0.0:
+        return None
+    return dict(chunk_ms=chunk_ms, dit_device_ms=dit, other_device_ms=other,
+                idle_share=max(0.0, 1.0 - (dit + other) / chunk_ms))
+
+
+def kernel_stages(fn, label, iters=10):
     """Device time per __global__ stage of one launch, from torch.profiler
     (CUPTI); prints 'not measured' when the trace holds no device time."""
     import torch
@@ -112,7 +192,7 @@ def kernel_stages(fn, iters=10):
               "profiler trace)", flush=True)
         return None
     total = sum(rows.values())
-    print("  per-stage device time, b=128, ms per launch: " + ", ".join(
+    print(f"  per-stage device time, {label}, ms per launch: " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(rows.items(), key=lambda r: -r[1]))
         + f"; sum {total:.4f}", flush=True)
     return rows
@@ -150,6 +230,125 @@ def library_layer(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, deq, e,
     return out.to(x.dtype)
 
 
+def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
+                     deq_layers, cfg):
+    """The DiT megakernel at full width, b=1 and b=128, at two routing
+    steps: each layer (a one-layer slice of the stack) against the plain
+    layer on the kernel's own input, with the layer gates; the whole stack
+    against those single-layer launches chained (bit for bit) and against
+    12 chained fused_layer_q8c launches (bf16 projections, bit for bit); the
+    distance of the whole stack to the plain stack beside that of two plain
+    stacks. Then the kernel's, the plain version's and the library
+    yardstick's times."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c)
+    from mode_diffusion_policy_tpu_torch.ops.quant import QuantizedExperts
+
+    dev = st["w1_q"].device
+    int8_attn = "sqkv" in st
+    name = "int8" if int8_attn else "bf16"
+    L, D, H, HH = cfg.n_layers, cfg.latent_dim, cfg.n_heads, 4 * cfg.latent_dim
+    blk = dit.blocks[0]
+    kw = dict(eps1=blk.ln_1.eps, eps_qk=blk.attn.q_norm.eps,
+              eps2=blk.ln_2.eps)
+    out = dict(max_abs_err=0.0, stack_max_abs_err=0.0, stack_vs_plain=[])
+    for B in (1, 128):
+        for s in steps:
+            x = torch.randn(B, T, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            c = emb_all[s][None]
+            full = fused_dit_q8c(x, c, st, idx_L, p_L, step=s, **kw)
+            torch.cuda.synchronize()
+            y = x
+            worst = 0.0
+            for l in range(L):
+                stl = {k: v[l:l + 1] for k, v in st.items()}
+                tabs = (idx_L[l:l + 1], p_L[l:l + 1])
+                yk = fused_dit_q8c(y, c, stl, *tabs, step=s, **kw)
+                yp = fused_dit_q8c_ref(y, c, stl, *tabs, step=s, **kw)
+                d = (yk.float() - yp.float()).abs()
+                mean_tol = LAYER_MEAN_REL * yp.float().abs().mean().item()
+                max_tol = LAYER_MAX_REL * yp.float().abs().max().item()
+                if not (bool(torch.isfinite(yk).all())
+                        and d.mean().item() <= mean_tol
+                        and d.max().item() <= max_tol):
+                    raise SystemExit(
+                        f"fused_dit_q8c {name} b={B} step={s} layer {l}: "
+                        f"max {d.max().item():.3e} (tol {max_tol:.3e}), mean "
+                        f"{d.mean().item():.3e} (tol {mean_tol:.3e})")
+                worst = max(worst, d.mean().item() / mean_tol,
+                            d.max().item() / max_tol)
+                out["max_abs_err"] = max(out["max_abs_err"], d.max().item())
+                y = yk
+            chained = (full.float() - y.float()).abs().max().item()
+            if chained != 0.0:
+                raise SystemExit(f"fused_dit_q8c {name} b={B} step={s}: the "
+                                 f"stack differs from its layers chained "
+                                 f"({chained:.3e})")
+            msg = ""
+            if not int8_attn:
+                z = x
+                for l in range(L):
+                    z = fused_layer_q8c(
+                        z, c, st["ln1"][l], st["wqkv"][l], st["bqkv"][l],
+                        st["q_g"][l], st["k_g"][l], st["wout"][l],
+                        st["ln2"][l], QuantizedExperts(
+                            *(st[k][l] for k in QuantizedExperts._fields)),
+                        idx_L[l], p_L[l], step=s, **kw)
+                vs_layer = (full.float() - z.float()).abs().max().item()
+                msg = f", vs {L} chained fused_layer_q8c max {vs_layer:.1e}"
+                if vs_layer != 0.0:
+                    raise SystemExit(f"fused_dit_q8c b={B} step={s}: differs "
+                                     f"from {L} chained fused_layer_q8c "
+                                     f"launches ({vs_layer:.3e})")
+            plain = fused_dit_q8c_ref(x, c, st, idx_L, p_L, step=s, **kw)
+            exact = fused_dit_q8c_ref(x, c, st, idx_L, p_L, step=s,
+                                      acc_dtype=torch.float64, **kw)
+            d = (full.float() - plain.float()).abs()
+            fl = (plain.float() - exact.float()).abs()
+            print(f"  fused_dit_q8c {name} b={B} step={s}: {L} layers each "
+                  f"within the layer gates (worst {worst:.2f} of the gate); "
+                  f"stack == layers chained{msg}; stack vs plain stack max "
+                  f"{d.max().item():.3e}, mean {d.mean().item():.3e}; plain "
+                  f"f32 vs plain f64 stack max {fl.max().item():.3e}, mean "
+                  f"{fl.mean().item():.3e}", flush=True)
+            if not bool(torch.isfinite(full).all()):
+                raise SystemExit(f"fused_dit_q8c {name} b={B} step={s}: "
+                                 "non-finite output")
+            out["stack_max_abs_err"] = max(out["stack_max_abs_err"],
+                                           d.max().item())
+            out["stack_vs_plain"].append(dict(
+                B=B, step=s, mean=d.mean().item(), floor_mean=fl.mean().item()))
+        grid = list(fused_dit_q8c.last_grid)
+
+        # timing at step 0 on this B
+        x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+        c = emb_all[0][None]
+        k_ms = cuda_time_ms(
+            lambda: fused_dit_q8c(x, c, st, idx_L, p_L, step=0, **kw),
+            20 if B == 1 else 10)
+        p_ms = cuda_time_ms(
+            lambda: fused_dit_q8c_ref(x, c, st, idx_L, p_L, step=0, **kw), 2)
+
+        def library():
+            y = x
+            for args in deq_layers:
+                y = library_layer(y, c, *args)
+            return y
+
+        l_ms = cuda_time_ms(library, 3)
+        bound, by = bound_of(*dit_cost(B, T, D, H, HH, L, int8_attn))
+        out[B] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                      bound_by=by, grid=grid)
+        print(f"  fused_dit_q8c {name} b={B}: kernel {k_ms:.4f} ms/launch "
+              f"(grid {grid[0]} CTAs, {grid[1]} per SM, {grid[2]} B shared "
+              f"memory), bound {bound:.4f} ms "
+              f"({by}), plain {p_ms:.3f} ms, library ({L} x library_layer) "
+              f"{l_ms:.4f} ms", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -171,14 +370,20 @@ def main():
 
     t = time.perf_counter()
     from mode_diffusion_policy_tpu_torch.ops.kernels import _build
-    lib = _build.build()
-    phase(f"phase 2: built {lib.name}", t)
+    libs = _build.build()
+    for name, path in sorted(libs.items()):
+        log = path.with_suffix(".log").read_text()
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        print(f"  {path.name}: registers per kernel {regs}, spill stores "
+              f"{spills}", flush=True)
+    phase(f"phase 2: built {', '.join(sorted(libs))}", t)
 
     from mode_diffusion_policy_tpu_torch.models.agent import (
         MoDEAgent, MoDEAgentConfig, RolloutPolicy)
     from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        fused_layer_q8c, fused_layer_q8c_ref)
+        fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c, fused_layer_q8c_ref)
     from mode_diffusion_policy_tpu_torch.ops.quant import dequantize_experts
 
     dev = torch.device("cuda", 0)
@@ -250,13 +455,16 @@ def main():
                                         device=dev)}
         policy.reset()
         chunks = 2
-        fused_layer_q8c.launches = 0
+        fused_layer_q8c.launches = fused_dit_q8c.launches = 0
         actions = []
         for _ in range(chunks * cfg.multistep):
             obs = {k: preprocess_camera(v) for k, v in frames.items()}
             actions.append(policy.step(obs, goal))
         torch.cuda.synchronize()
         launches = fused_layer_q8c.launches
+        if fused_dit_q8c.launches:
+            raise SystemExit(f"parity b={B}: {fused_dit_q8c.launches} "
+                             "megakernel launches, expected 0")
         want_launches = chunks * cfg.n_layers * cfg.num_sampling_steps
         for act in actions:
             if tuple(act.shape) != (B, cfg.action_dim) or \
@@ -294,7 +502,8 @@ def main():
         if not (mae <= tol and bool(torch.isfinite(kern).all())):
             raise SystemExit(f"b={B}: kernel path disagrees with plain path")
         results[B] = dict(obs=obs, goal=goal, noise=noise, launches=launches,
-                          action_mae=mae, action_floor=floor)
+                          action_mae=mae, action_floor=floor,
+                          frames=frames, parity_chunk=kern)
         phase(f"phase {ph}: parity path at b={B}", t)
 
     # ---- phase 6: timing -------------------------------------------------
@@ -335,9 +544,131 @@ def main():
               f"{l_ms:.4f} ms; chunk end to end {timing[B]['chunk_ms']:.2f} ms "
               f"(median of 3: {', '.join(f'{c:.2f}' for c in chunk)})",
               flush=True)
-    args, kw = layer_args(128, 0)
-    stages = kernel_stages(lambda: fused_layer_q8c(*args, **kw))
+    stages = {}
+    for B in (128, 1):
+        args, kw = layer_args(B, 0)
+        stages[f"b{B}"] = kernel_stages(lambda: fused_layer_q8c(*args, **kw),
+                                        f"b={B}")
+    r1 = results[1]
+    split = {"parity": chunk_split(policy, r1["obs"], r1["goal"],
+                                   r1["noise"], timing[1]["chunk_ms"])}
+    print(f"  parity b=1 chunk split: {split['parity']}", flush=True)
     phase("phase 6: timing", t)
+
+    # ---- phases 7-10: the b1 presets and the DiT megakernel ---------------
+    mega = {}
+    chunk_b1 = {"parity": timing[1]["chunk_ms"]}
+    deq_layers = None
+    for ph, mode in ((7, "b1-latency"), (9, "b1-latency-max")):
+        t = time.perf_counter()
+        policy = RolloutPolicy.with_serving_mode(agent, mode=mode, seed=0)
+        st = dit.stacked
+        int8_attn = "sqkv" in st
+        nbytes = sum(v.numel() * v.element_size() for v in st.values())
+        shared = sum(st[k].numel() * st[k].element_size()
+                     for k in ("w1_q", "w1_s", "b1", "w2_q", "w2_s")
+                     + (("wqkv", "sqkv", "bqkv", "wout", "sout")
+                        if int8_attn else ()))
+        print(f"  {mode}: layer stack {nbytes / 1e6:.1f} MB, of which "
+              f"{shared / 1e6:.1f} MB hold the blocks' int8 weights (the "
+              f"blocks point at their slices); added "
+              f"{(nbytes - shared) / 1e6:.1f} MB", flush=True)
+        idx_L = torch.stack([i for i, _ in routing])
+        p_L = torch.stack([p for _, p in routing])
+        if deq_layers is None:
+            # the library yardstick's per-layer weights: bf16 attention and
+            # the step-0 experts dequantized to bf16 (same for both presets)
+            deq_layers = []
+            for l in range(cfg.n_layers):
+                w1, b1, w2 = dequantize_experts(dit.blocks[l].experts_q)
+                bl, at = dit.blocks[l], dit.blocks[l].attn
+                deq_layers.append((
+                    bl.ln_1.g, at.wqkv.kernel.to(torch.bfloat16),
+                    at.wqkv.bias.to(torch.bfloat16), at.q_norm.g,
+                    at.k_norm.g, at.c_proj.kernel.to(torch.bfloat16),
+                    bl.ln_2.g, {e: (w1[e].to(torch.bfloat16),
+                                    b1[e].to(torch.bfloat16),
+                                    w2[e].to(torch.bfloat16))
+                                for e in idx_L[l, 0].tolist()},
+                    idx_L[l, 0].tolist(), p_L[l, 0].tolist()))
+                del w1, b1, w2
+        mega[mode] = check_megakernel(
+            dit, st, idx_L, p_L, emb_all, steps, T, gen, deq_layers, cfg)
+        phase(f"phase {ph}: {mode} megakernel vs plain", t)
+
+        t = time.perf_counter()
+        r = results[1]
+        policy.reset()
+        chunks = 2
+        fused_layer_q8c.launches = fused_dit_q8c.launches = 0
+        actions = []
+        for _ in range(chunks * cfg.multistep):
+            obs = {k: preprocess_camera(v) for k, v in r["frames"].items()}
+            actions.append(policy.step(obs, r["goal"]))
+        torch.cuda.synchronize()
+        launches = fused_dit_q8c.launches
+        want_launches = chunks * cfg.num_sampling_steps
+        for act in actions:
+            if tuple(act.shape) != (1, cfg.action_dim) or \
+                    not bool(torch.isfinite(act).all()):
+                raise SystemExit(f"{mode}: bad action {tuple(act.shape)}")
+        if launches != want_launches or fused_layer_q8c.launches:
+            raise SystemExit(
+                f"{mode}: {launches} megakernel launches (expected "
+                f"{want_launches}), {fused_layer_q8c.launches} layer-kernel "
+                "launches (expected 0)")
+        kern = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+        again = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+        dit.dit_impl = fused_dit_q8c_ref
+        plain = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+        dit.dit_impl = functools.partial(fused_dit_q8c_ref,
+                                         acc_dtype=torch.float64)
+        exact = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+        dit.dit_impl = functools.partial(fused_dit_q8c_ref,
+                                         acc_dtype=torch.float64,
+                                         red_dtype=torch.float64)
+        exact_all = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+        dit.dit_impl = fused_dit_q8c
+
+        def mae_of(a, b):
+            return (a - b).abs().mean().item()
+
+        mae = mae_of(kern, plain)
+        floors = (mae_of(plain, exact), mae_of(plain, exact_all))
+        floor = max(floors)
+        tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * floor)
+        chunk = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+            torch.cuda.synchronize()
+            chunk.append((time.perf_counter() - c0) * 1e3)
+        chunk_b1[mode] = statistics.median(chunk)
+        split[mode] = chunk_split(policy, r["obs"], r["goal"], r["noise"],
+                                  chunk_b1[mode])
+        print(f"  {mode} b=1: {chunks} chunks, {launches} megakernel "
+              f"launches, {fused_layer_q8c.launches} layer-kernel launches; "
+              f"action MAE kernel-vs-plain {mae:.3e} (tol {tol:.3e}), "
+              f"plain-f32-vs-plain-f64 {floors[0]:.3e} (products) / "
+              f"{floors[1]:.3e} (products, norms, softmax), "
+              f"kernel-vs-plain-f64 {mae_of(kern, exact):.3e} / "
+              f"{mae_of(kern, exact_all):.3e}, parity-vs-this "
+              f"{mae_of(kern, r['parity_chunk']):.3e}, "
+              f"kernel run twice max diff "
+              f"{(kern - again).abs().max().item():.3e}; chunk "
+              f"{chunk_b1[mode]:.2f} ms (median of 3: "
+              f"{', '.join(f'{c:.2f}' for c in chunk)}); split "
+              f"{split[mode]}", flush=True)
+        if not (mae <= tol and bool(torch.isfinite(kern).all())):
+            raise SystemExit(f"{mode}: kernel path disagrees with plain path")
+        mega[mode].update(launches=launches, action_mae=mae,
+                          action_floor=floor)
+        phase(f"phase {ph + 1}: {mode} path at b=1", t)
+    print("  b=1 chunk ms (median of 3), parity / b1-latency / "
+          "b1-latency-max: " + " / ".join(
+              f"{chunk_b1[m]:.2f}" for m in ("parity", "b1-latency",
+                                             "b1-latency-max")), flush=True)
 
     # ---- phase 7-8: results ----------------------------------------------
     t128 = timing[128]
@@ -364,6 +695,41 @@ def main():
                          "b1": results[1]["action_floor"]},
         "stages_ms": stages,
     }]
+    m1, m8 = mega["b1-latency"], mega["b1-latency-max"]
+    kernels.append({
+        "name": "fused_dit_q8c",
+        "route": "cuda",
+        "source": "mode_diffusion_policy_tpu_torch/csrc/fused_dit_q8c.cu",
+        "replaces": "mode_diffusion_policy_tpu/ops/pallas/layer_kernel.py:415",
+        "launches": m1["launches"],
+        "max_abs_err": max(m1["max_abs_err"], m8["max_abs_err"]),
+        **{k: m1[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        "shape": "12 layers, b=1 x 14 tokens, D=1024, hidden 4096, top-2 "
+                 "of 4, bf16 attention projections (b1-latency)",
+        "grid": m1[1]["grid"],
+        "max_abs_err_is": "one-layer launches vs the plain layer on the "
+                          "same input (the whole launch equals them chained)",
+        "stack_max_abs_err": max(m1["stack_max_abs_err"],
+                                 m8["stack_max_abs_err"]),
+        "stack_vs_plain": {"b1-latency": m1["stack_vs_plain"],
+                           "b1-latency-max": m8["stack_vs_plain"]},
+        "b128": {k: m1[128][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+        "int8_attn": {"launches": m8["launches"],
+                      "b1": {k: m8[1][k] for k in (
+                          "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms")},
+                      "b128": {k: m8[128][k] for k in (
+                          "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms")}},
+        "chunk_ms_b1": chunk_b1,
+        "chunk_split_b1": split,
+        "action_mae": {"b1-latency": m1["action_mae"],
+                       "b1-latency-max": m8["action_mae"]},
+        "action_floor": {"b1-latency": m1["action_floor"],
+                         "b1-latency-max": m8["action_floor"]},
+    })
     phase("done", T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

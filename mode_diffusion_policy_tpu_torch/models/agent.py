@@ -4,14 +4,16 @@ Counterpart of ``mode_diffusion_policy_tpu/models/agent.py``. The JAX agent
 is a set of pure functions over a caller-held variables tree; here the agent
 is an ``nn.Module`` that owns its weights, and the serving transforms
 (``fold_encoders_for_inference``, ``quantize_for_inference``,
-``precast_for_serving``) update it in place rather than returning a new tree,
-which saves a copy of the weights.
+``precast_for_serving``) update it in place rather than returning a new tree.
+The precast keeps the f32 weights as masters beside their casts, so that
+every quantization reads the f32 values, as the JAX package's does.
 
-Served path (``RolloutPolicy`` under the ``parity`` preset): camera frames ->
+Served paths (``RolloutPolicy`` under a serving preset): camera frames ->
 2x BN-folded FiLM-ResNet-50 -> per-sigma top-2 routing tables -> hoisted
 chunk invariants (static tokens, sigma tokens, EDM scalings) -> 10-step DDIM
 of ``MoDeDiT.forward_precomputed``, one whole-layer kernel launch per layer
-and step.
+and step (``parity``), or of ``MoDeDiT.forward_precomputed_mega``, one
+launch of the DiT megakernel per step (``b1-latency``, ``b1-latency-max``).
 """
 from __future__ import annotations
 
@@ -56,6 +58,8 @@ class MoDEAgentConfig:
     dtype: Any = torch.float32
     use_int8_moe: bool = False
     use_fused_layer: bool = False
+    use_int8_attn: bool = False
+    use_megakernel: bool = False
 
     @property
     def obs_dim(self) -> int:
@@ -70,7 +74,9 @@ class MoDEAgentConfig:
             action_seq_len=self.act_window_size,
             num_experts=self.num_experts, top_k=self.top_k, dtype=self.dtype,
             use_int8_moe=self.use_int8_moe,
-            use_fused_layer=self.use_fused_layer)
+            use_fused_layer=self.use_fused_layer,
+            use_int8_attn=self.use_int8_attn,
+            use_megakernel=self.use_megakernel)
 
 
 ENCODERS = ("static_resnet", "gripper_resnet")
@@ -111,8 +117,9 @@ class MoDEAgent(nn.Module):
                     p.normal_(0.0, fan_in ** -0.5, generator=gen)
 
     def configure_(self, **flags):
-        """Replace config flags (``use_int8_moe``, ``use_fused_layer``) in
-        place, on the agent and on every DiT module that reads them."""
+        """Replace config flags (``use_int8_moe``, ``use_fused_layer``,
+        ``use_int8_attn``, ``use_megakernel``) in place, on the agent and on
+        every DiT module that reads them."""
         self.cfg = dataclasses.replace(self.cfg, **flags)
         dit_cfg = self.cfg.dit_config()
         for m in self.inner_model.modules():
@@ -137,16 +144,28 @@ class MoDEAgent(nn.Module):
 
     @torch.no_grad()
     def quantize_for_inference(self):
-        """(Re)build the int8 experts from the current f32 weights; call
-        after loading weights when ``cfg.use_int8_moe`` is set."""
+        """(Re)build the int8 experts (``cfg.use_int8_moe``) and attention
+        projections (``cfg.use_int8_attn``) from the f32 weights (the
+        masters, after a serving precast), and the megakernel's layer stack
+        (``cfg.use_megakernel``); call after loading weights."""
+        dit = self.inner_model
+        dit.stacked = None
+        for blk in dit.blocks:
+            blk.experts_q = None
+            blk.attn.attn_q = None
         if self.cfg.use_int8_moe:
-            self.inner_model.quantize_experts_()
+            dit.quantize_experts_()
+        if self.cfg.use_int8_attn:
+            dit.quantize_attn_()
+        if self.cfg.use_megakernel:
+            dit.stack_layers_()
         return self
 
     @torch.no_grad()
     def precast_for_serving(self):
-        """Cast the DiT matmul weights to the compute dtype once (in place);
-        bit-identical to casting per use."""
+        """Cast the DiT matmul weights to the compute dtype once (in place,
+        keeping the f32 masters: ``MoDeDiT.precast_``); bit-identical to
+        casting per use."""
         if self.cfg.dtype != torch.float32:
             self.inner_model.precast_(self.cfg.dtype)
         return self
@@ -180,7 +199,9 @@ class MoDEAgent(nn.Module):
         """``denoiser(x, sigma_vec, step_idx)`` for the samplers. With
         ``routing`` the camera/goal tokens, the per-step sigma tokens and the
         EDM scalings are computed once per chunk, and each step runs
-        ``MoDeDiT.forward_precomputed`` with the step's routing row."""
+        ``MoDeDiT.forward_precomputed`` with the step's routing row, or,
+        under ``cfg.use_megakernel``, ``forward_precomputed_mega`` over the
+        cached layer stack and the [L,S,2] tables stacked once per chunk."""
         cfg = self.cfg
         dit = self.inner_model
         if routing is None:
@@ -194,13 +215,27 @@ class MoDEAgent(nn.Module):
                                                        latent_goal)
         emb_all = dit.process_sigma_embeddings(sched)              # [S,1,D]
         scal_all = torch.stack(edm_scalings(sched, cfg.sigma_data), dim=1)
+        mega = None
+        if cfg.use_megakernel:
+            # the config guarantees the megakernel's shapes (int8 top-2
+            # experts, head dim a multiple of 128)
+            if dit.stacked is None:
+                raise RuntimeError("the megakernel's layer stack is missing: "
+                                   "call MoDEAgent.quantize_for_inference()")
+            mega = (dit.stacked, torch.stack([i for i, _ in routing]),
+                    torch.stack([p for _, p in routing]))
 
         def denoiser(x, sigma, step_idx):
             cs, co, ci = scal_all[step_idx]
-            overrides = [(idx, p, step_idx) for idx, p in routing]
-            pred = dit.forward_precomputed(
-                static_x, goal_embed, emb_all[step_idx][None], x * ci,
-                moe_overrides=overrides)
+            emb_t = emb_all[step_idx][None]
+            if mega is not None:
+                pred = dit.forward_precomputed_mega(
+                    static_x, goal_embed, emb_t, x * ci, *mega, step_idx)
+            else:
+                overrides = [(idx, p, step_idx) for idx, p in routing]
+                pred = dit.forward_precomputed(
+                    static_x, goal_embed, emb_t, x * ci,
+                    moe_overrides=overrides)
             return pred.float() * co + x * cs
 
         return denoiser
@@ -232,6 +267,8 @@ class RolloutPolicy:
 
     def __init__(self, agent: MoDEAgent, lang_encoder=None,
                  use_routing_precompute: bool = True, seed: int = 0):
+        # the precast keeps the f32 masters, so the agent can still be
+        # re-quantized (another preset) from its f32 weights
         self.agent = agent.precast_for_serving()
         self.lang = lang_encoder   # callable: list[str] -> [B,1,cond]
         self.multistep = agent.cfg.multistep

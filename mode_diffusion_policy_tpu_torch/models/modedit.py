@@ -11,7 +11,9 @@ are stacked (``experts_w1`` [E, D, 2H], ``experts_b1`` [E, 2H],
 noise token), so inference precomputes per-sigma top-2 tables
 (``precompute_routing``) and each block then runs either the plain top-2
 gather or, with ``use_fused_layer``, the whole layer as one kernel launch
-(``ops/kernels/layer_kernel.py``).
+(``ops/kernels/layer_kernel.py``). With ``use_megakernel`` the whole block
+stack of a denoise step is one launch (``forward_precomputed_mega``) over
+weights stacked once on a leading layer axis (``stack_layers``).
 
 Parameter names and layouts follow the JAX tree (``blocks_{i}`` becomes
 ``blocks.{i}``), which ``utils/weights.py`` relies on.
@@ -26,10 +28,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.layer_kernel import fused_layer_q8c
+from ..ops.kernels.layer_kernel import (STACKED_QATTN, fused_dit_q8c,
+                                        fused_layer_q8c)
 from ..ops.moe import moe_ffn_dense, moe_ffn_top2_gather
 from ..ops.primitives import DenseP, RMSNorm
-from ..ops.quant import QuantizedExperts, quantize_experts
+from ..ops.quant import (QuantizedAttn, QuantizedExperts, quantize_attn,
+                         quantize_experts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +58,16 @@ class MoDeDiTConfig:
     top_k: int = 2
     dtype: torch.dtype = torch.float32
     use_int8_moe: bool = False     # int8 experts (quantized once, see
-                                   # NoiseBlockMoE.quantize_experts_)
+                                   # MoDeDiT.quantize_experts_)
     use_fused_layer: bool = False  # whole-layer kernel on the routed
                                    # inference path; needs use_int8_moe
+    use_int8_attn: bool = False    # int8 wqkv/c_proj projections (per-row
+                                   # activation quant) inside the fused
+                                   # layer; needs use_fused_layer
+    use_megakernel: bool = False   # the whole block stack in ONE launch
+                                   # per denoise step (fused_dit_q8c) on
+                                   # the hoisted routed path; needs
+                                   # use_fused_layer
 
     def __post_init__(self):
         if self.use_int8_moe and not self.use_fused_layer:
@@ -68,6 +79,15 @@ class MoDeDiTConfig:
                                          and self.top_k == 2):
             raise ValueError("use_fused_layer needs use_int8_moe and "
                              "top_k == 2")
+        for flag in ("use_int8_attn", "use_megakernel"):
+            if getattr(self, flag) and not self.use_fused_layer:
+                raise ValueError(f"{flag} needs use_fused_layer (the int8 "
+                                 "top-2 whole-layer path)")
+        if (self.use_int8_attn or self.use_megakernel) and \
+                (self.embed_dim // self.n_heads) % 128:
+            raise ValueError(
+                "use_int8_attn and use_megakernel need head_dim % 128 == 0; "
+                f"got {self.embed_dim // self.n_heads}")
 
     @property
     def seq_size(self) -> int:
@@ -86,6 +106,9 @@ class Attention(nn.Module):
         self.c_proj = DenseP(D, D, False, cfg.dtype, device)
         self.q_norm = RMSNorm(self.hd, eps=1e-6, device=device)
         self.k_norm = RMSNorm(self.hd, eps=1e-6, device=device)
+        # int8 projections, quantized from the f32 weights by
+        # MoDeDiT.quantize_attn_ (use_int8_attn)
+        self.attn_q: Optional[QuantizedAttn] = None
 
     def forward(self, x):
         B, T, D = x.shape
@@ -161,14 +184,9 @@ class NoiseBlockMoE(nn.Module):
         self.experts_w1 = nn.Parameter(torch.empty(E, D, 2 * Hh, device=device))
         self.experts_b1 = nn.Parameter(torch.zeros(E, 2 * Hh, device=device))
         self.experts_w2 = nn.Parameter(torch.empty(E, Hh, D, device=device))
+        # int8 experts, quantized from the f32 weights by
+        # MoDeDiT.quantize_experts_ (use_int8_moe)
         self.experts_q: Optional[QuantizedExperts] = None
-
-    def quantize_experts_(self):
-        """(Re)build the int8 experts from the current f32 weights."""
-        with torch.no_grad():
-            self.experts_q = quantize_experts(
-                self.experts_w1.float(), self.experts_b1.float(),
-                self.experts_w2.float())
 
     def forward(self, x, c, *, moe_override=None, layer_impl=fused_layer_q8c):
         """moe_override: (idx [k], p [k]) rows, or (idx [S,k], p [S,k],
@@ -177,16 +195,18 @@ class NoiseBlockMoE(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         if cfg.use_fused_layer and moe_override is not None:
-            if self.experts_q is None:
-                raise RuntimeError("int8 experts missing: call "
+            a = self.attn
+            if self.experts_q is None or (cfg.use_int8_attn
+                                          and a.attn_q is None):
+                raise RuntimeError("int8 weights missing: call "
                                    "MoDEAgent.quantize_for_inference()")
             idx, p, *rest = moe_override
-            a = self.attn
             return layer_impl(
                 x, c, self.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
                 a.k_norm.g, a.c_proj.kernel, self.ln_2.g, self.experts_q,
-                idx, p, step=rest[0] if rest else None, eps1=self.ln_1.eps,
-                eps_qk=a.q_norm.eps, eps2=self.ln_2.eps)
+                idx, p, step=rest[0] if rest else None,
+                qattn=a.attn_q if cfg.use_int8_attn else None,
+                eps1=self.ln_1.eps, eps_qk=a.q_norm.eps, eps2=self.ln_2.eps)
         x = x + self.attn(self.ln_1(x) + c)
         w1, b1, w2 = (w.to(dt) for w in (self.experts_w1, self.experts_b1,
                                          self.experts_w2))
@@ -225,10 +245,17 @@ class MoDeDiT(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.ln = RMSNorm(D, eps=1e-6, device=device)
         self.out = DenseP(D, cfg.action_dim, True, dt, device)
-        # the whole-layer function of the fused path: the CUDA kernel's
-        # wrapper; a caller may set fused_layer_q8c_ref to run the plain
-        # version on the same weights (chip_smoke.py compares the two)
+        # the whole-layer and whole-stack functions of the fused paths: the
+        # CUDA kernels' wrappers; a caller may set fused_layer_q8c_ref /
+        # fused_dit_q8c_ref to run the plain versions on the same weights
+        # (chip_smoke.py compares the two)
         self.layer_impl = fused_layer_q8c
+        self.dit_impl = fused_dit_q8c
+        # the f32 values of the leaves that the serving precast has cast
+        # (precast_), which the int8 quantizers read
+        self._f32_masters: Dict[str, torch.Tensor] = {}
+        # the per-layer weights stacked for the megakernel (stack_layers_)
+        self.stacked: Optional[Dict[str, torch.Tensor]] = None
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator):
@@ -246,10 +273,28 @@ class MoDeDiT(nn.Module):
             else:
                 p.normal_(0.0, 0.02, generator=generator).clamp_(-0.04, 0.04)
 
+    def f32_param(self, name: str) -> torch.Tensor:
+        """The f32 value of parameter ``name``: its master copy when the
+        serving precast has cast it, else the parameter itself."""
+        m = self._f32_masters.get(name)
+        return m if m is not None else self.get_parameter(name).float()
+
     @torch.no_grad()
     def quantize_experts_(self):
-        for blk in self.blocks:
-            blk.quantize_experts_()
+        """(Re)build every block's int8 experts from the f32 weights."""
+        for i, blk in enumerate(self.blocks):
+            blk.experts_q = quantize_experts(*(
+                self.f32_param(f"blocks.{i}.{k}")
+                for k in ("experts_w1", "experts_b1", "experts_w2")))
+
+    @torch.no_grad()
+    def quantize_attn_(self):
+        """(Re)build every block's int8 attention projections from the f32
+        weights."""
+        for i, blk in enumerate(self.blocks):
+            blk.attn.attn_q = quantize_attn(*(
+                self.f32_param(f"blocks.{i}.attn.{k}")
+                for k in ("wqkv.kernel", "wqkv.bias", "c_proj.kernel")))
 
     @torch.no_grad()
     def precast_(self, dtype: torch.dtype):
@@ -257,12 +302,80 @@ class MoDeDiT(nn.Module):
         f32 expert weights) to ``dtype`` in place, once, for serving; norm
         scales stay f32. Every consumer casts these leaves to the compute
         dtype anyway, so the result is bit-identical and the per-step casts
-        become no-ops."""
+        become no-ops. The f32 values stay behind as masters
+        (``f32_param``), so that quantizing later still starts from the f32
+        weights; loading a state dict restores them first."""
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("kernel", "bias", "pos_emb") or \
-                    leaf.startswith("experts_"):
+            if (leaf in ("kernel", "bias", "pos_emb")
+                    or leaf.startswith("experts_")) and p.dtype != dtype:
+                if p.dtype == torch.float32:
+                    self._f32_masters.setdefault(name, p.data)
                 p.data = p.data.to(dtype)
+
+    @torch.no_grad()
+    def restore_f32_(self):
+        """Undo ``precast_``: the cast leaves get their f32 masters back."""
+        for name, m in self._f32_masters.items():
+            self.get_parameter(name).data = m
+        self._f32_masters.clear()
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        # called before the children load theirs: new weights replace the
+        # f32 values, not their bf16 casts
+        self.restore_f32_()
+        super()._load_from_state_dict(*args, **kwargs)
+
+    @torch.no_grad()
+    def stack_layers(self) -> Dict[str, torch.Tensor]:
+        """Per-layer leaves stacked on a leading L axis for the megakernel
+        (``fused_dit_q8c``), in the dtypes it takes: ln1/ln2, q_g/k_g and
+        bqkv in f32; wqkv/wout in the compute dtype (the serving precast's
+        values), or int8 with their scales sqkv/sout under use_int8_attn;
+        the int8 experts. Reads the blocks' int8 weights, so it runs after
+        the quantizers."""
+        dt = self.cfg.dtype
+        blocks = list(self.blocks)
+        if any(b.experts_q is None for b in blocks) or (
+                self.cfg.use_int8_attn
+                and any(b.attn.attn_q is None for b in blocks)):
+            raise RuntimeError("int8 weights missing: call "
+                               "MoDEAgent.quantize_for_inference()")
+
+        def stack(fn):
+            return torch.stack([fn(b) for b in blocks]).contiguous()
+
+        out = {"ln1": stack(lambda b: b.ln_1.g.float()),
+               "q_g": stack(lambda b: b.attn.q_norm.g.float()),
+               "k_g": stack(lambda b: b.attn.k_norm.g.float()),
+               "ln2": stack(lambda b: b.ln_2.g.float())}
+        if self.cfg.use_int8_attn:
+            for k, f in zip(STACKED_QATTN, QuantizedAttn._fields):
+                out[k] = stack(lambda b, f=f: getattr(b.attn.attn_q, f))
+        else:
+            out["wqkv"] = stack(lambda b: b.attn.wqkv.kernel.to(dt))
+            out["bqkv"] = stack(lambda b: b.attn.wqkv.bias.to(dt).float())
+            out["wout"] = stack(lambda b: b.attn.c_proj.kernel.to(dt))
+        for k in QuantizedExperts._fields:
+            out[k] = stack(lambda b, k=k: getattr(b.experts_q, k))
+        return out
+
+    @torch.no_grad()
+    def stack_layers_(self):
+        """Build and cache ``stack_layers()`` in ``self.stacked``, once per
+        preset (not per chunk), and point every block's int8 tensors at
+        their slices of the stack, so that the int8 weights are not held
+        twice."""
+        self.stacked = None
+        st = self.stack_layers()
+        for l, blk in enumerate(self.blocks):
+            blk.experts_q = QuantizedExperts(
+                *(st[k][l] for k in QuantizedExperts._fields))
+            if self.cfg.use_int8_attn:
+                blk.attn.attn_q = QuantizedAttn(
+                    *(st[k][l] for k in STACKED_QATTN))
+        self.stacked = st
+        return st
 
     def process_sigma_embeddings(self, sigma):
         """log(sigma)/4 -> Linear -> Linear; sigma [S] -> [S,1,D]."""
@@ -312,20 +425,36 @@ class MoDeDiT(nn.Module):
         return torch.cat([goal_embed + pos[:, :g, :], state_x], dim=1), \
             goal_embed
 
+    def _step_tokens(self, static_x, emb_t, actions):
+        dt = self.cfg.dtype
+        B = actions.shape[0]
+        g = self.cfg.goal_seq_len
+        action_x = self.action_emb(actions.to(dt)) + self.pos_emb.to(dt)[:, g:, :]
+        return torch.cat([emb_t.expand(B, -1, -1), static_x.expand(B, -1, -1),
+                          action_x], dim=1)
+
     def forward_precomputed(self, static_x, goal_embed, emb_t, actions, *,
                             moe_overrides=None):
         """One denoise step from the hoisted invariants: embeds only the
         action tokens; ``emb_t`` [1,1,D] is the step's sigma token and also
         the (shared) cond token of every block."""
-        cfg = self.cfg
-        dt = cfg.dtype
-        B = actions.shape[0]
-        g = cfg.goal_seq_len
-        action_x = self.action_emb(actions.to(dt)) + self.pos_emb.to(dt)[:, g:, :]
-        x = torch.cat([emb_t.expand(B, -1, -1), static_x.expand(B, -1, -1),
-                       action_x], dim=1)
+        x = self._step_tokens(static_x, emb_t, actions)
         x = self._blocks(x, emb_t, moe_overrides)
-        return self.out(self.ln(x[:, -cfg.action_seq_len:, :]))
+        return self.out(self.ln(x[:, -self.cfg.action_seq_len:, :]))
+
+    def forward_precomputed_mega(self, static_x, goal_embed, emb_t, actions,
+                                 stacked: Dict[str, torch.Tensor],
+                                 idx_tables, probs_tables, step):
+        """``forward_precomputed`` with the whole block stack replaced by
+        ONE launch of the DiT megakernel (``self.dit_impl``) over
+        ``stacked`` (``stack_layers``) and the per-layer [L,S,2] routing
+        tables at row ``step``."""
+        x = self._step_tokens(static_x, emb_t, actions)
+        blk = self.blocks[0]
+        x = self.dit_impl(x, emb_t, stacked, idx_tables, probs_tables,
+                          step=step, eps1=blk.ln_1.eps,
+                          eps_qk=blk.attn.q_norm.eps, eps2=blk.ln_2.eps)
+        return self.out(self.ln(x[:, -self.cfg.action_seq_len:, :]))
 
     def precompute_routing(self, sigmas):
         """Per layer (idx [S,k] int32, probs [S,k] f32) for sigmas [S]."""

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with plain ``nvcc`` at first use.
 
-All ``csrc/*.cu`` sources go through ONE ``nvcc`` call into a shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-no ``torch.utils.cpp_extension``, no ninja: such a build takes seconds).
-The library lands in ``<repo>/build/torch_kernels/`` (listed in
-``.gitignore``) under a name that carries a hash of the sources and flags,
-so an edit to a source rebuilds it and an unchanged tree reuses it.
+Each ``csrc/*.cu`` source becomes its own shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, no
+``torch.utils.cpp_extension``, no ninja: such a build takes seconds). The
+``nvcc`` calls of all sources that need building start together. A library
+lands in ``<repo>/build/torch_kernels/`` (listed in ``.gitignore``) under a
+name that carries a hash of its source, of every ``csrc/*.cuh`` header and
+of the flags, so an edit to a source or a header rebuilds it and an
+unchanged tree reuses it.
 """
 from __future__ import annotations
 
@@ -47,35 +49,53 @@ def sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
+def headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path(source: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libmdp_kernels_{h.hexdigest()[:16]}.so"
+    for f in [source, *headers()]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for the current sources exists.
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``<name>.log``."""
-    lib = library_path()
-    if lib.exists():
-        return lib
+def build() -> dict:
+    """Compile every kernel whose library for the current sources does not
+    exist yet, one ``nvcc`` process per source, all started together.
+    Returns {source stem: library path}. The compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
+    library as ``<name>.log``."""
+    libs = {src.stem: library_path(src) for src in sources()}
+    todo = [(src, libs[src.stem]) for src in sources()
+            if not libs[src.stem].exists()]
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)
-    return lib
+    nvcc = find_nvcc()
+    procs = []
+    for src, lib in todo:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(src)]
+        procs.append((lib, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for lib, tmp, cmd, proc in procs:
+        log, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+        if proc.returncode != 0:
+            failed.append(f"{lib.name}: nvcc failed ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, then load the kernels' shared library (once)."""
-    return ctypes.CDLL(str(build()))
+def load_library(name: str) -> ctypes.CDLL:
+    """Build if needed, then load the library of ``csrc/<name>.cu`` (once)."""
+    return ctypes.CDLL(str(build()[name]))

@@ -14,10 +14,20 @@ with ``ln2(x_mid)`` (the norm REPLACES the residual), the MoE input
 quantized once per row, and ``act`` re-quantized per row within each
 ``block_hidden`` column block.
 
-``fused_layer_q8c`` launches ``csrc/fused_layer_q8c.cu`` for CUDA tensors
-(and raises on what it cannot take) and runs ``fused_layer_q8c_ref``, the
-plain PyTorch version, only for CPU tensors. ``fused_layer_q8c.launches``
-counts kernel launches.
+With ``qattn`` (int8 attention projections) ``h`` is quantized per row in
+f32 without the bf16 cast, ``qkv = (hq wqkv_q) * (hs * sqkv) + b``, and the
+f32 attention rows are re-quantized per row before the int8 ``c_proj``.
+
+``fused_dit_q8c`` is the same layer chained over all L layers of the DiT in
+one launch of ``csrc/fused_dit_q8c.cu`` (counterpart of the Pallas
+``_mega_kernel``), from weights stacked on a leading L axis
+(``MoDeDiT.stack_layers``) and per-layer [L,S,2] routing tables.
+
+``fused_layer_q8c`` and ``fused_dit_q8c`` launch their kernels for CUDA
+tensors (and raise on what they cannot take) and run their plain PyTorch
+versions, ``fused_layer_q8c_ref`` and ``fused_dit_q8c_ref``, only for CPU
+tensors. ``fused_layer_q8c.launches`` and ``fused_dit_q8c.launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -28,20 +38,23 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..quant import QuantizedExperts
+from ..quant import QuantizedAttn, QuantizedExperts
 from .quant_math import dot_i8, quant_rows
 
 
-def _rmsnorm_rows(x32, g, eps):
+def _rmsnorm_rows(x32, g, eps, acc=torch.float32):
     D = x32.shape[1]
-    norm = torch.sqrt((x32 * x32).sum(dim=1, keepdim=True)) * (D ** -0.5)
+    xa = x32.to(acc)
+    norm = (torch.sqrt((xa * xa).sum(dim=1, keepdim=True))
+            * (D ** -0.5)).float()
     return x32 / norm.clamp_min(eps) * g.float()
 
 
-def _headnorm(a, g, H, hd, eps):
+def _headnorm(a, g, H, hd, eps, acc=torch.float32):
     N = a.shape[0]
     a3 = a.reshape(N, H, hd)
-    n = torch.sqrt((a3 * a3).sum(dim=-1, keepdim=True)) * (hd ** -0.5)
+    aa = a3.to(acc)
+    n = (torch.sqrt((aa * aa).sum(dim=-1, keepdim=True)) * (hd ** -0.5)).float()
     inv = 1.0 / n.clamp_min(eps)
     return (a3 * inv * g.float()).reshape(N, H * hd)
 
@@ -66,18 +79,24 @@ def _hidden_block(HH, block_hidden):
 
 def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
                         qexp: QuantizedExperts, top2_idx, top2_probs, *,
-                        step=None, block_hidden: int = 1024,
+                        step=None, qattn: QuantizedAttn = None,
+                        block_hidden: int = 1024,
                         eps1: float = 1e-6, eps_qk: float = 1e-6,
                         eps2: float = 1e-6,
-                        acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                        acc_dtype: torch.dtype = torch.float32,
+                        red_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
     """Plain PyTorch version of the whole layer (any device, any float
     dtype). x [B,T,D]; c [1,1,D], [B,1,D] or [B,T,D]; wqkv [D,3D] (+bias
     [3D]); q_g/k_g [hd]; wout [D,D]; qexp int8 experts; top2_idx/probs
-    [S,2] tables with a ``step`` row selector, or single [2] rows.
+    [S,2] tables with a ``step`` row selector, or single [2] rows. With
+    ``qattn`` the projections are int8 and wqkv/bqkv/wout are ignored.
     ``acc_dtype`` is the accumulation type of the compute-dtype products
-    (QKV, attention, c_proj): float32 as in the kernels, or float64 for a
-    near-exact evaluation of the same cast chain (the noise floor that
-    ``chip_smoke.py`` holds the kernel path against)."""
+    (QKV, attention, c_proj) and ``red_dtype`` that of the other float
+    reductions (the norms' sums of squares, the softmax): float32 as in the
+    kernels, or float64 for near-exact evaluations of the same cast chain
+    (the noise floors that ``chip_smoke.py`` holds the kernel paths
+    against)."""
     B, T, D = x.shape
     dt = x.dtype
     hd = q_g.shape[-1]
@@ -91,11 +110,16 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
 
     x32 = x.reshape(N, D).float()
     c32 = torch.broadcast_to(c.float(), (B, T, D)).reshape(N, D)
-    h = (_rmsnorm_rows(x32, ln1_g, eps1) + c32).to(dt).float()
-    qkv = mm(h, wqkv.to(dt)) + bqkv.float()
+    h = _rmsnorm_rows(x32, ln1_g, eps1, red_dtype) + c32
+    if qattn is not None:
+        hq, hs = quant_rows(h)
+        qkv = dot_i8(hq, qattn.wqkv_q).float() \
+            * (hs * qattn.wqkv_s.float()[None]) + qattn.bqkv.float()
+    else:
+        qkv = mm(h.to(dt).float(), wqkv.to(dt)) + bqkv.float()
     q, k, v = qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:]
-    qn = _headnorm(q, q_g, H, hd, eps_qk).to(dt).float()
-    kn = _headnorm(k, k_g, H, hd, eps_qk).to(dt).float()
+    qn = _headnorm(q, q_g, H, hd, eps_qk, red_dtype).to(dt).float()
+    kn = _headnorm(k, k_g, H, hd, eps_qk, red_dtype).to(dt).float()
     v = v.to(dt).float()
 
     def heads(a):
@@ -104,11 +128,17 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     sc = mm(heads(qn), heads(kn).transpose(-1, -2)) * float(1.0 / math.sqrt(hd))
     causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
     sc = sc.masked_fill(~causal, -1e30)
-    a = torch.softmax(sc, dim=-1).to(dt).float()
-    o = mm(a, heads(v)).transpose(1, 2).reshape(N, D).to(dt).float()
-    xmid = x32 + mm(o, wout.to(dt))
+    a = torch.softmax(sc.to(red_dtype), dim=-1).to(dt).float()
+    o = mm(a, heads(v)).transpose(1, 2).reshape(N, D)
+    if qattn is not None:
+        oq, os_ = quant_rows(o)
+        y = dot_i8(oq, qattn.wout_q).float() * (os_ * qattn.wout_s.float()[None])
+    else:
+        y = mm(o.to(dt).float(), wout.to(dt))
+    xmid = x32 + y
 
-    xm = _rmsnorm_rows(xmid.to(dt).float(), ln2_g, eps2).to(dt).float()
+    xm = _rmsnorm_rows(xmid.to(dt).float(), ln2_g, eps2,
+                       red_dtype).to(dt).float()
     acc = xm
     xq, sx = quant_rows(xm)
     idx, probs = _routing_row(top2_idx, top2_probs, step)
@@ -129,6 +159,44 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     return acc.to(dt).reshape(B, T, D)
 
 
+# the keys of a MoDeDiT.stack_layers dict that hold QuantizedAttn's fields,
+# in the order of its fields
+STACKED_QATTN = ("wqkv", "sqkv", "bqkv", "wout", "sout")
+
+
+def _stacked_layer(stacked, l):
+    """Layer ``l`` of a ``MoDeDiT.stack_layers`` dict: (attention weights
+    for ``fused_layer_q8c_ref``, int8 experts, QuantizedAttn or None)."""
+    qexp = QuantizedExperts(*(stacked[k][l]
+                              for k in QuantizedExperts._fields))
+    if "sqkv" in stacked:
+        qa = QuantizedAttn(*(stacked[k][l] for k in STACKED_QATTN))
+        return (None, stacked["bqkv"][l], None), qexp, qa
+    return (stacked["wqkv"][l], stacked["bqkv"][l], stacked["wout"][l]), \
+        qexp, None
+
+
+def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
+                      block_hidden: int = 1024, eps1: float = 1e-6,
+                      eps_qk: float = 1e-6, eps2: float = 1e-6,
+                      acc_dtype: torch.dtype = torch.float32,
+                      red_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the DiT megakernel: ``fused_layer_q8c_ref``
+    chained over the L layers of ``stacked`` (``MoDeDiT.stack_layers``), x
+    carried in its own dtype between layers. top2_idx/probs are [L,S,2]
+    tables with a ``step`` row selector, or [L,2] single rows. int8
+    attention projections when ``stacked`` has "sqkv"."""
+    for l in range(stacked["wqkv"].shape[0]):
+        (wqkv, bqkv, wout), qexp, qa = _stacked_layer(stacked, l)
+        x = fused_layer_q8c_ref(
+            x, c, stacked["ln1"][l], wqkv, bqkv, stacked["q_g"][l],
+            stacked["k_g"][l], wout, stacked["ln2"][l], qexp, top2_idx[l],
+            top2_probs[l], step=step, qattn=qa, block_hidden=block_hidden,
+            eps1=eps1, eps_qk=eps_qk, eps2=eps2, acc_dtype=acc_dtype,
+            red_dtype=red_dtype)
+    return x
+
+
 _LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 6 + [ctypes.c_void_p])
@@ -137,7 +205,7 @@ _LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int]
 @functools.lru_cache(maxsize=None)
 def _launcher():
     from ._build import load_library
-    fn = load_library().fused_layer_q8c_launch
+    fn = load_library("fused_layer_q8c").fused_layer_q8c_launch
     fn.argtypes = _LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -155,22 +223,55 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_widths(T, D, H, hd, TH, c):
+    if not (1 <= T <= 16):
+        raise ValueError(f"the CUDA kernel takes 1..16 tokens per sample, got {T}")
+    if D % 128 or D > 4096 or H * hd != D or hd % 32 or hd > 512:
+        raise ValueError(f"unsupported widths D={D}, head_dim={hd}")
+    if TH % 128:
+        raise ValueError(f"block_hidden {TH} must be a multiple of 128")
+    if c.numel() != D:
+        raise ValueError("the CUDA kernel takes one shared [1,1,D] cond row; "
+                         f"got c of shape {tuple(c.shape)}")
+
+
+def _tables(top2_idx, top2_probs, step, lead=()):
+    """Routing tables as [*lead, S, 2] (single rows get S = 1) and the
+    checked row index."""
+    idx = torch.as_tensor(top2_idx)
+    probs = torch.as_tensor(top2_probs)
+    if idx.ndim == len(lead) + 1:
+        idx, probs = idx.unsqueeze(-2), probs.unsqueeze(-2)
+    S = idx.shape[-2]
+    s = 0 if step is None else int(step)
+    if not 0 <= s < S:
+        raise IndexError(f"step {s} outside the {S}-row routing tables")
+    return idx, probs, S, s
+
+
 def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
                     qexp: QuantizedExperts, top2_idx, top2_probs, *,
-                    step=None, block_hidden: int = 1024, eps1: float = 1e-6,
+                    step=None, qattn: QuantizedAttn = None,
+                    block_hidden: int = 1024, eps1: float = 1e-6,
                     eps_qk: float = 1e-6, eps2: float = 1e-6) -> torch.Tensor:
     """One full NoiseBlockMoE inference layer.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 activations,
-    a shared [1,1,D] cond row, T <= 16, hd a multiple of 32). CPU tensors:
-    the plain version ``fused_layer_q8c_ref``. Returns x.dtype [B,T,D]."""
+    bf16 projections, a shared [1,1,D] cond row, T <= 16, hd a multiple of
+    32). CPU tensors: the plain version ``fused_layer_q8c_ref``, with int8
+    projections too (``qattn``). Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_layer_q8c_ref(
             x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, qexp, top2_idx,
-            top2_probs, step=step, block_hidden=block_hidden, eps1=eps1,
-            eps_qk=eps_qk, eps2=eps2)
+            top2_probs, step=step, qattn=qattn, block_hidden=block_hidden,
+            eps1=eps1, eps_qk=eps_qk, eps2=eps2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_q8c runs on CUDA or CPU, not {x.device}")
+    if qattn is not None:
+        raise NotImplementedError(
+            "fused_layer_q8c with int8 attention projections (qattn) has no "
+            "CUDA kernel yet; it belongs to the max-throughput slice "
+            "(ROADMAP.md Queue 2). The DiT megakernel fused_dit_q8c has them.")
 
     dev = x.device
     if x.ndim != 3:
@@ -181,15 +282,7 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     E, _, H2 = qexp.w1_q.shape
     HH = H2 // 2
     TH = _hidden_block(HH, block_hidden)
-    if not (1 <= T <= 16):
-        raise ValueError(f"the CUDA kernel takes 1..16 tokens per sample, got {T}")
-    if D % 128 or D > 4096 or H * hd != D or hd % 32 or hd > 512:
-        raise ValueError(f"unsupported widths D={D}, head_dim={hd}")
-    if TH % 128:
-        raise ValueError(f"block_hidden {TH} must be a multiple of 128")
-    if c.numel() != D:
-        raise ValueError("the CUDA kernel takes one shared [1,1,D] cond row; "
-                         f"got c of shape {tuple(c.shape)}")
+    _check_widths(T, D, H, hd, TH, c)
     bf = torch.bfloat16
     _check(x, "x", bf, (B, T, D), dev)
     wqkv = wqkv.to(bf)
@@ -212,16 +305,9 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
         _check(t, name, torch.float32, shape, dev)
     _check(qexp.w1_q, "w1_q", torch.int8, (E, D, H2), dev)
     _check(qexp.w2_q, "w2_q", torch.int8, (E, HH, D), dev)
-    idx = torch.as_tensor(top2_idx)
-    probs = torch.as_tensor(top2_probs)
-    if idx.ndim == 1:
-        idx, probs = idx[None], probs[None]
-    S = idx.shape[0]
+    idx, probs, S, s = _tables(top2_idx, top2_probs, step)
     _check(idx, "top2_idx", torch.int32, (S, 2), dev)
     _check(probs, "top2_probs", torch.float32, (S, 2), dev)
-    s = 0 if step is None else int(step)
-    if not 0 <= s < S:
-        raise IndexError(f"step {s} outside the {S}-row routing tables")
 
     M = B * T
     n_h = HH // TH
@@ -254,3 +340,118 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
 
 
 fused_layer_q8c.launches = 0
+
+
+_DIT_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
+                 + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _dit_launcher():
+    from ._build import load_library
+    fn = load_library("fused_dit_q8c").fused_dit_q8c_launch
+    fn.argtypes = _DIT_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
+                  block_hidden: int = 1024, eps1: float = 1e-6,
+                  eps_qk: float = 1e-6, eps2: float = 1e-6) -> torch.Tensor:
+    """All L NoiseBlockMoE inference layers of one denoise step.
+
+    ``stacked`` is ``MoDeDiT.stack_layers()``: ln1/ln2 [L,D], q_g/k_g
+    [L,hd], bqkv [L,3D] in f32; wqkv [L,D,3D] and wout [L,D,D] in bf16, or
+    int8 with their f32 column scales sqkv [L,3D] / sout [L,D]; the int8
+    experts w1_q [L,E,D,2H], w1_s/b1 [L,E,2H], w2_q [L,E,H,D], w2_s [L,E,D].
+    top2_idx/probs are [L,S,2] tables (int32 / f32) with a ``step`` row
+    selector, or [L,2] single rows.
+
+    CUDA tensors: ONE cooperative launch of the hand-written megakernel
+    (bf16 activations, a shared [1,1,D] cond row, T <= 16); a device
+    without cooperative launch, or a grid that does not fit, raises.
+    CPU tensors: the plain version ``fused_dit_q8c_ref``. Returns x.dtype
+    [B,T,D]. The info of the last launch (grid size, CTAs per SM, shared
+    memory per CTA) is kept in ``fused_dit_q8c.last_grid``."""
+    if x.device.type == "cpu":
+        return fused_dit_q8c_ref(
+            x, c, stacked, top2_idx, top2_probs, step=step,
+            block_hidden=block_hidden, eps1=eps1, eps_qk=eps_qk, eps2=eps2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dit_q8c runs on CUDA or CPU, not {x.device}")
+
+    dev = x.device
+    if x.ndim != 3:
+        raise ValueError(f"x must be [B,T,D], got {tuple(x.shape)}")
+    int8_attn = "sqkv" in stacked
+    B, T, D = x.shape
+    L = stacked["wqkv"].shape[0]
+    hd = stacked["q_g"].shape[-1]
+    H = D // hd
+    E, _, H2 = stacked["w1_q"].shape[1:]
+    HH = H2 // 2
+    TH = _hidden_block(HH, block_hidden)
+    _check_widths(T, D, H, hd, TH, c)
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    wdt = i8 if int8_attn else bf
+    _check(x, "x", bf, (B, T, D), dev)
+    want = {"ln1": (f32, (L, D)), "wqkv": (wdt, (L, D, 3 * D)),
+            "bqkv": (f32, (L, 3 * D)), "q_g": (f32, (L, hd)),
+            "k_g": (f32, (L, hd)), "wout": (wdt, (L, D, D)),
+            "ln2": (f32, (L, D)), "w1_q": (i8, (L, E, D, H2)),
+            "w1_s": (f32, (L, E, H2)), "b1": (f32, (L, E, H2)),
+            "w2_q": (i8, (L, E, HH, D)), "w2_s": (f32, (L, E, D))}
+    if int8_attn:
+        want.update(sqkv=(f32, (L, 3 * D)), sout=(f32, (L, D)))
+    for k, (dt, shape) in want.items():
+        _check(stacked[k], k, dt, shape, dev)
+    c = c.reshape(D).float().contiguous()
+    idx, probs, S, s = _tables(top2_idx, top2_probs, step, lead=(L,))
+    _check(idx, "top2_idx", torch.int32, (L, S, 2), dev)
+    _check(probs, "top2_probs", f32, (L, S, 2), dev)
+
+    M = B * T
+    n_h = HH // TH
+
+    def buf(*shape, dtype):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    none = None
+    h = none if int8_attn else buf(M, D, dtype=bf)
+    o = none if int8_attn else buf(M, D, dtype=bf)
+    hq, hs, o32, oq, os_ = ((buf(M, D, dtype=i8), buf(M, dtype=f32),
+                             buf(M, D, dtype=f32), buf(M, D, dtype=i8),
+                             buf(M, dtype=f32)) if int8_attn
+                            else (none,) * 5)
+    scratch = [h, hq, hs, buf(M, 3 * D, dtype=f32), o, o32, oq, os_,
+               buf(M, D, dtype=bf), buf(M, D, dtype=bf), buf(M, D, dtype=i8),
+               buf(M, dtype=f32), buf(2, M, HH, dtype=f32),
+               buf(2, M, HH, dtype=i8), buf(2, M, n_h, dtype=f32),
+               buf(2 * n_h, M, D, dtype=f32), buf(M, D, dtype=bf)]
+    out = buf(B, T, D, dtype=bf)
+    ptrs = [t.data_ptr() for t in (x, c, stacked["ln1"], stacked["wqkv"])]
+    ptrs.append(stacked["sqkv"].data_ptr() if int8_attn else None)
+    ptrs += [stacked[k].data_ptr() for k in ("bqkv", "q_g", "k_g", "wout")]
+    ptrs.append(stacked["sout"].data_ptr() if int8_attn else None)
+    ptrs += [stacked[k].data_ptr() for k in
+             ("ln2", "w1_q", "w1_s", "b1", "w2_q", "w2_s")]
+    ptrs += [idx.data_ptr(), probs.data_ptr()]
+    scr = [None if t is None else t.data_ptr() for t in scratch]
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _dit_launcher()(
+            *ptrs, S, s, *scr, out.data_ptr(), L, B, T, D, H, HH, TH, E,
+            int(int8_attn), eps1, eps_qk, eps2, D ** -0.5, hd ** -0.5,
+            float(1.0 / math.sqrt(hd)), info, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_dit_q8c cooperative launch failed: CUDA "
+                           f"error {err}")
+    fused_dit_q8c.launches += 1
+    fused_dit_q8c.last_grid = tuple(info)
+    return out
+
+
+fused_dit_q8c.launches = 0
+fused_dit_q8c.last_grid = None

@@ -2,16 +2,24 @@
 
 Ported presets:
 
-- ``reference``  the plain PyTorch graph (no kernels): per-step top-2 gather
-                 of the bf16/f32 experts.
-- ``parity``     int8 experts + the whole-layer CUDA kernel
-                 (``ops/kernels/layer_kernel.fused_layer_q8c``) + BN-folded
-                 encoders.
-- ``auto``       ``parity`` when the agent lives on CUDA, else ``reference``.
+- ``reference``       the plain PyTorch graph (no kernels): per-step top-2
+                      gather of the bf16/f32 experts.
+- ``parity``          int8 experts + the whole-layer CUDA kernel
+                      (``ops/kernels/layer_kernel.fused_layer_q8c``) +
+                      BN-folded encoders.
+- ``b1-latency``      ``parity`` with the whole 12-layer block stack in ONE
+                      launch per denoise step (the DiT megakernel,
+                      ``ops/kernels/layer_kernel.fused_dit_q8c``): the
+                      one-robot latency preset.
+- ``b1-latency-max``  ``b1-latency`` with int8 attention projections inside
+                      the megakernel (per-row activation quant). The JAX
+                      package documents it as over the parity budget:
+                      validate on the task before serving.
+- ``auto``            ``parity`` when the agent lives on CUDA, else
+                      ``reference``.
 
-``max-throughput``, ``b1-latency`` and ``b1-latency-max`` need kernels that
-are not ported yet; they raise ``NotImplementedError`` rather than run
-another path.
+``max-throughput`` needs kernels that are not ported yet; it raises
+``NotImplementedError`` rather than run another path.
 """
 from __future__ import annotations
 
@@ -22,9 +30,19 @@ UNPORTED_MODES = {
     "max-throughput": "attn_kernel.fused_attn_block_q8 (int8 attention "
                       "projections) and moe_kernel.fused_top2_mlp_q8c, plus "
                       "the int8 encoder convs",
-    "b1-latency": "layer_kernel.fused_dit_q8c (the 12-layer megakernel)",
-    "b1-latency-max": "layer_kernel.fused_dit_q8c with int8 attention "
-                      "projections",
+}
+
+# config flags of each preset (the JAX package's flag map, without its
+# Pallas switches, which have no counterpart here)
+PRESET_FLAGS = {
+    "reference": dict(use_int8_moe=False, use_fused_layer=False,
+                      use_int8_attn=False, use_megakernel=False),
+    "parity": dict(use_int8_moe=True, use_fused_layer=True,
+                   use_int8_attn=False, use_megakernel=False),
+    "b1-latency": dict(use_int8_moe=True, use_fused_layer=True,
+                       use_int8_attn=False, use_megakernel=True),
+    "b1-latency-max": dict(use_int8_moe=True, use_fused_layer=True,
+                           use_int8_attn=True, use_megakernel=True),
 }
 
 
@@ -40,21 +58,25 @@ def resolve_serving_mode(mode: str, device_type: str = "cuda") -> str:
 def apply_serving_mode(agent, mode: str):
     """Reconfigure ``agent`` (a ``models.agent.MoDEAgent``) for a serving
     mode, in place, and return it. Call after loading weights: the folded
-    encoders and the int8 experts are derived from the current weights."""
+    encoders, the int8 weights and the megakernel's layer stack are derived
+    from the current weights. A second preset may be applied to the same
+    agent: the int8 weights are always quantized from the f32 values."""
     mode = resolve_serving_mode(mode, agent.device.type)
     if mode in UNPORTED_MODES:
         raise NotImplementedError(
             f"serving mode {mode!r} needs {UNPORTED_MODES[mode]}, not ported "
             "to CUDA yet (ROADMAP.md Queue 2)")
-    if mode == "reference":
-        return agent
     cfg = agent.cfg
-    if (cfg.latent_dim // cfg.n_heads) % 128 or cfg.top_k != 2:
+    if mode != "reference" and ((cfg.latent_dim // cfg.n_heads) % 128
+                                or cfg.top_k != 2):
         raise NotImplementedError(
-            "parity serving outside the whole-layer kernel's shapes (head "
-            "dim a multiple of 128, top-2 routing) needs the attention and "
-            "MoE kernels, not ported yet (ROADMAP.md Queue 2)")
-    agent.configure_(use_int8_moe=True, use_fused_layer=True)
-    agent.fold_encoders_for_inference()
+            f"{mode} serving outside the fused kernels' shapes (head dim a "
+            "multiple of 128, top-2 routing) needs the attention and MoE "
+            "kernels, not ported yet (ROADMAP.md Queue 2)")
+    agent.configure_(**PRESET_FLAGS[mode])
+    if mode == "reference":
+        agent.folded = None        # the plain encoders, as the JAX preset
+    else:
+        agent.fold_encoders_for_inference()
     agent.quantize_for_inference()
     return agent

@@ -19,7 +19,8 @@ from mode_diffusion_policy_tpu_torch.models.edm.samplers import (
     UNPORTED_SAMPLERS, sample_loop)
 from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
     fused_layer_q8c)
-from mode_diffusion_policy_tpu_torch.serving import (SERVING_MODES,
+from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
+                                                     SERVING_MODES,
                                                      UNPORTED_MODES,
                                                      apply_serving_mode,
                                                      resolve_serving_mode)
@@ -63,6 +64,10 @@ for n in names:
     importlib.import_module(n)
 import runpy
 runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="chip_smoke_import")
+# importing builds and loads no kernel: that happens at the first CUDA call
+from mode_diffusion_policy_tpu_torch.ops.kernels import _build, layer_kernel
+assert _build.load_library.cache_info().currsize == 0
+assert layer_kernel.fused_dit_q8c.launches == 0
 print(len(names), "modules")
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -105,8 +110,11 @@ def test_unported_presets_raise(mode):
 
 
 def test_serving_mode_names():
-    assert set(UNPORTED_MODES) | {"reference", "parity", "auto"} == \
-        set(SERVING_MODES)
+    assert set(UNPORTED_MODES) | set(PRESET_FLAGS) | {"reference", "auto"} \
+        == set(SERVING_MODES)
+    assert set(PRESET_FLAGS) == {"reference", "parity", "b1-latency",
+                                 "b1-latency-max"}
+    assert set(UNPORTED_MODES) == {"max-throughput"}
     assert resolve_serving_mode("auto", "cuda") == "parity"
     assert resolve_serving_mode("auto", "cpu") == "reference"
     with pytest.raises(ValueError, match="unknown serving mode"):
@@ -122,6 +130,22 @@ def test_unported_samplers_raise(name):
     with pytest.raises(ValueError, match="not found"):
         sample_loop("no-such-sampler", lambda x, s, i: x, x,
                     np.array([1.0, 0.0]))
+
+
+def test_megakernel_presets_run_on_the_cpu_when_asked():
+    """b1-latency and b1-latency-max are ported: on a CPU agent they build
+    the layer stack and run the plain version of the megakernel."""
+    for mode in ("b1-latency", "b1-latency-max"):
+        agent = MoDEAgent(MoDEAgentConfig(**TINY), device="cpu")
+        policy = RolloutPolicy.with_serving_mode(agent, mode=mode)
+        assert agent.cfg.use_megakernel
+        assert agent.cfg.use_int8_attn == (mode == "b1-latency-max")
+        assert agent.inner_model.stacked["w1_q"].shape[0] == TINY["n_layers"]
+        obs = {k: torch.zeros(1, 1, 32, 32, 3) for k in ("rgb_static",
+                                                         "rgb_gripper")}
+        chunk = policy.predict_chunk(
+            obs, {"lang_emb": torch.zeros(1, 1, TINY["cond_dim"])})
+        assert chunk.shape == (1, 10, 7) and torch.isfinite(chunk).all()
 
 
 def test_layer_wrapper_rejects_other_devices():

@@ -142,11 +142,16 @@ def test_plain_layer_f64_accumulation_is_a_near_copy():
 def test_build_needs_nvcc_and_writes_under_ignored_build_dir(monkeypatch,
                                                              tmp_path):
     from mode_diffusion_policy_tpu_torch.ops.kernels import _build
-    lib = _build.library_path()
-    assert lib.parent == _build.BUILD_DIR
-    assert lib.parent.relative_to(_build.PKG_DIR.parent).parts[0] == "build"
-    assert lib == _build.library_path()          # stable for unchanged sources
-    assert [p.name for p in _build.sources()] == ["fused_layer_q8c.cu"]
+    assert [p.name for p in _build.sources()] == ["fused_dit_q8c.cu",
+                                                  "fused_layer_q8c.cu"]
+    assert [p.name for p in _build.headers()] == ["layer_stages.cuh"]
+    for src in _build.sources():
+        lib = _build.library_path(src)
+        assert lib.parent == _build.BUILD_DIR
+        assert lib.parent.relative_to(_build.PKG_DIR.parent).parts[0] == \
+            "build"
+        assert lib.name.startswith(f"lib{src.stem}_")
+        assert lib == _build.library_path(src)   # stable for unchanged sources
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)

@@ -186,3 +186,177 @@ def test_precast_is_bit_identical(setup):
     assert m_bf.blocks[0].attn.wqkv.kernel.dtype == torch.bfloat16
     assert m_bf.blocks[0].ln_1.g.dtype == torch.float32
     torch.testing.assert_close(after, before, rtol=0, atol=0)
+
+
+def _mega_pair(params, int8_attn):
+    """The JAX DiT with its megakernel flags and quant collection, and the
+    port's DiT with its layer stack, on the same weights."""
+    from mode_diffusion_policy_tpu.ops.quant import quantize_attn as jqattn
+    jcfg = JCfg(**DIMS, use_int8_moe=True, use_pallas_moe=True,
+                use_pallas_attn=True, use_fused_layer=True,
+                use_int8_attn=int8_attn, use_megakernel=True)
+    quant = _jax_quant(params)
+    if int8_attn:
+        for name, entry in quant.items():
+            a = params[name]["attn"]
+            entry["attn"] = {"attn_q": tuple(jqattn(
+                a["wqkv"]["kernel"], a["wqkv"]["bias"],
+                a["c_proj"]["kernel"]))}
+    port = _port(params, use_int8_moe=True, use_fused_layer=True,
+                 use_int8_attn=int8_attn, use_megakernel=True)
+    port.quantize_experts_()
+    if int8_attn:
+        port.quantize_attn_()
+    port.stack_layers_()
+    return JDiT(jcfg), {"params": params, "quant": quant}, port
+
+
+@pytest.mark.parametrize("int8_attn", [False, True],
+                         ids=["bf16-attn", "int8-attn"])
+def test_stack_layers_matches_jax(setup, int8_attn):
+    """The port's cached layer stack against the JAX stack_layers, leaf by
+    leaf: the same keys, the same int8 tensors, the same f32 values."""
+    params, _ = setup
+    jdit, jv, port = _mega_pair(params, int8_attn)
+    want = jdit.apply(jv, method=JDiT.stack_layers)
+    got = port.stacked
+    assert set(got) == set(want)
+    assert ("sqkv" in got) == int8_attn
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert tuple(got[k].shape) == w.shape, k
+        if w.dtype == np.int8:
+            assert got[k].dtype == torch.int8
+            np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k].float().numpy(),
+                                          w.astype(np.float32), err_msg=k)
+
+
+def test_stacked_int8_weights_are_not_held_twice(setup):
+    """After stack_layers_ every block's int8 experts and projections are
+    slices of the stack (the per-block copies are gone)."""
+    params, _ = setup
+    _, _, port = _mega_pair(params, True)
+    st = port.stacked
+    for l, blk in enumerate(port.blocks):
+        for k, t in zip(("w1_q", "w2_q"), (blk.experts_q.w1_q,
+                                           blk.experts_q.w2_q)):
+            assert t.untyped_storage().data_ptr() == \
+                st[k].untyped_storage().data_ptr()
+            assert t.data_ptr() == st[k][l].data_ptr()
+        assert blk.attn.attn_q.wqkv_q.data_ptr() == st["wqkv"][l].data_ptr()
+
+
+@pytest.mark.parametrize("int8_attn", [False, True],
+                         ids=["bf16-attn", "int8-attn"])
+@pytest.mark.parametrize("step", [1, 4])
+def test_forward_precomputed_mega_matches(setup, int8_attn, step):
+    """One denoise step through the whole-stack function (the plain version
+    on the CPU) against the JAX megakernel (interpret mode), at the steps
+    and with the tolerance of test_forward_precomputed_fused_layer_matches.
+    At step 3 the two packages' token embeddings differ by ~1e-7 and move
+    one int8 rounding of the sigma-token row, which every sample shares
+    and attends to: ~3e-3 at the output, on the per-layer path as well
+    (test_forward_precomputed_mega_is_the_layer_path pins the two paths
+    together on each side)."""
+    params, a = setup
+    jdit, jv, port = _mega_pair(params, int8_attn)
+    states = {"state_images": jnp.asarray(a["states"])}
+    goals = jnp.asarray(a["goals"])
+    static_x, goal_embed = jdit.apply(jv, states, goals,
+                                      method=JDiT.embed_static_tokens)
+    emb = jdit.apply(jv, jnp.asarray(SIGMAS),
+                     method=JDiT.process_sigma_embeddings)
+    routing = jdit.apply(jv, jnp.asarray(SIGMAS),
+                         method=JDiT.precompute_routing)
+    want = jdit.apply(jv, static_x, goal_embed, emb[step][None],
+                      jnp.asarray(a["actions"]),
+                      jdit.apply(jv, method=JDiT.stack_layers),
+                      jnp.stack([i for i, _ in routing]),
+                      jnp.stack([p for _, p in routing]), jnp.int32(step),
+                      method=JDiT.forward_precomputed_mega)
+    with torch.no_grad():
+        sx, ge = port.embed_static_tokens(
+            {"state_images": torch.from_numpy(a["states"])},
+            torch.from_numpy(a["goals"]))
+        temb = port.process_sigma_embeddings(torch.from_numpy(SIGMAS))
+        trout = port.precompute_routing(torch.from_numpy(SIGMAS))
+        got = port.forward_precomputed_mega(
+            sx, ge, temb[step][None], torch.from_numpy(a["actions"]),
+            port.stacked, torch.stack([i for i, _ in trout]),
+            torch.stack([p for _, p in trout]), step).numpy()
+    d = np.abs(got - np.asarray(want))
+    assert np.isfinite(got).all()
+    assert d.mean() <= 1e-4, d.mean()
+    assert d.max() <= 5e-3, d.max()
+
+
+def test_config_rejects_megakernel_and_int8_attn_without_fused_layer():
+    for flag in ("use_int8_attn", "use_megakernel"):
+        with pytest.raises(ValueError, match=flag):
+            TCfg(**DIMS, **{flag: True})
+    with pytest.raises(ValueError, match="head_dim"):
+        TCfg(**{**DIMS, "n_heads": 4}, use_int8_moe=True,
+             use_fused_layer=True, use_megakernel=True)
+
+
+def test_precast_keeps_f32_masters_and_load_restores_them(setup):
+    """precast_ casts in place but keeps the f32 values for the quantizers;
+    loading a state dict afterwards loads into f32 leaves again."""
+    params, _ = setup
+    m = _port(params)
+    m.cfg = TCfg(**DIMS, dtype=torch.bfloat16)
+    name = "blocks.0.experts_w1"
+    f32 = m.get_parameter(name).detach().clone()
+    m.precast_(torch.bfloat16)
+    assert m.get_parameter(name).dtype == torch.bfloat16
+    torch.testing.assert_close(m.f32_param(name), f32, rtol=0, atol=0)
+    m.load_state_dict(dit_state_dict(_random_params(seed=3)))
+    assert m.get_parameter(name).dtype == torch.float32
+    assert not m._f32_masters
+    assert not torch.equal(m.f32_param(name), f32)
+
+
+@pytest.mark.parametrize("int8_attn", [False, True],
+                         ids=["bf16-attn", "int8-attn"])
+def test_forward_precomputed_mega_is_the_layer_path(setup, int8_attn):
+    """On each side, the whole-stack path equals the per-layer fused path
+    exactly, at every scheduled step."""
+    params, a = setup
+    jdit, jv, port = _mega_pair(params, int8_attn)
+    acts = jnp.asarray(a["actions"])
+    sx_j, ge_j = jdit.apply(jv, {"state_images": jnp.asarray(a["states"])},
+                            jnp.asarray(a["goals"]),
+                            method=JDiT.embed_static_tokens)
+    emb_j = jdit.apply(jv, jnp.asarray(SIGMAS),
+                       method=JDiT.process_sigma_embeddings)
+    rout_j = jdit.apply(jv, jnp.asarray(SIGMAS),
+                        method=JDiT.precompute_routing)
+    st_j = jdit.apply(jv, method=JDiT.stack_layers)
+    with torch.no_grad():
+        sx, ge = port.embed_static_tokens(
+            {"state_images": torch.from_numpy(a["states"])},
+            torch.from_numpy(a["goals"]))
+        temb = port.process_sigma_embeddings(torch.from_numpy(SIGMAS))
+        rout = port.precompute_routing(torch.from_numpy(SIGMAS))
+    tabs = (torch.stack([i for i, _ in rout]),
+            torch.stack([p for _, p in rout]))
+    for step in range(len(SIGMAS)):
+        with torch.no_grad():
+            mega = port.forward_precomputed_mega(
+                sx, ge, temb[step][None], torch.from_numpy(a["actions"]),
+                port.stacked, *tabs, step)
+            layer = port.forward_precomputed(
+                sx, ge, temb[step][None], torch.from_numpy(a["actions"]),
+                moe_overrides=[(i, p, step) for i, p in rout])
+        torch.testing.assert_close(mega, layer, rtol=0, atol=0)
+        jm = jdit.apply(jv, sx_j, ge_j, emb_j[step][None], acts, st_j,
+                        jnp.stack([i for i, _ in rout_j]),
+                        jnp.stack([p for _, p in rout_j]), jnp.int32(step),
+                        method=JDiT.forward_precomputed_mega)
+        jl = jdit.apply(jv, sx_j, ge_j, emb_j[step][None], acts,
+                        moe_overrides=[(i, p, jnp.int32(step))
+                                       for i, p in rout_j],
+                        method=JDiT.forward_precomputed)
+        np.testing.assert_array_equal(np.asarray(jm), np.asarray(jl))
