@@ -12,16 +12,27 @@ served paths at full flagship width (12 layers, D=1024, 2x FiLM-ResNet-50 at
   120 launches per chunk);
 - ``b1-latency`` and ``b1-latency-max`` at b=1 (the DiT megakernel
   ``fused_dit_q8c``, 10 launches per chunk, bf16 or int8 attention
-  projections), applied in turn to the same agent.
+  projections);
+- ``max-throughput`` at b=128 (int8 encoder convs calibrated on a few
+  synthetic frames, then per layer and step the attention kernel
+  ``fused_attn_block_q8`` and the MoE kernel ``fused_top2_mlp_q8c``: 120
+  launches of each per chunk),
+
+each preset applied in turn to the same agent, each policy serving its own
+precast copy of it.
 
 For the megakernel it also checks each layer against the plain layer, the
 whole stack against the plain stack and (bf16 projections) against 12
-chained ``fused_layer_q8c`` launches, bit for bit. It checks the launch
-counts of every path and the kernel-vs-plain action error, times the
-kernels, their plain versions, a PyTorch-library composition of the same
-work and whole chunks, and prints one JSON line for the kernels and a
-final status line. Every phase that fails exits non-zero; without CUDA
-nothing is run. Imports nothing of JAX.
+chained ``fused_layer_q8c`` launches, bit for bit; for the two-kernel
+layer, each kernel against its plain version and, on every layer,
+attention then MoE against a one-layer megakernel launch with int8
+projections, bit for bit; for the int8 convs, ``torch._int_mm`` against
+exact CPU sums. It checks the launch counts of every path and the
+kernel-vs-plain action error, times the kernels, their plain versions, a
+PyTorch-library composition of the same work, whole chunks and the
+encoders, and prints one JSON line for the kernels and a final status
+line. Every phase that fails exits non-zero; without CUDA nothing is run.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -131,9 +142,9 @@ def bound_of(bf16, int8, nbytes):
 
 
 def chunk_split(policy, obs, goal, noise, chunk_ms):
-    """One b=1 chunk under torch.profiler: device time in the DiT kernels
-    (the megakernel or the layer kernel's stages) and in the rest (encoders,
-    glue). The device idle share is one minus the device busy time over
+    """One chunk under torch.profiler: device time in the DiT kernels (the
+    megakernel's, the layer kernel's or the two-kernel path's stages) and in
+    the rest (encoders, glue). The device idle share is one minus the device busy time over
     ``chunk_ms``, the chunk's wall time measured without the profiler (the
     profiler's own host overhead lengthens the chunk it traces)."""
     import torch
@@ -153,8 +164,9 @@ def chunk_split(policy, obs, goal, noise, chunk_ms):
             us = getattr(ev, "cuda_time_total", 0.0)
         if not us:
             continue
-        if re.search(r"fused_dit_kernel|(ln1|gemm_bf16|attn|ln2_quant|moe_up|"
-                     r"act_quant|moe_down|moe_sum)_kernel", ev.key):
+        if re.search(r"fused_dit_kernel|(ln1|ln1_quant|gemm_bf16|gemm_i8|attn|"
+                     r"quant_f32|ln2_quant|quant_row|moe_up|act_quant|"
+                     r"moe_down|moe_sum)_kernel", ev.key):
             dit += us / 1e3
         else:
             other += us / 1e3
@@ -349,6 +361,286 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
     return out
 
 
+def attn_cost(B, T, D, H):
+    """(bf16 flops, int8 ops, bytes) of one fused_attn_block_q8 call: the
+    int8 QKV and c_proj products, the causal attention of each sample, x
+    read and the output written once, the int8 weights and f32 vectors."""
+    N, hd = B * T, D // H
+    pairs = T * (T + 1) // 2
+    bf16 = B * H * pairs * hd * 4
+    int8 = 2 * N * D * 3 * D + 2 * N * D * D
+    nbytes = 2 * N * D * 2 + 4 * D * D + (3 * D * 3 + D * 3) * 4 + 2 * hd * 4
+    return bf16, int8, nbytes
+
+
+def moe_cost(B, T, D, HH):
+    """(bf16 flops, int8 ops, bytes) of one fused_top2_mlp_q8c call with
+    top-2 routing: the two selected experts' int8 up and down products and
+    weights, ln_2, x read and the output written once."""
+    N = B * T
+    int8 = 2 * (2 * N * D * 2 * HH + 2 * N * HH * D)
+    expert = D * 2 * HH + 2 * HH * 8 + HH * D + D * 4
+    return 0, int8, 2 * N * D * 2 + D * 4 + 2 * expert
+
+
+def quant_rows_lib(a):
+    """Per-row int8 quantization in stock torch ops (the library yardstick)."""
+    import torch
+    s = a.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    return torch.round(a * (1.0 / s)).clamp_(-127, 127).to(torch.int8), s
+
+
+def int_mm_rows(a, b):
+    """torch._int_mm needs more than 16 rows: pad a with zero rows."""
+    import torch
+    M = a.shape[0]
+    if M > 16:
+        return torch._int_mm(a, b)
+    pad = torch.zeros(32 - M, a.shape[1], dtype=a.dtype, device=a.device)
+    return torch._int_mm(torch.cat([a, pad]), b)[:M]
+
+
+def library_attn(x, c, ln1_g, qa, q_g, k_g):
+    """The int8-projection attention sub-block as stock PyTorch calls
+    (torch._int_mm for QKV and c_proj, SDPA in bf16): a speed yardstick."""
+    import torch
+    import torch.nn.functional as F
+    B, T, D = x.shape
+    hd = q_g.shape[0]
+    H = D // hd
+    x32 = x.reshape(B * T, D).float()
+    h = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + 1e-12) \
+        * ln1_g + c.reshape(1, D).float()
+    hq, hs = quant_rows_lib(h)
+    qkv = int_mm_rows(hq, qa.wqkv_q).float() * (hs * qa.wqkv_s) + qa.bqkv
+    q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+
+    def rms(a, g):
+        return (a * torch.rsqrt(a.pow(2).mean(-1, keepdim=True) + 1e-12)
+                * g).to(x.dtype)
+
+    o = F.scaled_dot_product_attention(rms(q, q_g), rms(k, k_g),
+                                       v.to(x.dtype), is_causal=True)
+    oq, os_ = quant_rows_lib(o.transpose(1, 2).reshape(B * T, D).float())
+    y = int_mm_rows(oq, qa.wout_q).float() * (os_ * qa.wout_s)
+    return (x32 + y).to(x.dtype).reshape(B, T, D)
+
+
+def library_moe(x, ln2_g, qe, e, p, TH):
+    """The int8 top-2 MoE with ln_2 and the residual as stock PyTorch calls
+    (torch._int_mm for the up and down products, the row quantizations in
+    torch ops): a speed yardstick."""
+    import torch
+    import torch.nn.functional as F
+    B, T, D = x.shape
+    x32 = x.reshape(B * T, D).float()
+    xm = (x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + 1e-12)
+          * ln2_g).to(x.dtype).float()
+    xq, sx = quant_rows_lib(xm)
+    acc = xm
+    HH = qe.w1_q.shape[-1] // 2
+    for slot in range(2):
+        up = int_mm_rows(xq, qe.w1_q[e[slot]]).float() \
+            * (sx * qe.w1_s[e[slot]]) + qe.b1[e[slot]]
+        act = up[:, :HH] * F.silu(up[:, HH:])
+        for kb in range(HH // TH):
+            aq, sa = quant_rows_lib(act[:, kb * TH:(kb + 1) * TH])
+            acc = acc + p[slot] * int_mm_rows(
+                aq, qe.w2_q[e[slot], kb * TH:(kb + 1) * TH]).float() \
+                * (sa * qe.w2_s[e[slot]])
+    return acc.to(x.dtype).reshape(B, T, D)
+
+
+def layer_gate(name, got, want):
+    """The bf16-step-relative layer gates; returns (max |diff|, share of
+    the gate used)."""
+    import torch
+    d = (got.float() - want.float()).abs()
+    mean_tol = LAYER_MEAN_REL * want.float().abs().mean().item()
+    max_tol = LAYER_MAX_REL * want.float().abs().max().item()
+    if not (bool(torch.isfinite(got).all()) and d.mean().item() <= mean_tol
+            and d.max().item() <= max_tol):
+        raise SystemExit(f"{name}: kernel disagrees with its plain version: "
+                         f"max {d.max().item():.3e} (tol {max_tol:.3e}), "
+                         f"mean {d.mean().item():.3e} (tol {mean_tol:.3e})")
+    return d.max().item(), max(d.mean().item() / mean_tol,
+                               d.max().item() / max_tol)
+
+
+def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
+    """fused_attn_block_q8 and fused_top2_mlp_q8c at full width, b=128 and
+    b=1, on the flagship agent's int8 weights: each against its plain
+    version on the same input with the layer gates (the MoE kernel in all
+    four prenorm/residual combinations); for every layer, attention then
+    MoE equal to a one-layer fused_dit_q8c launch with int8 projections,
+    bit for bit. Then the kernels', the plain versions' and the library
+    yardsticks' times."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block_q8, fused_attn_block_q8_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        STACKED_QATTN, fused_dit_q8c)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.quant import QuantizedExperts
+
+    dev = emb_all.device
+    D, H, HH = cfg.latent_dim, cfg.n_heads, 4 * cfg.latent_dim
+    TH = min(1024, HH)
+    out = {"attn": dict(max_abs_err=0.0), "moe": dict(max_abs_err=0.0)}
+
+    def kw_attn(blk):
+        return dict(ln_eps=blk.ln_1.eps, qk_eps=blk.attn.q_norm.eps)
+
+    def attn_args(blk, x, c):
+        a = blk.attn
+        return (x, c, blk.ln_1.g, a.attn_q, a.q_norm.g, a.k_norm.g)
+
+    for B in (128, 1):
+        for s in steps:
+            blk = dit.blocks[0]
+            idx, probs = routing[0]
+            x = torch.randn(B, T, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            c = emb_all[s][None]
+            args = attn_args(blk, x, c)
+            y = fused_attn_block_q8(*args, **kw_attn(blk))
+            torch.cuda.synchronize()
+            err, used = layer_gate(f"fused_attn_block_q8 b={B} step={s}", y,
+                                   fused_attn_block_q8_ref(*args,
+                                                           **kw_attn(blk)))
+            out["attn"]["max_abs_err"] = max(out["attn"]["max_abs_err"], err)
+            msg = [f"attention {used:.2f}"]
+            for ln, resid in ((True, True), (True, False), (False, True),
+                              (False, False)):
+                kw = dict(step=s, residual=resid,
+                          ln_g=blk.ln_2.g if ln else None,
+                          ln_eps=blk.ln_2.eps)
+                got = fused_top2_mlp_q8c(y, idx, probs, blk.experts_q, **kw)
+                torch.cuda.synchronize()
+                err, used = layer_gate(
+                    f"fused_top2_mlp_q8c b={B} step={s} ln={ln} "
+                    f"residual={resid}", got, fused_top2_mlp_q8c_ref(
+                        y, idx, probs, blk.experts_q, **kw))
+                out["moe"]["max_abs_err"] = max(out["moe"]["max_abs_err"],
+                                                err)
+                msg.append(f"MoE ln={int(ln)} residual={int(resid)} "
+                           f"{used:.2f}")
+            print(f"  b={B} step={s} experts {idx[s].tolist()}: within the "
+                  f"layer gates (share of the gate used: {', '.join(msg)})",
+                  flush=True)
+        # attention -> MoE == a one-layer megakernel launch, every layer
+        s = steps[-1]
+        y = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+        c = emb_all[s][None]
+        for l, blk in enumerate(dit.blocks):
+            idx, probs = routing[l]
+            two = fused_top2_mlp_q8c(
+                fused_attn_block_q8(*attn_args(blk, y, c), **kw_attn(blk)),
+                idx, probs, blk.experts_q, step=s, residual=True,
+                ln_g=blk.ln_2.g, ln_eps=blk.ln_2.eps)
+            st = {"ln1": blk.ln_1.g[None], "q_g": blk.attn.q_norm.g[None],
+                  "k_g": blk.attn.k_norm.g[None], "ln2": blk.ln_2.g[None]}
+            st.update({k: v[None] for k, v in zip(STACKED_QATTN,
+                                                  blk.attn.attn_q)})
+            st.update({k: v[None] for k, v in zip(QuantizedExperts._fields,
+                                                  blk.experts_q)})
+            one = fused_dit_q8c(y, c, st, idx[None], probs[None], step=s,
+                                eps1=blk.ln_1.eps, eps_qk=blk.attn.q_norm.eps,
+                                eps2=blk.ln_2.eps)
+            diff = (two.float() - one.float()).abs().max().item()
+            if diff != 0.0:
+                raise SystemExit(f"b={B} layer {l}: fused_attn_block_q8 -> "
+                                 f"fused_top2_mlp_q8c differs from a one-layer"
+                                 f" fused_dit_q8c launch ({diff:.3e})")
+            y = two
+        print(f"  b={B} step={s}: attention -> MoE == one-layer megakernel "
+              f"launch, bit for bit, on all {len(dit.blocks)} layers "
+              "(chained)", flush=True)
+
+        # timing at step 0 on this B, layer 0
+        blk = dit.blocks[0]
+        idx, probs = routing[0]
+        x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+        c = emb_all[0][None]
+        args = attn_args(blk, x, c)
+        y = fused_attn_block_q8(*args, **kw_attn(blk))
+        e, p = idx[0].tolist(), probs[0].tolist()
+        moe_kw = dict(step=0, residual=True, ln_g=blk.ln_2.g,
+                      ln_eps=blk.ln_2.eps)
+        iters = 50 if B == 128 else 100
+        rows = {
+            "attn": (lambda: fused_attn_block_q8(*args, **kw_attn(blk)),
+                     lambda: fused_attn_block_q8_ref(*args, **kw_attn(blk)),
+                     lambda: library_attn(*args), attn_cost(B, T, D, H)),
+            "moe": (lambda: fused_top2_mlp_q8c(y, idx, probs, blk.experts_q,
+                                               **moe_kw),
+                    lambda: fused_top2_mlp_q8c_ref(y, idx, probs,
+                                                   blk.experts_q, **moe_kw),
+                    lambda: library_moe(y, blk.ln_2.g, blk.experts_q, e, p,
+                                        TH), moe_cost(B, T, D, HH)),
+        }
+        for name, (kern, plain, lib, cost) in rows.items():
+            k_ms = cuda_time_ms(kern, iters)
+            p_ms = cuda_time_ms(plain, 3)
+            l_ms = cuda_time_ms(lib, 20)
+            bound, by = bound_of(*cost)
+            out[name][B] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                bound_ms=bound, bound_by=by)
+            print(f"  {name} b={B}: kernel {k_ms:.4f} ms/launch, bound "
+                  f"{bound:.4f} ms ({by}; {cost[1] / 1e9:.2f} GOP int8, "
+                  f"{cost[2] / 1e6:.1f} MB), plain {p_ms:.3f} ms, library "
+                  f"{l_ms:.4f} ms", flush=True)
+        out["attn"][f"stages_b{B}"] = kernel_stages(
+            rows["attn"][0], f"fused_attn_block_q8 b={B}")
+        out["moe"][f"stages_b{B}"] = kernel_stages(
+            rows["moe"][0], f"fused_top2_mlp_q8c b={B}")
+    return out
+
+
+def check_int8_convs(q8_mod, gen):
+    """The int8 conv route (int8 patches, torch._int_mm) on three of the
+    encoder's convs at their real shapes: the int32 result equals an exact
+    CPU computation of the same int8 inputs."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.encoders.resnet import (
+        conv2d_i8)
+    r = q8_mod.resnet
+    for name, conv, hw in (("stem 4x4", r.conv1, 112),
+                           ("layer1_0 3x3", r.layer1_0.conv2, 56),
+                           ("layer2_0 3x3 stride 2", r.layer2_0.conv2, 56),
+                           ("layer2_0 1x1 stride 2 downsample",
+                            r.layer2_0.downsample_conv, 56)):
+        C = conv.kernel_q.shape[1]
+        xq = torch.randint(-127, 128, (8, C, hw, hw), generator=gen,
+                           device=conv.kernel_q.device, dtype=torch.int8)
+        got = conv2d_i8(xq, conv.kernel_q, conv.stride, conv.pad)
+        want = conv2d_i8(xq.cpu(), conv.kernel_q.cpu(), conv.stride,
+                         conv.pad)
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit(f"int8 conv {name}: torch._int_mm differs from "
+                             "the exact CPU sums")
+        print(f"  int8 conv {name} {tuple(got.shape)}: torch._int_mm == "
+              "exact CPU int32 sums", flush=True)
+
+
+def encoder_times(agent, x, cond, iters=5):
+    """Device ms of one camera encoder at this batch: folded bf16, int8
+    with dynamic scales and int8 with the calibrated scales."""
+    from mode_diffusion_policy_tpu_torch.models.agent import ENCODERS
+    from mode_diffusion_policy_tpu_torch.models.encoders.resnet import (
+        FiLMResNetPolicy, quantize_resnet_params)
+    name = ENCODERS[0]
+    folded = agent.folded[name]
+    dyn = FiLMResNetPolicy(agent.cfg.cond_dim, 50, agent.cfg.dtype,
+                           folded=True, q8=True, device=x.device)
+    dyn.load_state_dict(quantize_resnet_params(folded.state_dict()))
+    return {"folded_bf16": cuda_time_ms(lambda: folded(x, cond), iters),
+            "int8_dynamic": cuda_time_ms(lambda: dyn(x, cond), iters),
+            "int8_calibrated": cuda_time_ms(lambda: agent.q8[name](x, cond),
+                                            iters)}
+
 def main():
     import torch
 
@@ -382,8 +674,23 @@ def main():
     from mode_diffusion_policy_tpu_torch.models.agent import (
         MoDEAgent, MoDEAgentConfig, RolloutPolicy)
     from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block_q8, fused_attn_block_q8_ref)
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c, fused_layer_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
+    # every kernel's launch count; each served path is driven with all of
+    # them set to 0 just before and read just after
+    counters = (fused_attn_block_q8, fused_top2_mlp_q8c, fused_layer_q8c,
+                fused_dit_q8c)
+
+    def launches_of():
+        return {k.__name__: k.launches for k in counters}
+
+    def zero_launches():
+        for k in counters:
+            k.launches = 0
     from mode_diffusion_policy_tpu_torch.ops.quant import dequantize_experts
 
     dev = torch.device("cuda", 0)
@@ -393,13 +700,21 @@ def main():
     t = time.perf_counter()
     agent = MoDEAgent(cfg, device=dev)
     policy = RolloutPolicy.with_serving_mode(agent, mode="parity", seed=0)
-    dit = agent.inner_model
+    # the policy serves its own precast copy of the agent: the kernels'
+    # plain versions are swapped in there
+    dit = policy.agent.inner_model
+    copy_bytes = sum(p.numel() * p.element_size()
+                     for n, p in policy.agent.named_parameters()
+                     if p.data_ptr() != agent.get_parameter(n).data_ptr())
+    print(f"  the policy's precast copy holds {copy_bytes / 1e9:.3f} GB of "
+          "cast parameters of its own (the caller's agent stays f32)",
+          flush=True)
     phase("setup: full-width agent, parity preset", t)
 
     # ---- phase 3: the kernel against its plain version ------------------
     t = time.perf_counter()
     blk = dit.blocks[0]
-    routing = agent.precompute_routing()
+    routing = policy.agent.precompute_routing()
     idx, probs = routing[0]
     sched = torch.as_tensor(agent.sigmas[:-1], device=dev)
     emb_all = dit.process_sigma_embeddings(sched)
@@ -455,16 +770,17 @@ def main():
                                         device=dev)}
         policy.reset()
         chunks = 2
-        fused_layer_q8c.launches = fused_dit_q8c.launches = 0
+        zero_launches()
         actions = []
         for _ in range(chunks * cfg.multistep):
             obs = {k: preprocess_camera(v) for k, v in frames.items()}
             actions.append(policy.step(obs, goal))
         torch.cuda.synchronize()
-        launches = fused_layer_q8c.launches
-        if fused_dit_q8c.launches:
-            raise SystemExit(f"parity b={B}: {fused_dit_q8c.launches} "
-                             "megakernel launches, expected 0")
+        counts = launches_of()
+        launches = counts.pop("fused_layer_q8c")
+        if any(counts.values()):
+            raise SystemExit(f"parity b={B}: launches of other kernels "
+                             f"{counts}, expected 0")
         want_launches = chunks * cfg.n_layers * cfg.num_sampling_steps
         for act in actions:
             if tuple(act.shape) != (B, cfg.action_dim) or \
@@ -562,6 +878,7 @@ def main():
     for ph, mode in ((7, "b1-latency"), (9, "b1-latency-max")):
         t = time.perf_counter()
         policy = RolloutPolicy.with_serving_mode(agent, mode=mode, seed=0)
+        dit = policy.agent.inner_model
         st = dit.stacked
         int8_attn = "sqkv" in st
         nbytes = sum(v.numel() * v.element_size() for v in st.values())
@@ -600,23 +917,23 @@ def main():
         r = results[1]
         policy.reset()
         chunks = 2
-        fused_layer_q8c.launches = fused_dit_q8c.launches = 0
+        zero_launches()
         actions = []
         for _ in range(chunks * cfg.multistep):
             obs = {k: preprocess_camera(v) for k, v in r["frames"].items()}
             actions.append(policy.step(obs, r["goal"]))
         torch.cuda.synchronize()
-        launches = fused_dit_q8c.launches
+        counts = launches_of()
+        launches = counts.pop("fused_dit_q8c")
         want_launches = chunks * cfg.num_sampling_steps
         for act in actions:
             if tuple(act.shape) != (1, cfg.action_dim) or \
                     not bool(torch.isfinite(act).all()):
                 raise SystemExit(f"{mode}: bad action {tuple(act.shape)}")
-        if launches != want_launches or fused_layer_q8c.launches:
+        if launches != want_launches or any(counts.values()):
             raise SystemExit(
                 f"{mode}: {launches} megakernel launches (expected "
-                f"{want_launches}), {fused_layer_q8c.launches} layer-kernel "
-                "launches (expected 0)")
+                f"{want_launches}), other kernels {counts} (expected 0)")
         kern = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
         again = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
         dit.dit_impl = fused_dit_q8c_ref
@@ -648,7 +965,7 @@ def main():
         split[mode] = chunk_split(policy, r["obs"], r["goal"], r["noise"],
                                   chunk_b1[mode])
         print(f"  {mode} b=1: {chunks} chunks, {launches} megakernel "
-              f"launches, {fused_layer_q8c.launches} layer-kernel launches; "
+              f"launches, other kernels {counts}; "
               f"action MAE kernel-vs-plain {mae:.3e} (tol {tol:.3e}), "
               f"plain-f32-vs-plain-f64 {floors[0]:.3e} (products) / "
               f"{floors[1]:.3e} (products, norms, softmax), "
@@ -670,7 +987,105 @@ def main():
               f"{chunk_b1[m]:.2f}" for m in ("parity", "b1-latency",
                                              "b1-latency-max")), flush=True)
 
-    # ---- phase 7-8: results ----------------------------------------------
+    # ---- phases 11-14: max-throughput, the two-kernel layer -------------
+    t = time.perf_counter()
+    crng = torch.Generator(device=dev).manual_seed(3)
+    calib = {k: preprocess_camera(torch.randint(
+        0, 256, (4, 1, 224, 224, 3), generator=crng, device=dev,
+        dtype=torch.uint8)) for k in ("rgb_static", "rgb_gripper")}
+    calib["lang_emb"] = torch.randn(4, 1, cfg.cond_dim, generator=crng,
+                                    device=dev)
+    policy = RolloutPolicy.with_serving_mode(
+        agent, mode="max-throughput", calib_batch=calib, seed=0)
+    dit = policy.agent.inner_model
+    for name, label in policy.agent.q8_clips.items():
+        mses = policy.agent.q8_clip_mse[name]
+        print(f"  {name}: clip {label}; feature MSE per candidate " + ", ".join(
+            f"{k} {v:.3e}" for k, v in mses.items()), flush=True)
+    phase("phase 11: max-throughput preset, int8 encoders calibrated on 4 "
+          "synthetic frames", t)
+
+    t = time.perf_counter()
+    two = check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg)
+    check_int8_convs(policy.agent.q8["static_resnet"], gen)
+    phase("phase 12: fused_attn_block_q8, fused_top2_mlp_q8c and the int8 "
+          "convs vs plain", t)
+
+    t = time.perf_counter()
+    r = results[128]
+    policy.reset()
+    zero_launches()
+    actions = []
+    for _ in range(cfg.multistep):
+        obs = {k: preprocess_camera(v) for k, v in r["frames"].items()}
+        actions.append(policy.step(obs, r["goal"]))
+    torch.cuda.synchronize()
+    mt_launches = launches_of()
+    want_launches = cfg.n_layers * cfg.num_sampling_steps
+    for act in actions:
+        if tuple(act.shape) != (128, cfg.action_dim) or \
+                not bool(torch.isfinite(act).all()):
+            raise SystemExit(f"max-throughput: bad action {tuple(act.shape)}")
+    if mt_launches != {"fused_attn_block_q8": want_launches,
+                       "fused_top2_mlp_q8c": want_launches,
+                       "fused_layer_q8c": 0, "fused_dit_q8c": 0}:
+        raise SystemExit(f"max-throughput b=128, one chunk: launches "
+                         f"{mt_launches}, expected {want_launches} attention "
+                         f"and MoE, 0 layer and 0 megakernel")
+    kern = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+    again = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+    evals = {}
+    for key, (attn_kw, moe_kw) in (
+            ("plain", ({}, {})),
+            ("exact", ({"acc_dtype": torch.float64}, {})),
+            ("exact_all", ({"acc_dtype": torch.float64,
+                            "red_dtype": torch.float64},
+                           {"red_dtype": torch.float64}))):
+        dit.attn_impl = functools.partial(fused_attn_block_q8_ref, **attn_kw)
+        dit.moe_impl = functools.partial(fused_top2_mlp_q8c_ref, **moe_kw)
+        evals[key] = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+    dit.attn_impl, dit.moe_impl = fused_attn_block_q8, fused_top2_mlp_q8c
+
+    def mae_of(a, b):
+        return (a - b).abs().mean().item()
+
+    mt_mae = mae_of(kern, evals["plain"])
+    mt_floors = (mae_of(evals["plain"], evals["exact"]),
+                 mae_of(evals["plain"], evals["exact_all"]))
+    tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * max(mt_floors))
+    print(f"  max-throughput b=128, one chunk: launches {mt_launches}; "
+          f"chunk {tuple(kern.shape)}, action MAE kernel-vs-plain "
+          f"{mt_mae:.3e} (tol {tol:.3e}), plain-f32-vs-plain-f64 "
+          f"{mt_floors[0]:.3e} (products) / {mt_floors[1]:.3e} (products, "
+          f"norms, softmax), parity-vs-this "
+          f"{mae_of(kern, r['parity_chunk']):.3e}, kernel run twice max diff "
+          f"{(kern - again).abs().max().item():.3e}", flush=True)
+    if not (mt_mae <= tol and bool(torch.isfinite(kern).all())):
+        raise SystemExit("max-throughput: kernel path disagrees with plain "
+                         "path")
+    phase("phase 13: max-throughput path at b=128", t)
+
+    t = time.perf_counter()
+    chunk = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+        torch.cuda.synchronize()
+        chunk.append((time.perf_counter() - c0) * 1e3)
+    mt_chunk = statistics.median(chunk)
+    mt_split = chunk_split(policy, r["obs"], r["goal"], r["noise"], mt_chunk)
+    x_enc = r["obs"]["rgb_static"][:, 0]
+    enc_ms = encoder_times(policy.agent, x_enc, r["goal"]["lang_emb"][:, 0])
+    print(f"  b=128 chunk ms (median of 3), parity / max-throughput: "
+          f"{timing[128]['chunk_ms']:.2f} / {mt_chunk:.2f} (max-throughput: "
+          f"{', '.join(f'{c:.2f}' for c in chunk)}); max-throughput split "
+          f"{mt_split}; one camera encoder at b=128, "
+          f"device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                     enc_ms.items()), flush=True)
+    phase("phase 14: max-throughput timing", t)
+
+    # ---- results -----------------------------------------------------------
     t128 = timing[128]
     kernels = [{
         "name": "fused_layer_q8c",
@@ -730,6 +1145,34 @@ def main():
         "action_floor": {"b1-latency": m1["action_floor"],
                          "b1-latency-max": m8["action_floor"]},
     })
+    mt = {"chunk_ms_b128": {"max-throughput": mt_chunk,
+                            "parity": t128["chunk_ms"]},
+          "chunk_split_b128": mt_split,
+          "encoder_ms_b128": enc_ms, "action_mae": mt_mae,
+          "action_floor": max(mt_floors)}
+    for name, key, src, line, shape in (
+            ("fused_attn_block_q8", "attn", "fused_attn_block_q8.cu",
+             "attn_kernel.py:264",
+             "b=128 x 14 tokens, D=1024, 8 heads of 128, int8 QKV and c_proj"),
+            ("fused_top2_mlp_q8c", "moe", "fused_top2_mlp_q8c.cu",
+             "moe_kernel.py:350",
+             "b=128 x 14 tokens, D=1024, hidden 4096, top-2 of 4, ln_2 and "
+             "the residual fused")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"mode_diffusion_policy_tpu_torch/csrc/{src}",
+            "replaces": f"mode_diffusion_policy_tpu/ops/pallas/{line}",
+            "launches": mt_launches[name],
+            "max_abs_err": two[key]["max_abs_err"],
+            **{k: two[key][128][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+            "shape": shape,
+            "b1": dict(two[key][1]),
+            "stages_ms": {"b128": two[key]["stages_b128"],
+                          "b1": two[key]["stages_b1"]},
+            "max_throughput": mt,
+        })
     phase("done", T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

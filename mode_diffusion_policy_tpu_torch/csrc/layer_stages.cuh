@@ -1,7 +1,9 @@
 // Stage bodies of one NoiseBlockMoE inference layer, shared by the
-// per-layer kernel (fused_layer_q8c.cu: one __global__ launch per stage)
-// and the DiT megakernel (fused_dit_q8c.cu: every stage of every layer in
-// one cooperative launch, a grid-stride loop per stage).
+// per-layer kernel (fused_layer_q8c.cu: one __global__ launch per stage),
+// the DiT megakernel (fused_dit_q8c.cu: every stage of every layer in one
+// cooperative launch, a grid-stride loop per stage) and the two halves of
+// the layer's two-kernel path (fused_attn_block_q8.cu, fused_top2_mlp_q8c.cu:
+// one __global__ launch per stage).
 //
 // Every stage is a __device__ function that computes ONE work item (a row,
 // a 64 x 64 output tile, query rows of a (head, sample)) with
@@ -458,6 +460,18 @@ __device__ __forceinline__ void ln2_quant_row(const bf16* xmid,
   quant_row(buf, D, xq + (size_t)row * D, sx + row, red);
 }
 
+// ---- MoE input without a prenorm: xq, sx = quant_rows(x), one row ------
+__device__ __forceinline__ void quant_bf16_row(const bf16* x, int8_t* xq,
+                                               float* sx, int D, int row,
+                                               unsigned char* smem) {
+  float* red = reinterpret_cast<float*>(smem);
+  float* buf = red + 32;
+  for (int d = threadIdx.x; d < D; d += blockDim.x)
+    buf[d] = ldb(x + (size_t)row * D + d);
+  __syncthreads();
+  quant_row(buf, D, xq + (size_t)row * D, sx + row, red);
+}
+
 // int8 tiles live in shared memory as 16-byte-wide column strips
 // ([k/16][rows][16] for A, [n/16][k][16] for B) so that every wmma fragment
 // pointer is 32-byte aligned, as load_matrix_sync requires. The loads are
@@ -695,12 +709,13 @@ __device__ __forceinline__ void moe_down_tile(
 }
 
 // ---- ordered sum: out = bf16(((xm + part[0]) + part[1]) + ...) ----------
-// elements first, first + stride, ...
+// elements first, first + stride, ...; xm == nullptr seeds with 0 (the MoE
+// kernel without its residual)
 __device__ __forceinline__ void moe_sum_elems(const bf16* xm, const float* part,
                                               bf16* out, int MD, int n_part,
                                               int first, int stride) {
   for (int i = first; i < MD; i += stride) {
-    float acc = ldb(xm + i);
+    float acc = xm ? ldb(xm + i) : 0.f;
     for (int z = 0; z < n_part; ++z)
       acc = __fadd_rn(acc, ldf(part + (size_t)z * MD + i));
     out[i] = __float2bfloat16_rn(acc);

@@ -9,15 +9,23 @@ The precast keeps the f32 weights as masters beside their casts, so that
 every quantization reads the f32 values, as the JAX package's does.
 
 Served paths (``RolloutPolicy`` under a serving preset): camera frames ->
-2x BN-folded FiLM-ResNet-50 -> per-sigma top-2 routing tables -> hoisted
-chunk invariants (static tokens, sigma tokens, EDM scalings) -> 10-step DDIM
-of ``MoDeDiT.forward_precomputed``, one whole-layer kernel launch per layer
-and step (``parity``), or of ``MoDeDiT.forward_precomputed_mega``, one
-launch of the DiT megakernel per step (``b1-latency``, ``b1-latency-max``).
+2x BN-folded FiLM-ResNet-50 (int8 convs under ``max-throughput``) ->
+per-sigma top-2 routing tables -> hoisted chunk invariants (static tokens,
+sigma tokens, EDM scalings) -> 10-step DDIM of
+``MoDeDiT.forward_precomputed``, one whole-layer kernel launch per layer
+and step (``parity``) or two (the attention and MoE kernels,
+``max-throughput``), or of ``MoDeDiT.forward_precomputed_mega``, one launch
+of the DiT megakernel per step (``b1-latency``, ``b1-latency-max``).
+
+The policy precasts its own copy of the agent (``RolloutPolicy``): the
+caller's parameters stay f32 and untouched, as the JAX policy's "training
+state is untouched".
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import logging
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -28,8 +36,12 @@ from ..utils.device import resolve_device
 from .edm.precond import denoiser_forward, edm_scalings
 from .edm.samplers import sample_loop
 from .edm.schedules import get_noise_schedule
-from .encoders.resnet import FiLMResNetPolicy, fold_resnet_params
+from .encoders.resnet import (FiLMResNetPolicy, calibration_stats,
+                              fold_resnet_params, infer_q8_skip,
+                              quantize_resnet_params)
 from .modedit import MoDeDiT, MoDeDiTConfig
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +94,36 @@ class MoDEAgentConfig:
 ENCODERS = ("static_resnet", "gripper_resnet")
 
 
+def _clip_candidates(calib, headroom: float = 1.0):
+    """(label, clips) candidates for the int8 encoder activation clips, from
+    the calibration statistics ``calib`` ({conv: {act_amax, act_msq}},
+    ``encoders.resnet.calibration_stats``), as the JAX package builds them:
+
+    - ``amax``: the per-channel maxima (no clipping);
+    - ``amax*q``: fractional amax, q in 0.9, 0.8, 0.7;
+    - ``k*sigma``: min(amax, k * per-channel RMS), k in 3, 3.5, 4.
+
+    Each clips dict is {conv: {"act_amax": clip}}, clamped at 1e-6 after
+    ``headroom``. The caller picks the winner by final-feature MSE."""
+
+    def build(fn):
+        out = {}
+        for name, st in calib.items():
+            amax = st["act_amax"].float()
+            msq = st.get("act_msq", amax ** 2).float()
+            out[name] = {"act_amax": (fn(amax, msq) * headroom)
+                         .clamp_min(1e-6)}
+        return out
+
+    cands = [("amax", lambda a, m: a)]
+    for qf in (0.9, 0.8, 0.7):
+        cands.append((f"amax*{qf}", lambda a, m, qf=qf: a * qf))
+    for k in (3.0, 3.5, 4.0):
+        cands.append((f"{k}*sigma",
+                      lambda a, m, k=k: torch.minimum(a, k * torch.sqrt(m))))
+    return [(label, build(fn)) for label, fn in cands]
+
+
 class MoDEAgent(nn.Module):
     """The DiT denoiser plus two FiLM-ResNet-50 camera encoders, with
     seeded random weights (``utils/weights.from_jax_params`` loads a JAX
@@ -100,6 +142,9 @@ class MoDEAgent(nn.Module):
             self.add_module(name, FiLMResNetPolicy(
                 cfg.cond_dim, 50, cfg.dtype, device=self.device))
         self.folded = None   # nn.ModuleDict of BN-folded encoders, once built
+        self.q8 = None       # nn.ModuleDict of int8 encoders, once built
+        self.q8_clips = {}   # the calibrated clip label of each int8 encoder
+        self.q8_clip_mse = {}  # and the feature MSE of every candidate
         self.sigmas = get_noise_schedule(cfg.num_sampling_steps,
                                          cfg.noise_scheduler, cfg.sigma_min,
                                          cfg.sigma_max)
@@ -142,6 +187,83 @@ class MoDEAgent(nn.Module):
         self.folded = nn.ModuleDict(folded)
         return self
 
+    def _encoder(self, folded=False, q8=False, q8_skip=()):
+        return FiLMResNetPolicy(self.cfg.cond_dim, 50, self.cfg.dtype,
+                                folded=folded, q8=q8, q8_skip=q8_skip,
+                                device=self.device)
+
+    def set_q8_encoders_(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]):
+        """Install int8 encoders from ``quantize_resnet_params`` state dicts
+        ({encoder: state dict}): static activation scales when the dicts
+        carry ``act_scale``, dynamic ones otherwise, and the float stages
+        that the dicts kept (``infer_q8_skip``)."""
+        q8 = {}
+        for name in ENCODERS:
+            sd = state_dicts[name]
+            static = any(k.endswith(".act_scale") for k in sd)
+            mod = self._encoder(True, "static" if static else True,
+                                infer_q8_skip(sd))
+            mod.load_state_dict(sd)
+            q8[name] = mod
+        self.q8 = nn.ModuleDict(q8)
+        return self
+
+    @torch.no_grad()
+    def quantize_encoders_for_inference(self, calib_batch=None,
+                                        headroom: float = 1.0, skip=()):
+        """int8-quantize the folded encoder convs (per-output-channel int8
+        weights, per-tensor or per-input-channel activation scales; see
+        ``encoders.resnet.QuantConv``). ``embed_visual_obs`` then prefers
+        these encoders.
+
+        Without ``calib_batch`` the activation scales are dynamic (max |x|
+        of each call's whole tensor, so the result depends on the batch).
+        With ``calib_batch`` (a dict with 'rgb_static', 'rgb_gripper'
+        [B,T,H,W,3], preprocessed, and 'lang_emb') the static
+        per-input-channel clips are chosen per encoder, among the seven
+        ``_clip_candidates``, by the final-feature MSE against the folded
+        float encoder on that batch; the chosen label is logged and kept in
+        ``q8_clips``, every candidate's MSE in ``q8_clip_mse``. Counterpart
+        of the JAX agent's method of that name."""
+        if self.folded is None:
+            self.fold_encoders_for_inference()
+        skip = tuple(skip)
+        folded = {name: self.folded[name].state_dict() for name in ENCODERS}
+        q = {name: quantize_resnet_params(folded[name], skip=skip)
+             for name in ENCODERS}
+        self.q8_clips, self.q8_clip_mse = {}, {}
+        if calib_batch is None:
+            return self.set_q8_encoders_(q)
+        cond = torch.as_tensor(calib_batch["lang_emb"], device=self.device)
+        cond = cond[:, 0] if cond.ndim == 3 else cond
+        dyn = self._encoder(True, True, skip)
+        static = self._encoder(True, "static", skip)
+        for name, key in zip(ENCODERS, ("rgb_static", "rgb_gripper")):
+            imgs = torch.as_tensor(calib_batch[key], device=self.device)
+            T = imgs.shape[1]
+            x = imgs.reshape((-1,) + tuple(imgs.shape[2:]))
+            # the images flatten to B*T rows: the FiLM cond follows
+            cond_rep = cond.repeat_interleave(T, dim=0) if T > 1 else cond
+            ref = self.folded[name](x, cond_rep).float()
+            dyn.load_state_dict(q[name])
+            calib = calibration_stats(dyn, lambda: dyn(x, cond_rep))
+            best = None
+            self.q8_clip_mse[name] = {}
+            for label, clips in _clip_candidates(calib, headroom):
+                qp = quantize_resnet_params(folded[name], act_amax=clips,
+                                            skip=skip)
+                static.load_state_dict(qp)
+                mse = float(((static(x, cond_rep).float() - ref) ** 2).mean())
+                self.q8_clip_mse[name][label] = mse
+                if best is None or mse < best[0]:
+                    best = (mse, label, qp)
+            ref_sq = float((ref ** 2).mean())
+            logger.info("int8 calibration %s: clip=%s, feature rel err %.4f",
+                        name, best[1], (best[0] / max(ref_sq, 1e-12)) ** 0.5)
+            self.q8_clips[name] = best[1]
+            q[name] = best[2]
+        return self.set_q8_encoders_(q)
+
     @torch.no_grad()
     def quantize_for_inference(self):
         """(Re)build the int8 experts (``cfg.use_int8_moe``) and attention
@@ -173,13 +295,15 @@ class MoDEAgent(nn.Module):
     @torch.no_grad()
     def embed_visual_obs(self, rgb_static, rgb_gripper, latent_goal):
         """rgb_*: preprocessed [B, T, H, W, 3] NHWC; latent_goal [B,1,cond] or
-        [B,cond]. Returns {'state_images': [B, 2T, obs_dim]}."""
+        [B,cond]. Returns {'state_images': [B, 2T, obs_dim]}. Runs the
+        int8 encoders when built, else the folded ones, else the raw."""
         B, T = rgb_static.shape[:2]
         cond = latent_goal[:, 0] if latent_goal.ndim == 3 else latent_goal
         cond_rep = cond.repeat_interleave(T, dim=0) if T > 1 else cond
         feats = []
         for name, imgs in zip(ENCODERS, (rgb_static, rgb_gripper)):
-            mod = (self.folded[name] if self.folded is not None
+            mod = (self.q8[name] if self.q8 is not None
+                   else self.folded[name] if self.folded is not None
                    else getattr(self, name))
             x = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
             feats.append(mod(x, cond_rep).reshape(B, T, -1))
@@ -201,14 +325,18 @@ class MoDEAgent(nn.Module):
         EDM scalings are computed once per chunk, and each step runs
         ``MoDeDiT.forward_precomputed`` with the step's routing row, or,
         under ``cfg.use_megakernel``, ``forward_precomputed_mega`` over the
-        cached layer stack and the [L,S,2] tables stacked once per chunk."""
+        cached layer stack and the [L,S,2] tables stacked once per chunk.
+        A negative ``step_idx`` is off the schedule: that call routes and
+        embeds inline at its own sigma, as without ``routing``."""
         cfg = self.cfg
         dit = self.inner_model
+
+        def inline(x, sigma, step_idx):
+            return denoiser_forward(dit, perceptual_emb, x, latent_goal,
+                                    sigma, sigma_data=cfg.sigma_data)
+
         if routing is None:
-            def denoiser(x, sigma, step_idx):
-                return denoiser_forward(dit, perceptual_emb, x, latent_goal,
-                                        sigma, sigma_data=cfg.sigma_data)
-            return denoiser
+            return inline
 
         sched = torch.as_tensor(self.sigmas[:-1], device=self.device)
         static_x, goal_embed = dit.embed_static_tokens(perceptual_emb,
@@ -226,6 +354,8 @@ class MoDEAgent(nn.Module):
                     torch.stack([p for _, p in routing]))
 
         def denoiser(x, sigma, step_idx):
+            if int(step_idx) < 0:
+                return inline(x, sigma, step_idx)
             cs, co, ci = scal_all[step_idx]
             emb_t = emb_all[step_idx][None]
             if mega is not None:
@@ -260,16 +390,38 @@ class MoDEAgent(nn.Module):
                            generator)
 
 
+def _serving_copy(agent: MoDEAgent) -> MoDEAgent:
+    """A copy of ``agent`` that a serving precast may cast without reaching
+    the caller: every parameter of the copy is a new ``Parameter`` over the
+    caller's storage (the precast rebinds the copy's ``.data`` to a cast
+    tensor and keeps the caller's f32 tensor as its master), and the
+    buffers and the derived int8 tensors are shared, not copied. So the
+    copy costs only the cast tensors, as the in-place precast did."""
+    memo = {id(p): nn.Parameter(p.data, requires_grad=p.requires_grad)
+            for p in agent.parameters()}
+    dit = agent.inner_model
+    shared = list(agent.buffers()) + list(dit._f32_masters.values())
+    shared += list((dit.stacked or {}).values())
+    for blk in dit.blocks:
+        for q in (blk.experts_q, blk.attn.attn_q):
+            shared += list(q or ())
+    memo.update({id(t): t for t in shared})
+    return copy.deepcopy(agent, memo)
+
+
 class RolloutPolicy:
     """Chunked inference for env stepping: ``step(obs, goal)`` returns one
     action [B, action_dim] per call; the model runs once every
-    ``multistep`` calls and produces an action chunk."""
+    ``multistep`` calls and produces an action chunk.
+
+    The policy serves its own copy of the agent (``self.agent``), precast
+    to the compute dtype; the caller's agent keeps its f32 parameters."""
 
     def __init__(self, agent: MoDEAgent, lang_encoder=None,
                  use_routing_precompute: bool = True, seed: int = 0):
-        # the precast keeps the f32 masters, so the agent can still be
-        # re-quantized (another preset) from its f32 weights
-        self.agent = agent.precast_for_serving()
+        # the precast keeps the f32 masters (the caller's tensors), so the
+        # copy can still be re-quantized from the f32 weights
+        self.agent = _serving_copy(agent).precast_for_serving()
         self.lang = lang_encoder   # callable: list[str] -> [B,1,cond]
         self.multistep = agent.cfg.multistep
         self.generator = torch.Generator(device=agent.device).manual_seed(seed)
@@ -279,11 +431,14 @@ class RolloutPolicy:
 
     @classmethod
     def with_serving_mode(cls, agent: MoDEAgent, lang_encoder=None,
-                          mode: str = "auto", **kw):
-        """Apply a serving preset (``serving.apply_serving_mode``) to the
-        agent, in place, and build the policy on it."""
+                          mode: str = "auto", *, calib_batch=None, **kw):
+        """Apply a serving preset (``serving.apply_serving_mode``, with
+        ``calib_batch`` for the int8 encoders of ``max-throughput``) to the
+        agent, in place (flags, folded and int8 weights; no parameter
+        changes), and build the policy on it."""
         from ..serving import apply_serving_mode
-        return cls(apply_serving_mode(agent, mode), lang_encoder, **kw)
+        return cls(apply_serving_mode(agent, mode, calib_batch=calib_batch),
+                   lang_encoder, **kw)
 
     def reset(self):
         self._counter = 0

@@ -7,10 +7,21 @@ Public functions take the JAX package's NHWC images; convolutions run
 NCHW through ``torch.nn.functional.conv2d`` (the JAX package leaves them to
 XLA as well). Conv weights are stored OIHW as ``weight``; BatchNorm keeps
 the JAX names: ``scale``/``bias`` parameters and ``mean``/``var`` buffers.
+
+The int8 encoders of the ``max-throughput`` preset (``q8``, counterpart of
+the JAX ``QuantConv``, ``quantize_resnet_params`` and ``infer_q8_skip``)
+replace each folded conv by an int8 x int8 -> int32 conv. PyTorch has no
+int8 convolution for CUDA tensors, so ``conv2d_i8`` builds the int8 patch
+matrix from shifted slices of the padded NHWC input and multiplies it with
+``torch._int_mm`` on CUDA (exactly, in float64, on the CPU); the JAX
+package leaves this conv to XLA too. Their weights are buffers:
+``kernel_q`` (int8 OIHW), ``scale``, ``bias`` and, with static activation
+scales, ``act_scale``.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -69,6 +80,98 @@ class Conv2d(nn.Module):
         return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, padding)
 
 
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] @ int8 [K, N] -> int32 [M, N], exact: ``torch._int_mm``
+    on CUDA (it needs M > 16 and K, N multiples of 8), float64 on the CPU
+    (every partial sum of this model's convs is far below 2**53)."""
+    if a.device.type == "cuda":
+        return torch._int_mm(a.contiguous(), b.contiguous())
+    return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+def conv2d_i8(xq: torch.Tensor, w: torch.Tensor, stride: int,
+              pad) -> torch.Tensor:
+    """int8 NCHW ``xq`` conv int8 OIHW ``w`` -> int32 NCHW (a view with
+    channels-last strides), with ``pad`` ((top, bottom), (left, right)).
+    The patch matrix [B*Ho*Wo, kh*kw*C] is built in int8 from shifted
+    slices of the padded NHWC input, its K axis in the order (kh, kw, C) of
+    the HWIO kernel flattened, and multiplied by ``int_mm``."""
+    (pt, pb), (pl, pr) = pad
+    O, C, kh, kw = w.shape
+    xh = xq.permute(0, 2, 3, 1)
+    if pt or pb or pl or pr:
+        xh = F.pad(xh, (0, 0, pl, pr, pt, pb))
+    B, Hp, Wp, _ = xh.shape
+    Ho, Wo = (Hp - kh) // stride + 1, (Wp - kw) // stride + 1
+    cols = [xh[:, i:i + stride * (Ho - 1) + 1:stride,
+               j:j + stride * (Wo - 1) + 1:stride, :]
+            for i in range(kh) for j in range(kw)]
+    patches = cols[0] if len(cols) == 1 else torch.stack(cols, dim=3)
+    y = int_mm(patches.reshape(B * Ho * Wo, kh * kw * C),
+               w.permute(2, 3, 1, 0).reshape(kh * kw * C, O))
+    return y.reshape(B, Ho, Wo, O).permute(0, 3, 1, 2)
+
+
+class QuantConv(nn.Module):
+    """int8 inference conv of the folded encoders: per-output-channel int8
+    weights (``quantize_resnet_params``) and symmetric activation
+    quantization, the conv int8 x int8 -> int32 (``conv2d_i8``), then
+    ``y * post + bias`` in f32, cast to ``dtype``.
+
+    Dynamic activation scale (``static_act=False``): one scale per call,
+    max |x| over the whole tensor / 127, so the output depends on the
+    batch; while ``collect`` is set, the per-input-channel max |x| and
+    mean x^2 are recorded in ``calib`` (max over calls), which the
+    calibration reads. Static (``static_act=True``): per-input-channel
+    scales ``act_scale / 127`` whose inverse is already folded into
+    ``kernel_q``, so the epilogue needs no activation factor. Both
+    quantize by reciprocal multiply with round-half-even, as the JAX
+    ``QuantConv`` does."""
+
+    def __init__(self, cin, cout, k, stride=1, pad=None,
+                 dtype=torch.float32, static_act=False, device=None):
+        super().__init__()
+        self.stride = stride
+        p = k // 2
+        self.pad = pad if pad is not None else ((p, p), (p, p))
+        self.dtype = dtype
+        self.static_act = static_act
+        self.register_buffer("kernel_q", torch.zeros(
+            cout, cin, k, k, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(cout, device=device))
+        self.register_buffer("bias", torch.zeros(cout, device=device))
+        if static_act:
+            self.register_buffer("act_scale", torch.ones(cin, device=device))
+        self.collect = False
+        self.calib: Dict[str, torch.Tensor] = {}
+
+    def quantize_input(self, x):
+        """int8 NCHW activations of x and the f32 per-output-channel
+        factor of the epilogue."""
+        x32 = x.float()
+        if self.static_act:
+            sx = self.act_scale / 127.0
+            inv = (1.0 / sx)[None, :, None, None]
+            post = self.scale
+        else:
+            amax_c = x.abs().amax(dim=(0, 2, 3)).float()
+            if self.collect:
+                msq_c = (x32 * x32).mean(dim=(0, 2, 3))
+                for k, v in (("act_amax", amax_c), ("act_msq", msq_c)):
+                    old = self.calib.get(k)
+                    self.calib[k] = v if old is None else torch.maximum(old, v)
+            sx = amax_c.max().clamp_min(1e-6) / 127.0
+            inv = 1.0 / sx
+            post = sx * self.scale
+        return torch.round(x32 * inv).clamp_(-127, 127).to(torch.int8), post
+
+    def forward(self, x):
+        xq, post = self.quantize_input(x)
+        y = conv2d_i8(xq, self.kernel_q, self.stride, self.pad)
+        return (y.float() * post[None, :, None, None]
+                + self.bias[None, :, None, None]).to(self.dtype)
+
+
 class BatchNorm(nn.Module):
     """Inference BatchNorm over NCHW channels with running statistics."""
 
@@ -92,7 +195,7 @@ class Bottleneck(nn.Module):
     conv biases in place of their BatchNorms."""
 
     def __init__(self, cin, planes, stride=1, has_downsample=False,
-                 dtype=torch.float32, folded=False, device=None):
+                 dtype=torch.float32, folded=False, q8=False, device=None):
         super().__init__()
         self.folded = folded
         self.has_downsample = has_downsample
@@ -103,8 +206,11 @@ class Bottleneck(nn.Module):
         for name, ci, co, k, s in specs:
             conv = f"conv{name}" if name != "downsample" else "downsample_conv"
             bn = f"bn{name}" if name != "downsample" else "downsample_bn"
-            self.add_module(conv, Conv2d(ci, co, k, s, use_bias=folded,
-                                         dtype=dtype, device=device))
+            self.add_module(conv, QuantConv(
+                ci, co, k, s, dtype=dtype, static_act=q8 == "static",
+                device=device) if q8 else Conv2d(
+                    ci, co, k, s, use_bias=folded, dtype=dtype,
+                    device=device))
             if not folded:
                 self.add_module(bn, BatchNorm(co, dtype, device))
 
@@ -122,16 +228,26 @@ class Bottleneck(nn.Module):
 
 
 class ResNetBackbone(nn.Module):
-    """Headless ResNet-50 trunk with stage-level FiLM; NCHW in and out."""
+    """Headless ResNet-50 trunk with stage-level FiLM; NCHW in and out.
+
+    ``q8`` (folded trunks only): False, True (int8 convs with dynamic
+    activation scales) or "static" (calibrated scales); ``q8_skip`` names
+    the stages ("stem", "layer1" .. "layer4") whose convs stay float."""
 
     def __init__(self, depth=50, dtype=torch.float32, folded=False,
-                 device=None):
+                 q8=False, q8_skip: Tuple[str, ...] = (), device=None):
         super().__init__()
         if depth not in STAGE_SIZES:
             raise NotImplementedError(
                 f"ResNet-{depth} is not ported yet (ROADMAP.md Queue 1)")
+        if q8 and not folded:
+            raise ValueError("int8 convs (q8) run on the folded trunk only")
         self.folded = folded
-        if folded:
+        if q8 and "stem" not in q8_skip:
+            self.conv1 = QuantConv(12, 64, 4, 1, pad=((2, 1), (2, 1)),
+                                   dtype=dtype, static_act=q8 == "static",
+                                   device=device)
+        elif folded:
             self.conv1 = Conv2d(12, 64, 4, 1, pad=((2, 1), (2, 1)),
                                 use_bias=True, dtype=dtype, device=device)
         else:
@@ -145,8 +261,9 @@ class ResNetBackbone(nn.Module):
                 stride = 2 if (s > 0 and b == 0) else 1
                 has_ds = b == 0 and (stride != 1 or cin != width * EXPANSION)
                 name = f"layer{s + 1}_{b}"
+                q8_b = False if f"layer{s + 1}" in q8_skip else q8
                 self.add_module(name, Bottleneck(cin, width, stride, has_ds,
-                                                 dtype, folded, device))
+                                                 dtype, folded, q8_b, device))
                 names.append(name)
                 cin = width * EXPANSION
             self.stages.append(names)
@@ -171,7 +288,8 @@ class FiLMResNetPolicy(nn.Module):
     [B,1,cond] -> [B, 2048]."""
 
     def __init__(self, condition_dim, depth=50, dtype=torch.float32,
-                 folded=False, device=None):
+                 folded=False, q8=False, q8_skip: Tuple[str, ...] = (),
+                 device=None):
         super().__init__()
         self.dtype = dtype
         for s, width in enumerate(STAGE_WIDTHS):
@@ -180,7 +298,8 @@ class FiLMResNetPolicy(nn.Module):
                 d = DenseP(condition_dim, ch, dtype=dtype, device=device)
                 nn.init.zeros_(d.kernel)
                 self.add_module(f"film{s + 1}_{part}", d)
-        self.resnet = ResNetBackbone(depth, dtype, folded, device)
+        self.resnet = ResNetBackbone(depth, dtype, folded, q8,
+                                     tuple(q8_skip), device)
 
     def forward(self, x, condition):
         if condition.ndim == 3:
@@ -225,3 +344,88 @@ def fold_resnet_params(state_dict: Dict[str, torch.Tensor], eps=BN_EPS
             out[key] = val
     return out
 
+
+
+def _q8_skipped(mod: str, skip) -> bool:
+    """Whether conv module ``mod`` (a state-dict path) stays float under
+    ``skip``: the stem is the trunk's "conv1", a stage name covers its
+    blocks ("layer1" -> "resnet.layer1_*")."""
+    parts = mod.split(".")
+    if len(parts) < 2 or parts[0] != "resnet":
+        return False
+    name = parts[1]
+    return (name == "conv1" and "stem" in skip) or any(
+        name.startswith(s_) for s_ in skip if s_ != "stem")
+
+
+def quantize_resnet_params(folded: Dict[str, torch.Tensor], act_amax=None,
+                           headroom: float = 1.0, skip=()
+                           ) -> Dict[str, torch.Tensor]:
+    """Quantize every conv of a folded encoder state dict to symmetric
+    per-output-channel int8 (``kernel_q`` OIHW, ``scale`` = max(|w|) / 127
+    per output channel, dividing: ``q = round(w / scale)``); FiLM denses
+    pass through. Returns the state dict of the ``q8`` module.
+
+    With ``act_amax`` ({conv: {"act_amax": per-input-channel clip}}, as
+    ``agent._clip_candidates`` builds it) the activation scales
+    ``s_c = max(amax_c * headroom, 1e-6) / 127`` are folded into each
+    float kernel before its quantization and kept as ``act_scale``, for
+    the static ``q8="static"`` modules. ``skip`` holds stage names
+    ("stem", "layer1" .. "layer4") whose convs stay float; it must match
+    the module's ``q8_skip``."""
+    skip = tuple(skip)
+    out = {}
+    quantized = set()
+    for key, val in folded.items():
+        mod, _, leaf = key.rpartition(".")
+        if leaf != "weight" or val.ndim != 4 or _q8_skipped(mod, skip):
+            continue
+        kf = val.float()
+        if act_amax is not None and mod in act_amax:
+            amax_c = (act_amax[mod]["act_amax"].float() * headroom
+                      ).clamp_min(1e-6)
+            # conv(w * s_c, x / s_c) == conv(w, x)
+            kf = kf * (amax_c / 127.0)[None, :, None, None]
+            out[f"{mod}.act_scale"] = amax_c
+        s = kf.abs().amax(dim=(1, 2, 3)).clamp_min(1e-12) / 127.0
+        out[f"{mod}.kernel_q"] = torch.round(
+            kf / s[:, None, None, None]).clamp_(-127, 127).to(torch.int8)
+        out[f"{mod}.scale"] = s
+        quantized.add(mod)
+    for key, val in folded.items():
+        mod, _, leaf = key.rpartition(".")
+        if mod not in quantized:
+            out[key] = val
+        elif leaf == "bias":
+            out[key] = val.float()
+    return out
+
+
+def infer_q8_skip(q8_state: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
+    """The ``skip`` stages of a ``quantize_resnet_params`` state dict,
+    recovered from the convs that kept their float ``weight``."""
+    skip = []
+    if "resnet.conv1.weight" in q8_state:
+        skip.append("stem")
+    for stage in ("layer1", "layer2", "layer3", "layer4"):
+        blocks = {k.split(".")[1] for k in q8_state
+                  if k.startswith(f"resnet.{stage}_")}
+        if blocks and all(f"resnet.{b}.conv1.weight" in q8_state
+                          for b in blocks):
+            skip.append(stage)
+    return tuple(skip)
+
+
+def calibration_stats(module: nn.Module, run) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Run ``run()`` with every dynamic ``QuantConv`` of ``module``
+    recording its input statistics; returns {conv path: {"act_amax",
+    "act_msq"}} (per input channel, max over the calls), the counterpart of
+    the JAX module's sown "calib" collection."""
+    convs = {n: m for n, m in module.named_modules()
+             if isinstance(m, QuantConv) and not m.static_act}
+    with contextlib.ExitStack() as stack:
+        for m in convs.values():
+            m.calib, m.collect = {}, True
+            stack.callback(setattr, m, "collect", False)
+        run()
+    return {n: dict(m.calib) for n, m in convs.items() if m.calib}

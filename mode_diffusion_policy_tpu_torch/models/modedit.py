@@ -10,8 +10,11 @@ are stacked (``experts_w1`` [E, D, 2H], ``experts_b1`` [E, 2H],
 ``experts_w2`` [E, H, D]). Routing depends on sigma only (the router sees the
 noise token), so inference precomputes per-sigma top-2 tables
 (``precompute_routing``) and each block then runs either the plain top-2
-gather or, with ``use_fused_layer``, the whole layer as one kernel launch
-(``ops/kernels/layer_kernel.py``). With ``use_megakernel`` the whole block
+gather, or, with ``use_fused_layer``, the whole layer as one kernel launch
+(``ops/kernels/layer_kernel.py``), or, with ``use_int8_attn`` alone, the
+two-kernel layer: the int8-projection attention sub-block
+(``ops/kernels/attn_kernel.py``), then ln_2 and the int8 top-2 MoE
+(``ops/kernels/moe_kernel.py``). With ``use_megakernel`` the whole block
 stack of a denoise step is one launch (``forward_precomputed_mega``) over
 weights stacked once on a leading layer axis (``stack_layers``).
 
@@ -28,8 +31,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.attn_kernel import fused_attn_block_q8
 from ..ops.kernels.layer_kernel import (STACKED_QATTN, fused_dit_q8c,
                                         fused_layer_q8c)
+from ..ops.kernels.moe_kernel import fused_top2_mlp_q8c
 from ..ops.moe import moe_ffn_dense, moe_ffn_top2_gather
 from ..ops.primitives import DenseP, RMSNorm
 from ..ops.quant import (QuantizedAttn, QuantizedExperts, quantize_attn,
@@ -62,27 +67,30 @@ class MoDeDiTConfig:
     use_fused_layer: bool = False  # whole-layer kernel on the routed
                                    # inference path; needs use_int8_moe
     use_int8_attn: bool = False    # int8 wqkv/c_proj projections (per-row
-                                   # activation quant) inside the fused
-                                   # layer; needs use_fused_layer
+                                   # activation quant): inside the fused
+                                   # layer, or without use_fused_layer the
+                                   # two-kernel path (fused_attn_block_q8,
+                                   # then fused_top2_mlp_q8c)
     use_megakernel: bool = False   # the whole block stack in ONE launch
                                    # per denoise step (fused_dit_q8c) on
                                    # the hoisted routed path; needs
                                    # use_fused_layer
 
     def __post_init__(self):
-        if self.use_int8_moe and not self.use_fused_layer:
+        if self.use_int8_moe and not (self.use_fused_layer
+                                      or self.use_int8_attn):
             raise NotImplementedError(
-                "int8 experts outside the whole-layer kernel need the "
-                "fused_top2_mlp_q8c kernel, which is not ported yet "
-                "(ROADMAP.md Queue 2)")
-        if self.use_fused_layer and not (self.use_int8_moe
-                                         and self.top_k == 2):
-            raise ValueError("use_fused_layer needs use_int8_moe and "
-                             "top_k == 2")
-        for flag in ("use_int8_attn", "use_megakernel"):
-            if getattr(self, flag) and not self.use_fused_layer:
-                raise ValueError(f"{flag} needs use_fused_layer (the int8 "
-                                 "top-2 whole-layer path)")
+                "int8 experts outside the whole-layer kernel with bf16 "
+                "attention projections need the bf16 attention kernel "
+                "fused_attn_block, which is not ported yet (ROADMAP.md "
+                "Queue 2)")
+        if (self.use_fused_layer or self.use_int8_attn) and not (
+                self.use_int8_moe and self.top_k == 2):
+            raise ValueError("use_fused_layer and use_int8_attn need "
+                             "use_int8_moe and top_k == 2")
+        if self.use_megakernel and not self.use_fused_layer:
+            raise ValueError("use_megakernel needs use_fused_layer (the int8 "
+                             "top-2 whole-layer path)")
         if (self.use_int8_attn or self.use_megakernel) and \
                 (self.embed_dim // self.n_heads) % 128:
             raise ValueError(
@@ -188,23 +196,37 @@ class NoiseBlockMoE(nn.Module):
         # MoDeDiT.quantize_experts_ (use_int8_moe)
         self.experts_q: Optional[QuantizedExperts] = None
 
-    def forward(self, x, c, *, moe_override=None, layer_impl=fused_layer_q8c):
+    def forward(self, x, c, *, moe_override=None, layer_impl=fused_layer_q8c,
+                attn_impl=fused_attn_block_q8, moe_impl=fused_top2_mlp_q8c):
         """moe_override: (idx [k], p [k]) rows, or (idx [S,k], p [S,k],
         step) sigma tables with the scheduled step. ``layer_impl`` is the
-        whole-layer function used when ``cfg.use_fused_layer`` is set."""
+        whole-layer function used when ``cfg.use_fused_layer`` is set;
+        ``attn_impl`` and ``moe_impl`` are the two halves of the layer used
+        when ``cfg.use_int8_attn`` is set without it."""
         cfg = self.cfg
         dt = cfg.dtype
-        if cfg.use_fused_layer and moe_override is not None:
+        kernels = cfg.use_fused_layer or cfg.use_int8_attn
+        if kernels and moe_override is not None:
             a = self.attn
             if self.experts_q is None or (cfg.use_int8_attn
                                           and a.attn_q is None):
                 raise RuntimeError("int8 weights missing: call "
                                    "MoDEAgent.quantize_for_inference()")
             idx, p, *rest = moe_override
+            step = rest[0] if rest else None
+            if not cfg.use_fused_layer:
+                # the two-kernel path: attention sub-block, then ln_2 and
+                # the MoE with the normed input as the residual seed
+                x = attn_impl(x, c, self.ln_1.g, a.attn_q, a.q_norm.g,
+                              a.k_norm.g, ln_eps=self.ln_1.eps,
+                              qk_eps=a.q_norm.eps)
+                return moe_impl(x, idx, p, self.experts_q, step=step,
+                                residual=True, ln_g=self.ln_2.g,
+                                ln_eps=self.ln_2.eps)
             return layer_impl(
                 x, c, self.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
                 a.k_norm.g, a.c_proj.kernel, self.ln_2.g, self.experts_q,
-                idx, p, step=rest[0] if rest else None,
+                idx, p, step=step,
                 qattn=a.attn_q if cfg.use_int8_attn else None,
                 eps1=self.ln_1.eps, eps_qk=a.q_norm.eps, eps2=self.ln_2.eps)
         x = x + self.attn(self.ln_1(x) + c)
@@ -245,12 +267,15 @@ class MoDeDiT(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.ln = RMSNorm(D, eps=1e-6, device=device)
         self.out = DenseP(D, cfg.action_dim, True, dt, device)
-        # the whole-layer and whole-stack functions of the fused paths: the
-        # CUDA kernels' wrappers; a caller may set fused_layer_q8c_ref /
-        # fused_dit_q8c_ref to run the plain versions on the same weights
-        # (chip_smoke.py compares the two)
+        # the whole-layer, whole-stack and half-layer functions of the
+        # kernel paths: the CUDA kernels' wrappers; a caller may set the
+        # plain versions (fused_layer_q8c_ref, fused_dit_q8c_ref,
+        # fused_attn_block_q8_ref, fused_top2_mlp_q8c_ref) to run them on
+        # the same weights (chip_smoke.py compares the two)
         self.layer_impl = fused_layer_q8c
         self.dit_impl = fused_dit_q8c
+        self.attn_impl = fused_attn_block_q8
+        self.moe_impl = fused_top2_mlp_q8c
         # the f32 values of the leaves that the serving precast has cast
         # (precast_), which the int8 quantizers read
         self._f32_masters: Dict[str, torch.Tensor] = {}
@@ -394,7 +419,8 @@ class MoDeDiT(nn.Module):
         for i, block in enumerate(self.blocks):
             ov = None if moe_overrides is None else moe_overrides[i]
             x = block(x, cond_token, moe_override=ov,
-                      layer_impl=self.layer_impl)
+                      layer_impl=self.layer_impl, attn_impl=self.attn_impl,
+                      moe_impl=self.moe_impl)
         return x
 
     def forward(self, states: Dict[str, torch.Tensor], actions, goals, sigma,

@@ -16,7 +16,11 @@ quantized once per row, and ``act`` re-quantized per row within each
 
 With ``qattn`` (int8 attention projections) ``h`` is quantized per row in
 f32 without the bf16 cast, ``qkv = (hq wqkv_q) * (hs * sqkv) + b``, and the
-f32 attention rows are re-quantized per row before the int8 ``c_proj``.
+f32 attention rows are re-quantized per row before the int8 ``c_proj``: the
+plain layer is then exactly ``fused_top2_mlp_q8c_ref(fused_attn_block_q8_ref
+(x), residual=True, ln_g=ln2_g)``, the two-kernel composition that the JAX
+package pins the fused layer to. Either way its MoE half is
+``fused_top2_mlp_q8c_ref``.
 
 ``fused_dit_q8c`` is the same layer chained over all L layers of the DiT in
 one launch of ``csrc/fused_dit_q8c.cu`` (counterpart of the Pallas
@@ -36,45 +40,12 @@ import functools
 import math
 
 import torch
-import torch.nn.functional as F
 
 from ..quant import QuantizedAttn, QuantizedExperts
-from .quant_math import dot_i8, quant_rows
-
-
-def _rmsnorm_rows(x32, g, eps, acc=torch.float32):
-    D = x32.shape[1]
-    xa = x32.to(acc)
-    norm = (torch.sqrt((xa * xa).sum(dim=1, keepdim=True))
-            * (D ** -0.5)).float()
-    return x32 / norm.clamp_min(eps) * g.float()
-
-
-def _headnorm(a, g, H, hd, eps, acc=torch.float32):
-    N = a.shape[0]
-    a3 = a.reshape(N, H, hd)
-    aa = a3.to(acc)
-    n = (torch.sqrt((aa * aa).sum(dim=-1, keepdim=True)) * (hd ** -0.5)).float()
-    inv = 1.0 / n.clamp_min(eps)
-    return (a3 * inv * g.float()).reshape(N, H * hd)
-
-
-def _routing_row(top2_idx, top2_probs, step):
-    """The routing row ``step`` of [S,2] tables (or the single [2] row)."""
-    idx = torch.as_tensor(top2_idx)
-    probs = torch.as_tensor(top2_probs)
-    if idx.ndim == 1:
-        idx, probs = idx[None], probs[None]
-    s = 0 if step is None else int(step)
-    return idx[s].long(), probs[s].float()
-
-
-def _hidden_block(HH, block_hidden):
-    TH = min(block_hidden, HH)
-    if HH % TH:
-        raise ValueError(f"hidden size {HH} is not a multiple of "
-                         f"block_hidden {TH}")
-    return TH
+from ._common import (_attend, _check, _check_widths, _cond_rows,
+                      _hidden_block, _rmsnorm_rows, _tables)
+from .attn_kernel import fused_attn_block_q8_ref
+from .moe_kernel import fused_top2_mlp_q8c_ref
 
 
 def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
@@ -97,66 +68,27 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     kernels, or float64 for near-exact evaluations of the same cast chain
     (the noise floors that ``chip_smoke.py`` holds the kernel paths
     against)."""
+    moe = functools.partial(
+        fused_top2_mlp_q8c_ref, top2_idx=top2_idx, top2_probs=top2_probs,
+        qexp=qexp, step=step, block_hidden=block_hidden, residual=True,
+        ln_g=ln2_g, ln_eps=eps2, red_dtype=red_dtype)
+    if qattn is not None:
+        # the two-kernel composition, exactly
+        return moe(fused_attn_block_q8_ref(
+            x, c, ln1_g, qattn, q_g, k_g, ln_eps=eps1, qk_eps=eps_qk,
+            acc_dtype=acc_dtype, red_dtype=red_dtype))
     B, T, D = x.shape
     dt = x.dtype
-    hd = q_g.shape[-1]
-    H = D // hd
-    HH = qexp.w1_q.shape[-1] // 2
-    TH = _hidden_block(HH, block_hidden)
-    N = B * T
 
     def mm(a, b):
         return torch.matmul(a.to(acc_dtype), b.to(acc_dtype)).float()
 
-    x32 = x.reshape(N, D).float()
-    c32 = torch.broadcast_to(c.float(), (B, T, D)).reshape(N, D)
-    h = _rmsnorm_rows(x32, ln1_g, eps1, red_dtype) + c32
-    if qattn is not None:
-        hq, hs = quant_rows(h)
-        qkv = dot_i8(hq, qattn.wqkv_q).float() \
-            * (hs * qattn.wqkv_s.float()[None]) + qattn.bqkv.float()
-    else:
-        qkv = mm(h.to(dt).float(), wqkv.to(dt)) + bqkv.float()
-    q, k, v = qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:]
-    qn = _headnorm(q, q_g, H, hd, eps_qk, red_dtype).to(dt).float()
-    kn = _headnorm(k, k_g, H, hd, eps_qk, red_dtype).to(dt).float()
-    v = v.to(dt).float()
-
-    def heads(a):
-        return a.reshape(B, T, H, hd).transpose(1, 2)
-
-    sc = mm(heads(qn), heads(kn).transpose(-1, -2)) * float(1.0 / math.sqrt(hd))
-    causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-    sc = sc.masked_fill(~causal, -1e30)
-    a = torch.softmax(sc.to(red_dtype), dim=-1).to(dt).float()
-    o = mm(a, heads(v)).transpose(1, 2).reshape(N, D)
-    if qattn is not None:
-        oq, os_ = quant_rows(o)
-        y = dot_i8(oq, qattn.wout_q).float() * (os_ * qattn.wout_s.float()[None])
-    else:
-        y = mm(o.to(dt).float(), wout.to(dt))
-    xmid = x32 + y
-
-    xm = _rmsnorm_rows(xmid.to(dt).float(), ln2_g, eps2,
-                       red_dtype).to(dt).float()
-    acc = xm
-    xq, sx = quant_rows(xm)
-    idx, probs = _routing_row(top2_idx, top2_probs, step)
-    for slot in range(2):
-        e = idx[slot].to(qexp.w1_q.device)
-        w1, s1 = qexp.w1_q[e], qexp.w1_s[e].float()
-        b1 = qexp.b1[e].float()
-        w2, s2 = qexp.w2_q[e], qexp.w2_s[e].float()
-        p = probs[slot].to(x.device)
-        for kb in range(HH // TH):
-            vc = slice(kb * TH, (kb + 1) * TH)
-            gc = slice(HH + kb * TH, HH + (kb + 1) * TH)
-            value = dot_i8(xq, w1[:, vc]).float() * (sx * s1[vc][None]) + b1[vc]
-            gate = dot_i8(xq, w1[:, gc]).float() * (sx * s1[gc][None]) + b1[gc]
-            aq, sa = quant_rows(value * F.silu(gate))
-            contrib = dot_i8(aq, w2[vc]).float() * (sa * s2[None])
-            acc = acc + p * contrib
-    return acc.to(dt).reshape(B, T, D)
+    x32 = x.reshape(B * T, D).float()
+    h = _rmsnorm_rows(x32, ln1_g, eps1, red_dtype) + _cond_rows(c, x)
+    qkv = mm(h.to(dt).float(), wqkv.to(dt)) + bqkv.float()
+    o = _attend(qkv, q_g, k_g, B, T, dt, eps_qk, acc_dtype, red_dtype)
+    y = mm(o.to(dt).float(), wout.to(dt))
+    return moe((x32 + y).to(dt).reshape(B, T, D))
 
 
 # the keys of a MoDeDiT.stack_layers dict that hold QuantizedAttn's fields,
@@ -270,8 +202,9 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     if qattn is not None:
         raise NotImplementedError(
             "fused_layer_q8c with int8 attention projections (qattn) has no "
-            "CUDA kernel yet; it belongs to the max-throughput slice "
-            "(ROADMAP.md Queue 2). The DiT megakernel fused_dit_q8c has them.")
+            "CUDA kernel yet (ROADMAP.md Queue 2); fused_attn_block_q8 "
+            "followed by fused_top2_mlp_q8c computes the same layer, and the "
+            "DiT megakernel fused_dit_q8c has int8 projections too.")
 
     dev = x.device
     if x.ndim != 3:
@@ -289,7 +222,7 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     wout = wout.to(bf)
     _check(wqkv, "wqkv", bf, (D, 3 * D), dev)
     _check(wout, "wout", bf, (D, D), dev)
-    c = c.reshape(D).float().contiguous()
+    c = c.reshape(D).to(x.dtype).float().contiguous()
     ln1_g = ln1_g.float().contiguous()
     ln2_g = ln2_g.float().contiguous()
     bqkv = bqkv.float().contiguous()
@@ -406,7 +339,7 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
         want.update(sqkv=(f32, (L, 3 * D)), sout=(f32, (L, D)))
     for k, (dt, shape) in want.items():
         _check(stacked[k], k, dt, shape, dev)
-    c = c.reshape(D).float().contiguous()
+    c = c.reshape(D).to(x.dtype).float().contiguous()
     idx, probs, S, s = _tables(top2_idx, top2_probs, step, lead=(L,))
     _check(idx, "top2_idx", torch.int32, (L, S, 2), dev)
     _check(probs, "top2_probs", f32, (L, S, 2), dev)

@@ -15,22 +15,28 @@ Ported presets:
                       the megakernel (per-row activation quant). The JAX
                       package documents it as over the parity budget:
                       validate on the task before serving.
+- ``max-throughput``  int8 attention projections on the two-kernel layer
+                      (``ops/kernels/attn_kernel.fused_attn_block_q8``, then
+                      ``ops/kernels/moe_kernel.fused_top2_mlp_q8c`` with ln_2
+                      and the residual) + int8 encoder convs, their
+                      activation scales calibrated on ``calib_batch`` (or
+                      dynamic without one). The JAX package documents it as
+                      over the parity budget: validate on the task before
+                      serving.
 - ``auto``            ``parity`` when the agent lives on CUDA, else
                       ``reference``.
-
-``max-throughput`` needs kernels that are not ported yet; it raises
-``NotImplementedError`` rather than run another path.
 """
 from __future__ import annotations
+
+import logging
+
+logger = logging.getLogger(__name__)
 
 SERVING_MODES = ("reference", "parity", "max-throughput", "b1-latency",
                  "b1-latency-max", "auto")
 
-UNPORTED_MODES = {
-    "max-throughput": "attn_kernel.fused_attn_block_q8 (int8 attention "
-                      "projections) and moe_kernel.fused_top2_mlp_q8c, plus "
-                      "the int8 encoder convs",
-}
+# presets with no port yet: {mode: what they need} (none left)
+UNPORTED_MODES = {}
 
 # config flags of each preset (the JAX package's flag map, without its
 # Pallas switches, which have no counterpart here)
@@ -39,6 +45,8 @@ PRESET_FLAGS = {
                       use_int8_attn=False, use_megakernel=False),
     "parity": dict(use_int8_moe=True, use_fused_layer=True,
                    use_int8_attn=False, use_megakernel=False),
+    "max-throughput": dict(use_int8_moe=True, use_fused_layer=False,
+                           use_int8_attn=True, use_megakernel=False),
     "b1-latency": dict(use_int8_moe=True, use_fused_layer=True,
                        use_int8_attn=False, use_megakernel=True),
     "b1-latency-max": dict(use_int8_moe=True, use_fused_layer=True,
@@ -55,12 +63,17 @@ def resolve_serving_mode(mode: str, device_type: str = "cuda") -> str:
     return mode
 
 
-def apply_serving_mode(agent, mode: str):
+def apply_serving_mode(agent, mode: str, *, calib_batch=None):
     """Reconfigure ``agent`` (a ``models.agent.MoDEAgent``) for a serving
     mode, in place, and return it. Call after loading weights: the folded
-    encoders, the int8 weights and the megakernel's layer stack are derived
-    from the current weights. A second preset may be applied to the same
-    agent: the int8 weights are always quantized from the f32 values."""
+    and int8 encoders, the int8 weights and the megakernel's layer stack
+    are derived from the current weights. A second preset may be applied to
+    the same agent: the int8 weights are always quantized from the f32
+    values, and only ``max-throughput`` keeps int8 encoders.
+    ``calib_batch`` (a dict with 'rgb_static'/'rgb_gripper' [B,T,H,W,3],
+    preprocessed, and 'lang_emb') calibrates the int8 encoders' static
+    activation scales for ``max-throughput``; without it they use dynamic
+    per-call scales."""
     mode = resolve_serving_mode(mode, agent.device.type)
     if mode in UNPORTED_MODES:
         raise NotImplementedError(
@@ -74,9 +87,16 @@ def apply_serving_mode(agent, mode: str):
             "multiple of 128, top-2 routing) needs the attention and MoE "
             "kernels, not ported yet (ROADMAP.md Queue 2)")
     agent.configure_(**PRESET_FLAGS[mode])
+    agent.q8 = None
     if mode == "reference":
         agent.folded = None        # the plain encoders, as the JAX preset
     else:
         agent.fold_encoders_for_inference()
     agent.quantize_for_inference()
+    if mode == "max-throughput":
+        if calib_batch is None:
+            logger.warning("max-throughput without calib_batch: int8 "
+                           "encoders use dynamic activation scales (pass a "
+                           "representative batch to calibrate)")
+        agent.quantize_encoders_for_inference(calib_batch=calib_batch)
     return agent

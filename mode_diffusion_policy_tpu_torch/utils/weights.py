@@ -3,8 +3,8 @@
 The port keeps the JAX tree's names and layouts (dense kernels [in, out],
 stacked experts), so the mapping is by path: ``blocks_{i}`` becomes
 ``blocks.{i}``, and a 4-d conv ``kernel`` (HWIO) becomes the OIHW
-``weight``. Encoder BatchNorm statistics come from the ``batch_stats``
-collection. Leaves are numpy arrays (``jax.tree.map(np.asarray, ...)``);
+``weight`` (an int8 ``kernel_q`` stays ``kernel_q``, turned OIHW).
+Encoder BatchNorm statistics come from the ``batch_stats`` collection. Leaves are numpy arrays (``jax.tree.map(np.asarray, ...)``);
 this module imports no JAX.
 """
 from __future__ import annotations
@@ -45,6 +45,36 @@ def resnet_state_dict(params: Mapping, batch_stats: Mapping
             k, v = k[: -len("kernel")] + "weight", v.transpose(3, 2, 0, 1)
         sd[k] = torch.from_numpy(np.ascontiguousarray(v))
     return sd
+
+
+def q8_resnet_state_dict(q8_params: Mapping) -> Dict[str, torch.Tensor]:
+    """One encoder of a JAX ``q8_encoder_params`` collection (the output of
+    ``quantize_resnet_params``) -> the state dict of the port's ``q8``
+    ``FiLMResNetPolicy``: ``kernel_q`` from HWIO to OIHW int8, float convs
+    that the quantizer skipped from HWIO ``kernel`` to OIHW ``weight``, and
+    ``scale``, ``bias``, ``act_scale`` and the FiLM denses copied in f32."""
+    sd = {}
+    for k, v in _flatten(q8_params).items():
+        if k.endswith(".kernel_q"):
+            v = np.ascontiguousarray(np.asarray(v, np.int8).transpose(3, 2, 0, 1))
+        else:
+            v = np.array(v, np.float32)
+            if k.endswith(".kernel") and v.ndim == 4:
+                k, v = k[: -len("kernel")] + "weight", v.transpose(3, 2, 0, 1)
+            v = np.ascontiguousarray(v)
+        sd[k] = torch.from_numpy(v)
+    return sd
+
+
+def load_q8_encoders(agent, q8_encoder_params: Mapping):
+    """Install a JAX ``q8_encoder_params`` collection ({encoder: tree}) as
+    the agent's int8 encoders (``MoDEAgent.set_q8_encoders_``)."""
+    from ..models.agent import ENCODERS
+
+    return agent.set_q8_encoders_({
+        name: {k: v.to(agent.device) for k, v in
+               q8_resnet_state_dict(q8_encoder_params[name]).items()}
+        for name in ENCODERS})
 
 
 def from_jax_params(variables: Mapping, cfg, *, device="cuda"):

@@ -1,7 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 its entry points refuse to run without CUDA unless asked for the CPU, and
-the presets and samplers it has not ported raise instead of running
-another path."""
+the samplers it has not ported raise instead of running another path."""
 import ast
 import pathlib
 import subprocess
@@ -22,7 +21,6 @@ from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
 from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
                                                      SERVING_MODES,
                                                      UNPORTED_MODES,
-                                                     apply_serving_mode,
                                                      resolve_serving_mode)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -65,9 +63,12 @@ for n in names:
 import runpy
 runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="chip_smoke_import")
 # importing builds and loads no kernel: that happens at the first CUDA call
-from mode_diffusion_policy_tpu_torch.ops.kernels import _build, layer_kernel
+from mode_diffusion_policy_tpu_torch.ops.kernels import (
+    _build, attn_kernel, layer_kernel, moe_kernel)
 assert _build.load_library.cache_info().currsize == 0
 assert layer_kernel.fused_dit_q8c.launches == 0
+assert attn_kernel.fused_attn_block_q8.launches == 0
+assert moe_kernel.fused_top2_mlp_q8c.launches == 0
 print(len(names), "modules")
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -99,22 +100,11 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     assert next(agent.parameters()).device.type == "cpu"
 
 
-@pytest.mark.parametrize("mode", sorted(UNPORTED_MODES))
-def test_unported_presets_raise(mode):
-    agent = MoDEAgent(MoDEAgentConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        apply_serving_mode(agent, mode)
-    with pytest.raises(NotImplementedError):
-        RolloutPolicy.with_serving_mode(agent, mode=mode)
-    assert not agent.cfg.use_fused_layer
-
-
 def test_serving_mode_names():
-    assert set(UNPORTED_MODES) | set(PRESET_FLAGS) | {"reference", "auto"} \
-        == set(SERVING_MODES)
-    assert set(PRESET_FLAGS) == {"reference", "parity", "b1-latency",
-                                 "b1-latency-max"}
-    assert set(UNPORTED_MODES) == {"max-throughput"}
+    assert set(PRESET_FLAGS) | {"auto"} == set(SERVING_MODES)
+    assert set(PRESET_FLAGS) == {"reference", "parity", "max-throughput",
+                                 "b1-latency", "b1-latency-max"}
+    assert not UNPORTED_MODES
     assert resolve_serving_mode("auto", "cuda") == "parity"
     assert resolve_serving_mode("auto", "cpu") == "reference"
     with pytest.raises(ValueError, match="unknown serving mode"):
@@ -146,6 +136,22 @@ def test_megakernel_presets_run_on_the_cpu_when_asked():
         chunk = policy.predict_chunk(
             obs, {"lang_emb": torch.zeros(1, 1, TINY["cond_dim"])})
         assert chunk.shape == (1, 10, 7) and torch.isfinite(chunk).all()
+
+
+def test_max_throughput_runs_on_the_cpu_when_asked():
+    """max-throughput is ported: on a CPU agent it builds the int8
+    encoders (dynamic scales without a calibration batch) and runs the
+    plain versions of the attention and MoE kernels."""
+    agent = MoDEAgent(MoDEAgentConfig(**TINY), device="cpu")
+    policy = RolloutPolicy.with_serving_mode(agent, mode="max-throughput")
+    cfg = policy.agent.cfg
+    assert cfg.use_int8_attn and cfg.use_int8_moe and not cfg.use_fused_layer
+    assert policy.agent.q8 is not None and not policy.agent.q8_clips
+    obs = {k: torch.rand(2, 1, 32, 32, 3) for k in ("rgb_static",
+                                                    "rgb_gripper")}
+    chunk = policy.predict_chunk(
+        obs, {"lang_emb": torch.zeros(2, 1, TINY["cond_dim"])})
+    assert chunk.shape == (2, 10, 7) and torch.isfinite(chunk).all()
 
 
 def test_layer_wrapper_rejects_other_devices():

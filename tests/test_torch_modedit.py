@@ -163,7 +163,7 @@ def test_fused_layer_needs_quantized_experts(setup):
 
 
 def test_config_rejects_unported_combinations():
-    with pytest.raises(NotImplementedError, match="fused_top2_mlp_q8c"):
+    with pytest.raises(NotImplementedError, match="fused_attn_block"):
         TCfg(**DIMS, use_int8_moe=True)
     with pytest.raises(ValueError, match="use_fused_layer"):
         TCfg(**DIMS, use_fused_layer=True)

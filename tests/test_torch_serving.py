@@ -2,13 +2,16 @@
 2 heads of 128).
 
 The serving precast (``RolloutPolicy``) casts the DiT weights to bf16 in
-place; it keeps their f32 values, so that quantizing again afterwards
-(``quantize_for_inference``, or another preset applied to the same agent)
-starts from the f32 weights and gives exactly the int8 tensors and scales
-of the JAX package's quantizers on those weights. The JAX package's
-``RolloutPolicy`` precasts a copy it owns, and its
-``quantize_for_inference`` always reads the f32 parameters.
+the policy's own copy of the agent, as the JAX package's ``RolloutPolicy``
+precasts a copy it owns: the caller's parameters stay f32 and untouched.
+The copy keeps the f32 values as masters, so that quantizing it again
+(``quantize_for_inference``) starts from the f32 weights and gives exactly
+the int8 tensors and scales of the JAX package's quantizers on those
+weights; so does quantizing the caller's agent (another preset applied to
+it), whose parameters the policy never cast.
 """
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from mode_diffusion_policy_tpu.ops.quant import (
 from mode_diffusion_policy_tpu_torch.models.agent import (MoDEAgent,
                                                           MoDEAgentConfig,
                                                           RolloutPolicy)
+from mode_diffusion_policy_tpu_torch.models.modedit import MoDeDiTConfig
 from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
                                                      apply_serving_mode)
 
@@ -56,35 +60,43 @@ def _assert_int8_like_jax(agent, f32, attn):
             assert blk.attn.attn_q is None
 
 
-@pytest.mark.parametrize("mode", ["parity", "b1-latency-max"])
+@pytest.mark.parametrize("mode", ["parity", "b1-latency-max",
+                                  "max-throughput"])
 def test_requantize_after_policy_matches_jax_f32_quantization(
         agent_and_weights, mode):
-    """Build a policy (which precasts the agent to bf16), quantize again,
-    and get the JAX package's int8 weights of the original f32 weights."""
+    """Build a policy (which precasts its copy of the agent to bf16),
+    quantize the policy's agent and the caller's again, and get the JAX
+    package's int8 weights of the original f32 weights on both."""
     agent, f32 = agent_and_weights
-    RolloutPolicy.with_serving_mode(agent, mode=mode)
-    blk = agent.inner_model.blocks[0]
+    policy = RolloutPolicy.with_serving_mode(agent, mode=mode)
+    blk = policy.agent.inner_model.blocks[0]
     assert blk.experts_w1.dtype == torch.bfloat16      # precast happened
     assert blk.attn.wqkv.kernel.dtype == torch.bfloat16
-    agent.quantize_for_inference()
-    _assert_int8_like_jax(agent, f32, attn=(mode == "b1-latency-max"))
+    assert agent.inner_model.blocks[0].experts_w1.dtype == torch.float32
+    for a in (policy.agent, agent):
+        a.quantize_for_inference()
+        _assert_int8_like_jax(a, f32, attn=PRESET_FLAGS[mode]["use_int8_attn"])
 
 
 def test_presets_applied_in_turn_to_one_agent(agent_and_weights):
-    """parity -> b1-latency-max -> b1-latency -> parity -> reference on the
-    same agent: each sets its flags, quantizes from the f32 weights and
-    (re)builds or drops the megakernel's layer stack; reference goes back
-    to the plain graph (no int8 weights, no folded encoders)."""
+    """parity -> b1-latency-max -> max-throughput -> b1-latency -> parity ->
+    reference on the same agent: each sets its flags, quantizes from the f32
+    weights and (re)builds or drops the megakernel's layer stack and the
+    int8 encoders; reference goes back to the plain graph (no int8
+    weights, no folded encoders). Each policy serves its own copy."""
     agent, f32 = agent_and_weights
     dit = agent.inner_model
-    for mode in ("parity", "b1-latency-max", "b1-latency", "parity",
-                 "reference"):
+    for mode in ("parity", "b1-latency-max", "max-throughput", "b1-latency",
+                 "parity", "reference"):
         policy = RolloutPolicy.with_serving_mode(agent, mode=mode)
-        assert policy.agent is agent
+        assert policy.agent is not agent
         for flag, value in PRESET_FLAGS[mode].items():
             assert getattr(agent.cfg, flag) == value, (mode, flag)
             assert getattr(dit.cfg, flag) == value, (mode, flag)
+            assert getattr(policy.agent.inner_model.cfg, flag) == value
         int8_attn = PRESET_FLAGS[mode]["use_int8_attn"]
+        assert (agent.q8 is not None) == (mode == "max-throughput")
+        assert (policy.agent.q8 is not None) == (mode == "max-throughput")
         if mode == "reference":
             assert agent.folded is None and dit.stacked is None
             assert all(b.experts_q is None and b.attn.attn_q is None
@@ -114,11 +126,49 @@ def test_megakernel_preset_needs_its_stack(agent_and_weights):
     assert agent.inner_model.stacked is not None
 
 
-def test_max_throughput_still_names_its_kernels(agent_and_weights):
-    agent, _ = agent_and_weights
-    with pytest.raises(NotImplementedError,
-                       match="fused_attn_block_q8.*fused_top2_mlp_q8c"):
-        apply_serving_mode(agent, "max-throughput")
+def test_int8_moe_with_bf16_attention_names_its_kernel():
+    """int8 experts outside the whole-layer kernel with bf16 attention
+    projections would need the bf16 attention kernel, not ported: the
+    config says so rather than run another path."""
+    with pytest.raises(NotImplementedError, match="fused_attn_block"):
+        MoDeDiTConfig(use_int8_moe=True)
+    MoDeDiTConfig(use_int8_moe=True, use_int8_attn=True)    # max-throughput
+    with pytest.raises(ValueError, match="use_int8_moe"):
+        MoDeDiTConfig(use_int8_attn=True)
+    with pytest.raises(ValueError, match="use_fused_layer"):
+        MoDeDiTConfig(use_int8_moe=True, use_int8_attn=True,
+                      use_megakernel=True)
+
+
+@pytest.mark.parametrize("mode", ["parity", "b1-latency", "max-throughput"])
+def test_policy_leaves_the_callers_agent_untouched(mode):
+    """Building a policy, plainly or with a preset, leaves every parameter
+    of the caller's agent f32 and bit-identical (the JAX policy: "training
+    state is untouched"), and the policy serves the chunk of an agent that
+    was precast in place."""
+    agent = MoDEAgent(MoDEAgentConfig(**DIMS), device="cpu")
+    before = {n: p.detach().clone() for n, p in agent.named_parameters()}
+
+    def untouched():
+        for n, p in before.items():
+            q = agent.get_parameter(n)
+            assert q.dtype == torch.float32, n
+            torch.testing.assert_close(q.detach(), p, rtol=0, atol=0)
+
+    RolloutPolicy(agent)
+    untouched()
+    policy = RolloutPolicy.with_serving_mode(agent, mode=mode)
+    untouched()
+    obs = {k: torch.rand(1, 1, 32, 32, 3, generator=torch.Generator()
+                         .manual_seed(i))
+           for i, k in enumerate(("rgb_static", "rgb_gripper"))}
+    goal = {"lang_emb": torch.ones(1, 1, DIMS["cond_dim"])}
+    noise = torch.randn(1, 10, 7, generator=torch.Generator().manual_seed(2))
+    got = policy.predict_chunk(obs, goal, noise)
+    untouched()
+    inplace = copy.deepcopy(agent).precast_for_serving()
+    want = RolloutPolicy(inplace).predict_chunk(obs, goal, noise)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("mode", ["parity", "b1-latency-max"])
@@ -134,7 +184,7 @@ def test_int8_biases_stay_f32_through_the_precast(mode):
             blk.attn.wqkv.bias.add_(0.01)
     b1 = dit.blocks[0].experts_b1.detach().clone()
     bqkv = dit.blocks[0].attn.wqkv.bias.detach().clone()
-    RolloutPolicy.with_serving_mode(agent, mode=mode)
+    dit = RolloutPolicy.with_serving_mode(agent, mode=mode).agent.inner_model
     assert dit.blocks[0].experts_b1.dtype == torch.bfloat16   # precast
     q = dit.blocks[0].experts_q
     assert q.b1.dtype == torch.float32 and not q.b1.requires_grad

@@ -4,17 +4,22 @@ the same initial noise: uint8 frames -> eval preprocessing -> 2x FiLM-ResNet-50
 chunk, f32 on the CPU, under the ``parity`` preset (int8 experts,
 whole-layer function), the ``b1-latency`` and ``b1-latency-max`` presets
 (the whole block stack as one function per step, bf16 or int8 attention
-projections; the JAX side runs its Pallas kernels in interpret mode) and
-the ``reference`` preset. Also the EDM pieces on their own.
+projections; the JAX side runs its Pallas kernels in interpret mode), the
+``max-throughput`` preset (int8 encoders calibrated on the chunk's frames,
+the int8-projection attention function and the MoE function per layer) and
+the ``reference`` preset. Also the EDM pieces on their own, and an
+off-schedule call of the hoisted denoiser.
 
 Gate: action MAE <= 1e-3 (the parity preset's budget); in f32 the two
-agree far closer (rare int8 rounding flips aside). ``b1-latency-max``, which
-the JAX package documents as over that budget, re-quantizes every token row
-twice more per layer (before QKV and before c_proj), and one int8 flip there
-moves a whole sample's chunk; there the gate is max(1e-3, 2 x the larger
-distance between the port's plain evaluation and two near-exact ones: the
-products accumulated in f64, and the products, norms and softmax too), the
-rule chip_smoke.py holds the megakernel paths to.
+agree far closer (rare int8 rounding flips aside). ``b1-latency-max`` and
+``max-throughput``, which the JAX package documents as over that budget,
+re-quantize every token row twice more per layer (before QKV and before
+c_proj), and one int8 flip there moves a whole sample's chunk
+(tests/test_torch_attn_kernel.py shows such flips are the whole difference
+at one layer); there the gate is max(1e-3, 2 x the larger distance between
+the port's plain evaluation and two near-exact ones: the products
+accumulated in f64, and the products, norms and softmax too), the rule
+chip_smoke.py holds the megakernel and two-kernel paths to.
 
 The port loads only the JAX parameters (``utils/weights.from_jax_params``):
 every int8 tensor, the attention projections' included, is derived from
@@ -42,8 +47,12 @@ from mode_diffusion_policy_tpu_torch.models.edm import precond as tprecond
 from mode_diffusion_policy_tpu_torch.models.edm import samplers as tsamplers
 from mode_diffusion_policy_tpu_torch.models.edm import schedules as tsched
 from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera as tpre
+from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+    fused_attn_block_q8, fused_attn_block_q8_ref)
 from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
     fused_dit_q8c, fused_dit_q8c_ref)
+from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+    fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
 from mode_diffusion_policy_tpu_torch.utils.weights import from_jax_params
 
 DIMS = dict(latent_dim=256, n_layers=2, n_heads=2, cond_dim=32,
@@ -94,13 +103,16 @@ def setup():
 def _jax_chunk(agent, v, d, mode):
     """The JAX RolloutPolicy path (serving preset, preprocessing, encoders,
     routing precompute, hoisted denoiser, DDIM) with explicit noise; returns
-    the chunk and the preset's JAX config."""
-    agent, v = japply(agent, v, mode)
-    v = agent.precast_for_serving(v)
+    the chunk and the preset's JAX config. ``max-throughput`` calibrates its
+    int8 encoders on the chunk's own frames."""
     lang = jnp.asarray(d["lang"])
-    emb, _ = agent.embed_visual_obs(
-        v, jpre(None, jnp.asarray(d["u8s"]), size=IMG),
-        jpre(None, jnp.asarray(d["u8g"]), size=IMG), lang)
+    rgb_s = jpre(None, jnp.asarray(d["u8s"]), size=IMG)
+    rgb_g = jpre(None, jnp.asarray(d["u8g"]), size=IMG)
+    calib = (dict(rgb_static=rgb_s, rgb_gripper=rgb_g, lang_emb=lang)
+             if mode == "max-throughput" else None)
+    agent, v = japply(agent, v, mode, calib_batch=calib)
+    v = agent.precast_for_serving(v)
+    emb, _ = agent.embed_visual_obs(v, rgb_s, rgb_g, lang)
     routing = agent.precompute_routing(v, agent.sigmas[:-1])
     den = agent.make_denoiser(v, emb, lang, routing, sigmas=agent.sigmas)
     x0 = jnp.asarray(d["noise"]) * agent.cfg.sigma_max
@@ -112,10 +124,12 @@ def _jax_chunk(agent, v, d, mode):
 def _port_chunk(v, d, mode):
     agent = from_jax_params(jax.tree.map(np.asarray, v), TCfg(**DIMS),
                             device="cpu")
-    policy = RolloutPolicy.with_serving_mode(agent, mode=mode)
     obs = {"rgb_static": tpre(torch.from_numpy(d["u8s"]), size=IMG),
            "rgb_gripper": tpre(torch.from_numpy(d["u8g"]), size=IMG)}
     goal = {"lang_emb": torch.from_numpy(d["lang"])}
+    calib = ({**obs, **goal} if mode == "max-throughput" else None)
+    policy = RolloutPolicy.with_serving_mode(agent, mode=mode,
+                                             calib_batch=calib)
     chunk = policy.predict_chunk(obs, goal, torch.from_numpy(d["noise"]))
     return policy, obs, goal, chunk.numpy()
 
@@ -132,7 +146,7 @@ def _counting(fn, counts, key):
 
 
 @pytest.mark.parametrize("mode", ["parity", "reference", "b1-latency",
-                                  "b1-latency-max"])
+                                  "b1-latency-max", "max-throughput"])
 def test_slice_matches_jax(setup, mode):
     jagent, v, d = setup
     want, jcfg = _jax_chunk(jagent, v, d, mode)
@@ -140,38 +154,55 @@ def test_slice_matches_jax(setup, mode):
     assert got.shape == (B, 10, 7) and np.isfinite(got).all()
     dit = policy.agent.inner_model
     tol = 1e-3
-    if mode == "b1-latency-max":
+    if mode in ("b1-latency-max", "max-throughput"):
         for red in (torch.float32, torch.float64):
             dit.dit_impl = functools.partial(
                 fused_dit_q8c_ref, acc_dtype=torch.float64, red_dtype=red)
+            dit.attn_impl = functools.partial(
+                fused_attn_block_q8_ref, acc_dtype=torch.float64,
+                red_dtype=red)
+            dit.moe_impl = functools.partial(fused_top2_mlp_q8c_ref,
+                                             red_dtype=red)
             exact = policy.predict_chunk(obs, goal,
                                          torch.from_numpy(d["noise"]))
             tol = max(tol, 2.0 * np.abs(got - exact.numpy()).mean())
         dit.dit_impl = fused_dit_q8c
+        dit.attn_impl, dit.moe_impl = fused_attn_block_q8, fused_top2_mlp_q8c
     mae = np.abs(got - want).mean()
     assert mae <= tol, (mae, tol)
     kernels = mode != "reference"
     b1 = mode.startswith("b1-latency")
-    assert policy.agent.cfg.use_fused_layer == kernels
+    two_kernel = mode == "max-throughput"
+    assert policy.agent.cfg.use_fused_layer == (kernels and not two_kernel)
     assert (policy.agent.folded is not None) == kernels
+    assert (policy.agent.q8 is not None) == two_kernel
     if kernels:
         # the JAX flag map (as tests/test_serving_modes.py pins it) and the
         # port's flags for the same preset
         assert jcfg.use_int8_moe and jcfg.use_pallas_moe
-        assert jcfg.use_pallas_attn and jcfg.use_fused_layer
+        assert jcfg.use_pallas_attn
+        assert jcfg.use_fused_layer == (not two_kernel)
         assert jcfg.use_megakernel == b1
-        assert jcfg.use_int8_attn == (mode == "b1-latency-max")
+        assert jcfg.use_int8_attn == (mode in ("b1-latency-max",
+                                               "max-throughput"))
         for flag in FLAGS:
             assert getattr(policy.agent.cfg, flag) == getattr(jcfg, flag), \
                 flag
     assert (dit.stacked is not None) == b1
-    if b1:
-        # one whole-stack call per denoise step, no per-layer call
-        counts = {"dit": 0, "layer": 0}
-        dit.dit_impl = _counting(dit.dit_impl, counts, "dit")
-        dit.layer_impl = _counting(dit.layer_impl, counts, "layer")
+    if kernels:
+        # per denoise step: one whole-stack call (b1), or one whole-layer
+        # call per layer (parity), or one attention and one MoE call per
+        # layer (max-throughput)
+        counts = dict.fromkeys(("dit", "layer", "attn", "moe"), 0)
+        for key in counts:
+            impl = f"{key}_impl"
+            setattr(dit, impl, _counting(getattr(dit, impl), counts, key))
         again = policy.predict_chunk(obs, goal, torch.from_numpy(d["noise"]))
-        assert counts == {"dit": 10, "layer": 0}
+        L = DIMS["n_layers"]
+        assert counts == {"dit": 10 if b1 else 0,
+                          "layer": 10 * L if mode == "parity" else 0,
+                          "attn": 10 * L if two_kernel else 0,
+                          "moe": 10 * L if two_kernel else 0}, counts
         np.testing.assert_array_equal(again.numpy(), got)
     if mode == "parity":
         # the chunked stepper hands out the chunk one action at a time
@@ -260,3 +291,32 @@ def test_embeddings_match():
         np.testing.assert_allclose(
             tf(torch.from_numpy(t)).numpy(),
             np.asarray(jf.apply(fv, jnp.asarray(t))), atol=1e-5, rtol=1e-5)
+
+
+def test_off_schedule_step_routes_inline(setup):
+    """A negative step index is off the schedule: the hoisted denoiser
+    routes and embeds that call inline at its own sigma, as the JAX
+    denoiser does, instead of reading a row of its per-step tables."""
+    jagent, v, d = setup
+    lang = jnp.asarray(d["lang"])
+    emb, _ = jagent.embed_visual_obs(
+        v, jpre(None, jnp.asarray(d["u8s"]), size=IMG),
+        jpre(None, jnp.asarray(d["u8g"]), size=IMG), lang)
+    x = d["noise"] * 3.0
+    sigma = np.full((B,), 0.37, np.float32)
+    jden = jagent.make_denoiser(v, emb, lang, jagent.precompute_routing(
+        v, jagent.sigmas[:-1]), sigmas=jagent.sigmas)
+    want = np.asarray(jden(jnp.asarray(x), jnp.asarray(sigma), -1))
+    agent = from_jax_params(jax.tree.map(np.asarray, v), TCfg(**DIMS),
+                            device="cpu")
+    tlang = torch.from_numpy(d["lang"])
+    temb = agent.embed_visual_obs(tpre(torch.from_numpy(d["u8s"]), size=IMG),
+                                  tpre(torch.from_numpy(d["u8g"]), size=IMG),
+                                  tlang)
+    args = (torch.from_numpy(x), torch.from_numpy(sigma), -1)
+    with torch.no_grad():
+        got = agent.make_denoiser(temb, tlang, agent.precompute_routing())(
+            *args).numpy()
+        inline = agent.make_denoiser(temb, tlang)(*args).numpy()
+    np.testing.assert_allclose(got, inline, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
