@@ -19,19 +19,28 @@ served paths at full flagship width (12 layers, D=1024, 2x FiLM-ResNet-50 at
   launches of each per chunk),
 
 each preset applied in turn to the same agent, each policy serving its own
-precast copy of it.
+precast copy of it; then the evaluation sweep's samplers (``conf/sweep.yaml``:
+ddim, dpmpp_2m, euler, heun, dpmpp_2s_ancestral) on ``parity`` at b=128,
+and dpmpp_2s_ancestral on ``max-throughput`` (b=128), ``b1-latency`` and
+``b1-latency-max`` (b=1), whose off-schedule evaluations route inline and
+run the attention sub-block through ``fused_attn_block`` (bf16
+projections) or ``fused_attn_block_q8`` with one cond row per sample.
 
 For the megakernel it also checks each layer against the plain layer, the
 whole stack against the plain stack and (bf16 projections) against 12
 chained ``fused_layer_q8c`` launches, bit for bit; for the two-kernel
 layer, each kernel against its plain version and, on every layer,
 attention then MoE against a one-layer megakernel launch with int8
-projections, bit for bit; for the int8 convs, ``torch._int_mm`` against
-exact CPU sums. It checks the launch counts of every path and the
-kernel-vs-plain action error, times the kernels, their plain versions, a
-PyTorch-library composition of the same work, whole chunks and the
-encoders, and prints one JSON line for the kernels and a final status
-line. Every phase that fails exits non-zero; without CUDA nothing is run.
+projections, bit for bit; for ``fused_attn_block``, the kernel against its
+plain version with a shared and a per-sample cond, and, on every layer,
+``fused_attn_block`` then the MoE kernel against one ``fused_layer_q8c``
+launch, bit for bit; for both attention kernels, a per-sample cond of equal
+rows against the shared row, bit for bit; for the int8 convs,
+``torch._int_mm`` against exact CPU sums. It checks the launch counts of
+every path and the kernel-vs-plain action error, times the kernels, their
+plain versions, a PyTorch-library composition of the same work, whole
+chunks and the encoders, and prints one JSON line for the kernels and a
+final status line. Every phase that fails exits non-zero; without CUDA nothing is run.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -210,10 +219,10 @@ def kernel_stages(fn, label, iters=10):
     return rows
 
 
-def library_layer(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, deq, e,
-                  p):
-    """The same layer as stock PyTorch calls (bf16 matmuls, SDPA, experts
-    dequantized to bf16 ahead of time): a speed yardstick only."""
+def library_attn_bf16(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout):
+    """The bf16-projection attention sub-block as stock PyTorch calls
+    (cuBLAS bf16 QKV and c_proj, SDPA): a speed yardstick, and the
+    attention half of library_layer."""
     import torch
     import torch.nn.functional as F
     B, T, D = x.shape
@@ -228,11 +237,21 @@ def library_layer(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, deq, e,
     qkv = torch.matmul(h, wqkv) + bqkv
     q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2)
                for t in qkv.chunk(3, dim=-1))
-    q = (rms(q, q_g)).to(x.dtype)
-    k = (rms(k, k_g)).to(x.dtype)
-    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-    xmid = x + torch.matmul(o.transpose(1, 2).reshape(B, T, D), wout)
-    xm = rms(xmid, ln2_g).to(x.dtype)
+    o = F.scaled_dot_product_attention(rms(q, q_g).to(x.dtype),
+                                       rms(k, k_g).to(x.dtype), v,
+                                       is_causal=True)
+    return x + torch.matmul(o.transpose(1, 2).reshape(B, T, D), wout)
+
+
+def library_layer(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, deq, e,
+                  p):
+    """The same layer as stock PyTorch calls (bf16 matmuls, SDPA, experts
+    dequantized to bf16 ahead of time): a speed yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    xmid = library_attn_bf16(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout)
+    xm = (xmid.float() * torch.rsqrt(xmid.float().pow(2).mean(
+        -1, keepdim=True) + 1e-12) * ln2_g).to(x.dtype)
     out = xm.float()
     for slot in range(2):
         w1, b1, w2 = deq[e[slot]]
@@ -472,7 +491,9 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
     """fused_attn_block_q8 and fused_top2_mlp_q8c at full width, b=128 and
     b=1, on the flagship agent's int8 weights: each against its plain
     version on the same input with the layer gates (the MoE kernel in all
-    four prenorm/residual combinations); for every layer, attention then
+    four prenorm/residual combinations, the attention kernel also with one
+    cond row per sample, and with equal rows bit for bit against the
+    shared row); for every layer, attention then
     MoE equal to a one-layer fused_dit_q8c launch with int8 projections,
     bit for bit. Then the kernels', the plain versions' and the library
     yardsticks' times."""
@@ -510,8 +531,14 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
             err, used = layer_gate(f"fused_attn_block_q8 b={B} step={s}", y,
                                    fused_attn_block_q8_ref(*args,
                                                            **kw_attn(blk)))
-            out["attn"]["max_abs_err"] = max(out["attn"]["max_abs_err"], err)
-            msg = [f"attention {used:.2f}"]
+            err2, used2 = check_cond_rows(
+                "fused_attn_block_q8", fused_attn_block_q8,
+                fused_attn_block_q8_ref, (args[0], *args[2:]), c,
+                per_sample_cond(dit, B, gen), kw_attn(blk))
+            out["attn"]["max_abs_err"] = max(out["attn"]["max_abs_err"], err,
+                                             err2)
+            msg = [f"attention {used:.2f} (per-sample cond {used2:.2f}; "
+                   "equal rows == shared row, bit for bit)"]
             for ln, resid in ((True, True), (True, False), (False, True),
                               (False, False)):
                 kw = dict(step=s, residual=resid,
@@ -599,6 +626,257 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
     return out
 
 
+def attn_bf16_cost(B, T, D, H):
+    """(bf16 flops, int8 ops, bytes) of one fused_attn_block call: the bf16
+    QKV and c_proj products, the causal attention of each sample, x read
+    and the output written once, the bf16 weights, the f32 bias, norms and
+    the cond row (one per sample where it is per sample, not counted)."""
+    N, hd = B * T, D // H
+    pairs = T * (T + 1) // 2
+    bf16 = 2 * N * D * 3 * D + 2 * N * D * D + B * H * pairs * hd * 4
+    nbytes = 2 * N * D * 2 + 2 * 4 * D * D + (3 * D + 2 * D) * 4 + 2 * hd * 4
+    return bf16, 0, nbytes
+
+
+def per_sample_cond(dit, B, gen):
+    """One cond row per sample [B,1,D], as an inline call makes them: the
+    sigma tokens of B random sigmas in the schedule's range."""
+    import torch
+    sigma = torch.exp(torch.empty(B, device=gen.device).uniform_(
+        -6.9, 4.38, generator=gen))
+    return dit.process_sigma_embeddings(sigma)
+
+
+def check_cond_rows(name, kern, ref, args, c, c_rows, kw):
+    """A per-sample cond whose rows all equal the shared row gives the
+    shared-row launch bit for bit; one with distinct rows stays within the
+    layer gates of the plain version. Returns (max |diff|, gate share)."""
+    import torch
+    B = args[0].shape[0]
+    shared = kern(args[0], c, *args[1:], **kw)
+    same = kern(args[0], c.expand(B, 1, -1).contiguous(), *args[1:], **kw)
+    torch.cuda.synchronize()
+    diff = (shared.float() - same.float()).abs().max().item()
+    if diff != 0.0:
+        raise SystemExit(f"{name} b={B}: a per-sample cond of equal rows "
+                         f"differs from the shared row ({diff:.3e})")
+    got = kern(args[0], c_rows, *args[1:], **kw)
+    torch.cuda.synchronize()
+    return layer_gate(f"{name} b={B} per-sample cond", got,
+                      ref(args[0], c_rows, *args[1:], **kw))
+
+
+def check_attn_bf16(dit, routing, emb_all, steps, T, gen, cfg):
+    """fused_attn_block at full width, b=128 and b=1, on the parity
+    policy's bf16 weights: against its plain version with a shared cond
+    row and with one per sample (layer gates), a per-sample cond of equal
+    rows bit for bit against the shared row; on every layer, the kernel
+    then fused_top2_mlp_q8c (ln_2, residual) against one fused_layer_q8c
+    launch with bf16 projections, bit for bit (chained). Then the kernel's,
+    the plain version's and the library yardstick's times."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block, fused_attn_block_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_layer_q8c)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c)
+
+    dev = emb_all.device
+    D, H = cfg.latent_dim, cfg.n_heads
+    out = {"max_abs_err": 0.0}
+
+    def weights(blk):
+        a = blk.attn
+        return (blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
+                a.k_norm.g, a.c_proj.kernel)
+
+    def kw(blk):
+        return dict(ln_eps=blk.ln_1.eps, qk_eps=blk.attn.q_norm.eps)
+
+    for B in (128, 1):
+        blk = dit.blocks[0]
+        for s in steps:
+            x = torch.randn(B, T, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            c = emb_all[s][None]
+            args = (x, *weights(blk))
+            got = fused_attn_block(x, c, *args[1:], **kw(blk))
+            torch.cuda.synchronize()
+            err, used = layer_gate(f"fused_attn_block b={B} step={s}", got,
+                                   fused_attn_block_ref(x, c, *args[1:],
+                                                        **kw(blk)))
+            err2, used2 = check_cond_rows(
+                "fused_attn_block", fused_attn_block, fused_attn_block_ref,
+                args, c, per_sample_cond(dit, B, gen), kw(blk))
+            out["max_abs_err"] = max(out["max_abs_err"], err, err2)
+            print(f"  fused_attn_block b={B} step={s}: within the layer "
+                  f"gates (share used: shared cond {used:.2f}, per-sample "
+                  f"cond {used2:.2f}); per-sample cond of equal rows == "
+                  f"shared row, bit for bit", flush=True)
+        # attention -> MoE == one fused_layer_q8c launch, every layer
+        s = steps[-1]
+        y = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+        c = emb_all[s][None]
+        for l, blk in enumerate(dit.blocks):
+            idx, probs = routing[l]
+            w = weights(blk)
+            two = fused_top2_mlp_q8c(
+                fused_attn_block(y, c, *w, **kw(blk)), idx, probs,
+                blk.experts_q, step=s, residual=True, ln_g=blk.ln_2.g,
+                ln_eps=blk.ln_2.eps)
+            one = fused_layer_q8c(
+                y, c, w[0], w[1], w[2], w[3], w[4], w[5], blk.ln_2.g,
+                blk.experts_q, idx, probs, step=s, eps1=blk.ln_1.eps,
+                eps_qk=blk.attn.q_norm.eps, eps2=blk.ln_2.eps)
+            diff = (two.float() - one.float()).abs().max().item()
+            if diff != 0.0:
+                raise SystemExit(f"b={B} layer {l}: fused_attn_block -> "
+                                 f"fused_top2_mlp_q8c differs from one "
+                                 f"fused_layer_q8c launch ({diff:.3e})")
+            y = two
+        print(f"  b={B} step={s}: fused_attn_block -> fused_top2_mlp_q8c == "
+              f"fused_layer_q8c, bit for bit, on all {len(dit.blocks)} "
+              "layers (chained)", flush=True)
+
+        # timing at step 0 on this B, layer 0, shared cond
+        blk = dit.blocks[0]
+        x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+        c = emb_all[0][None]
+        w = weights(blk)
+        k_ms = cuda_time_ms(lambda: fused_attn_block(x, c, *w, **kw(blk)),
+                            50 if B == 128 else 100)
+        p_ms = cuda_time_ms(lambda: fused_attn_block_ref(x, c, *w, **kw(blk)),
+                            3)
+        lib = (w[0], w[1], w[2].to(torch.bfloat16), w[3], w[4], w[5])
+        l_ms = cuda_time_ms(lambda: library_attn_bf16(x, c, *lib), 20)
+        cost = attn_bf16_cost(B, T, D, H)
+        bound, by = bound_of(*cost)
+        out[B] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                      bound_ms=bound, bound_by=by)
+        print(f"  fused_attn_block b={B}: kernel {k_ms:.4f} ms/launch, bound "
+              f"{bound:.4f} ms ({by}; {cost[0] / 1e9:.2f} GFLOP bf16, "
+              f"{cost[2] / 1e6:.1f} MB), plain {p_ms:.3f} ms, library "
+              f"{l_ms:.4f} ms", flush=True)
+        out[f"stages_b{B}"] = kernel_stages(
+            lambda: fused_attn_block(x, c, *w, **kw(blk)),
+            f"fused_attn_block b={B}")
+    return out
+
+
+# Evaluations per chunk of the sweep's runs, (on the schedule, off it), as
+# the JAX samplers make them on the exponential schedule that ends at 0
+# (tests/test_torch_samplers.py pins the port's to JAX's, step for step).
+SWEEP_EVALS = {("ddim", 10): (10, 0), ("dpmpp_2m", 10): (10, 0),
+               ("euler", 10): (10, 0), ("heun", 10): (19, 0),
+               ("dpmpp_2s_ancestral", 10): (10, 9),
+               ("dpmpp_2s_ancestral", 4): (4, 3),
+               ("dpmpp_2s_ancestral", 16): (16, 15)}
+
+
+def sweep_run(policy, mode, sampler, steps, r, cfg, zero_launches,
+              launches_of):
+    """One chunk of ``sampler`` at ``steps`` steps through the preset's
+    policy (eager, the launch counters on): its launch counts against the
+    table, the action MAE of the kernel path against the plain path and
+    the f32-vs-f64 floors, with the same initial and sampler noise (the
+    policy's generator re-seeded before each chunk), and the chunk ms."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block_q8_ref, fused_attn_block_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_dit_q8c_ref, fused_layer_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c_ref)
+
+    ag = policy.agent
+    ag.configure_(sampler_type=sampler, num_sampling_steps=steps)
+    dit = ag.inner_model
+    L = cfg.n_layers
+    on, off = SWEEP_EVALS[(sampler, steps)]
+
+    def chunk():
+        policy.generator.manual_seed(11)
+        return policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+
+    chunk()                                   # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    kern = chunk()
+    torch.cuda.synchronize()
+    counts = launches_of()
+    c = ag.cfg
+    want = dict.fromkeys(counts, 0)
+    if c.use_megakernel:
+        want["fused_dit_q8c"] = on
+    elif c.use_fused_layer:
+        want["fused_layer_q8c"] = on * L
+    else:
+        want["fused_attn_block_q8"] = on * L
+        want["fused_top2_mlp_q8c"] = on * L
+    want["fused_attn_block_q8" if c.use_int8_attn
+         else "fused_attn_block"] += off * L
+    if counts != want:
+        raise SystemExit(f"sweep {mode} {sampler} {steps} steps: launches "
+                         f"{counts}, expected {want}")
+    if not bool(torch.isfinite(kern).all()) or tuple(kern.shape) != (
+            r["noise"].shape[0], cfg.act_window_size, cfg.action_dim):
+        raise SystemExit(f"sweep {mode} {sampler}: bad chunk "
+                         f"{tuple(kern.shape)}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - c0) * 1e3)
+    impls = ("layer_impl", "dit_impl", "attn_impl", "attn_impl_bf16",
+             "moe_impl")
+    kernels = {k: getattr(dit, k) for k in impls}
+
+    def plain(acc=torch.float32, red=torch.float32):
+        kw = dict(acc_dtype=acc, red_dtype=red)
+        dit.layer_impl = functools.partial(fused_layer_q8c_ref, **kw)
+        dit.dit_impl = functools.partial(fused_dit_q8c_ref, **kw)
+        dit.attn_impl = functools.partial(fused_attn_block_q8_ref, **kw)
+        dit.attn_impl_bf16 = functools.partial(fused_attn_block_ref, **kw)
+        dit.moe_impl = functools.partial(fused_top2_mlp_q8c_ref,
+                                         red_dtype=red)
+        return chunk()
+
+    p = plain()
+    floors = [(p - plain(torch.float64)).abs().mean().item()]
+    if c.use_int8_attn or c.use_megakernel:
+        floors.append((p - plain(torch.float64, torch.float64))
+                      .abs().mean().item())
+    for k, fn in kernels.items():
+        setattr(dit, k, fn)
+    mae = (kern - p).abs().mean().item()
+    tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * max(floors))
+    row = dict(mode=mode, sampler=sampler, steps=steps,
+               batch=r["noise"].shape[0], evals_on=on, evals_off=off,
+               launches={k: v for k, v in counts.items() if v},
+               action_mae=mae, action_floor=max(floors),
+               chunk_ms=statistics.median(times))
+    if off and steps == 10:
+        # where the off-schedule evaluations' time goes: the DiT kernels'
+        # device time against the rest (the inline path's embeddings,
+        # router and dense experts in PyTorch, the encoders)
+        row["split"] = chunk_split(policy, r["obs"], r["goal"], r["noise"],
+                                   row["chunk_ms"])
+    print(f"  sweep {mode} b={row['batch']} {sampler} {steps} steps: "
+          f"{on} + {off} off-schedule evaluations, launches "
+          f"{row['launches']}; action MAE kernel-vs-plain {mae:.3e} (tol "
+          f"{tol:.3e}, floors {', '.join(f'{f:.3e}' for f in floors)}); "
+          f"chunk {row['chunk_ms']:.2f} ms (median of 3: "
+          f"{', '.join(f'{t:.2f}' for t in times)}); split "
+          f"{row.get('split', 'not taken')}", flush=True)
+    if mae > tol:
+        raise SystemExit(f"sweep {mode} {sampler} {steps} steps: kernel "
+                         "path disagrees with plain path")
+    return row
+
+
 def check_int8_convs(q8_mod, gen):
     """The int8 conv route (int8 patches, torch._int_mm) on three of the
     encoder's convs at their real shapes: the int32 result equals an exact
@@ -675,7 +953,7 @@ def main():
         MoDEAgent, MoDEAgentConfig, RolloutPolicy)
     from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
-        fused_attn_block_q8, fused_attn_block_q8_ref)
+        fused_attn_block, fused_attn_block_q8, fused_attn_block_q8_ref)
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c, fused_layer_q8c_ref)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
@@ -683,7 +961,7 @@ def main():
     # every kernel's launch count; each served path is driven with all of
     # them set to 0 just before and read just after
     counters = (fused_attn_block_q8, fused_top2_mlp_q8c, fused_layer_q8c,
-                fused_dit_q8c)
+                fused_dit_q8c, fused_attn_block)
 
     def launches_of():
         return {k.__name__: k.launches for k in counters}
@@ -700,6 +978,7 @@ def main():
     t = time.perf_counter()
     agent = MoDEAgent(cfg, device=dev)
     policy = RolloutPolicy.with_serving_mode(agent, mode="parity", seed=0)
+    policies = {"parity": policy}
     # the policy serves its own precast copy of the agent: the kernels'
     # plain versions are swapped in there
     dit = policy.agent.inner_model
@@ -878,6 +1157,7 @@ def main():
     for ph, mode in ((7, "b1-latency"), (9, "b1-latency-max")):
         t = time.perf_counter()
         policy = RolloutPolicy.with_serving_mode(agent, mode=mode, seed=0)
+        policies[mode] = policy
         dit = policy.agent.inner_model
         st = dit.stacked
         int8_attn = "sqkv" in st
@@ -997,6 +1277,7 @@ def main():
                                     device=dev)
     policy = RolloutPolicy.with_serving_mode(
         agent, mode="max-throughput", calib_batch=calib, seed=0)
+    policies["max-throughput"] = policy
     dit = policy.agent.inner_model
     for name, label in policy.agent.q8_clips.items():
         mses = policy.agent.q8_clip_mse[name]
@@ -1028,7 +1309,8 @@ def main():
             raise SystemExit(f"max-throughput: bad action {tuple(act.shape)}")
     if mt_launches != {"fused_attn_block_q8": want_launches,
                        "fused_top2_mlp_q8c": want_launches,
-                       "fused_layer_q8c": 0, "fused_dit_q8c": 0}:
+                       "fused_layer_q8c": 0, "fused_dit_q8c": 0,
+                       "fused_attn_block": 0}:
         raise SystemExit(f"max-throughput b=128, one chunk: launches "
                          f"{mt_launches}, expected {want_launches} attention "
                          f"and MoE, 0 layer and 0 megakernel")
@@ -1084,6 +1366,36 @@ def main():
           f"device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                      enc_ms.items()), flush=True)
     phase("phase 14: max-throughput timing", t)
+
+    # ---- phase 15: fused_attn_block, the per-sample cond ------------------
+    t = time.perf_counter()
+    pdit = policies["parity"].agent.inner_model
+    attn16 = check_attn_bf16(pdit, routing, emb_all, steps, T, gen, cfg)
+    phase("phase 15: fused_attn_block vs plain, per-sample cond, and with "
+          "the MoE kernel == fused_layer_q8c on every layer", t)
+
+    # ---- phases 16-17: the evaluation sweep's samplers --------------------
+    t = time.perf_counter()
+    sweep = []
+    for sampler, steps_ in (("ddim", 10), ("dpmpp_2m", 10), ("euler", 10),
+                            ("heun", 10), ("dpmpp_2s_ancestral", 10),
+                            ("dpmpp_2s_ancestral", 4),
+                            ("dpmpp_2s_ancestral", 16)):
+        sweep.append(sweep_run(policies["parity"], "parity", sampler, steps_,
+                               results[128], cfg, zero_launches,
+                               launches_of))
+    phase("phase 16: the sweep's samplers on parity at b=128", t)
+    t = time.perf_counter()
+    for mode, B in (("max-throughput", 128), ("b1-latency", 1),
+                    ("b1-latency-max", 1)):
+        sweep.append(sweep_run(policies[mode], mode, "dpmpp_2s_ancestral",
+                               10, results[B], cfg, zero_launches,
+                               launches_of))
+    phase("phase 17: dpmpp_2s_ancestral on max-throughput, b1-latency and "
+          "b1-latency-max", t)
+    main_path = next(r for r in sweep if r["mode"] == "parity"
+                     and r["sampler"] == "dpmpp_2s_ancestral"
+                     and r["steps"] == 10)
 
     # ---- results -----------------------------------------------------------
     t128 = timing[128]
@@ -1173,6 +1485,24 @@ def main():
                           "b1": two[key]["stages_b1"]},
             "max_throughput": mt,
         })
+    kernels.append({
+        "name": "fused_attn_block",
+        "route": "cuda",
+        "source": "mode_diffusion_policy_tpu_torch/csrc/fused_attn_block.cu",
+        "replaces": "mode_diffusion_policy_tpu/ops/pallas/attn_kernel.py:138",
+        "launches": main_path["launches"]["fused_attn_block"],
+        "max_abs_err": attn16["max_abs_err"],
+        **{k: attn16[128][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        "shape": "b=128 x 14 tokens, D=1024, 8 heads of 128, bf16 QKV and "
+                 "c_proj",
+        "launches_are": "parity b=128, one 10-step dpmpp_2s_ancestral chunk "
+                        "(9 off-schedule evaluations x 12 layers)",
+        "b1": dict(attn16[1]),
+        "stages_ms": {"b128": attn16["stages_b128"],
+                      "b1": attn16["stages_b1"]},
+        "sweep": sweep,
+    })
     phase("done", T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@
 // serving path:
 //
 //   hq, hs = q(rmsnorm(x) * g1 + c)                  (f32, no bf16 cast)
+//            c one row shared by every sample, or one row per sample
 //   qkv    = dot_i8(hq, wqkv_q) * (hs * sqkv) + bqkv
 //   o      = attn(qk_norm(q), qk_norm(k), v)         (causal per sample)
 //   out    = bf16(x + dot_i8(q(o), wout_q) * (os * sout))
@@ -44,10 +45,12 @@ using namespace mdp;
 namespace {
 
 __global__ void __launch_bounds__(kThreads)
-ln1_quant_kernel(const bf16* x, const float* c, const float* g, int8_t* hq,
-                 float* hs, int D, float rs_D, float eps) {
+ln1_quant_kernel(const bf16* x, const float* c, int T, int c_stride,
+                 const float* g, int8_t* hq, float* hs, int D, float rs_D,
+                 float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ln1_quant_row(x, c, g, hq, hs, D, rs_D, eps, blockIdx.x, smem);
+  ln1_quant_row(x, c, T, c_stride, g, hq, hs, D, rs_D, eps, blockIdx.x,
+                smem);
 }
 
 template <int EPI>
@@ -83,14 +86,15 @@ cudaError_t set_smem(K kernel, int bytes) {
 
 }  // namespace
 
-// Returns a CUDA error code; nothing runs unless it is 0.
+// c_stride: 0 for one cond row shared by every sample, D for one row per
+// sample. Returns a CUDA error code; nothing runs unless it is 0.
 extern "C" int fused_attn_block_q8_launch(
     const void* x, const void* c, const void* ln1_g, const void* wqkv_q,
     const void* wqkv_s, const void* bqkv, const void* q_g, const void* k_g,
     const void* wout_q, const void* wout_s, void* hq, void* hs, void* qkv,
     void* o, void* oq, void* os, void* out, int B, int T, int D, int H,
-    float eps1, float eps_qk, float rs_D, float rs_hd, float scale,
-    void* stream) {
+    int c_stride, float eps1, float eps_qk, float rs_D, float rs_hd,
+    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T, hd = D / H;
   const int attn_smem = smem_attn(T, hd);
@@ -99,8 +103,8 @@ extern "C" int fused_attn_block_q8_launch(
                               set_smem(gemm_i8_kernel<1>, kSmemGemm8)})
     if (e != cudaSuccess) return (int)e;
   ln1_quant_kernel<<<M, kThreads, smem_row(D), st>>>(
-      (const bf16*)x, (const float*)c, (const float*)ln1_g, (int8_t*)hq,
-      (float*)hs, D, rs_D, eps1);
+      (const bf16*)x, (const float*)c, T, c_stride, (const float*)ln1_g,
+      (int8_t*)hq, (float*)hs, D, rs_D, eps1);
   gemm_i8_kernel<0><<<n_tiles(M, 3 * D), kThreads, kSmemGemm8, st>>>(
       (const int8_t*)hq, (const float*)hs, (const int8_t*)wqkv_q,
       (const float*)wqkv_s, M, 3 * D, D, (const float*)bqkv, (float*)qkv,

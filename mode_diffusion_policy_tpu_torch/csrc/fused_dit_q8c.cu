@@ -131,7 +131,8 @@ __global__ void __launch_bounds__(kThreads) fused_dit_kernel(DitArgs a) {
     // ---- attention sub-block -------------------------------------------
     if (a.int8_attn) {
       for (int i = g0; i < M; i += gs) {
-        ln1_quant_row(src, a.c, ln1, a.hq, a.hs, D, a.rs_D, a.eps1, i, smem);
+        ln1_quant_row(src, a.c, a.T, 0, ln1, a.hq, a.hs, D, a.rs_D, a.eps1, i,
+                      smem);
         __syncthreads();
       }
       grid.sync();
@@ -143,7 +144,7 @@ __global__ void __launch_bounds__(kThreads) fused_dit_kernel(DitArgs a) {
       }
     } else {
       for (int i = g0; i < M; i += gs) {
-        ln1_row(src, a.c, ln1, a.h, D, a.rs_D, a.eps1, i, smem);
+        ln1_row(src, a.c, a.T, 0, ln1, a.h, D, a.rs_D, a.eps1, i, smem);
         __syncthreads();
       }
       grid.sync();

@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(kThreads)
 ln1_kernel(const bf16* x, const float* c, const float* g, bf16* h, int D,
            float rs_D, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ln1_row(x, c, g, h, D, rs_D, eps, blockIdx.x, smem);
+  ln1_row(x, c, 1, 0, g, h, D, rs_D, eps, blockIdx.x, smem);
 }
 
 template <int EPI>

@@ -186,12 +186,15 @@ __device__ __forceinline__ int expert_of(const int* idx, int step, int slot,
 }
 
 // ---- ln1: h = bf16(rmsnorm(x) * g1 + c), one row -----------------------
+// The cond row of x's row `row` is c + (row / T) * c_stride: c_stride == 0
+// for one row shared by every sample, D for one row per sample.
 __device__ __forceinline__ void ln1_row(const bf16* x, const float* c,
-                                        const float* g, bf16* h, int D,
-                                        float rs_D, float eps, int row,
-                                        unsigned char* smem) {
+                                        int T, int c_stride, const float* g,
+                                        bf16* h, int D, float rs_D, float eps,
+                                        int row, unsigned char* smem) {
   float* red = reinterpret_cast<float*>(smem);
   const bf16* xr = x + (size_t)row * D;
+  c += (size_t)(row / T) * c_stride;
   float ss = 0.f;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     const float v = ldb(xr + d);
@@ -207,8 +210,9 @@ __device__ __forceinline__ void ln1_row(const bf16* x, const float* c,
 }
 
 // ---- ln1, int8 projections: hq, hs = quant_rows(rmsnorm(x) * g1 + c) in
-// f32 (no bf16 cast of h), one row --------------------------------------
+// f32 (no bf16 cast of h), one row; the cond row as in ln1_row -----------
 __device__ __forceinline__ void ln1_quant_row(const bf16* x, const float* c,
+                                              int T, int c_stride,
                                               const float* g, int8_t* hq,
                                               float* hs, int D, float rs_D,
                                               float eps, int row,
@@ -216,6 +220,7 @@ __device__ __forceinline__ void ln1_quant_row(const bf16* x, const float* c,
   float* red = reinterpret_cast<float*>(smem);
   float* buf = red + 32;
   const bf16* xr = x + (size_t)row * D;
+  c += (size_t)(row / T) * c_stride;
   float ss = 0.f;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     const float v = ldb(xr + d);

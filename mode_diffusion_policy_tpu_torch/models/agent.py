@@ -11,11 +11,17 @@ every quantization reads the f32 values, as the JAX package's does.
 Served paths (``RolloutPolicy`` under a serving preset): camera frames ->
 2x BN-folded FiLM-ResNet-50 (int8 convs under ``max-throughput``) ->
 per-sigma top-2 routing tables -> hoisted chunk invariants (static tokens,
-sigma tokens, EDM scalings) -> 10-step DDIM of
+sigma tokens, EDM scalings) -> the configured sampler (``sampler_type``,
+``num_sampling_steps`` on the ``noise_scheduler`` ladder from
+``sigma_max`` to ``sigma_min``; 10-step DDIM by default) over
 ``MoDeDiT.forward_precomputed``, one whole-layer kernel launch per layer
 and step (``parity``) or two (the attention and MoE kernels,
-``max-throughput``), or of ``MoDeDiT.forward_precomputed_mega``, one launch
-of the DiT megakernel per step (``b1-latency``, ``b1-latency-max``).
+``max-throughput``), or over ``MoDeDiT.forward_precomputed_mega``, one
+launch of the DiT megakernel per step (``b1-latency``, ``b1-latency-max``).
+A sampler's off-schedule evaluations (step index -1) route and embed
+inline; under the kernel presets their attention sub-blocks are still one
+kernel launch per layer (``fused_attn_block``, or ``fused_attn_block_q8``
+with int8 projections).
 
 The policy precasts its own copy of the agent (``RolloutPolicy``): the
 caller's parameters stay f32 and untouched, as the JAX policy's "training
@@ -69,6 +75,7 @@ class MoDEAgentConfig:
     seed: int = 42
     dtype: Any = torch.float32
     use_int8_moe: bool = False
+    use_pallas_attn: bool = False
     use_fused_layer: bool = False
     use_int8_attn: bool = False
     use_megakernel: bool = False
@@ -86,6 +93,7 @@ class MoDEAgentConfig:
             action_seq_len=self.act_window_size,
             num_experts=self.num_experts, top_k=self.top_k, dtype=self.dtype,
             use_int8_moe=self.use_int8_moe,
+            use_pallas_attn=self.use_pallas_attn,
             use_fused_layer=self.use_fused_layer,
             use_int8_attn=self.use_int8_attn,
             use_megakernel=self.use_megakernel)
@@ -161,15 +169,21 @@ class MoDEAgent(nn.Module):
                     fan_in = p.shape[1] * p.shape[2] * p.shape[3]
                     p.normal_(0.0, fan_in ** -0.5, generator=gen)
 
-    def configure_(self, **flags):
-        """Replace config flags (``use_int8_moe``, ``use_fused_layer``,
-        ``use_int8_attn``, ``use_megakernel``) in place, on the agent and on
-        every DiT module that reads them."""
-        self.cfg = dataclasses.replace(self.cfg, **flags)
-        dit_cfg = self.cfg.dit_config()
+    def configure_(self, **fields):
+        """Replace config fields in place: the kernel flags
+        (``use_int8_moe``, ``use_pallas_attn``, ``use_fused_layer``,
+        ``use_int8_attn``, ``use_megakernel``), on the agent and on every
+        DiT module that reads them, and the sampler's (``sampler_type``,
+        ``num_sampling_steps``, ``sigma_min``, ``sigma_max``,
+        ``noise_scheduler``), which rebuild the sigma schedule."""
+        self.cfg = cfg = dataclasses.replace(self.cfg, **fields)
+        dit_cfg = cfg.dit_config()
         for m in self.inner_model.modules():
             if isinstance(getattr(m, "cfg", None), MoDeDiTConfig):
                 m.cfg = dit_cfg
+        self.sigmas = get_noise_schedule(cfg.num_sampling_steps,
+                                         cfg.noise_scheduler, cfg.sigma_min,
+                                         cfg.sigma_max)
         return self
 
     @torch.no_grad()
@@ -374,10 +388,15 @@ class MoDEAgent(nn.Module):
     def denoise_actions(self, perceptual_emb, latent_goal, *,
                         generator: Optional[torch.Generator] = None,
                         noise: Optional[torch.Tensor] = None,
-                        use_routing_precompute: bool = False):
-        """Sample one action chunk [B, act_window, action_dim]. ``noise``
-        (unit normal, [B, act_window, action_dim]) overrides the initial
-        draw from ``generator``; it is scaled by ``sigma_max``."""
+                        use_routing_precompute: bool = False,
+                        extra_args: Optional[dict] = None,
+                        noise_fn: Optional[Callable] = None):
+        """Sample one action chunk [B, act_window, action_dim] with
+        ``cfg.sampler_type`` over the agent's schedule. ``noise`` (unit
+        normal, [B, act_window, action_dim]) overrides the initial draw from
+        ``generator``; it is scaled by ``sigma_max``. ``extra_args`` are the
+        sampler's options (``samplers.sample_loop``); a stochastic sampler
+        draws from ``noise_fn(x)`` when given, else from ``generator``."""
         cfg = self.cfg
         B = latent_goal.shape[0]
         if noise is None:
@@ -387,7 +406,7 @@ class MoDEAgent(nn.Module):
         routing = self.precompute_routing() if use_routing_precompute else None
         denoiser = self.make_denoiser(perceptual_emb, latent_goal, routing)
         return sample_loop(cfg.sampler_type, denoiser, x, self.sigmas,
-                           generator)
+                           generator, extra_args, noise_fn=noise_fn)
 
 
 def _serving_copy(agent: MoDEAgent) -> MoDEAgent:
@@ -415,10 +434,14 @@ class RolloutPolicy:
     ``multistep`` calls and produces an action chunk.
 
     The policy serves its own copy of the agent (``self.agent``), precast
-    to the compute dtype; the caller's agent keeps its f32 parameters."""
+    to the compute dtype; the caller's agent keeps its f32 parameters. It
+    samples with the agent's ``sampler_type`` and schedule, passing
+    ``extra_args`` (the sampler's options) to every chunk; stochastic
+    samplers draw from ``self.generator``."""
 
     def __init__(self, agent: MoDEAgent, lang_encoder=None,
-                 use_routing_precompute: bool = True, seed: int = 0):
+                 use_routing_precompute: bool = True, seed: int = 0,
+                 extra_args: Optional[dict] = None):
         # the precast keeps the f32 masters (the caller's tensors), so the
         # copy can still be re-quantized from the f32 weights
         self.agent = _serving_copy(agent).precast_for_serving()
@@ -426,6 +449,7 @@ class RolloutPolicy:
         self.multistep = agent.cfg.multistep
         self.generator = torch.Generator(device=agent.device).manual_seed(seed)
         self.use_routing_precompute = use_routing_precompute
+        self.extra_args = dict(extra_args or {})
         self._counter = 0
         self._chunk = None
 
@@ -464,7 +488,8 @@ class RolloutPolicy:
                                   lang_emb)
         return ag.denoise_actions(
             emb, lang_emb, generator=self.generator, noise=noise,
-            use_routing_precompute=self.use_routing_precompute)
+            use_routing_precompute=self.use_routing_precompute,
+            extra_args=self.extra_args)
 
     def step(self, obs: Dict[str, Any], goal: Dict[str, Any],
              noise: Optional[torch.Tensor] = None) -> torch.Tensor:

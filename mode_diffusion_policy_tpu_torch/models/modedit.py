@@ -11,12 +11,16 @@ are stacked (``experts_w1`` [E, D, 2H], ``experts_b1`` [E, 2H],
 noise token), so inference precomputes per-sigma top-2 tables
 (``precompute_routing``) and each block then runs either the plain top-2
 gather, or, with ``use_fused_layer``, the whole layer as one kernel launch
-(``ops/kernels/layer_kernel.py``), or, with ``use_int8_attn`` alone, the
-two-kernel layer: the int8-projection attention sub-block
-(``ops/kernels/attn_kernel.py``), then ln_2 and the int8 top-2 MoE
-(``ops/kernels/moe_kernel.py``). With ``use_megakernel`` the whole block
-stack of a denoise step is one launch (``forward_precomputed_mega``) over
-weights stacked once on a leading layer axis (``stack_layers``).
+(``ops/kernels/layer_kernel.py``), or, with ``use_int8_moe`` alone, the
+two-kernel layer: the attention sub-block (with ``use_pallas_attn`` one
+kernel launch, ``ops/kernels/attn_kernel.py``: ``fused_attn_block``, or
+``fused_attn_block_q8`` with ``use_int8_attn``), then ln_2 and the int8
+top-2 MoE (``ops/kernels/moe_kernel.py``). With ``use_megakernel`` the whole
+block stack of a denoise step is one launch (``forward_precomputed_mega``)
+over weights stacked once on a leading layer axis (``stack_layers``).
+A call without routing tables (a sampler's off-schedule evaluation) routes
+inline; with ``use_pallas_attn`` its attention sub-block is still one
+kernel launch, with the block's own cond token, one row per sample.
 
 Parameter names and layouts follow the JAX tree (``blocks_{i}`` becomes
 ``blocks.{i}``), which ``utils/weights.py`` relies on.
@@ -31,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.attn_kernel import fused_attn_block_q8
+from ..ops.kernels.attn_kernel import fused_attn_block, fused_attn_block_q8
 from ..ops.kernels.layer_kernel import (STACKED_QATTN, fused_dit_q8c,
                                         fused_layer_q8c)
 from ..ops.kernels.moe_kernel import fused_top2_mlp_q8c
@@ -63,27 +67,39 @@ class MoDeDiTConfig:
     top_k: int = 2
     dtype: torch.dtype = torch.float32
     use_int8_moe: bool = False     # int8 experts (quantized once, see
-                                   # MoDeDiT.quantize_experts_)
+                                   # MoDeDiT.quantize_experts_); on the
+                                   # routed inference path the int8 top-2
+                                   # MoE function (fused_top2_mlp_q8c)
+    use_pallas_attn: bool = False  # the attention sub-block (ln_1, the
+                                   # cond add, QKV, QK-norm, attention,
+                                   # c_proj, residual) as one kernel launch
+                                   # on the inference paths outside the
+                                   # fused layer: fused_attn_block, or
+                                   # fused_attn_block_q8 with int8
+                                   # projections (head_dim % 128 == 0)
     use_fused_layer: bool = False  # whole-layer kernel on the routed
                                    # inference path; needs use_int8_moe
     use_int8_attn: bool = False    # int8 wqkv/c_proj projections (per-row
                                    # activation quant): inside the fused
-                                   # layer, or without use_fused_layer the
-                                   # two-kernel path (fused_attn_block_q8,
-                                   # then fused_top2_mlp_q8c)
+                                   # layer, or fused_attn_block_q8;
+                                   # needs use_pallas_attn
     use_megakernel: bool = False   # the whole block stack in ONE launch
                                    # per denoise step (fused_dit_q8c) on
                                    # the hoisted routed path; needs
                                    # use_fused_layer
 
     def __post_init__(self):
-        if self.use_int8_moe and not (self.use_fused_layer
-                                      or self.use_int8_attn):
-            raise NotImplementedError(
-                "int8 experts outside the whole-layer kernel with bf16 "
-                "attention projections need the bf16 attention kernel "
-                "fused_attn_block, which is not ported yet (ROADMAP.md "
-                "Queue 2)")
+        hd = self.embed_dim // self.n_heads
+        if self.use_int8_attn:
+            # the JAX config's checks
+            if not self.use_pallas_attn:
+                raise ValueError(
+                    "use_int8_attn requires use_pallas_attn: the int8 "
+                    "projections run inside the fused attention kernel")
+            if hd % 128:
+                raise ValueError(
+                    "use_int8_attn requires head_dim % 128 == 0; got "
+                    f"{hd}")
         if (self.use_fused_layer or self.use_int8_attn) and not (
                 self.use_int8_moe and self.top_k == 2):
             raise ValueError("use_fused_layer and use_int8_attn need "
@@ -91,11 +107,16 @@ class MoDeDiTConfig:
         if self.use_megakernel and not self.use_fused_layer:
             raise ValueError("use_megakernel needs use_fused_layer (the int8 "
                              "top-2 whole-layer path)")
-        if (self.use_int8_attn or self.use_megakernel) and \
-                (self.embed_dim // self.n_heads) % 128:
+        if self.use_megakernel and hd % 128:
             raise ValueError(
-                "use_int8_attn and use_megakernel need head_dim % 128 == 0; "
-                f"got {self.embed_dim // self.n_heads}")
+                f"use_megakernel needs head_dim % 128 == 0; got {hd}")
+
+    @property
+    def fused_attn(self) -> bool:
+        """Whether the attention sub-block outside the fused layer is one
+        kernel launch (JAX ``NoiseBlockMoE``'s ``use_fused_attn``)."""
+        return self.use_pallas_attn and \
+            (self.embed_dim // self.n_heads) % 128 == 0
 
     @property
     def seq_size(self) -> int:
@@ -197,39 +218,54 @@ class NoiseBlockMoE(nn.Module):
         self.experts_q: Optional[QuantizedExperts] = None
 
     def forward(self, x, c, *, moe_override=None, layer_impl=fused_layer_q8c,
-                attn_impl=fused_attn_block_q8, moe_impl=fused_top2_mlp_q8c):
+                attn_impl=fused_attn_block_q8, attn_impl_bf16=fused_attn_block,
+                moe_impl=fused_top2_mlp_q8c):
         """moe_override: (idx [k], p [k]) rows, or (idx [S,k], p [S,k],
-        step) sigma tables with the scheduled step. ``layer_impl`` is the
-        whole-layer function used when ``cfg.use_fused_layer`` is set;
-        ``attn_impl`` and ``moe_impl`` are the two halves of the layer used
-        when ``cfg.use_int8_attn`` is set without it."""
+        step) sigma tables with the scheduled step; None routes inline.
+        ``layer_impl`` is the whole-layer function used on the routed path
+        when ``cfg.use_fused_layer`` is set. Otherwise, with
+        ``cfg.fused_attn``, the attention sub-block is ``attn_impl`` (int8
+        projections, when the block holds them) or ``attn_impl_bf16``, with
+        the block's own cond ``c`` ([1,1,D] shared, or [B,1,D] inline); and
+        on the routed path with ``cfg.use_int8_moe``, ln_2 and the MoE are
+        ``moe_impl``. Follows JAX ``NoiseBlockMoE.__call__``."""
         cfg = self.cfg
         dt = cfg.dtype
-        kernels = cfg.use_fused_layer or cfg.use_int8_attn
-        if kernels and moe_override is not None:
-            a = self.attn
+        a = self.attn
+        kernel_moe = (moe_override is not None and cfg.use_int8_moe
+                      and cfg.top_k == 2)
+        if kernel_moe:
             if self.experts_q is None or (cfg.use_int8_attn
                                           and a.attn_q is None):
                 raise RuntimeError("int8 weights missing: call "
                                    "MoDEAgent.quantize_for_inference()")
             idx, p, *rest = moe_override
             step = rest[0] if rest else None
-            if not cfg.use_fused_layer:
-                # the two-kernel path: attention sub-block, then ln_2 and
-                # the MoE with the normed input as the residual seed
+            if cfg.use_fused_layer:
+                return layer_impl(
+                    x, c, self.ln_1.g, a.wqkv.kernel, a.wqkv.bias,
+                    a.q_norm.g, a.k_norm.g, a.c_proj.kernel, self.ln_2.g,
+                    self.experts_q, idx, p, step=step,
+                    qattn=a.attn_q if cfg.use_int8_attn else None,
+                    eps1=self.ln_1.eps, eps_qk=a.q_norm.eps,
+                    eps2=self.ln_2.eps)
+        if cfg.fused_attn:
+            kw = dict(ln_eps=self.ln_1.eps, qk_eps=a.q_norm.eps)
+            if cfg.use_int8_attn and a.attn_q is not None:
                 x = attn_impl(x, c, self.ln_1.g, a.attn_q, a.q_norm.g,
-                              a.k_norm.g, ln_eps=self.ln_1.eps,
-                              qk_eps=a.q_norm.eps)
-                return moe_impl(x, idx, p, self.experts_q, step=step,
-                                residual=True, ln_g=self.ln_2.g,
-                                ln_eps=self.ln_2.eps)
-            return layer_impl(
-                x, c, self.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
-                a.k_norm.g, a.c_proj.kernel, self.ln_2.g, self.experts_q,
-                idx, p, step=step,
-                qattn=a.attn_q if cfg.use_int8_attn else None,
-                eps1=self.ln_1.eps, eps_qk=a.q_norm.eps, eps2=self.ln_2.eps)
-        x = x + self.attn(self.ln_1(x) + c)
+                              a.k_norm.g, **kw)
+            else:
+                x = attn_impl_bf16(x, c, self.ln_1.g, a.wqkv.kernel,
+                                   a.wqkv.bias, a.q_norm.g, a.k_norm.g,
+                                   a.c_proj.kernel, **kw)
+        else:
+            x = x + self.attn(self.ln_1(x) + c)
+        if kernel_moe:
+            # ln_2 fused into the MoE function, the normed input as the
+            # residual seed
+            return moe_impl(x, idx, p, self.experts_q, step=step,
+                            residual=True, ln_g=self.ln_2.g,
+                            ln_eps=self.ln_2.eps)
         w1, b1, w2 = (w.to(dt) for w in (self.experts_w1, self.experts_b1,
                                          self.experts_w2))
         x = self.ln_2(x)
@@ -270,11 +306,13 @@ class MoDeDiT(nn.Module):
         # the whole-layer, whole-stack and half-layer functions of the
         # kernel paths: the CUDA kernels' wrappers; a caller may set the
         # plain versions (fused_layer_q8c_ref, fused_dit_q8c_ref,
-        # fused_attn_block_q8_ref, fused_top2_mlp_q8c_ref) to run them on
-        # the same weights (chip_smoke.py compares the two)
+        # fused_attn_block_q8_ref, fused_attn_block_ref,
+        # fused_top2_mlp_q8c_ref) to run them on the same weights
+        # (chip_smoke.py compares the two)
         self.layer_impl = fused_layer_q8c
         self.dit_impl = fused_dit_q8c
         self.attn_impl = fused_attn_block_q8
+        self.attn_impl_bf16 = fused_attn_block
         self.moe_impl = fused_top2_mlp_q8c
         # the f32 values of the leaves that the serving precast has cast
         # (precast_), which the int8 quantizers read
@@ -420,6 +458,7 @@ class MoDeDiT(nn.Module):
             ov = None if moe_overrides is None else moe_overrides[i]
             x = block(x, cond_token, moe_override=ov,
                       layer_impl=self.layer_impl, attn_impl=self.attn_impl,
+                      attn_impl_bf16=self.attn_impl_bf16,
                       moe_impl=self.moe_impl)
         return x
 

@@ -89,14 +89,23 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_attn_widths(T, D, H, hd, c):
+def _check_attn_widths(T, D, H, hd, c, B=None):
+    """Check the widths the CUDA kernels take and return the cond row's
+    stride per sample: 0 for one shared [1,1,D] row, D for one row per
+    sample [B,1,D] (taken only where ``B`` is given). A per-token [B,T,D]
+    cond raises: no path of the system passes one."""
     if not (1 <= T <= 16):
         raise ValueError(f"the CUDA kernel takes 1..16 tokens per sample, got {T}")
     if D % 128 or D > 4096 or H * hd != D or hd % 32 or hd > 512:
         raise ValueError(f"unsupported widths D={D}, head_dim={hd}")
-    if c.numel() != D:
-        raise ValueError("the CUDA kernel takes one shared [1,1,D] cond row; "
-                         f"got c of shape {tuple(c.shape)}")
+    if c.numel() == D:
+        return 0
+    if B is not None and tuple(c.shape) == (B, 1, D):
+        return D
+    raise ValueError(
+        "the CUDA kernel takes one shared [1,1,D] cond row"
+        + ("" if B is None else " or one per sample [B,1,D]")
+        + f"; got c of shape {tuple(c.shape)}")
 
 
 def _check_moe_widths(D, TH):

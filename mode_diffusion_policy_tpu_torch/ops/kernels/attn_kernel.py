@@ -1,23 +1,35 @@
-"""The attention sub-block of NoiseBlockMoE with int8 projections: CUDA
-kernel, wrapper and plain version.
+"""The attention sub-block of NoiseBlockMoE: CUDA kernels, wrappers and
+plain versions, with bf16 or int8 projections.
 
-Counterpart of ``mode_diffusion_policy_tpu/ops/pallas/attn_kernel.py::
-fused_attn_block_q8`` (the Pallas ``_kernel_q8``). It computes
+Counterparts of ``mode_diffusion_policy_tpu/ops/pallas/attn_kernel.py``.
+``fused_attn_block`` (the Pallas ``_kernel``) computes
+
+    out = bf16(x + o @ wout),  o = bf16(attn(qk_norm(split(qkv))))
+    qkv = bf16(rmsnorm(x) * g + c) @ wqkv + bqkv
+
+and ``fused_attn_block_q8`` (the Pallas ``_kernel_q8``)
 
     out = x + dot_i8(q(o), wout_q) * (os * sout)
     o   = attn(qk_norm(split(dot_i8(hq, wqkv_q) * (hs * sqkv) + bqkv)))
     hq, hs = q(rmsnorm(x) * g + c)
 
-with the JAX kernel's cast chain: ``h`` stays f32 (no cast to the compute
-dtype) and is quantized per row; q and k are head-RMS-normed and cast to
-the compute dtype, v is cast, the causal softmax within each sample is cast
-before the product with v; ``o`` stays f32 and is re-quantized per row;
-``x + y`` is summed in f32 and written in x.dtype.
+each with its JAX kernel's cast chain. Both: the norm in f32, q and k
+head-RMS-normed in f32 and cast to the compute dtype, v cast, the causal
+softmax within each sample in f32 and cast before the product with v,
+``x + y`` summed in f32 and written in x.dtype. bf16 projections: ``h`` is
+cast to the compute dtype before the QKV product, ``o`` before c_proj.
+int8 projections: ``h`` stays f32 and is quantized per row, ``o`` stays f32
+and is re-quantized per row. The cond ``c`` is one shared [1,1,D] row (the
+hoisted routed path), one row per sample [B,1,D] (an inline call, the
+samplers' off-schedule evaluations) or one per token [B,T,D], rounded to
+x.dtype as the JAX kernels take it.
 
-``fused_attn_block_q8`` launches ``csrc/fused_attn_block_q8.cu`` for CUDA
-tensors (and raises on what it cannot take) and runs the plain version,
-``fused_attn_block_q8_ref``, only for CPU tensors.
-``fused_attn_block_q8.launches`` counts kernel launches.
+``fused_attn_block`` and ``fused_attn_block_q8`` launch
+``csrc/fused_attn_block.cu`` and ``csrc/fused_attn_block_q8.cu`` for CUDA
+tensors (and raise on what they cannot take: a per-token cond among
+others) and run the plain versions, ``fused_attn_block_ref`` and
+``fused_attn_block_q8_ref``, only for CPU tensors. Their ``.launches``
+count kernel launches.
 """
 from __future__ import annotations
 
@@ -31,6 +43,32 @@ from ..quant import QuantizedAttn
 from ._common import (_attend, _check, _check_attn_widths, _cond_rows,
                       _rmsnorm_rows)
 from .quant_math import dot_i8, quant_rows
+
+
+def fused_attn_block_ref(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
+                         ln_eps: float = 1e-6, qk_eps: float = 1e-6,
+                         acc_dtype: torch.dtype = torch.float32,
+                         red_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Plain PyTorch version (any device, any float dtype). x [B,T,D];
+    c [1,1,D], [B,1,D] or [B,T,D]; wqkv [D,3D] (+bias [3D]), cast to
+    x.dtype; q_g/k_g [hd]; wout [D,D], cast to x.dtype. ``acc_dtype`` is the
+    accumulation type of the compute-dtype products (QKV, attention,
+    c_proj) and ``red_dtype`` that of the norms' sums of squares and the
+    softmax: float32 as in the kernel, or float64 for near-exact evaluations
+    of the same cast chain. Returns x.dtype [B,T,D]."""
+    B, T, D = x.shape
+    dt = x.dtype
+
+    def mm(a, b):
+        return torch.matmul(a.to(acc_dtype), b.to(acc_dtype)).float()
+
+    x32 = x.reshape(B * T, D).float()
+    h = _rmsnorm_rows(x32, ln_g, ln_eps, red_dtype) + _cond_rows(c, x)
+    qkv = mm(h.to(dt).float(), wqkv.to(dt)) + bqkv.float()
+    o = _attend(qkv, q_g, k_g, B, T, dt, qk_eps, acc_dtype, red_dtype)
+    y = mm(o.to(dt).float(), wout.to(dt))
+    return (x32 + y).to(dt).reshape(B, T, D)
 
 
 def fused_attn_block_q8_ref(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
@@ -57,17 +95,89 @@ def fused_attn_block_q8_ref(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
     return (x32 + y).to(x.dtype).reshape(B, T, D)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
-             + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+_ARGTYPES = {
+    "fused_attn_block": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                         + [ctypes.c_float] * 5 + [ctypes.c_void_p]),
+    "fused_attn_block_q8": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
+                            + [ctypes.c_float] * 5 + [ctypes.c_void_p]),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(name):
     from ._build import load_library
-    fn = load_library("fused_attn_block_q8").fused_attn_block_q8_launch
-    fn.argtypes = _ARGTYPES
+    fn = getattr(load_library(name), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _prepare(name, x, c, ln_g, q_g, k_g):
+    """Device and shape checks shared by both wrappers. Returns (B, T, D,
+    H, hd, the cond rows as f32 [1 or B, D] rounded through x.dtype, their
+    stride per sample, ln_g, q_g, k_g as contiguous f32)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU, not {x.device}")
+    if x.ndim != 3:
+        raise ValueError(f"x must be [B,T,D], got {tuple(x.shape)}")
+    B, T, D = x.shape
+    hd = q_g.shape[-1]
+    H = D // hd
+    c_stride = _check_attn_widths(T, D, H, hd, c, B)
+    _check(x, "x", torch.bfloat16, (B, T, D), x.device)
+    c = c.reshape(-1, D).to(x.dtype).float().contiguous()
+    f32 = [t.float().contiguous() for t in (ln_g, q_g, k_g)]
+    for t, n, shape in ((c, "c", (B if c_stride else 1, D)),
+                        (f32[0], "ln_g", (D,)), (f32[1], "q_g", (hd,)),
+                        (f32[2], "k_g", (hd,))):
+        _check(t, n, torch.float32, shape, x.device)
+    return (B, T, D, H, hd, c, c_stride, *f32)
+
+
+def _launch(name, ptrs, ints, x, ln_eps, qk_eps, D, hd):
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launcher(name)(*ptrs, *ints, ln_eps, qk_eps, D ** -0.5,
+                              hd ** -0.5, float(1.0 / math.sqrt(hd)), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
+                     ln_eps: float = 1e-6,
+                     qk_eps: float = 1e-6) -> torch.Tensor:
+    """``x + attn(ln_1(x) + c)`` with bf16 QKV and c_proj.
+
+    CUDA tensors: one launch of the hand-written kernel (bf16 x, a shared
+    [1,1,D] cond row or one per sample [B,1,D], T <= 16 tokens per sample,
+    head dim a multiple of 32); a per-token cond raises. CPU tensors: the
+    plain version ``fused_attn_block_ref``. Returns x.dtype [B,T,D]."""
+    if x.device.type == "cpu":
+        return fused_attn_block_ref(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout,
+                                    ln_eps=ln_eps, qk_eps=qk_eps)
+    B, T, D, H, hd, c, c_stride, ln_g, q_g, k_g = _prepare(
+        "fused_attn_block", x, c, ln_g, q_g, k_g)
+    dev, bf = x.device, torch.bfloat16
+    wqkv, wout = wqkv.to(bf), wout.to(bf)
+    bqkv = bqkv.float().contiguous()
+    for t, name, dtype, shape in ((wqkv, "wqkv", bf, (D, 3 * D)),
+                                  (bqkv, "bqkv", torch.float32, (3 * D,)),
+                                  (wout, "wout", bf, (D, D))):
+        _check(t, name, dtype, shape, dev)
+    M = B * T
+    out = torch.empty(B, T, D, dtype=bf, device=dev)
+    scratch = (torch.empty(M, D, dtype=bf, device=dev),
+               torch.empty(M, 3 * D, dtype=torch.float32, device=dev),
+               torch.empty(M, D, dtype=bf, device=dev))
+    ptrs = [t.data_ptr() for t in (x, c, ln_g, wqkv, bqkv, q_g, k_g, wout,
+                                   *scratch, out)]
+    _launch("fused_attn_block", ptrs, (B, T, D, H, c_stride), x, ln_eps,
+            qk_eps, D, hd)
+    fused_attn_block.launches += 1
+    return out
+
+
+fused_attn_block.launches = 0
 
 
 def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
@@ -76,31 +186,16 @@ def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
     """``x + attn(ln_1(x) + c)`` with int8 QKV and c_proj.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 x, a shared
-    [1,1,D] cond row, T <= 16 tokens per sample, head dim a multiple of 32);
-    a per-sample or per-token cond raises. CPU tensors: the plain version
-    ``fused_attn_block_q8_ref``. Returns x.dtype [B,T,D]."""
+    [1,1,D] cond row or one per sample [B,1,D], T <= 16 tokens per sample,
+    head dim a multiple of 32); a per-token cond raises. CPU tensors: the
+    plain version ``fused_attn_block_q8_ref``. Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_attn_block_q8_ref(x, c, ln_g, qattn, q_g, k_g,
                                        ln_eps=ln_eps, qk_eps=qk_eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attn_block_q8 runs on CUDA or CPU, not "
-                         f"{x.device}")
-    dev = x.device
-    if x.ndim != 3:
-        raise ValueError(f"x must be [B,T,D], got {tuple(x.shape)}")
-    B, T, D = x.shape
-    hd = q_g.shape[-1]
-    H = D // hd
-    _check_attn_widths(T, D, H, hd, c)
-    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    _check(x, "x", bf, (B, T, D), dev)
-    c = c.reshape(D).to(x.dtype).float().contiguous()
-    ln_g = ln_g.float().contiguous()
-    q_g = q_g.float().contiguous()
-    k_g = k_g.float().contiguous()
+    B, T, D, H, hd, c, c_stride, ln_g, q_g, k_g = _prepare(
+        "fused_attn_block_q8", x, c, ln_g, q_g, k_g)
+    dev, f32, i8 = x.device, torch.float32, torch.int8
     for t, name, dtype, shape in (
-            (c, "c", f32, (D,)), (ln_g, "ln_g", f32, (D,)),
-            (q_g, "q_g", f32, (hd,)), (k_g, "k_g", f32, (hd,)),
             (qattn.wqkv_q, "wqkv_q", i8, (D, 3 * D)),
             (qattn.wqkv_s, "wqkv_s", f32, (3 * D,)),
             (qattn.bqkv, "bqkv", f32, (3 * D,)),
@@ -113,20 +208,15 @@ def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
     def buf(*shape, dtype):
         return torch.empty(*shape, dtype=dtype, device=dev)
 
-    out = buf(B, T, D, dtype=bf)
+    out = buf(B, T, D, dtype=torch.bfloat16)
     scratch = (buf(M, D, dtype=i8), buf(M, dtype=f32),
                buf(M, 3 * D, dtype=f32), buf(M, D, dtype=f32),
                buf(M, D, dtype=i8), buf(M, dtype=f32))
     ptrs = [t.data_ptr() for t in (x, c, ln_g, qattn.wqkv_q, qattn.wqkv_s,
                                    qattn.bqkv, q_g, k_g, qattn.wout_q,
                                    qattn.wout_s, *scratch, out)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher()(*ptrs, B, T, D, H, ln_eps, qk_eps, D ** -0.5,
-                          hd ** -0.5, float(1.0 / math.sqrt(hd)), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_attn_block_q8 launch failed: CUDA error "
-                           f"{err}")
+    _launch("fused_attn_block_q8", ptrs, (B, T, D, H, c_stride), x, ln_eps,
+            qk_eps, D, hd)
     fused_attn_block_q8.launches += 1
     return out
 

@@ -16,11 +16,11 @@ quantized once per row, and ``act`` re-quantized per row within each
 
 With ``qattn`` (int8 attention projections) ``h`` is quantized per row in
 f32 without the bf16 cast, ``qkv = (hq wqkv_q) * (hs * sqkv) + b``, and the
-f32 attention rows are re-quantized per row before the int8 ``c_proj``: the
-plain layer is then exactly ``fused_top2_mlp_q8c_ref(fused_attn_block_q8_ref
-(x), residual=True, ln_g=ln2_g)``, the two-kernel composition that the JAX
-package pins the fused layer to. Either way its MoE half is
-``fused_top2_mlp_q8c_ref``.
+f32 attention rows are re-quantized per row before the int8 ``c_proj``.
+Either way the plain layer is exactly the two-kernel composition that the
+JAX package pins the fused layer to: ``fused_top2_mlp_q8c_ref(
+fused_attn_block_ref(x)`` (or ``fused_attn_block_q8_ref`` with ``qattn``)
+``, residual=True, ln_g=ln2_g)``.
 
 ``fused_dit_q8c`` is the same layer chained over all L layers of the DiT in
 one launch of ``csrc/fused_dit_q8c.cu`` (counterpart of the Pallas
@@ -42,9 +42,8 @@ import math
 import torch
 
 from ..quant import QuantizedAttn, QuantizedExperts
-from ._common import (_attend, _check, _check_widths, _cond_rows,
-                      _hidden_block, _rmsnorm_rows, _tables)
-from .attn_kernel import fused_attn_block_q8_ref
+from ._common import _check, _check_widths, _hidden_block, _tables
+from .attn_kernel import fused_attn_block_q8_ref, fused_attn_block_ref
 from .moe_kernel import fused_top2_mlp_q8c_ref
 
 
@@ -72,23 +71,14 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
         fused_top2_mlp_q8c_ref, top2_idx=top2_idx, top2_probs=top2_probs,
         qexp=qexp, step=step, block_hidden=block_hidden, residual=True,
         ln_g=ln2_g, ln_eps=eps2, red_dtype=red_dtype)
+    kw = dict(ln_eps=eps1, qk_eps=eps_qk, acc_dtype=acc_dtype,
+              red_dtype=red_dtype)
+    # the two-kernel composition, exactly
     if qattn is not None:
-        # the two-kernel composition, exactly
-        return moe(fused_attn_block_q8_ref(
-            x, c, ln1_g, qattn, q_g, k_g, ln_eps=eps1, qk_eps=eps_qk,
-            acc_dtype=acc_dtype, red_dtype=red_dtype))
-    B, T, D = x.shape
-    dt = x.dtype
-
-    def mm(a, b):
-        return torch.matmul(a.to(acc_dtype), b.to(acc_dtype)).float()
-
-    x32 = x.reshape(B * T, D).float()
-    h = _rmsnorm_rows(x32, ln1_g, eps1, red_dtype) + _cond_rows(c, x)
-    qkv = mm(h.to(dt).float(), wqkv.to(dt)) + bqkv.float()
-    o = _attend(qkv, q_g, k_g, B, T, dt, eps_qk, acc_dtype, red_dtype)
-    y = mm(o.to(dt).float(), wout.to(dt))
-    return moe((x32 + y).to(dt).reshape(B, T, D))
+        return moe(fused_attn_block_q8_ref(x, c, ln1_g, qattn, q_g, k_g,
+                                           **kw))
+    return moe(fused_attn_block_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout,
+                                    **kw))
 
 
 # the keys of a MoDeDiT.stack_layers dict that hold QuantizedAttn's fields,
@@ -141,44 +131,6 @@ def _launcher():
     fn.argtypes = _LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(t, name, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_widths(T, D, H, hd, TH, c):
-    if not (1 <= T <= 16):
-        raise ValueError(f"the CUDA kernel takes 1..16 tokens per sample, got {T}")
-    if D % 128 or D > 4096 or H * hd != D or hd % 32 or hd > 512:
-        raise ValueError(f"unsupported widths D={D}, head_dim={hd}")
-    if TH % 128:
-        raise ValueError(f"block_hidden {TH} must be a multiple of 128")
-    if c.numel() != D:
-        raise ValueError("the CUDA kernel takes one shared [1,1,D] cond row; "
-                         f"got c of shape {tuple(c.shape)}")
-
-
-def _tables(top2_idx, top2_probs, step, lead=()):
-    """Routing tables as [*lead, S, 2] (single rows get S = 1) and the
-    checked row index."""
-    idx = torch.as_tensor(top2_idx)
-    probs = torch.as_tensor(top2_probs)
-    if idx.ndim == len(lead) + 1:
-        idx, probs = idx.unsqueeze(-2), probs.unsqueeze(-2)
-    S = idx.shape[-2]
-    s = 0 if step is None else int(step)
-    if not 0 <= s < S:
-        raise IndexError(f"step {s} outside the {S}-row routing tables")
-    return idx, probs, S, s
 
 
 def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,

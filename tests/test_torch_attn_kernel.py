@@ -1,9 +1,14 @@
-"""The int8-projection attention sub-block's plain PyTorch version
-(``fused_attn_block_q8_ref``) against the JAX Pallas kernel (interpret
-mode, as tests/test_pallas_attn.py runs it), in f32 on the CPU at D=256,
-2 heads of 128, B=3, T=14, with a shared cond row and one row per sample.
+"""The attention sub-block's plain PyTorch versions against the JAX Pallas
+kernels (interpret mode, as tests/test_pallas_attn.py runs them) on the CPU
+at D=256, 2 heads of 128, B=3, T=14: ``fused_attn_block_ref`` (bf16
+projections) against ``fused_attn_block`` with a shared cond row, one per
+sample and one per token, in f32 within 2e-5 and in bf16; and
+``fused_attn_block_q8_ref`` (int8 projections) against
+``fused_attn_block_q8`` with a shared cond row and one per sample. Each
+composed with the plain MoE is the plain fused layer, exactly.
 
-Tolerance: tests/test_torch_layer_kernel.py's flip-aware gate. The int8
+Tolerance of the int8 variant: tests/test_torch_layer_kernel.py's
+flip-aware gate. The int8
 products are exact on both sides, but f32 sums taken in another order
 (XLA vs PyTorch) now and then move a per-row int8 rounding of ``h`` or
 ``o`` by one step, and one such flip moves a whole output row by about a
@@ -19,12 +24,15 @@ import torch
 
 from mode_diffusion_policy_tpu.ops.pallas import quant_math as jqm
 from mode_diffusion_policy_tpu.ops.pallas.attn_kernel import (
+    fused_attn_block as jax_attn)
+from mode_diffusion_policy_tpu.ops.pallas.attn_kernel import (
     fused_attn_block_q8 as jax_attn_q8)
 from mode_diffusion_policy_tpu.ops.quant import quantize_attn as jax_qattn
 from mode_diffusion_policy_tpu_torch.ops.kernels._common import (
     _attend, _cond_rows, _rmsnorm_rows)
 from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
-    fused_attn_block_q8, fused_attn_block_q8_ref)
+    fused_attn_block, fused_attn_block_q8, fused_attn_block_q8_ref,
+    fused_attn_block_ref)
 from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
     fused_layer_q8c_ref)
 from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
@@ -38,13 +46,13 @@ B, T, D, H = 3, 14, 256, 2
 HD = D // H
 
 
-def _inputs(seed, c_rows=1, b=B):
+def _inputs(seed, c_rows=1, c_tokens=1, b=B):
     r = np.random.default_rng(seed)
 
     def f(*shape, sc=0.05, off=0.0):
         return (r.standard_normal(shape) * sc + off).astype(np.float32)
 
-    return dict(x=f(b, T, D, sc=0.5), c=f(c_rows, 1, D, sc=0.2),
+    return dict(x=f(b, T, D, sc=0.5), c=f(c_rows, c_tokens, D, sc=0.2),
                 ln=f(D, sc=0.1, off=1.0), wqkv=f(D, 3 * D),
                 bqkv=f(3 * D, sc=0.02), qg=f(HD, sc=0.1, off=1.0),
                 kg=f(HD, sc=0.1, off=1.0), wout=f(D, D))
@@ -86,6 +94,112 @@ def test_plain_attn_matches_jax_kernel(seed, c_rows):
     _close(got, _jax(a))
 
 
+C_SHAPES = {"shared-c": (1, 1), "per-sample-c": (B, 1), "per-token-c": (B, T)}
+
+
+def _bf16_args(a, dt):
+    return ((torch.from_numpy(a["x"]).to(dt),) + tuple(
+        torch.from_numpy(a[k]) for k in ("c", "ln", "wqkv", "bqkv", "qg",
+                                         "kg", "wout")))
+
+
+def _jax_bf16(a, dt=jnp.float32):
+    return jax_attn(jnp.asarray(a["x"]).astype(dt), *(
+        jnp.asarray(a[k]) for k in ("c", "ln", "wqkv", "bqkv", "qg", "kg",
+                                    "wout")), block_samples=4, interpret=True)
+
+
+@pytest.mark.parametrize("c_shape", list(C_SHAPES))
+@pytest.mark.parametrize("seed", [10, 11])
+def test_plain_bf16_projection_attn_matches_jax_kernel(seed, c_shape):
+    """f32: within 2e-5 (the JAX f32 CPU forward gate); no int8 rounding on
+    this path, so nothing flips."""
+    a = _inputs(seed, *C_SHAPES[c_shape])
+    got = fused_attn_block_ref(*_bf16_args(a, torch.float32)).numpy()
+    np.testing.assert_allclose(got, np.asarray(_jax_bf16(a)), rtol=0,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("c_shape", list(C_SHAPES))
+def test_plain_bf16_projection_attn_bf16_matches_jax_kernel(c_shape):
+    """bf16: the same cast chain on both sides; f32 sums of bf16 products in
+    another order move some outputs by one bf16 step (2^-8 relative), so
+    mean |diff| <= 2^-8 * mean |out| and max |diff| <= 2^-5 * max |out|,
+    chip_smoke.py's layer gates."""
+    a = _inputs(12, *C_SHAPES[c_shape])
+    got = fused_attn_block_ref(*_bf16_args(a, torch.bfloat16))
+    want = np.asarray(_jax_bf16(a, jnp.bfloat16).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    d = np.abs(got.float().numpy() - want)
+    assert d.mean() <= 2.0 ** -8 * np.abs(want).mean(), d.mean()
+    assert d.max() <= 2.0 ** -5 * np.abs(want).max(), d.max()
+
+
+def test_cpu_bf16_wrapper_runs_plain_version_without_counting():
+    a = _inputs(13, B)
+    args = _bf16_args(a, torch.float32)
+    before = fused_attn_block.launches
+    torch.testing.assert_close(fused_attn_block(*args),
+                               fused_attn_block_ref(*args), rtol=0, atol=0)
+    assert fused_attn_block.launches == before
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fused_attn_block(torch.zeros(1, 2, 64, device="meta"),
+                         *([None] * 7))
+
+
+@pytest.mark.parametrize("c_shape", list(C_SHAPES))
+def test_cuda_width_check_takes_shared_and_per_sample_cond(c_shape):
+    """The CUDA wrappers' cond: a shared row (stride 0) or one row per
+    sample (stride D); a per-token cond raises, and the whole-layer and
+    megakernel launchers take only the shared row."""
+    from mode_diffusion_policy_tpu_torch.ops.kernels._common import (
+        _check_attn_widths)
+    c = torch.zeros(*C_SHAPES[c_shape], D)
+    if c_shape == "per-token-c":
+        with pytest.raises(ValueError, match="per sample"):
+            _check_attn_widths(T, D, H, HD, c, B)
+    else:
+        assert _check_attn_widths(T, D, H, HD, c, B) == \
+            (0 if c_shape == "shared-c" else D)
+    if c_shape != "shared-c":
+        with pytest.raises(ValueError, match="shared"):
+            _check_attn_widths(T, D, H, HD, c)
+
+
+@pytest.mark.parametrize("c_shape", ["shared-c", "per-sample-c"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_layer_is_the_bf16_two_kernel_composition(dt, c_shape):
+    """With bf16 projections the plain layer equals the plain attention
+    block followed by the plain MoE (ln_2 fused, normed input as the
+    residual seed), exactly: tests/test_pallas_layer.py's composition, and
+    what the CUDA fused_attn_block then fused_top2_mlp_q8c is held to
+    against one fused_layer_q8c launch on the card."""
+    a = _inputs(14, *C_SHAPES[c_shape])
+    qe, ln2, idx, probs = _experts(15)
+    x, c, ln1, wqkv, bqkv, qg, kg, wout = _bf16_args(a, dt)
+    want = fused_layer_q8c_ref(x, c, ln1, wqkv, bqkv, qg, kg, wout, ln2, qe,
+                               idx, probs, step=1, block_hidden=128)
+    got = fused_top2_mlp_q8c_ref(
+        fused_attn_block_ref(x, c, ln1, wqkv, bqkv, qg, kg, wout), idx,
+        probs, qe, step=1, block_hidden=128, residual=True, ln_g=ln2)
+    assert got.dtype == dt
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _experts(seed):
+    r = np.random.default_rng(seed)
+    E, HH = 4, 256
+    w1, b1, w2 = (torch.from_numpy((r.standard_normal(s) * sc).astype(
+        np.float32)) for s, sc in (((E, D, 2 * HH), 0.05), ((E, 2 * HH), 0.02),
+                                   ((E, HH, D), 0.05)))
+    ln2 = torch.from_numpy((1.0 + 0.1 * r.standard_normal(D)).astype(
+        np.float32))
+    idx = torch.tensor([[0, 2], [3, 1]], dtype=torch.int32)
+    probs = torch.tensor([[0.7, 0.3], [0.55, 0.45]])
+    return quantize_experts(w1, b1, w2), ln2, idx, probs
+
+
 def test_cpu_wrapper_runs_plain_version_without_counting():
     a = _inputs(2)
     before = fused_attn_block_q8.launches
@@ -116,16 +230,7 @@ def test_fused_layer_is_the_two_kernel_composition(dt):
     block followed by the plain MoE (ln_2 fused, normed input as the
     residual seed), exactly: tests/test_pallas_layer.py's composition."""
     a = _inputs(4)
-    r = np.random.default_rng(5)
-    E, HH = 4, 256
-    w1, b1, w2 = (torch.from_numpy((r.standard_normal(s) * sc).astype(
-        np.float32)) for s, sc in (((E, D, 2 * HH), 0.05), ((E, 2 * HH), 0.02),
-                                   ((E, HH, D), 0.05)))
-    qe = quantize_experts(w1, b1, w2)
-    ln2 = torch.from_numpy((1.0 + 0.1 * r.standard_normal(D)).astype(
-        np.float32))
-    idx = torch.tensor([[0, 2], [3, 1]], dtype=torch.int32)
-    probs = torch.tensor([[0.7, 0.3], [0.55, 0.45]])
+    qe, ln2, idx, probs = _experts(5)
     x, c = torch.from_numpy(a["x"]).to(dt), torch.from_numpy(a["c"])
     ln1, qg, kg = (torch.from_numpy(a[k]) for k in ("ln", "qg", "kg"))
     qa = _qa(a)

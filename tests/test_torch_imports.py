@@ -1,12 +1,10 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-its entry points refuse to run without CUDA unless asked for the CPU, and
-the samplers it has not ported raise instead of running another path."""
+and its entry points refuse to run without CUDA unless asked for the CPU."""
 import ast
 import pathlib
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 import torch
 
@@ -14,8 +12,6 @@ from mode_diffusion_policy_tpu_torch import resolve_device
 from mode_diffusion_policy_tpu_torch.models.agent import (MoDEAgent,
                                                           MoDEAgentConfig,
                                                           RolloutPolicy)
-from mode_diffusion_policy_tpu_torch.models.edm.samplers import (
-    UNPORTED_SAMPLERS, sample_loop)
 from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
     fused_layer_q8c)
 from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
@@ -68,6 +64,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels import (
 assert _build.load_library.cache_info().currsize == 0
 assert layer_kernel.fused_dit_q8c.launches == 0
 assert attn_kernel.fused_attn_block_q8.launches == 0
+assert attn_kernel.fused_attn_block.launches == 0
 assert moe_kernel.fused_top2_mlp_q8c.launches == 0
 print(len(names), "modules")
 """
@@ -109,17 +106,6 @@ def test_serving_mode_names():
     assert resolve_serving_mode("auto", "cpu") == "reference"
     with pytest.raises(ValueError, match="unknown serving mode"):
         resolve_serving_mode("warp-speed")
-
-
-@pytest.mark.parametrize("name", ["heun", "dpmpp_2m", "euler_ancestral"])
-def test_unported_samplers_raise(name):
-    x = torch.zeros(1, 2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample_loop(name, lambda x, s, i: x, x, np.array([1.0, 0.0]))
-    assert name in UNPORTED_SAMPLERS
-    with pytest.raises(ValueError, match="not found"):
-        sample_loop("no-such-sampler", lambda x, s, i: x, x,
-                    np.array([1.0, 0.0]))
 
 
 def test_megakernel_presets_run_on_the_cpu_when_asked():

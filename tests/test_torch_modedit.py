@@ -94,12 +94,15 @@ def test_eval_forward_matches(setup):
                                rtol=1e-5)
 
 
-def _precomputed(model_apply, port, a, step, fused):
+def _precomputed(model_apply, port, a, step, fused, jflags=None):
     """forward_precomputed at one scheduled step with sigma-table routing,
-    on both sides."""
-    jcfg = JCfg(**DIMS, **(dict(use_int8_moe=True, use_pallas_moe=True,
-                                use_pallas_attn=True, use_fused_layer=True)
-                           if fused else {}))
+    on both sides; ``jflags`` replaces the JAX kernel flags of ``fused``
+    (int8 experts and the whole-layer kernel)."""
+    if jflags is None:
+        jflags = (dict(use_int8_moe=True, use_pallas_moe=True,
+                       use_pallas_attn=True, use_fused_layer=True)
+                  if fused else {})
+    jcfg = JCfg(**DIMS, **jflags)
     jdit = JDiT(jcfg)
     jv = {"params": model_apply}
     if fused:
@@ -152,6 +155,103 @@ def test_forward_precomputed_fused_layer_matches(setup, step):
     assert d.max() <= 5e-3, d.max()
 
 
+def _counting(port, counts):
+    for key in counts:
+        fn = getattr(port, key)
+
+        def wrapped(*args, _fn=fn, _key=key, **kw):
+            counts[_key] += 1
+            return _fn(*args, **kw)
+        setattr(port, key, wrapped)
+
+
+@pytest.mark.parametrize("step", [1, 4])
+def test_two_kernel_layer_with_bf16_attention_matches(setup, step):
+    """int8 experts with bf16 attention projections outside the whole-layer
+    kernel (use_pallas_attn, no use_fused_layer): per layer the attention
+    function (fused_attn_block's plain version on the CPU), then ln_2 and
+    the int8 MoE function, against the JAX block's fused_attn_block then
+    fused_top2_mlp_q8c (interpret mode). This configuration raised
+    NotImplementedError before the bf16 attention kernel was ported.
+    Tolerance as in test_forward_precomputed_fused_layer_matches."""
+    params, a = setup
+    port = _port(params, use_int8_moe=True, use_pallas_attn=True)
+    port.quantize_experts_()
+    counts = dict.fromkeys(("attn_impl_bf16", "attn_impl", "moe_impl",
+                            "layer_impl"), 0)
+    _counting(port, counts)
+    got, want = _precomputed(params, port, a, step, fused=True, jflags=dict(
+        use_int8_moe=True, use_pallas_moe=True, use_pallas_attn=True))
+    L = DIMS["n_layers"]
+    assert counts == {"attn_impl_bf16": L, "attn_impl": 0, "moe_impl": L,
+                      "layer_impl": 0}, counts
+    d = np.abs(got - want)
+    assert np.isfinite(got).all()
+    assert d.mean() <= 1e-4, d.mean()
+    assert d.max() <= 5e-3, d.max()
+
+
+@pytest.mark.parametrize("int8_attn", [False, True],
+                         ids=["bf16-attn", "int8-attn"])
+def test_inline_forward_runs_the_attention_kernels(setup, int8_attn):
+    """An inline forward (no routing tables: a sampler's off-schedule
+    evaluation) under the kernel flags of parity (bf16 projections) and
+    max-throughput (int8): each block's attention sub-block is one call of
+    the attention function with one cond row per sample ([B,1,D]), then
+    ln_2, the router and the dense experts, against the JAX forward with the
+    same flags (Pallas interpret mode). bf16 projections: within the f32
+    forward gate (2e-5); int8 projections: the flip-aware gate of
+    test_forward_precomputed_fused_layer_matches. Before the port ran the
+    attention kernels here, this call ran f32 projections where the JAX
+    package runs int8 ones."""
+    from mode_diffusion_policy_tpu.ops.quant import quantize_attn as jqattn
+    params, a = setup
+    flags = dict(use_int8_moe=True, use_pallas_attn=True,
+                 use_int8_attn=int8_attn,
+                 use_fused_layer=not int8_attn)
+    quant = _jax_quant(params)
+    if int8_attn:
+        for name, entry in quant.items():
+            at = params[name]["attn"]
+            entry["attn"] = {"attn_q": tuple(jqattn(
+                at["wqkv"]["kernel"], at["wqkv"]["bias"],
+                at["c_proj"]["kernel"]))}
+    want = np.asarray(JDiT(JCfg(**DIMS, use_pallas_moe=True, **flags)).apply(
+        {"params": params, "quant": quant},
+        {"state_images": jnp.asarray(a["states"])},
+        jnp.asarray(a["actions"]), jnp.asarray(a["goals"]),
+        jnp.asarray(a["sigma"])))
+    port = _port(params, **flags)
+    port.quantize_experts_()
+    if int8_attn:
+        port.quantize_attn_()
+    counts = dict.fromkeys(("attn_impl_bf16", "attn_impl", "moe_impl",
+                            "layer_impl"), 0)
+    _counting(port, counts)
+    conds = []
+    impl = "attn_impl" if int8_attn else "attn_impl_bf16"
+    fn = getattr(port, impl)
+    setattr(port, impl, lambda x, c, *r, **k: conds.append(c.shape)
+            or fn(x, c, *r, **k))
+    with torch.no_grad():
+        got = port({"state_images": torch.from_numpy(a["states"])},
+                   torch.from_numpy(a["actions"]),
+                   torch.from_numpy(a["goals"]),
+                   torch.from_numpy(a["sigma"])).numpy()
+    L = DIMS["n_layers"]
+    assert counts == {"attn_impl_bf16": 0 if int8_attn else L,
+                      "attn_impl": L if int8_attn else 0, "moe_impl": 0,
+                      "layer_impl": 0}, counts
+    assert conds == [(B, 1, DIMS["embed_dim"])] * L
+    if int8_attn:
+        d = np.abs(got - want)
+        assert np.isfinite(got).all()
+        assert d.mean() <= 1e-4, d.mean()
+        assert d.max() <= 5e-3, d.max()
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
+
+
 def test_fused_layer_needs_quantized_experts(setup):
     params, a = setup
     port = _port(params, use_int8_moe=True, use_fused_layer=True)
@@ -163,10 +263,17 @@ def test_fused_layer_needs_quantized_experts(setup):
 
 
 def test_config_rejects_unported_combinations():
-    with pytest.raises(NotImplementedError, match="fused_attn_block"):
-        TCfg(**DIMS, use_int8_moe=True)
+    """int8 experts outside the fused layer are ported (the two-kernel
+    layer, with the attention sub-block plain or, with use_pallas_attn, one
+    fused_attn_block launch); the whole-layer kernel without int8 experts
+    and int8 projections without the attention kernel are not (the JAX
+    config's check)."""
+    assert not TCfg(**DIMS, use_int8_moe=True).fused_attn
+    assert TCfg(**DIMS, use_int8_moe=True, use_pallas_attn=True).fused_attn
     with pytest.raises(ValueError, match="use_fused_layer"):
         TCfg(**DIMS, use_fused_layer=True)
+    with pytest.raises(ValueError, match="use_pallas_attn"):
+        TCfg(**DIMS, use_int8_moe=True, use_int8_attn=True)
 
 
 def test_precast_is_bit_identical(setup):
@@ -202,8 +309,9 @@ def _mega_pair(params, int8_attn):
             entry["attn"] = {"attn_q": tuple(jqattn(
                 a["wqkv"]["kernel"], a["wqkv"]["bias"],
                 a["c_proj"]["kernel"]))}
-    port = _port(params, use_int8_moe=True, use_fused_layer=True,
-                 use_int8_attn=int8_attn, use_megakernel=True)
+    port = _port(params, use_int8_moe=True, use_pallas_attn=True,
+                 use_fused_layer=True, use_int8_attn=int8_attn,
+                 use_megakernel=True)
     port.quantize_experts_()
     if int8_attn:
         port.quantize_attn_()

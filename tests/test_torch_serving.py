@@ -23,7 +23,10 @@ from mode_diffusion_policy_tpu.ops.quant import (
 from mode_diffusion_policy_tpu_torch.models.agent import (MoDEAgent,
                                                           MoDEAgentConfig,
                                                           RolloutPolicy)
-from mode_diffusion_policy_tpu_torch.models.modedit import MoDeDiTConfig
+from mode_diffusion_policy_tpu_torch.models.modedit import (MoDeDiT,
+                                                            MoDeDiTConfig)
+from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+    fused_attn_block)
 from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
                                                      apply_serving_mode)
 
@@ -128,16 +131,22 @@ def test_megakernel_preset_needs_its_stack(agent_and_weights):
 
 def test_int8_moe_with_bf16_attention_names_its_kernel():
     """int8 experts outside the whole-layer kernel with bf16 attention
-    projections would need the bf16 attention kernel, not ported: the
-    config says so rather than run another path."""
-    with pytest.raises(NotImplementedError, match="fused_attn_block"):
-        MoDeDiTConfig(use_int8_moe=True)
-    MoDeDiTConfig(use_int8_moe=True, use_int8_attn=True)    # max-throughput
+    projections run the bf16 attention kernel, fused_attn_block, under
+    use_pallas_attn (the JAX flag); int8 projections need that flag, as in
+    the JAX config."""
+    cfg = MoDeDiTConfig(use_int8_moe=True, use_pallas_attn=True)
+    assert cfg.fused_attn and not cfg.use_fused_layer
+    assert MoDeDiT(MoDeDiTConfig(embed_dim=256, n_layers=1, n_heads=2),
+                   "meta").attn_impl_bf16 is fused_attn_block
+    MoDeDiTConfig(use_int8_moe=True, use_pallas_attn=True,
+                  use_int8_attn=True)                      # max-throughput
+    with pytest.raises(ValueError, match="use_pallas_attn"):
+        MoDeDiTConfig(use_int8_moe=True, use_int8_attn=True)
     with pytest.raises(ValueError, match="use_int8_moe"):
-        MoDeDiTConfig(use_int8_attn=True)
+        MoDeDiTConfig(use_int8_attn=True, use_pallas_attn=True)
     with pytest.raises(ValueError, match="use_fused_layer"):
-        MoDeDiTConfig(use_int8_moe=True, use_int8_attn=True,
-                      use_megakernel=True)
+        MoDeDiTConfig(use_int8_moe=True, use_pallas_attn=True,
+                      use_int8_attn=True, use_megakernel=True)
 
 
 @pytest.mark.parametrize("mode", ["parity", "b1-latency", "max-throughput"])

@@ -134,8 +134,8 @@ def _port_chunk(v, d, mode):
     return policy, obs, goal, chunk.numpy()
 
 
-FLAGS = ("use_int8_moe", "use_fused_layer", "use_int8_attn",
-         "use_megakernel")
+FLAGS = ("use_int8_moe", "use_pallas_attn", "use_fused_layer",
+         "use_int8_attn", "use_megakernel")
 
 
 def _counting(fn, counts, key):
