@@ -24,7 +24,12 @@ ddim, dpmpp_2m, euler, heun, dpmpp_2s_ancestral) on ``parity`` at b=128,
 and dpmpp_2s_ancestral on ``max-throughput`` (b=128), ``b1-latency`` and
 ``b1-latency-max`` (b=1), whose off-schedule evaluations route inline and
 run the attention sub-block through ``fused_attn_block`` (bf16
-projections) or ``fused_attn_block_q8`` with one cond row per sample.
+projections) or ``fused_attn_block_q8`` with one cond row per sample;
+then the bf16 kernel configuration (``use_pallas_moe`` and
+``use_pallas_attn``, no int8, no preset) at b=128 and b=1: per layer and
+step ``fused_attn_block`` then the bf16 MoE kernel ``fused_top2_mlp``
+(120 + 120 launches per chunk); and the kernel bench
+(``bench_kernels_torch.py``), the path of ``fused_top2_mlp_q8``.
 
 For the megakernel it also checks each layer against the plain layer, the
 whole stack against the plain stack and (bf16 projections) against 12
@@ -36,7 +41,10 @@ plain version with a shared and a per-sample cond, and, on every layer,
 ``fused_attn_block`` then the MoE kernel against one ``fused_layer_q8c``
 launch, bit for bit; for both attention kernels, a per-sample cond of equal
 rows against the shared row, bit for bit; for the int8 convs,
-``torch._int_mm`` against exact CPU sums. It checks the launch counts of
+``torch._int_mm`` against exact CPU sums; for ``fused_top2_mlp`` and
+``fused_top2_mlp_q8``, each against its plain version, and the int8-weight
+kernel with unit scales against the bf16 kernel on the same weights, bit
+for bit. It checks the launch counts of
 every path and the kernel-vs-plain action error, times the kernels, their
 plain versions, a PyTorch-library composition of the same work, whole
 chunks and the encoders, and prints one JSON line for the kernels and a
@@ -175,7 +183,8 @@ def chunk_split(policy, obs, goal, noise, chunk_ms):
             continue
         if re.search(r"fused_dit_kernel|(ln1|ln1_quant|gemm_bf16|gemm_i8|attn|"
                      r"quant_f32|ln2_quant|quant_row|moe_up|act_quant|"
-                     r"moe_down|moe_sum)_kernel", ev.key):
+                     r"moe_down|moe_sum|ln2|moe_up_bf16|moe_down_bf16)"
+                     r"_kernel", ev.key):
             dit += us / 1e3
         else:
             other += us / 1e3
@@ -919,6 +928,169 @@ def encoder_times(agent, x, cond, iters=5):
             "int8_calibrated": cuda_time_ms(lambda: agent.q8[name](x, cond),
                                             iters)}
 
+def check_moe_bf16(dit, routing, steps, T, gen, cfg):
+    """fused_top2_mlp and fused_top2_mlp_q8 at full width, b=128, b=1 and a
+    ragged 3 x 13 tokens, on the flagship agent's experts (the parity
+    policy's bf16 precast and int8 experts of layer 0): each against its
+    plain version with the layer gates, over [S,2] tables with a step and
+    single [2] rows, residual on and off, ln_2 fused or not; and
+    fused_top2_mlp_q8 with unit scales on the int8 weights against
+    fused_top2_mlp on the same weights cast to bf16, bit for bit. Returns
+    the largest |kernel - plain| of each kernel."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp, fused_top2_mlp_q8, fused_top2_mlp_q8_ref,
+        fused_top2_mlp_ref)
+    from mode_diffusion_policy_tpu_torch.ops.quant import QuantizedExperts
+
+    dev = gen.device
+    D = cfg.latent_dim
+    blk = dit.blocks[0]
+    idx, probs = routing[0]
+    bf = torch.bfloat16
+    w16 = (blk.experts_w1, blk.experts_b1, blk.experts_w2)
+    qe = blk.experts_q
+    unit = QuantizedExperts(qe.w1_q, torch.ones_like(qe.w1_s),
+                            qe.b1.to(bf).float(), qe.w2_q,
+                            torch.ones_like(qe.w2_s))
+    unit16 = (qe.w1_q.to(bf), qe.b1.to(bf), qe.w2_q.to(bf))
+    kernels = (("fused_top2_mlp", fused_top2_mlp, fused_top2_mlp_ref, w16),
+               ("fused_top2_mlp_q8", fused_top2_mlp_q8, fused_top2_mlp_q8_ref,
+                (qe,)))
+    err = dict.fromkeys((k[0] for k in kernels), 0.0)
+    combos = ((True, True, True), (True, False, True), (False, True, False),
+              (False, False, False))
+
+    def call_kw(s, tables, resid, ln):
+        return (idx, probs) if tables else (idx[s], probs[s]), dict(
+            step=s if tables else None, residual=resid,
+            ln_g=blk.ln_2.g if ln else None, ln_eps=blk.ln_2.eps)
+
+    for B, TT in ((128, T), (1, T), (3, T - 1)):
+        for s in steps:
+            x = torch.randn(B, TT, D, generator=gen, device=dev).to(bf)
+            used = {k[0]: 0.0 for k in kernels}
+            for tables, resid, ln in combos:
+                rows, kw = call_kw(s, tables, resid, ln)
+                for name, kern, ref, wts in kernels:
+                    got = kern(x, *rows, *wts, **kw)
+                    torch.cuda.synchronize()
+                    e, u = layer_gate(
+                        f"{name} b={B}x{TT} step={s} tables={tables} "
+                        f"residual={resid} ln={ln}", got,
+                        ref(x, *rows, *wts, **kw))
+                    err[name] = max(err[name], e)
+                    used[name] = max(used[name], u)
+            print(f"  {B} x {TT} tokens, step {s}, experts "
+                  f"{idx[s].tolist()}: both kernels within the layer gates "
+                  f"over tables/rows, residual, ln_2 (largest share of the "
+                  "gate used: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                            used.items()) + ")", flush=True)
+        xs = (torch.randn(B, TT, D, generator=gen, device=dev) * 0.01).to(bf)
+        for tables, resid, ln in combos[::3]:
+            rows, kw = call_kw(steps[-1], tables, resid, ln)
+            a = fused_top2_mlp_q8(xs, *rows, unit, **kw)
+            b = fused_top2_mlp(xs, *rows, *unit16, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(a, b) and bool(torch.isfinite(a).all())):
+                raise SystemExit(
+                    f"b={B}x{TT}: fused_top2_mlp_q8 with unit scales differs "
+                    f"from fused_top2_mlp on the same weights "
+                    f"({(a.float() - b.float()).abs().max().item():.3e})")
+        print(f"  {B} x {TT} tokens: fused_top2_mlp_q8 with unit scales == "
+              "fused_top2_mlp on the int8 weights cast to bf16, bit for bit",
+              flush=True)
+    return err
+
+
+def bf16_config_run(agent, results, cfg, zero_launches, launches_of):
+    """The bf16 kernel configuration at full width: ``agent`` reconfigured
+    with the JAX bench's BENCH_INT8=0 flag set (use_pallas_moe,
+    use_pallas_attn; use_fused_layer set and inert without int8 experts),
+    no preset (the raw encoders, no int8 weights), served by
+    RolloutPolicy(agent). One 10-step DDIM chunk at b=128 and at b=1 with
+    the launch counters on (120 fused_attn_block, 120 fused_top2_mlp,
+    nothing else), the action MAE against the plain versions and the
+    f32-vs-f64 floors, the chunk ms (median of 3) and its device split."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block, fused_attn_block_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp, fused_top2_mlp_ref)
+
+    agent.configure_(use_pallas_moe=True, use_pallas_attn=True,
+                     use_int8_moe=False, use_fused_layer=True,
+                     use_int8_attn=False, use_megakernel=False)
+    agent.folded = agent.q8 = None
+    agent.quantize_for_inference()
+    policy = RolloutPolicy(agent, seed=0)
+    dit = policy.agent.inner_model
+    L, S = cfg.n_layers, cfg.num_sampling_steps
+    out = {}
+    for B in (128, 1):
+        r = results[B]
+
+        def chunk():
+            return policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+
+        zero_launches()
+        kern = chunk()
+        torch.cuda.synchronize()
+        counts = launches_of()
+        want = {**dict.fromkeys(counts, 0), "fused_attn_block": L * S,
+                "fused_top2_mlp": L * S}
+        if counts != want:
+            raise SystemExit(f"bf16 configuration b={B}: launches {counts}, "
+                             f"expected {want}")
+        if tuple(kern.shape) != (B, cfg.act_window_size, cfg.action_dim) \
+                or not bool(torch.isfinite(kern).all()):
+            raise SystemExit(f"bf16 configuration b={B}: bad chunk "
+                             f"{tuple(kern.shape)}")
+        evals = {}
+        for key, kw in (("plain", {}),
+                        ("exact", {"acc_dtype": torch.float64}),
+                        ("exact_all", {"acc_dtype": torch.float64,
+                                       "red_dtype": torch.float64})):
+            dit.attn_impl_bf16 = functools.partial(fused_attn_block_ref, **kw)
+            dit.moe_impl_bf16 = functools.partial(fused_top2_mlp_ref, **kw)
+            evals[key] = chunk()
+        dit.attn_impl_bf16, dit.moe_impl_bf16 = fused_attn_block, fused_top2_mlp
+
+        def mae_of(a, b):
+            return (a - b).abs().mean().item()
+
+        mae = mae_of(kern, evals["plain"])
+        floors = (mae_of(evals["plain"], evals["exact"]),
+                  mae_of(evals["plain"], evals["exact_all"]))
+        tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * max(floors))
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            chunk()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - c0) * 1e3)
+        row = dict(launches={k: v for k, v in counts.items() if v},
+                   action_mae=mae, action_floor=max(floors),
+                   chunk_ms=statistics.median(times))
+        row["split"] = chunk_split(policy, r["obs"], r["goal"], r["noise"],
+                                   row["chunk_ms"])
+        print(f"  bf16 configuration b={B}, one 10-step DDIM chunk: launches "
+              f"{row['launches']}; action MAE kernel-vs-plain {mae:.3e} (tol "
+              f"{tol:.3e}), plain-f32-vs-plain-f64 {floors[0]:.3e} "
+              f"(products) / {floors[1]:.3e} (products, norms, softmax), "
+              f"parity-vs-this {mae_of(kern, r['parity_chunk']):.3e}; chunk "
+              f"{row['chunk_ms']:.2f} ms (median of 3: "
+              f"{', '.join(f'{t:.2f}' for t in times)}); split "
+              f"{row['split']}", flush=True)
+        if mae > tol:
+            raise SystemExit(f"bf16 configuration b={B}: kernel path "
+                             "disagrees with plain path")
+        out[B] = row
+    return out
+
+
 def main():
     import torch
 
@@ -957,11 +1129,13 @@ def main():
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c, fused_layer_q8c_ref)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
-        fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
+        fused_top2_mlp, fused_top2_mlp_q8, fused_top2_mlp_q8c,
+        fused_top2_mlp_q8c_ref)
     # every kernel's launch count; each served path is driven with all of
     # them set to 0 just before and read just after
     counters = (fused_attn_block_q8, fused_top2_mlp_q8c, fused_layer_q8c,
-                fused_dit_q8c, fused_attn_block)
+                fused_dit_q8c, fused_attn_block, fused_top2_mlp,
+                fused_top2_mlp_q8)
 
     def launches_of():
         return {k.__name__: k.launches for k in counters}
@@ -1307,10 +1481,9 @@ def main():
         if tuple(act.shape) != (128, cfg.action_dim) or \
                 not bool(torch.isfinite(act).all()):
             raise SystemExit(f"max-throughput: bad action {tuple(act.shape)}")
-    if mt_launches != {"fused_attn_block_q8": want_launches,
-                       "fused_top2_mlp_q8c": want_launches,
-                       "fused_layer_q8c": 0, "fused_dit_q8c": 0,
-                       "fused_attn_block": 0}:
+    if mt_launches != {**dict.fromkeys(mt_launches, 0),
+                       "fused_attn_block_q8": want_launches,
+                       "fused_top2_mlp_q8c": want_launches}:
         raise SystemExit(f"max-throughput b=128, one chunk: launches "
                          f"{mt_launches}, expected {want_launches} attention "
                          f"and MoE, 0 layer and 0 megakernel")
@@ -1396,6 +1569,38 @@ def main():
     main_path = next(r for r in sweep if r["mode"] == "parity"
                      and r["sampler"] == "dpmpp_2s_ancestral"
                      and r["steps"] == 10)
+
+    # ---- phases 18-20: the bf16 kernel configuration, fused_top2_mlp and
+    # fused_top2_mlp_q8 --------------------------------------------------
+    t = time.perf_counter()
+    moe16_err = check_moe_bf16(pdit, routing, steps, T, gen, cfg)
+    phase("phase 18: fused_top2_mlp and fused_top2_mlp_q8 vs plain, and "
+          "the unit-scale q8 launch == the bf16 launch", t)
+    t = time.perf_counter()
+    bf16cfg = bf16_config_run(agent, results, cfg, zero_launches,
+                              launches_of)
+    phase("phase 19: the bf16 kernel configuration at b=128 and b=1", t)
+    t = time.perf_counter()
+    import bench_kernels_torch
+    zero_launches()
+    bench = bench_kernels_torch.bench_moe()
+    bench_launches = launches_of()
+    if not (bench_launches["fused_top2_mlp_q8"]
+            and bench_launches["fused_top2_mlp"]):
+        raise SystemExit(f"kernel bench: launches {bench_launches}")
+    bench_layer = bench_kernels_torch.bench_layer()
+    for name in ("fused_top2_mlp", "fused_top2_mlp_q8", "fused_top2_mlp_q8c"):
+        for key, row in bench[name].items():
+            print(f"  {name} {key}: kernel {row['ms']:.4f} ms/launch "
+                  f"({row['ms_cold_l2']:.4f} with the L2 cache flushed), bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                  f"{row['gflop_bf16']:.2f} GFLOP bf16, {row['gop_int8']:.2f}"
+                  f" GOP int8, {row['mbytes']:.1f} MB), plain "
+                  f"{row['plain_ms']:.3f} ms, library {row['library_ms']} ms;"
+                  f" stages {row['stages_ms']}", flush=True)
+    print(f"  kernel bench launches {bench_launches}; one layer at b=128, "
+          f"ms: {bench_layer}", flush=True)
+    phase("phase 20: kernel bench (bench_kernels_torch: moe, layer)", t)
 
     # ---- results -----------------------------------------------------------
     t128 = timing[128]
@@ -1502,6 +1707,54 @@ def main():
         "stages_ms": {"b128": attn16["stages_b128"],
                       "b1": attn16["stages_b1"]},
         "sweep": sweep,
+    })
+    b16 = bench["fused_top2_mlp"]
+    kernels.append({
+        "name": "fused_top2_mlp",
+        "route": "cuda",
+        "source": "mode_diffusion_policy_tpu_torch/csrc/fused_top2_mlp.cu",
+        "replaces": "mode_diffusion_policy_tpu/ops/pallas/moe_kernel.py:97",
+        "launches": bf16cfg[128]["launches"]["fused_top2_mlp"],
+        "max_abs_err": moe16_err["fused_top2_mlp"],
+        **{k: b16["b128"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        "library_is": b16["b128"]["library_is"],
+        "shape": "b=128 x 14 tokens, D=1024, hidden 4096, top-2 of 4, bf16 "
+                 "experts, ln_2 and the residual fused",
+        "launches_are": "the bf16 kernel configuration, b=128, one 10-step "
+                        "DDIM chunk (10 steps x 12 layers)",
+        "ms_cold_l2": b16["b128"]["ms_cold_l2"],
+        "b1": {k: b16["b1"][k] for k in (
+            "ms", "ms_cold_l2", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "stages_ms": {"b128": b16["b128"]["stages_ms"],
+                      "b1": b16["b1"]["stages_ms"]},
+        "bf16_config": {f"b{B}": row for B, row in bf16cfg.items()},
+    })
+    b8 = bench["fused_top2_mlp_q8"]
+    kernels.append({
+        "name": "fused_top2_mlp_q8",
+        "route": "cuda",
+        "source": "mode_diffusion_policy_tpu_torch/csrc/fused_top2_mlp.cu",
+        "replaces": "mode_diffusion_policy_tpu/ops/pallas/moe_kernel.py:216",
+        "launches": bench_launches["fused_top2_mlp_q8"],
+        "max_abs_err": moe16_err["fused_top2_mlp_q8"],
+        **{k: b8["b128"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "library_is": b8["b128"]["library_is"],
+        "shape": "b=128 x 14 tokens, D=1024, hidden 4096, top-2 of 4, int8 "
+                 "experts with bf16 products, ln_2 and the residual fused",
+        "launches_are": "the kernel bench (bench_kernels_torch.bench_moe: "
+                        "warm-up, timed and profiled launches at b=128 and "
+                        "b=1)",
+        "ms_cold_l2": b8["b128"]["ms_cold_l2"],
+        "b1": {k: b8["b1"][k] for k in (
+            "ms", "ms_cold_l2", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "stages_ms": {"b128": b8["b128"]["stages_ms"],
+                      "b1": b8["b1"]["stages_ms"]},
+        "bench_q8c": bench["fused_top2_mlp_q8c"],
+        "bench_layer": bench_layer,
     })
     phase("done", T0)
     print(json.dumps({"kernels": kernels}), flush=True)

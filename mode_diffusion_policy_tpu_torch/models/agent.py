@@ -23,6 +23,12 @@ inline; under the kernel presets their attention sub-blocks are still one
 kernel launch per layer (``fused_attn_block``, or ``fused_attn_block_q8``
 with int8 projections).
 
+Without a preset, the bf16 kernel configuration
+(``MoDEAgentConfig(use_pallas_moe=True, use_pallas_attn=True)``, the JAX
+bench's ``BENCH_INT8=0`` flag set) runs per layer and step the attention
+kernel ``fused_attn_block`` and the bf16 MoE kernel ``fused_top2_mlp``
+over the policy's precast bf16 weights.
+
 The policy precasts its own copy of the agent (``RolloutPolicy``): the
 caller's parameters stay f32 and untouched, as the JAX policy's "training
 state is untouched".
@@ -74,6 +80,7 @@ class MoDEAgentConfig:
     top_k: int = 2
     seed: int = 42
     dtype: Any = torch.float32
+    use_pallas_moe: bool = False
     use_int8_moe: bool = False
     use_pallas_attn: bool = False
     use_fused_layer: bool = False
@@ -93,6 +100,7 @@ class MoDEAgentConfig:
             action_seq_len=self.act_window_size,
             num_experts=self.num_experts, top_k=self.top_k, dtype=self.dtype,
             use_int8_moe=self.use_int8_moe,
+            use_pallas_moe=self.use_pallas_moe,
             use_pallas_attn=self.use_pallas_attn,
             use_fused_layer=self.use_fused_layer,
             use_int8_attn=self.use_int8_attn,
@@ -171,9 +179,11 @@ class MoDEAgent(nn.Module):
 
     def configure_(self, **fields):
         """Replace config fields in place: the kernel flags
-        (``use_int8_moe``, ``use_pallas_attn``, ``use_fused_layer``,
-        ``use_int8_attn``, ``use_megakernel``), on the agent and on every
-        DiT module that reads them, and the sampler's (``sampler_type``,
+        (``use_int8_moe``, ``use_pallas_moe``, ``use_pallas_attn``,
+        ``use_fused_layer``, ``use_int8_attn``, ``use_megakernel``; a flag
+        whose path needs another is inert without it, as in the JAX
+        package), on the agent and on every DiT module that reads them, and
+        the sampler's (``sampler_type``,
         ``num_sampling_steps``, ``sigma_min``, ``sigma_max``,
         ``noise_scheduler``), which rebuild the sigma schedule."""
         self.cfg = cfg = dataclasses.replace(self.cfg, **fields)
@@ -281,9 +291,11 @@ class MoDEAgent(nn.Module):
     @torch.no_grad()
     def quantize_for_inference(self):
         """(Re)build the int8 experts (``cfg.use_int8_moe``) and attention
-        projections (``cfg.use_int8_attn``) from the f32 weights (the
-        masters, after a serving precast), and the megakernel's layer stack
-        (``cfg.use_megakernel``); call after loading weights."""
+        projections (``cfg.use_int8_attn``, with or without int8 experts)
+        from the f32 weights (the masters, after a serving precast), and the
+        megakernel's layer stack when the megakernel runs
+        (``MoDeDiTConfig.megakernel``, with or without
+        ``use_fused_layer``); call after loading weights."""
         dit = self.inner_model
         dit.stacked = None
         for blk in dit.blocks:
@@ -293,7 +305,7 @@ class MoDEAgent(nn.Module):
             dit.quantize_experts_()
         if self.cfg.use_int8_attn:
             dit.quantize_attn_()
-        if self.cfg.use_megakernel:
+        if dit.cfg.megakernel:
             dit.stack_layers_()
         return self
 
@@ -338,8 +350,10 @@ class MoDEAgent(nn.Module):
         ``routing`` the camera/goal tokens, the per-step sigma tokens and the
         EDM scalings are computed once per chunk, and each step runs
         ``MoDeDiT.forward_precomputed`` with the step's routing row, or,
-        under ``cfg.use_megakernel``, ``forward_precomputed_mega`` over the
-        cached layer stack and the [L,S,2] tables stacked once per chunk.
+        where the megakernel runs (``MoDeDiTConfig.megakernel``: the JAX
+        agent's conditions on ``use_megakernel``),
+        ``forward_precomputed_mega`` over the cached layer stack and the
+        [L,S,2] tables stacked once per chunk.
         A negative ``step_idx`` is off the schedule: that call routes and
         embeds inline at its own sigma, as without ``routing``."""
         cfg = self.cfg
@@ -358,9 +372,9 @@ class MoDEAgent(nn.Module):
         emb_all = dit.process_sigma_embeddings(sched)              # [S,1,D]
         scal_all = torch.stack(edm_scalings(sched, cfg.sigma_data), dim=1)
         mega = None
-        if cfg.use_megakernel:
-            # the config guarantees the megakernel's shapes (int8 top-2
-            # experts, head dim a multiple of 128)
+        if dit.cfg.megakernel:
+            # the megakernel's shapes hold (int8 top-2 experts, head dim a
+            # multiple of 128)
             if dit.stacked is None:
                 raise RuntimeError("the megakernel's layer stack is missing: "
                                    "call MoDEAgent.quantize_for_inference()")

@@ -9,15 +9,18 @@ with learned positional embeddings and causal self-attention. Expert weights
 are stacked (``experts_w1`` [E, D, 2H], ``experts_b1`` [E, 2H],
 ``experts_w2`` [E, H, D]). Routing depends on sigma only (the router sees the
 noise token), so inference precomputes per-sigma top-2 tables
-(``precompute_routing``) and each block then runs either the plain top-2
-gather, or, with ``use_fused_layer``, the whole layer as one kernel launch
-(``ops/kernels/layer_kernel.py``), or, with ``use_int8_moe`` alone, the
-two-kernel layer: the attention sub-block (with ``use_pallas_attn`` one
-kernel launch, ``ops/kernels/attn_kernel.py``: ``fused_attn_block``, or
-``fused_attn_block_q8`` with ``use_int8_attn``), then ln_2 and the int8
-top-2 MoE (``ops/kernels/moe_kernel.py``). With ``use_megakernel`` the whole
-block stack of a denoise step is one launch (``forward_precomputed_mega``)
-over weights stacked once on a leading layer axis (``stack_layers``).
+(``precompute_routing``) and each block then runs, as the JAX block does:
+with int8 experts and ``use_fused_layer`` (and the attention kernel), the
+whole layer as one kernel launch (``ops/kernels/layer_kernel.py``);
+otherwise the attention sub-block (with ``use_pallas_attn`` one kernel
+launch, ``ops/kernels/attn_kernel.py``: ``fused_attn_block``, or
+``fused_attn_block_q8`` with ``use_int8_attn``), then ln_2 and the top-2
+MoE (``ops/kernels/moe_kernel.py``): the int8 MoE kernel with
+``use_int8_moe``, the bf16 MoE kernel with ``use_pallas_moe`` (the bf16
+kernel configuration), else the plain top-2 gather. With
+``use_megakernel`` (int8 experts and the attention kernel) the whole block
+stack of a denoise step is one launch (``forward_precomputed_mega``) over
+weights stacked once on a leading layer axis (``stack_layers``).
 A call without routing tables (a sampler's off-schedule evaluation) routes
 inline; with ``use_pallas_attn`` its attention sub-block is still one
 kernel launch, with the block's own cond token, one row per sample.
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 from ..ops.kernels.attn_kernel import fused_attn_block, fused_attn_block_q8
 from ..ops.kernels.layer_kernel import (STACKED_QATTN, fused_dit_q8c,
                                         fused_layer_q8c)
-from ..ops.kernels.moe_kernel import fused_top2_mlp_q8c
+from ..ops.kernels.moe_kernel import fused_top2_mlp, fused_top2_mlp_q8c
 from ..ops.moe import moe_ffn_dense, moe_ffn_top2_gather
 from ..ops.primitives import DenseP, RMSNorm
 from ..ops.quant import (QuantizedAttn, QuantizedExperts, quantize_attn,
@@ -70,6 +73,10 @@ class MoDeDiTConfig:
                                    # MoDeDiT.quantize_experts_); on the
                                    # routed inference path the int8 top-2
                                    # MoE function (fused_top2_mlp_q8c)
+    use_pallas_moe: bool = False   # the bf16 top-2 MoE function
+                                   # (fused_top2_mlp, ln_2 and the residual
+                                   # fused) on the routed inference path;
+                                   # use_int8_moe takes precedence
     use_pallas_attn: bool = False  # the attention sub-block (ln_1, the
                                    # cond add, QKV, QK-norm, attention,
                                    # c_proj, residual) as one kernel launch
@@ -78,38 +85,29 @@ class MoDeDiTConfig:
                                    # fused_attn_block_q8 with int8
                                    # projections (head_dim % 128 == 0)
     use_fused_layer: bool = False  # whole-layer kernel on the routed
-                                   # inference path; needs use_int8_moe
+                                   # inference path (see fused_layer)
     use_int8_attn: bool = False    # int8 wqkv/c_proj projections (per-row
                                    # activation quant): inside the fused
                                    # layer, or fused_attn_block_q8;
                                    # needs use_pallas_attn
     use_megakernel: bool = False   # the whole block stack in ONE launch
                                    # per denoise step (fused_dit_q8c) on
-                                   # the hoisted routed path; needs
-                                   # use_fused_layer
+                                   # the hoisted routed path (see
+                                   # megakernel)
 
     def __post_init__(self):
-        hd = self.embed_dim // self.n_heads
+        # the JAX config's checks, and no others: a flag whose path needs
+        # another is inert without it, as in the JAX package
         if self.use_int8_attn:
-            # the JAX config's checks
             if not self.use_pallas_attn:
                 raise ValueError(
                     "use_int8_attn requires use_pallas_attn: the int8 "
                     "projections run inside the fused attention kernel")
+            hd = self.embed_dim // self.n_heads
             if hd % 128:
                 raise ValueError(
                     "use_int8_attn requires head_dim % 128 == 0; got "
                     f"{hd}")
-        if (self.use_fused_layer or self.use_int8_attn) and not (
-                self.use_int8_moe and self.top_k == 2):
-            raise ValueError("use_fused_layer and use_int8_attn need "
-                             "use_int8_moe and top_k == 2")
-        if self.use_megakernel and not self.use_fused_layer:
-            raise ValueError("use_megakernel needs use_fused_layer (the int8 "
-                             "top-2 whole-layer path)")
-        if self.use_megakernel and hd % 128:
-            raise ValueError(
-                f"use_megakernel needs head_dim % 128 == 0; got {hd}")
 
     @property
     def fused_attn(self) -> bool:
@@ -117,6 +115,24 @@ class MoDeDiTConfig:
         kernel launch (JAX ``NoiseBlockMoE``'s ``use_fused_attn``)."""
         return self.use_pallas_attn and \
             (self.embed_dim // self.n_heads) % 128 == 0
+
+    @property
+    def fused_layer(self) -> bool:
+        """Whether the routed path runs the whole-layer kernel: it needs
+        int8 top-2 experts and the attention kernel (JAX
+        ``NoiseBlockMoE.__call__``); otherwise ``use_fused_layer`` is
+        inert."""
+        return (self.use_fused_layer and self.use_int8_moe
+                and self.top_k == 2 and self.fused_attn)
+
+    @property
+    def megakernel(self) -> bool:
+        """Whether the hoisted routed path runs the DiT megakernel: the
+        conditions of the JAX agent (int8 top-2 experts, the attention
+        kernel, head_dim % 128 == 0); otherwise ``use_megakernel`` is
+        inert."""
+        return (self.use_megakernel and self.use_int8_moe
+                and self.top_k == 2 and self.fused_attn)
 
     @property
     def seq_size(self) -> int:
@@ -219,29 +235,32 @@ class NoiseBlockMoE(nn.Module):
 
     def forward(self, x, c, *, moe_override=None, layer_impl=fused_layer_q8c,
                 attn_impl=fused_attn_block_q8, attn_impl_bf16=fused_attn_block,
-                moe_impl=fused_top2_mlp_q8c):
+                moe_impl=fused_top2_mlp_q8c, moe_impl_bf16=fused_top2_mlp):
         """moe_override: (idx [k], p [k]) rows, or (idx [S,k], p [S,k],
         step) sigma tables with the scheduled step; None routes inline.
         ``layer_impl`` is the whole-layer function used on the routed path
-        when ``cfg.use_fused_layer`` is set. Otherwise, with
-        ``cfg.fused_attn``, the attention sub-block is ``attn_impl`` (int8
-        projections, when the block holds them) or ``attn_impl_bf16``, with
-        the block's own cond ``c`` ([1,1,D] shared, or [B,1,D] inline); and
-        on the routed path with ``cfg.use_int8_moe``, ln_2 and the MoE are
-        ``moe_impl``. Follows JAX ``NoiseBlockMoE.__call__``."""
+        when ``cfg.fused_layer`` holds. Otherwise, with ``cfg.fused_attn``,
+        the attention sub-block is ``attn_impl`` (int8 projections, when the
+        block holds them) or ``attn_impl_bf16``, with the block's own cond
+        ``c`` ([1,1,D] shared, or [B,1,D] inline); and on the routed path
+        with top-2 routing, ln_2 and the MoE are ``moe_impl`` (int8 experts,
+        ``cfg.use_int8_moe``) or ``moe_impl_bf16`` (the compute-dtype
+        experts, ``cfg.use_pallas_moe``). Follows JAX
+        ``NoiseBlockMoE.__call__`` and ``_override_out``."""
         cfg = self.cfg
         dt = cfg.dtype
         a = self.attn
-        kernel_moe = (moe_override is not None and cfg.use_int8_moe
-                      and cfg.top_k == 2)
+        routed_top2 = moe_override is not None and cfg.top_k == 2
+        kernel_moe = routed_top2 and cfg.use_int8_moe
+        if routed_top2:
+            idx, p, *rest = moe_override
+            step = rest[0] if rest else None
         if kernel_moe:
             if self.experts_q is None or (cfg.use_int8_attn
                                           and a.attn_q is None):
                 raise RuntimeError("int8 weights missing: call "
                                    "MoDEAgent.quantize_for_inference()")
-            idx, p, *rest = moe_override
-            step = rest[0] if rest else None
-            if cfg.use_fused_layer:
+            if cfg.fused_layer:
                 return layer_impl(
                     x, c, self.ln_1.g, a.wqkv.kernel, a.wqkv.bias,
                     a.q_norm.g, a.k_norm.g, a.c_proj.kernel, self.ln_2.g,
@@ -268,6 +287,12 @@ class NoiseBlockMoE(nn.Module):
                             ln_eps=self.ln_2.eps)
         w1, b1, w2 = (w.to(dt) for w in (self.experts_w1, self.experts_b1,
                                          self.experts_w2))
+        if routed_top2 and cfg.use_pallas_moe:
+            # the bf16 kernel configuration: ln_2 fused into the MoE
+            # function, the normed input as the residual seed
+            return moe_impl_bf16(x, idx, p, w1, b1, w2, step=step,
+                                 residual=True, ln_g=self.ln_2.g,
+                                 ln_eps=self.ln_2.eps)
         x = self.ln_2(x)
         if moe_override is not None:
             idx, p, *rest = moe_override
@@ -307,13 +332,14 @@ class MoDeDiT(nn.Module):
         # kernel paths: the CUDA kernels' wrappers; a caller may set the
         # plain versions (fused_layer_q8c_ref, fused_dit_q8c_ref,
         # fused_attn_block_q8_ref, fused_attn_block_ref,
-        # fused_top2_mlp_q8c_ref) to run them on the same weights
-        # (chip_smoke.py compares the two)
+        # fused_top2_mlp_q8c_ref, fused_top2_mlp_ref) to run them on the
+        # same weights (chip_smoke.py compares the two)
         self.layer_impl = fused_layer_q8c
         self.dit_impl = fused_dit_q8c
         self.attn_impl = fused_attn_block_q8
         self.attn_impl_bf16 = fused_attn_block
         self.moe_impl = fused_top2_mlp_q8c
+        self.moe_impl_bf16 = fused_top2_mlp
         # the f32 values of the leaves that the serving precast has cast
         # (precast_), which the int8 quantizers read
         self._f32_masters: Dict[str, torch.Tensor] = {}
@@ -459,7 +485,8 @@ class MoDeDiT(nn.Module):
             x = block(x, cond_token, moe_override=ov,
                       layer_impl=self.layer_impl, attn_impl=self.attn_impl,
                       attn_impl_bf16=self.attn_impl_bf16,
-                      moe_impl=self.moe_impl)
+                      moe_impl=self.moe_impl,
+                      moe_impl_bf16=self.moe_impl_bf16)
         return x
 
     def forward(self, states: Dict[str, torch.Tensor], actions, goals, sigma,

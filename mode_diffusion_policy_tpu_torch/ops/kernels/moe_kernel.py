@@ -1,9 +1,10 @@
-"""The int8 x int8 top-2 SwishGLU MoE of NoiseBlockMoE: CUDA kernel, wrapper
-and plain version.
+"""The top-2 SwishGLU MoE of NoiseBlockMoE: CUDA kernels, wrappers and plain
+versions, for int8 x int8 compute and for bf16 compute (bf16 or int8
+expert weights).
 
-Counterpart of ``mode_diffusion_policy_tpu/ops/pallas/moe_kernel.py::
-fused_top2_mlp_q8c`` (the Pallas ``_kernel_q8c``). For the routing row
-``step`` of the [S,2] tables (or single [2] rows) it computes
+Counterparts of ``mode_diffusion_policy_tpu/ops/pallas/moe_kernel.py``.
+``fused_top2_mlp_q8c`` (the Pallas ``_kernel_q8c``) computes, for the
+routing row ``step`` of the [S,2] tables (or single [2] rows),
 
     out   = seed + sum_{e in top2} sum_k p_e * dot_i8(q(act_e,k), W2_e,k) * s
     act_e = value * silu(gate),  [value | gate] = dot_i8(q(xm), W1_e) * s + b1
@@ -15,10 +16,23 @@ with the JAX kernel's cast chain: the MoE input quantized once per row,
 (slot, block) contributions added to the f32 accumulator in the JAX order,
 and the sum written in x.dtype.
 
-``fused_top2_mlp_q8c`` launches ``csrc/fused_top2_mlp_q8c.cu`` for CUDA
-tensors (and raises on what it cannot take) and runs the plain version,
-``fused_top2_mlp_q8c_ref``, only for CPU tensors.
-``fused_top2_mlp_q8c.launches`` counts kernel launches.
+``fused_top2_mlp`` (the Pallas ``_kernel``) is the bf16-compute MoE of the
+bf16 kernel configuration, with the same prenorm, seed and order:
+
+    out   = seed + sum_{e in top2} sum_k p_e * (act_e,k W2_e,k)
+    act_e = dt(value * silu(gate)),  [value | gate] = xm W1_e + b1
+
+(products in the compute dtype ``dt`` = x.dtype, f32 accumulation), and
+``fused_top2_mlp_q8`` (the Pallas ``_kernel_q8``) the same with int8
+expert weights cast to ``dt`` in each product and their per-channel scales
+applied after it: ``value = (xm W1v) * s1v + b1v``, ``contrib = (act W2) *
+s2``.
+
+``fused_top2_mlp_q8c`` launches ``csrc/fused_top2_mlp_q8c.cu``,
+``fused_top2_mlp`` and ``fused_top2_mlp_q8`` launch the two entry points
+of ``csrc/fused_top2_mlp.cu``, for CUDA tensors (and raise on what they
+cannot take); each runs its plain version (``..._ref``) only for CPU
+tensors. Their ``.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -32,6 +46,81 @@ from ..quant import QuantizedExperts
 from ._common import (_check, _check_moe_widths, _hidden_block,
                       _rmsnorm_rows, _routing_row, _tables)
 from .quant_math import dot_i8, quant_rows
+
+
+def _moe_ref(x, top2_idx, top2_probs, w1, b1, w2, s1, s2, block_hidden,
+             residual, ln_g, ln_eps, acc_dtype, red_dtype):
+    """The bf16-compute MoE of ``fused_top2_mlp_ref`` (``s1 = s2 = None``)
+    and ``fused_top2_mlp_q8_ref`` (int8 ``w1``/``w2`` with their scales)
+    for the routing row (idx [2], p [2])."""
+    B, T, D = x.shape
+    dt = x.dtype
+    HH = w1.shape[-1] // 2
+    TH = _hidden_block(HH, block_hidden)
+    xm = x.reshape(B * T, D)
+    if ln_g is not None:
+        xm = _rmsnorm_rows(xm.float(), ln_g, ln_eps, red_dtype).to(dt)
+    acc = xm.float() if residual else torch.zeros(B * T, D, device=x.device)
+
+    def mm(a, b):
+        # int8 weights are cast to the compute dtype first (exact in bf16)
+        if b.dtype == torch.int8:
+            b = b.to(dt)
+        return torch.matmul(a.to(acc_dtype), b.to(acc_dtype)).float()
+
+    idx, probs = top2_idx, top2_probs
+    for slot in range(2):
+        e = idx[slot].to(w1.device)
+        p = probs[slot].to(x.device)
+        for kb in range(HH // TH):
+            vc = slice(kb * TH, (kb + 1) * TH)
+            gc = slice(HH + kb * TH, HH + (kb + 1) * TH)
+            value, gate = mm(xm, w1[e][:, vc]), mm(xm, w1[e][:, gc])
+            if s1 is not None:
+                value = value * s1[e][vc].float()
+                gate = gate * s1[e][gc].float()
+            value = value + b1[e][vc].float()
+            gate = gate + b1[e][gc].float()
+            act = (value * F.silu(gate)).to(dt)
+            contrib = mm(act, w2[e][vc])
+            if s2 is not None:
+                contrib = contrib * s2[e].float()
+            acc = acc + p * contrib
+    return acc.to(dt).reshape(B, T, D)
+
+
+def fused_top2_mlp_ref(x, top2_idx, top2_probs, w1, b1, w2, *, step=None,
+                       block_hidden: int = 1024, residual: bool = False,
+                       ln_g=None, ln_eps: float = 1e-6,
+                       acc_dtype: torch.dtype = torch.float32,
+                       red_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of the bf16-compute MoE (any device, any float
+    dtype). x [B,T,D]; top2_idx/probs [S,2] tables with a ``step`` row
+    selector, or single [2] rows; w1 [E,D,2H], b1 [E,2H], w2 [E,H,D], cast
+    to x.dtype for the products. ``acc_dtype`` is the accumulation type of
+    the products and ``red_dtype`` that of the prenorm's sum of squares:
+    float32 as in the kernel, or float64 for near-exact evaluations of the
+    same cast chain. Returns x.dtype [B,T,D]."""
+    idx, probs = _routing_row(top2_idx, top2_probs, step)
+    return _moe_ref(x, idx, probs, w1, b1, w2, None, None, block_hidden,
+                    residual, ln_g, ln_eps, acc_dtype, red_dtype)
+
+
+def fused_top2_mlp_q8_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
+                          *, step=None, block_hidden: int = 1024,
+                          residual: bool = False, ln_g=None,
+                          ln_eps: float = 1e-6,
+                          acc_dtype: torch.dtype = torch.float32,
+                          red_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the int8-weight, bf16-compute MoE: as
+    ``fused_top2_mlp_ref`` with the int8 experts ``qexp`` cast to x.dtype
+    in each product and their scales applied after it."""
+    idx, probs = _routing_row(top2_idx, top2_probs, step)
+    return _moe_ref(x, idx, probs, qexp.w1_q, qexp.b1, qexp.w2_q, qexp.w1_s,
+                    qexp.w2_s, block_hidden, residual, ln_g, ln_eps,
+                    acc_dtype, red_dtype)
 
 
 def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
@@ -154,3 +243,125 @@ def fused_top2_mlp_q8c(x, top2_idx, top2_probs, qexp: QuantizedExperts, *,
 
 
 fused_top2_mlp_q8c.launches = 0
+
+
+def _bf16_argtypes(n_weights):
+    return ([ctypes.c_void_p] * (4 + n_weights) + [ctypes.c_int]
+            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_launcher(entry: str, n_weights: int):
+    from ._build import load_library
+    fn = getattr(load_library("fused_top2_mlp"), entry)
+    fn.argtypes = _bf16_argtypes(n_weights)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bf16(name, x, top2_idx, top2_probs, weights, step, block_hidden,
+                 residual, ln_g, ln_eps):
+    """Check the arguments of ``fused_top2_mlp`` or ``fused_top2_mlp_q8``
+    on CUDA, allocate the output and scratch, and launch the kernel.
+    ``weights`` are (tensor, name, dtype) rows in the launcher's argument
+    order, the first one w1 [E, D, 2H]."""
+    dev = x.device
+    if x.ndim != 3:
+        raise ValueError(f"x must be [B,T,D], got {tuple(x.shape)}")
+    B, T, D = x.shape
+    E, _, H2 = weights[0][0].shape
+    HH = H2 // 2
+    TH = _hidden_block(HH, block_hidden)
+    _check_moe_widths(D, TH)
+    bf, f32 = torch.bfloat16, torch.float32
+    _check(x, "x", bf, (B, T, D), dev)
+    if ln_g is not None:
+        ln_g = ln_g.float().contiguous()
+        _check(ln_g, "ln_g", f32, (D,), dev)
+    shapes = {"w1": (E, D, H2), "b1": (E, H2), "w2": (E, HH, D),
+              "w1_s": (E, H2), "w2_s": (E, D)}
+    for t, wname, dtype in weights:
+        _check(t, wname, dtype, shapes[wname.removesuffix("_q")], dev)
+    idx, probs, S, s = _tables(top2_idx, top2_probs, step)
+    _check(idx, "top2_idx", torch.int32, (S, 2), dev)
+    _check(probs, "top2_probs", f32, (S, 2), dev)
+
+    M = B * T
+    n_h = HH // TH
+
+    def buf(*shape, dtype):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    xm = buf(M, D, dtype=bf) if ln_g is not None else None
+    scratch = (xm, buf(2, M, HH, dtype=bf), buf(2 * n_h, M, D, dtype=f32))
+    out = buf(B, T, D, dtype=bf)
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        x, ln_g, *(w[0] for w in weights), idx, probs)]
+    scr = [None if t is None else t.data_ptr() for t in (*scratch, out)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bf16_launcher(f"{name}_launch", len(weights))(
+            *ptrs, s, *scr, M, D, HH, TH, E, int(residual), ln_eps,
+            D ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out
+
+
+def fused_top2_mlp(x, top2_idx, top2_probs, w1, b1, w2, *, step=None,
+                   block_hidden: int = 1024, residual: bool = False,
+                   ln_g=None, ln_eps: float = 1e-6) -> torch.Tensor:
+    """The bf16-compute top-2 MoE of x [B,T,D] with bf16 experts w1
+    [E,D,2H], b1 [E,2H], w2 [E,H,D], optionally prenormed by ``ln_g`` and
+    seeded with its (prenormed) input (``residual``).
+
+    CUDA tensors: one launch of the hand-written kernel (bf16 x and
+    weights, any token count, D and block_hidden multiples of 128). CPU
+    tensors: the plain version ``fused_top2_mlp_ref``. Returns x.dtype
+    [B,T,D]."""
+    if x.device.type == "cpu":
+        return fused_top2_mlp_ref(
+            x, top2_idx, top2_probs, w1, b1, w2, step=step,
+            block_hidden=block_hidden, residual=residual, ln_g=ln_g,
+            ln_eps=ln_eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_top2_mlp runs on CUDA or CPU, not {x.device}")
+    bf = torch.bfloat16
+    out = _launch_bf16("fused_top2_mlp", x, top2_idx, top2_probs,
+                       ((w1, "w1", bf), (b1, "b1", bf), (w2, "w2", bf)),
+                       step, block_hidden, residual, ln_g, ln_eps)
+    fused_top2_mlp.launches += 1
+    return out
+
+
+fused_top2_mlp.launches = 0
+
+
+def fused_top2_mlp_q8(x, top2_idx, top2_probs, qexp: QuantizedExperts, *,
+                      step=None, block_hidden: int = 1024,
+                      residual: bool = False, ln_g=None,
+                      ln_eps: float = 1e-6) -> torch.Tensor:
+    """``fused_top2_mlp`` with the int8 experts ``qexp``: weights cast to
+    bf16 in each product, scales applied after it.
+
+    CUDA tensors: one launch of the hand-written kernel. CPU tensors: the
+    plain version ``fused_top2_mlp_q8_ref``. Returns x.dtype [B,T,D]."""
+    if x.device.type == "cpu":
+        return fused_top2_mlp_q8_ref(
+            x, top2_idx, top2_probs, qexp, step=step,
+            block_hidden=block_hidden, residual=residual, ln_g=ln_g,
+            ln_eps=ln_eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_top2_mlp_q8 runs on CUDA or CPU, not "
+                         f"{x.device}")
+    f32, i8 = torch.float32, torch.int8
+    out = _launch_bf16("fused_top2_mlp_q8", x, top2_idx, top2_probs, (
+        (qexp.w1_q, "w1_q", i8), (qexp.w1_s, "w1_s", f32),
+        (qexp.b1.float().contiguous(), "b1", f32), (qexp.w2_q, "w2_q", i8),
+        (qexp.w2_s, "w2_s", f32)), step, block_hidden, residual, ln_g, ln_eps)
+    fused_top2_mlp_q8.launches += 1
+    return out
+
+
+fused_top2_mlp_q8.launches = 0

@@ -26,9 +26,10 @@ Ported presets:
 - ``auto``            ``parity`` when the agent lives on CUDA, else
                       ``reference``.
 
-The four kernel presets set ``use_pallas_attn``, as the JAX presets do: a
-sampler's off-schedule evaluation (step index -1, which routes inline) runs
-each layer's attention sub-block as one kernel launch,
+The four kernel presets set ``use_pallas_attn`` and ``use_pallas_moe``, as
+the JAX presets do (the int8 MoE of ``use_int8_moe`` takes precedence over
+the bf16 one): a sampler's off-schedule evaluation (step index -1, which
+routes inline) runs each layer's attention sub-block as one kernel launch,
 ``ops/kernels/attn_kernel.fused_attn_block`` (bf16 projections: ``parity``,
 ``b1-latency``) or ``fused_attn_block_q8`` (``max-throughput``,
 ``b1-latency-max``), with one cond row per sample.
@@ -45,27 +46,28 @@ SERVING_MODES = ("reference", "parity", "max-throughput", "b1-latency",
 # presets with no port yet: {mode: what they need} (none left)
 UNPORTED_MODES = {}
 
-# config flags of each preset, the JAX package's flag map without its
-# use_pallas_moe switch (the port's int8 top-2 MoE is always its kernel):
-# use_pallas_attn on for the four kernel presets, where the attention
-# sub-block outside the fused layer (the samplers' off-schedule
-# evaluations, the two-kernel layer) is one kernel launch
+# config flags of each preset, the JAX package's flag map: use_pallas_moe
+# and use_int8_moe on for the four kernel presets (the int8 MoE takes
+# precedence, so the bf16 MoE kernel runs on none of them), and
+# use_pallas_attn, where the attention sub-block outside the fused layer
+# (the samplers' off-schedule evaluations, the two-kernel layer) is one
+# kernel launch; `reference` turns every flag off
 PRESET_FLAGS = {
-    "reference": dict(use_int8_moe=False, use_pallas_attn=False,
-                      use_fused_layer=False, use_int8_attn=False,
-                      use_megakernel=False),
-    "parity": dict(use_int8_moe=True, use_pallas_attn=True,
-                   use_fused_layer=True, use_int8_attn=False,
-                   use_megakernel=False),
-    "max-throughput": dict(use_int8_moe=True, use_pallas_attn=True,
-                           use_fused_layer=False, use_int8_attn=True,
-                           use_megakernel=False),
-    "b1-latency": dict(use_int8_moe=True, use_pallas_attn=True,
-                       use_fused_layer=True, use_int8_attn=False,
-                       use_megakernel=True),
-    "b1-latency-max": dict(use_int8_moe=True, use_pallas_attn=True,
-                           use_fused_layer=True, use_int8_attn=True,
-                           use_megakernel=True),
+    "reference": dict(use_int8_moe=False, use_pallas_moe=False,
+                      use_pallas_attn=False, use_fused_layer=False,
+                      use_int8_attn=False, use_megakernel=False),
+    "parity": dict(use_int8_moe=True, use_pallas_moe=True,
+                   use_pallas_attn=True, use_fused_layer=True,
+                   use_int8_attn=False, use_megakernel=False),
+    "max-throughput": dict(use_int8_moe=True, use_pallas_moe=True,
+                           use_pallas_attn=True, use_fused_layer=False,
+                           use_int8_attn=True, use_megakernel=False),
+    "b1-latency": dict(use_int8_moe=True, use_pallas_moe=True,
+                       use_pallas_attn=True, use_fused_layer=True,
+                       use_int8_attn=False, use_megakernel=True),
+    "b1-latency-max": dict(use_int8_moe=True, use_pallas_moe=True,
+                           use_pallas_attn=True, use_fused_layer=True,
+                           use_int8_attn=True, use_megakernel=True),
 }
 
 

@@ -38,15 +38,17 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+    ROOT / "chip_smoke.py", ROOT / "bench_kernels_torch.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(BANNED))
     assert not bad, f"{path} imports {bad}"
 
 
 def test_port_imports_with_jax_blocked():
-    """Import every port module and chip_smoke.py's module-level code with
-    jax and the JAX package made unimportable."""
+    """Import every port module, chip_smoke.py's module-level code and
+    bench_kernels_torch.py with jax and the JAX package made
+    unimportable."""
     code = f"""
 import importlib, pkgutil, sys
 for name in {BANNED!r}:
@@ -58,6 +60,8 @@ for n in names:
     importlib.import_module(n)
 import runpy
 runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="chip_smoke_import")
+runpy.run_path({str(ROOT / "bench_kernels_torch.py")!r},
+               run_name="bench_kernels_torch_import")
 # importing builds and loads no kernel: that happens at the first CUDA call
 from mode_diffusion_policy_tpu_torch.ops.kernels import (
     _build, attn_kernel, layer_kernel, moe_kernel)
@@ -66,6 +70,8 @@ assert layer_kernel.fused_dit_q8c.launches == 0
 assert attn_kernel.fused_attn_block_q8.launches == 0
 assert attn_kernel.fused_attn_block.launches == 0
 assert moe_kernel.fused_top2_mlp_q8c.launches == 0
+assert moe_kernel.fused_top2_mlp.launches == 0
+assert moe_kernel.fused_top2_mlp_q8.launches == 0
 print(len(names), "modules")
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -84,6 +90,18 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                           text=True, timeout=120, cwd=tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_kernel_bench_skips_without_cuda(monkeypatch, capsys):
+    """Without CUDA the kernel bench prints one skip line and returns; an
+    unknown bench name is refused."""
+    import bench_kernels_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bench_kernels_torch.main(["moe", "layer"])
+    assert capsys.readouterr().out.strip().splitlines() == [
+        '{"skipped": "CUDA is not available"}']
+    with pytest.raises(SystemExit, match="unknown bench"):
+        bench_kernels_torch.main(["warp"])
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):

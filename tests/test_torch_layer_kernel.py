@@ -144,7 +144,7 @@ def test_build_needs_nvcc_and_writes_under_ignored_build_dir(monkeypatch,
     from mode_diffusion_policy_tpu_torch.ops.kernels import _build
     assert [p.name for p in _build.sources()] == [
         "fused_attn_block.cu", "fused_attn_block_q8.cu", "fused_dit_q8c.cu",
-        "fused_layer_q8c.cu", "fused_top2_mlp_q8c.cu"]
+        "fused_layer_q8c.cu", "fused_top2_mlp.cu", "fused_top2_mlp_q8c.cu"]
     assert [p.name for p in _build.headers()] == ["layer_stages.cuh"]
     for src in _build.sources():
         lib = _build.library_path(src)

@@ -146,9 +146,14 @@ def test_forward_precomputed_fused_layer_matches(setup, step):
     test_torch_layer_kernel.py: exact int8 products, rare one-step int8
     rounding flips from f32 sum order."""
     params, a = setup
-    port = _port(params, use_int8_moe=True, use_fused_layer=True)
+    port = _port(params, use_int8_moe=True, use_pallas_attn=True,
+                 use_fused_layer=True)
     port.quantize_experts_()
+    counts = dict.fromkeys(("layer_impl", "attn_impl_bf16", "moe_impl"), 0)
+    _counting(port, counts)
     got, want = _precomputed(params, port, a, step, fused=True)
+    assert counts == {"layer_impl": DIMS["n_layers"], "attn_impl_bf16": 0,
+                      "moe_impl": 0}, counts
     d = np.abs(got - want)
     assert np.isfinite(got).all()
     assert d.mean() <= 1e-4, d.mean()
@@ -189,6 +194,58 @@ def test_two_kernel_layer_with_bf16_attention_matches(setup, step):
     assert np.isfinite(got).all()
     assert d.mean() <= 1e-4, d.mean()
     assert d.max() <= 5e-3, d.max()
+
+
+def test_bf16_kernel_configuration_matches_over_the_schedule(setup):
+    """The bf16 kernel configuration (use_pallas_moe and use_pallas_attn,
+    no int8; use_fused_layer set too, inert there as in JAX), through the
+    hoisted path at every step of the 10-step exponential schedule: per
+    layer the attention function (fused_attn_block's plain version on the
+    CPU), then ln_2 and the bf16 MoE function (fused_top2_mlp's plain
+    version, the normed input as the residual seed), against the JAX
+    block's fused_attn_block then fused_top2_mlp (interpret mode), in f32
+    within 2e-5. The port refused use_fused_layer without int8 experts
+    before this configuration was ported."""
+    from mode_diffusion_policy_tpu.models.edm.schedules import \
+        get_noise_schedule
+    params, a = setup
+    flags = dict(use_pallas_moe=True, use_pallas_attn=True,
+                 use_fused_layer=True)
+    port = _port(params, **flags)
+    counts = dict.fromkeys(("attn_impl_bf16", "moe_impl_bf16", "moe_impl",
+                            "layer_impl", "attn_impl"), 0)
+    _counting(port, counts)
+    sig = np.asarray(get_noise_schedule(10, "exponential"), np.float32)[:-1]
+    jdit = JDiT(JCfg(**DIMS, **flags))
+    jv = {"params": params}
+    static_x, goal_embed = jdit.apply(
+        jv, {"state_images": jnp.asarray(a["states"])},
+        jnp.asarray(a["goals"]), method=JDiT.embed_static_tokens)
+    emb = jdit.apply(jv, jnp.asarray(sig),
+                     method=JDiT.process_sigma_embeddings)
+    routing = jdit.apply(jv, jnp.asarray(sig),
+                         method=JDiT.precompute_routing)
+    with torch.no_grad():
+        sx, ge = port.embed_static_tokens(
+            {"state_images": torch.from_numpy(a["states"])},
+            torch.from_numpy(a["goals"]))
+        temb = port.process_sigma_embeddings(torch.from_numpy(sig))
+        trout = port.precompute_routing(torch.from_numpy(sig))
+    for step in range(len(sig)):
+        want = jdit.apply(jv, static_x, goal_embed, emb[step][None],
+                          jnp.asarray(a["actions"]),
+                          moe_overrides=[(i, p, jnp.int32(step))
+                                         for i, p in routing],
+                          method=JDiT.forward_precomputed)
+        with torch.no_grad():
+            got = port.forward_precomputed(
+                sx, ge, temb[step][None], torch.from_numpy(a["actions"]),
+                moe_overrides=[(i, p, step) for i, p in trout])
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   rtol=1e-5, err_msg=f"step {step}")
+    L = DIMS["n_layers"] * len(sig)
+    assert counts == {"attn_impl_bf16": L, "moe_impl_bf16": L,
+                      "moe_impl": 0, "layer_impl": 0, "attn_impl": 0}, counts
 
 
 @pytest.mark.parametrize("int8_attn", [False, True],
@@ -263,17 +320,25 @@ def test_fused_layer_needs_quantized_experts(setup):
 
 
 def test_config_rejects_unported_combinations():
-    """int8 experts outside the fused layer are ported (the two-kernel
-    layer, with the attention sub-block plain or, with use_pallas_attn, one
-    fused_attn_block launch); the whole-layer kernel without int8 experts
-    and int8 projections without the attention kernel are not (the JAX
-    config's check)."""
+    """The port's config raises where the JAX config raises (int8
+    projections without the attention kernel, or with a head dim that is
+    not a multiple of 128) and nowhere else: a flag whose path needs
+    another is inert without it, as in the JAX package (the whole-layer
+    kernel without int8 experts or without the attention kernel)."""
     assert not TCfg(**DIMS, use_int8_moe=True).fused_attn
     assert TCfg(**DIMS, use_int8_moe=True, use_pallas_attn=True).fused_attn
-    with pytest.raises(ValueError, match="use_fused_layer"):
-        TCfg(**DIMS, use_fused_layer=True)
+    for flags in (dict(use_fused_layer=True),
+                  dict(use_fused_layer=True, use_pallas_attn=True,
+                       use_pallas_moe=True),
+                  dict(use_fused_layer=True, use_int8_moe=True)):
+        assert not TCfg(**DIMS, **flags).fused_layer, flags
+    assert TCfg(**DIMS, use_fused_layer=True, use_int8_moe=True,
+                use_pallas_attn=True).fused_layer
     with pytest.raises(ValueError, match="use_pallas_attn"):
         TCfg(**DIMS, use_int8_moe=True, use_int8_attn=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        TCfg(**{**DIMS, "n_heads": 4}, use_pallas_attn=True,
+             use_int8_attn=True)
 
 
 def test_precast_is_bit_identical(setup):
@@ -400,13 +465,30 @@ def test_forward_precomputed_mega_matches(setup, int8_attn, step):
     assert d.max() <= 5e-3, d.max()
 
 
-def test_config_rejects_megakernel_and_int8_attn_without_fused_layer():
-    for flag in ("use_int8_attn", "use_megakernel"):
-        with pytest.raises(ValueError, match=flag):
-            TCfg(**DIMS, **{flag: True})
-    with pytest.raises(ValueError, match="head_dim"):
-        TCfg(**{**DIMS, "n_heads": 4}, use_int8_moe=True,
-             use_fused_layer=True, use_megakernel=True)
+@pytest.mark.parametrize("flags,mega", [
+    (dict(use_megakernel=True), False),
+    (dict(use_megakernel=True, use_int8_moe=True), False),
+    (dict(use_megakernel=True, use_int8_moe=True, use_pallas_attn=True),
+     True),
+    (dict(use_megakernel=True, use_int8_moe=True, use_pallas_attn=True,
+          use_int8_attn=True), True),
+    (dict(use_megakernel=True, use_int8_moe=True, use_pallas_attn=True,
+          n_heads=4), False),
+    (dict(use_int8_attn=True, use_pallas_attn=True), False),
+], ids=["mega", "mega-int8", "mega-int8-attn-kernel",
+        "mega-int8-attn-kernel-int8-proj", "mega-head-dim-64",
+        "int8-proj-bf16-experts"])
+def test_config_rejects_megakernel_and_int8_attn_without_fused_layer(flags,
+                                                                     mega):
+    """The megakernel and int8 projections without the whole-layer kernel
+    or int8 experts build, as in the JAX package: the megakernel runs
+    where the JAX agent runs it (int8 top-2 experts, the attention kernel,
+    head_dim % 128 == 0; JAX agent.py:585-598) and is inert elsewhere;
+    int8 projections need only the attention kernel. The JAX config's two
+    raises hold (test_config_rejects_unported_combinations)."""
+    cfg = TCfg(**{**DIMS, **flags})
+    assert cfg.megakernel == mega
+    assert not cfg.fused_layer
 
 
 def test_precast_keeps_f32_masters_and_load_restores_them(setup):

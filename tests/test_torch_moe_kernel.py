@@ -22,7 +22,8 @@ from mode_diffusion_policy_tpu.ops.quant import (
     quantize_experts as jax_qexp)
 from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
     fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
-from mode_diffusion_policy_tpu_torch.ops.quant import quantize_experts
+from mode_diffusion_policy_tpu_torch.ops.quant import (QuantizedExperts,
+                                                   quantize_experts)
 
 B, T, D, HH, E = 3, 14, 256, 256, 4
 IDX = np.array([[0, 2], [3, 1], [2, 3], [1, 0]], np.int32)
@@ -128,3 +129,132 @@ def test_moe_wrapper_rejects_other_devices():
     x = torch.zeros(1, 2, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fused_top2_mlp_q8c(x, None, None, None)
+
+
+# ---- the bf16-compute MoE (fused_top2_mlp) and its int8-weight variant
+# (fused_top2_mlp_q8), at the shapes of tests/test_pallas_moe.py: D=128,
+# hidden 256 with block_hidden 128 (two hidden blocks), 4 experts; B=2 x
+# T=14 tokens, or B=1 x T=13 (padded to the JAX kernel's token block).
+# Gates: the JAX tests' own (tests/test_pallas_moe.py:33-34, 61-62, 91-92).
+
+from mode_diffusion_policy_tpu.ops.pallas.moe_kernel import (  # noqa: E402
+    fused_top2_mlp as jax_bf16_moe, fused_top2_mlp_q8 as jax_q8_moe)
+from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (  # noqa: E402,E501
+    fused_top2_mlp, fused_top2_mlp_q8, fused_top2_mlp_q8_ref,
+    fused_top2_mlp_ref)
+
+D16, HH16 = 128, 256
+# (routing, residual, ln_2, padded token count): every flag on and off
+CASES16 = [("tables", True, True, False), ("rows", False, False, True),
+           ("tables", False, True, True), ("rows", True, False, False)]
+CASE_IDS = ["tables-res-ln", "rows-pad", "tables-ln-pad", "rows-res"]
+
+
+def _inputs16(seed, pad):
+    r = np.random.default_rng(seed)
+    shape = (1, 13, D16) if pad else (2, 14, D16)
+
+    def f(*s, sc=0.02, off=0.0):
+        return (r.standard_normal(s) * sc + off).astype(np.float32)
+
+    return dict(x=f(*shape, sc=1.0), ln=f(D16, sc=0.1, off=1.0),
+                w1=f(E, D16, 2 * HH16), b1=f(E, 2 * HH16),
+                w2=f(E, HH16, D16))
+
+
+def _jax16(fn, a, routing, residual, ln, weights, jdt):
+    idx, probs, step = _routing(routing == "tables")
+    return np.asarray(fn(
+        jnp.asarray(a["x"], jdt), jnp.asarray(idx), jnp.asarray(probs),
+        *weights, step=None if step is None else jnp.int32(step),
+        block_tokens=8, block_hidden=128, interpret=True, residual=residual,
+        ln_g=jnp.asarray(a["ln"]) if ln else None), np.float32)
+
+
+def _port16(fn, a, routing, residual, ln, weights, dt=torch.float32):
+    idx, probs, step = _routing(routing == "tables")
+    return fn(torch.from_numpy(a["x"]).to(dt), torch.from_numpy(idx),
+              torch.from_numpy(probs), *weights, step=step, block_hidden=128,
+              residual=residual,
+              ln_g=torch.from_numpy(a["ln"]) if ln else None)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("routing,residual,ln,pad", CASES16, ids=CASE_IDS)
+def test_plain_bf16_moe_matches_jax_kernel(routing, residual, ln, pad,
+                                           dtype):
+    """fused_top2_mlp_ref against the Pallas _kernel (interpret mode) on
+    the same experts in the compute dtype: f32 within atol 2e-5 / rtol
+    1e-4, bf16 within 2e-2 / 2e-2 (the JAX tests' gates)."""
+    a = _inputs16(20 + CASES16.index((routing, residual, ln, pad)), pad)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = _jax16(jax_bf16_moe, a, routing, residual, ln,
+                  [jnp.asarray(a[k], jdt) for k in ("w1", "b1", "w2")], jdt)
+    got = _port16(fused_top2_mlp_ref, a, routing, residual, ln,
+                  [torch.from_numpy(a[k]).to(tdt) for k in ("w1", "b1", "w2")],
+                  tdt)
+    assert got.dtype == tdt and tuple(got.shape) == a["x"].shape
+    tol = 2e-5 if dtype == "f32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                               rtol=1e-4 if dtype == "f32" else 2e-2)
+
+
+@pytest.mark.parametrize("routing,residual,ln,pad", CASES16, ids=CASE_IDS)
+def test_plain_q8_weight_moe_matches_jax_kernel(routing, residual, ln, pad):
+    """fused_top2_mlp_q8_ref against the Pallas _kernel_q8 (interpret mode)
+    on the same int8 experts, in f32: within atol 1e-4 / rtol 1e-3."""
+    a = _inputs16(30 + CASES16.index((routing, residual, ln, pad)), pad)
+    jq = jax_qexp(*(jnp.asarray(a[k]) for k in ("w1", "b1", "w2")))
+    tq = quantize_experts(*(torch.from_numpy(a[k]) for k in ("w1", "b1",
+                                                             "w2")))
+    want = _jax16(jax_q8_moe, a, routing, residual, ln, [jq], jnp.float32)
+    got = _port16(fused_top2_mlp_q8_ref, a, routing, residual, ln, [tq])
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-3)
+
+
+def test_q8_weight_moe_with_unit_scales_is_the_bf16_moe():
+    """Unit scales on int8-valued weights: the int8-weight version equals
+    the bf16 version on the same weights, bit for bit (in bf16, as the two
+    CUDA kernels are held on the card)."""
+    a = _inputs16(40, False)
+    r = np.random.default_rng(41)
+    w1 = r.integers(-127, 128, (E, D16, 2 * HH16)).astype(np.int8)
+    w2 = r.integers(-127, 128, (E, HH16, D16)).astype(np.int8)
+    q = QuantizedExperts(torch.from_numpy(w1), torch.ones(E, 2 * HH16),
+                         torch.from_numpy(a["b1"]).bfloat16().float(),
+                         torch.from_numpy(w2), torch.ones(E, D16))
+    x = torch.from_numpy(a["x"] * 0.01).bfloat16()
+    for tables, res, ln in ((True, True, True), (False, False, False)):
+        idx, probs, step = _routing(tables)
+        kw = dict(step=step, block_hidden=128, residual=res,
+                  ln_g=torch.from_numpy(a["ln"]) if ln else None)
+        args = (x, torch.from_numpy(idx), torch.from_numpy(probs))
+        want = fused_top2_mlp_ref(
+            *args, torch.from_numpy(w1).bfloat16(), q.b1.bfloat16(),
+            torch.from_numpy(w2).bfloat16(), **kw)
+        torch.testing.assert_close(fused_top2_mlp_q8_ref(*args, q, **kw),
+                                   want, rtol=0, atol=0)
+
+
+def test_bf16_moe_wrappers_run_plain_versions_without_counting():
+    a = _inputs16(42, True)
+    w = [torch.from_numpy(a[k]) for k in ("w1", "b1", "w2")]
+    q = quantize_experts(*w)
+    before = (fused_top2_mlp.launches, fused_top2_mlp_q8.launches)
+    for kern, ref, weights in ((fused_top2_mlp, fused_top2_mlp_ref, w),
+                               (fused_top2_mlp_q8, fused_top2_mlp_q8_ref,
+                                [q])):
+        torch.testing.assert_close(
+            _port16(kern, a, "tables", True, True, weights),
+            _port16(ref, a, "tables", True, True, weights), rtol=0, atol=0)
+    assert (fused_top2_mlp.launches, fused_top2_mlp_q8.launches) == before
+
+
+@pytest.mark.parametrize("fn,n_weights", [(fused_top2_mlp, 3),
+                                          (fused_top2_mlp_q8, 1)],
+                         ids=["fused_top2_mlp", "fused_top2_mlp_q8"])
+def test_bf16_moe_wrappers_reject_other_devices(fn, n_weights):
+    x = torch.zeros(1, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fn(x, None, None, *([None] * n_weights))

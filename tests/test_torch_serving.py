@@ -27,6 +27,8 @@ from mode_diffusion_policy_tpu_torch.models.modedit import (MoDeDiT,
                                                             MoDeDiTConfig)
 from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
     fused_attn_block)
+from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+    fused_top2_mlp)
 from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
                                                      apply_serving_mode)
 
@@ -133,20 +135,23 @@ def test_int8_moe_with_bf16_attention_names_its_kernel():
     """int8 experts outside the whole-layer kernel with bf16 attention
     projections run the bf16 attention kernel, fused_attn_block, under
     use_pallas_attn (the JAX flag); int8 projections need that flag, as in
-    the JAX config."""
+    the JAX config. int8 projections without int8 experts, and the
+    megakernel without use_fused_layer, build and run as in the JAX
+    package (the megakernel wherever the JAX agent runs it)."""
     cfg = MoDeDiTConfig(use_int8_moe=True, use_pallas_attn=True)
     assert cfg.fused_attn and not cfg.use_fused_layer
-    assert MoDeDiT(MoDeDiTConfig(embed_dim=256, n_layers=1, n_heads=2),
-                   "meta").attn_impl_bf16 is fused_attn_block
+    dit = MoDeDiT(MoDeDiTConfig(embed_dim=256, n_layers=1, n_heads=2), "meta")
+    assert dit.attn_impl_bf16 is fused_attn_block
+    assert dit.moe_impl_bf16 is fused_top2_mlp
     MoDeDiTConfig(use_int8_moe=True, use_pallas_attn=True,
                   use_int8_attn=True)                      # max-throughput
     with pytest.raises(ValueError, match="use_pallas_attn"):
         MoDeDiTConfig(use_int8_moe=True, use_int8_attn=True)
-    with pytest.raises(ValueError, match="use_int8_moe"):
-        MoDeDiTConfig(use_int8_attn=True, use_pallas_attn=True)
-    with pytest.raises(ValueError, match="use_fused_layer"):
-        MoDeDiTConfig(use_int8_moe=True, use_pallas_attn=True,
-                      use_int8_attn=True, use_megakernel=True)
+    cfg = MoDeDiTConfig(use_int8_attn=True, use_pallas_attn=True)
+    assert cfg.fused_attn and not cfg.fused_layer and not cfg.megakernel
+    cfg = MoDeDiTConfig(use_int8_moe=True, use_pallas_attn=True,
+                        use_int8_attn=True, use_megakernel=True)
+    assert cfg.megakernel and not cfg.fused_layer
 
 
 @pytest.mark.parametrize("mode", ["parity", "b1-latency", "max-throughput"])
