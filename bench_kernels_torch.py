@@ -12,11 +12,15 @@ Counterpart of ``bench_kernels.py``'s ``bench_moe`` and ``bench_layer``:
   D=1024, hidden 4096, top-2 of 4: kernel ms (warm and with the L2 cache
   flushed before each call), the plain version's ms, the
   least time the card could take (bound), a PyTorch library route of the
-  same function and the per-stage device ms;
-- ``layer``: one layer as the attention kernel then the int8 MoE kernel
-  (two launches), as ``fused_layer_q8c`` (one launch), as a one-layer
+  same function, the per-stage device ms and the expert-product stages'
+  achieved TFLOP/s (TOP/s) and share of their bound;
+- ``layer``: one layer at b=128 as ``fused_layer_q8c`` (one launch, its
+  int8 expert products on wgmma; warm and L2-flushed, beside its bound, a
+  PyTorch library route and its per-stage ms and rates), as the attention
+  kernel then the int8 MoE kernel on the legacy wmma tiles (two launches,
+  the same bits: the A/B of the MoE tiles in one run), as a one-layer
   ``fused_dit_q8c`` launch, and per layer of a 12-layer ``fused_dit_q8c``
-  launch, at b=128.
+  launch.
 
 Timing uses CUDA events around many launches after a warm-up (the method
 of ``chip_smoke.cuda_time_ms``, copied here). Each function returns a dict
@@ -74,6 +78,11 @@ def cuda_time_cold_ms(fn, iters):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+# a __global__ stage's name in a profiler key, with its integer template
+# arguments (the tile's consumer warpgroups, the kind of product)
+STAGE_NAME = r"(\w+_kernel)(<[\d, ]+>)?"
+
+
 def stage_ms(fn, iters=10):
     """Device ms per __global__ stage of one call, from torch.profiler
     (CUPTI); None when the trace holds no device time."""
@@ -93,7 +102,7 @@ def stage_ms(fn, iters=10):
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
-        m = re.search(r"(\w+_kernel)(<\d+>)?", ev.key)
+        m = re.search(STAGE_NAME, ev.key)
         if us and m:
             name = m.group(1) + (m.group(2) or "")
             rows[name] = rows.get(name, 0.0) + us / iters / 1e3
@@ -122,6 +131,57 @@ def moe_cost(B, int8_products, int8_weights):
         expert = (D * 2 * HH + HH * D + 2 * HH) * 2
     nbytes = 2 * N * D * 2 + D * 4 + 2 * expert
     return (0, ops, nbytes) if int8_products else (ops, 0, nbytes)
+
+
+def moe_stage_costs(N, int8_products, int8_weights, partials=None,
+                    TH=1024):
+    """{"moe_up": cost, "moe_down": cost} of the two expert-product stages
+    of one top-2 MoE call over N token rows, each cost (bf16 flops, int8
+    ops, bytes): both selected experts' weights, the stage's inputs read
+    once and its output written once (up: act, bf16, or f32 for int8
+    products; down: the bf16 sum's seed and output or, with ``partials``,
+    its f32 partials, one per (slot, block_hidden block), as the wgmma
+    stages write them for few token rows (the default) and the legacy
+    stages always)."""
+    if partials is None:
+        from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+            WIDE_TILE_ROWS)
+        partials = N <= WIDE_TILE_ROWS
+    up, down = 2 * 2 * N * D * 2 * HH, 2 * 2 * N * HH * D
+    w = 1 if int8_weights else 2
+    a = 1 if int8_products else 2
+    up_bytes = 2 * D * 2 * HH * w + N * D * a + 2 * N * HH * (4 if a == 1
+                                                             else 2)
+    down_bytes = 2 * HH * D * w + 2 * N * HH * a + (
+        2 * (HH // TH) * N * D * 4 if partials else 2 * N * D * 2)
+
+    def cost(ops, nbytes):
+        return (0, ops, nbytes) if int8_products else (ops, 0, nbytes)
+
+    return {"moe_up": cost(up, up_bytes), "moe_down": cost(down, down_bytes)}
+
+
+def stage_rates(rows, costs):
+    """For each stage of ``rows`` (device ms per launch, from stage_ms)
+    whose name starts with a key of ``costs``: its achieved rate
+    (TFLOP/s of bf16 products or TOP/s of int8 products) and its share of
+    its own bound (bound ms over stage ms)."""
+    out = {}
+    for name, ms in (rows or {}).items():
+        for key, (flops, ops8, nbytes) in costs.items():
+            if name.startswith(key):
+                b_ms, by = bound(flops, ops8, nbytes)
+                out[name] = dict(
+                    rate=(flops + ops8) / ms / 1e9,
+                    unit="TOP/s int8" if ops8 else "TFLOP/s bf16",
+                    bound_ms=b_ms, bound_by=by, bound_share=b_ms / ms)
+    return out
+
+
+def fmt_rates(rates):
+    return "; ".join(f"{k} {v['rate']:.0f} {v['unit']}, {v['bound_share']:.2f} "
+                     f"of its {v['bound_by']} bound"
+                     for k, v in sorted(rates.items()))
 
 
 def moe_inputs(B, device, seed=0):
@@ -161,6 +221,62 @@ def library_moe_bf16(x, ln_g, w1, b1, w2, e, p):
         val, gate = h.chunk(2, dim=-1)
         out = out + p[slot] * torch.matmul(val * F.silu(gate),
                                            w2[e[slot]]).float()
+    return out.to(x.dtype)
+
+
+def layer_cost(B, T, D, H, HH):
+    """(bf16 flops, int8 ops, bytes) of one fused layer call with top-2
+    routing: every input read once, the output written once, only the two
+    selected experts' weights counted."""
+    N, hd = B * T, D // H
+    pairs = T * (T + 1) // 2                  # causal (query, key) pairs
+    bf16 = 2 * N * D * 3 * D + 2 * N * D * D + B * H * pairs * hd * 4
+    int8 = 2 * N * D * 2 * HH * 2 + 2 * N * HH * D * 2
+    expert = D * 2 * HH + 2 * HH * 8 + HH * D + D * 4
+    nbytes = (2 * N * D * 2 + 2 * (3 * D * D + D * D) + 3 * D * 4
+              + 4 * D * 4 + 2 * expert)
+    return bf16, int8, nbytes
+
+
+def library_attn_bf16(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout):
+    """The bf16-projection attention sub-block as stock PyTorch calls
+    (cuBLAS bf16 QKV and c_proj, SDPA): a speed yardstick, and the
+    attention half of library_layer."""
+    import torch
+    import torch.nn.functional as F
+    B, T, D = x.shape
+    hd = q_g.shape[0]
+    H = D // hd
+
+    def rms(a, g):
+        a = a.float()
+        return a * torch.rsqrt(a.pow(2).mean(-1, keepdim=True) + 1e-12) * g
+
+    h = (rms(x, ln1_g) + c.float()).to(x.dtype)
+    qkv = torch.matmul(h, wqkv) + bqkv
+    q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    o = F.scaled_dot_product_attention(rms(q, q_g).to(x.dtype),
+                                       rms(k, k_g).to(x.dtype), v,
+                                       is_causal=True)
+    return x + torch.matmul(o.transpose(1, 2).reshape(B, T, D), wout)
+
+
+def library_layer(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, deq, e,
+                  p):
+    """The same layer as stock PyTorch calls (bf16 matmuls, SDPA, experts
+    dequantized to bf16 ahead of time): a speed yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    xmid = library_attn_bf16(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout)
+    xm = (xmid.float() * torch.rsqrt(xmid.float().pow(2).mean(
+        -1, keepdim=True) + 1e-12) * ln2_g).to(x.dtype)
+    out = xm.float()
+    for slot in range(2):
+        w1, b1, w2 = deq[e[slot]]
+        hcat = torch.matmul(xm, w1) + b1
+        val, gate = hcat.chunk(2, dim=-1)
+        out = out + p[slot] * torch.matmul(val * F.silu(gate), w2).float()
     return out.to(x.dtype)
 
 
@@ -210,6 +326,9 @@ def bench_moe():
         n = 50 if B == 128 else 100
         for name, (kern, plain, lib, lib_is, cost) in rows.items():
             b_ms, by = bound(*cost)
+            stages = stage_ms(kern)
+            # the legacy q8c kernel writes its partials at every size
+            q8c = name == "fused_top2_mlp_q8c" or None
             out[name][f"b{B}"] = dict(
                 ms=cuda_time_ms(kern, n),
                 ms_cold_l2=cuda_time_cold_ms(kern, 20),
@@ -217,7 +336,10 @@ def bench_moe():
                 library_ms=None if lib is None else cuda_time_ms(lib, 20),
                 library_is=lib_is, bound_ms=b_ms, bound_by=by,
                 gflop_bf16=cost[0] / 1e9, gop_int8=cost[1] / 1e9,
-                mbytes=cost[2] / 1e6, stages_ms=stage_ms(kern))
+                mbytes=cost[2] / 1e6, stages_ms=stages,
+                stage_rates=stage_rates(stages, moe_stage_costs(
+                    B * T, bool(q8c), name != "fused_top2_mlp",
+                    partials=q8c)))
     return out
 
 
@@ -225,8 +347,8 @@ def layer_inputs(B, device, L=12, seed=0):
     """One layer's bench weights (bf16 projections, int8 experts) at D=1024,
     8 heads of 128, and the same layer stacked L times."""
     import torch
-    from mode_diffusion_policy_tpu_torch.ops.quant import (QuantizedExperts,
-                                                           quantize_experts)
+    from mode_diffusion_policy_tpu_torch.ops.quant import (
+        QuantizedExperts, kmajor_experts, quantize_experts)
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, sc=1.0, off=0.0):
@@ -244,6 +366,7 @@ def layer_inputs(B, device, L=12, seed=0):
     w["q"] = quantize_experts(randn(E, D, 2 * HH, sc=0.02),
                               torch.zeros(E, 2 * HH, device=device),
                               randn(E, HH, D, sc=0.02))
+    w["qt"] = kmajor_experts(w["q"])
     one = {k: w[k][None] for k in ("ln1", "q_g", "k_g", "ln2", "wqkv",
                                    "bqkv", "wout")}
     one.update({k: v[None] for k, v in zip(QuantizedExperts._fields, w["q"])})
@@ -254,9 +377,13 @@ def layer_inputs(B, device, L=12, seed=0):
 
 
 def bench_layer():
-    """One layer four ways (ms per layer): the attention kernel then the
-    int8 MoE kernel, fused_layer_q8c, a one-layer fused_dit_q8c launch, and
-    a 12-layer fused_dit_q8c launch over 12."""
+    """One layer at b=128 (ms per layer): fused_layer_q8c (its int8 expert
+    products on wgmma) warm and with the L2 cache flushed, beside its bound,
+    a PyTorch library route of the same layer (library_layer) and its
+    per-stage device ms and rates; the attention kernel then the int8 MoE
+    kernel on the legacy wmma tiles (two launches, the same bits: the A/B
+    of the MoE tiles in one run), warm and flushed; a one-layer
+    fused_dit_q8c launch, and a 12-layer fused_dit_q8c launch over 12."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
         fused_attn_block)
@@ -264,8 +391,9 @@ def bench_layer():
         fused_dit_q8c, fused_layer_q8c)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
         fused_top2_mlp_q8c)
+    from mode_diffusion_policy_tpu_torch.ops.quant import dequantize_experts
     dev = torch.device("cuda", 0)
-    B, n = 128, 50
+    B, n, H = 128, 50, 8
     w = layer_inputs(B, dev)
     L = w["stackL"]["wqkv"].shape[0]
     attn = (w["c"], w["ln1"], w["wqkv"], w["bqkv"], w["q_g"], w["k_g"],
@@ -278,16 +406,31 @@ def bench_layer():
 
     def one_layer():
         return fused_layer_q8c(w["x"], *attn, w["ln2"], w["q"], w["idx"],
-                               w["probs"])
+                               w["probs"], qexp_t=w["qt"])
 
     def mega(stack, n):
         tabs = (w["idx"][None].expand(n, 1, 2).contiguous(),
                 w["probs"][None].expand(n, 1, 2).contiguous())
         return lambda: fused_dit_q8c(w["x"], w["c"], stack, *tabs)
 
+    w1, b1, w2 = dequantize_experts(w["q"])
+    deq = [tuple(t[e].to(torch.bfloat16) for t in (w1, b1, w2))
+           for e in range(E)]
+    lib = (w["x"], *attn[:2], attn[2], attn[3].to(torch.bfloat16), *attn[4:],
+           w["ln2"], deq, w["idx"][0].tolist(), w["probs"][0].tolist())
+    b_ms, by = bound(*layer_cost(B, T, D, H, HH))
+    stages = stage_ms(one_layer)
     return {f"b{B}": dict(
-        two_kernel_ms=cuda_time_ms(two_kernel, n),
         fused_layer_ms=cuda_time_ms(one_layer, n),
+        fused_layer_ms_cold_l2=cuda_time_cold_ms(one_layer, 20),
+        bound_ms=b_ms, bound_by=by,
+        library_ms=cuda_time_ms(lambda: library_layer(*lib), 20),
+        library_is="library_layer: cuBLAS bf16 products, SDPA, the int8 "
+                   "experts dequantized to bf16 outside the timed call",
+        stages_ms=stages,
+        stage_rates=stage_rates(stages, moe_stage_costs(B * T, True, True)),
+        two_kernel_ms=cuda_time_ms(two_kernel, n),
+        two_kernel_ms_cold_l2=cuda_time_cold_ms(two_kernel, 20),
         megakernel_l1_ms=cuda_time_ms(mega(w["stack1"], 1), n),
         megakernel_per_layer_ms=cuda_time_ms(mega(w["stackL"], L),
                                              max(5, n // L)) / L)}

@@ -47,8 +47,10 @@ kernel with unit scales against the bf16 kernel on the same weights, bit
 for bit. It checks the launch counts of
 every path and the kernel-vs-plain action error, times the kernels, their
 plain versions, a PyTorch-library composition of the same work, whole
-chunks and the encoders, and prints one JSON line for the kernels and a
-final status line. Every phase that fails exits non-zero; without CUDA nothing is run.
+chunks and the encoders, with the achieved TFLOP/s (TOP/s) of the expert
+products that ``fused_layer_q8c``, ``fused_top2_mlp`` and
+``fused_top2_mlp_q8`` run on wgmma, and prints one JSON line for the
+kernels and a final status line. Every phase that fails exits non-zero; without CUDA nothing is run.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -60,6 +62,10 @@ import statistics
 import subprocess
 import time
 import warnings
+
+from bench_kernels_torch import (STAGE_NAME, fmt_rates, layer_cost,
+                                 library_attn_bf16, library_layer,
+                                 moe_stage_costs, stage_rates)
 
 T0 = time.perf_counter()
 
@@ -123,20 +129,6 @@ def cuda_time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def layer_cost(B, T, D, H, HH):
-    """(bf16 flops, int8 ops, bytes) of one fused layer call with top-2
-    routing: every input read once, the output written once, only the two
-    selected experts' weights counted."""
-    N, hd = B * T, D // H
-    pairs = T * (T + 1) // 2                  # causal (query, key) pairs
-    bf16 = 2 * N * D * 3 * D + 2 * N * D * D + B * H * pairs * hd * 4
-    int8 = 2 * N * D * 2 * HH * 2 + 2 * N * HH * D * 2
-    expert = D * 2 * HH + 2 * HH * 8 + HH * D + D * 4
-    nbytes = (2 * N * D * 2 + 2 * (3 * D * D + D * D) + 3 * D * 4
-              + 4 * D * 4 + 2 * expert)
-    return bf16, int8, nbytes
-
-
 def dit_cost(B, T, D, H, HH, L, int8_attn):
     """(bf16 flops, int8 ops, bytes) of one megakernel call: L layers of
     layer_cost, but the activation read once and the output written once,
@@ -156,6 +148,14 @@ def bound_of(bf16, int8, nbytes):
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+# the __global__ names of every DiT kernel's stages (the megakernel's, the
+# layer kernel's, the two-kernel paths', the wgmma MoE stages')
+DIT_KERNELS = (r"fused_dit_kernel|(ln1|ln1_quant|gemm_bf16|gemm_i8|attn|"
+               r"quant_f32|ln2_quant|quant_row|moe_up|act_quant|moe_down|"
+               r"moe_sum|ln2|moe_up_bf16|moe_down_bf16|moe_up_wg|moe_down_wg|"
+               r"moe_up_bf16_wg|moe_down_bf16_wg)_kernel")
 
 
 def chunk_split(policy, obs, goal, noise, chunk_ms):
@@ -181,10 +181,7 @@ def chunk_split(policy, obs, goal, noise, chunk_ms):
             us = getattr(ev, "cuda_time_total", 0.0)
         if not us:
             continue
-        if re.search(r"fused_dit_kernel|(ln1|ln1_quant|gemm_bf16|gemm_i8|attn|"
-                     r"quant_f32|ln2_quant|quant_row|moe_up|act_quant|"
-                     r"moe_down|moe_sum|ln2|moe_up_bf16|moe_down_bf16)"
-                     r"_kernel", ev.key):
+        if re.search(DIT_KERNELS, ev.key):
             dit += us / 1e3
         else:
             other += us / 1e3
@@ -194,9 +191,11 @@ def chunk_split(policy, obs, goal, noise, chunk_ms):
                 idle_share=max(0.0, 1.0 - (dit + other) / chunk_ms))
 
 
-def kernel_stages(fn, label, iters=10):
+def kernel_stages(fn, label, iters=10, costs=None):
     """Device time per __global__ stage of one launch, from torch.profiler
-    (CUPTI); prints 'not measured' when the trace holds no device time."""
+    (CUPTI); prints 'not measured' when the trace holds no device time.
+    With ``costs`` (bench_kernels_torch.moe_stage_costs) it also prints the
+    expert-product stages' achieved rates and shares of their bounds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -213,7 +212,7 @@ def kernel_stages(fn, label, iters=10):
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
-        m = re.search(r"(\w+_kernel)(<\d+>)?", ev.key)
+        m = re.search(STAGE_NAME, ev.key)
         if us and m:
             name = m.group(1) + (m.group(2) or "")
             rows[name] = rows.get(name, 0.0) + us / iters / 1e3
@@ -225,49 +224,10 @@ def kernel_stages(fn, label, iters=10):
     print(f"  per-stage device time, {label}, ms per launch: " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(rows.items(), key=lambda r: -r[1]))
         + f"; sum {total:.4f}", flush=True)
+    if costs:
+        print(f"  expert products, {label}: "
+              f"{fmt_rates(stage_rates(rows, costs))}", flush=True)
     return rows
-
-
-def library_attn_bf16(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout):
-    """The bf16-projection attention sub-block as stock PyTorch calls
-    (cuBLAS bf16 QKV and c_proj, SDPA): a speed yardstick, and the
-    attention half of library_layer."""
-    import torch
-    import torch.nn.functional as F
-    B, T, D = x.shape
-    hd = q_g.shape[0]
-    H = D // hd
-
-    def rms(a, g):
-        a = a.float()
-        return a * torch.rsqrt(a.pow(2).mean(-1, keepdim=True) + 1e-12) * g
-
-    h = (rms(x, ln1_g) + c.float()).to(x.dtype)
-    qkv = torch.matmul(h, wqkv) + bqkv
-    q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2)
-               for t in qkv.chunk(3, dim=-1))
-    o = F.scaled_dot_product_attention(rms(q, q_g).to(x.dtype),
-                                       rms(k, k_g).to(x.dtype), v,
-                                       is_causal=True)
-    return x + torch.matmul(o.transpose(1, 2).reshape(B, T, D), wout)
-
-
-def library_layer(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, deq, e,
-                  p):
-    """The same layer as stock PyTorch calls (bf16 matmuls, SDPA, experts
-    dequantized to bf16 ahead of time): a speed yardstick only."""
-    import torch
-    import torch.nn.functional as F
-    xmid = library_attn_bf16(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout)
-    xm = (xmid.float() * torch.rsqrt(xmid.float().pow(2).mean(
-        -1, keepdim=True) + 1e-12) * ln2_g).to(x.dtype)
-    out = xm.float()
-    for slot in range(2):
-        w1, b1, w2 = deq[e[slot]]
-        hcat = torch.matmul(xm, w1) + b1
-        val, gate = hcat.chunk(2, dim=-1)
-        out = out + p[slot] * torch.matmul(val * F.silu(gate), w2).float()
-    return out.to(x.dtype)
 
 
 def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
@@ -283,7 +243,8 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c)
-    from mode_diffusion_policy_tpu_torch.ops.quant import QuantizedExperts
+    from mode_diffusion_policy_tpu_torch.ops.quant import (QuantizedExperts,
+                                                       kmajor_experts)
 
     dev = st["w1_q"].device
     int8_attn = "sqkv" in st
@@ -293,6 +254,10 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
     kw = dict(eps1=blk.ln_1.eps, eps_qk=blk.attn.q_norm.eps,
               eps2=blk.ln_2.eps)
     out = dict(max_abs_err=0.0, stack_max_abs_err=0.0, stack_vs_plain=[])
+    qexp_L = [QuantizedExperts(*(st[k][l] for k in QuantizedExperts._fields))
+              for l in range(L)]
+    # the K-major copies that fused_layer_q8c reads, made once
+    qt_L = [] if int8_attn else [kmajor_experts(q) for q in qexp_L]
     for B in (1, 128):
         for s in steps:
             x = torch.randn(B, T, D, generator=gen, device=dev).to(
@@ -333,9 +298,8 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
                     z = fused_layer_q8c(
                         z, c, st["ln1"][l], st["wqkv"][l], st["bqkv"][l],
                         st["q_g"][l], st["k_g"][l], st["wout"][l],
-                        st["ln2"][l], QuantizedExperts(
-                            *(st[k][l] for k in QuantizedExperts._fields)),
-                        idx_L[l], p_L[l], step=s, **kw)
+                        st["ln2"][l], qexp_L[l], idx_L[l], p_L[l], step=s,
+                        qexp_t=qt_L[l], **kw)
                 vs_layer = (full.float() - z.float()).abs().max().item()
                 msg = f", vs {L} chained fused_layer_q8c max {vs_layer:.1e}"
                 if vs_layer != 0.0:
@@ -736,8 +700,9 @@ def check_attn_bf16(dit, routing, emb_all, steps, T, gen, cfg):
                 ln_eps=blk.ln_2.eps)
             one = fused_layer_q8c(
                 y, c, w[0], w[1], w[2], w[3], w[4], w[5], blk.ln_2.g,
-                blk.experts_q, idx, probs, step=s, eps1=blk.ln_1.eps,
-                eps_qk=blk.attn.q_norm.eps, eps2=blk.ln_2.eps)
+                blk.experts_q, idx, probs, step=s, qexp_t=blk.experts_qt,
+                eps1=blk.ln_1.eps, eps_qk=blk.attn.q_norm.eps,
+                eps2=blk.ln_2.eps)
             diff = (two.float() - one.float()).abs().max().item()
             if diff != 0.0:
                 raise SystemExit(f"b={B} layer {l}: fused_attn_block -> "
@@ -1183,8 +1148,8 @@ def main():
         return ((x, emb_all[step][None], blk.ln_1.g, a.wqkv.kernel,
                  a.wqkv.bias, a.q_norm.g, a.k_norm.g, a.c_proj.kernel,
                  blk.ln_2.g, blk.experts_q, idx, probs),
-                dict(step=step, eps1=blk.ln_1.eps, eps_qk=a.q_norm.eps,
-                     eps2=blk.ln_2.eps))
+                dict(step=step, qexp_t=blk.experts_qt, eps1=blk.ln_1.eps,
+                     eps_qk=a.q_norm.eps, eps2=blk.ln_2.eps))
 
     max_err = 0.0
     for B in (128, 1):
@@ -1317,11 +1282,16 @@ def main():
     for B in (128, 1):
         args, kw = layer_args(B, 0)
         stages[f"b{B}"] = kernel_stages(lambda: fused_layer_q8c(*args, **kw),
-                                        f"b={B}")
+                                        f"b={B}", costs=moe_stage_costs(
+                                            B * T, True, True))
     r1 = results[1]
     split = {"parity": chunk_split(policy, r1["obs"], r1["goal"],
                                    r1["noise"], timing[1]["chunk_ms"])}
     print(f"  parity b=1 chunk split: {split['parity']}", flush=True)
+    r128 = results[128]
+    split_b128 = chunk_split(policy, r128["obs"], r128["goal"],
+                             r128["noise"], timing[128]["chunk_ms"])
+    print(f"  parity b=128 chunk split: {split_b128}", flush=True)
     phase("phase 6: timing", t)
 
     # ---- phases 7-10: the b1 presets and the DiT megakernel ---------------
@@ -1598,8 +1568,20 @@ def main():
                   f" GOP int8, {row['mbytes']:.1f} MB), plain "
                   f"{row['plain_ms']:.3f} ms, library {row['library_ms']} ms;"
                   f" stages {row['stages_ms']}", flush=True)
-    print(f"  kernel bench launches {bench_launches}; one layer at b=128, "
-          f"ms: {bench_layer}", flush=True)
+            if row["stage_rates"]:
+                print(f"    expert products: {fmt_rates(row['stage_rates'])}",
+                      flush=True)
+    lay = bench_layer["b128"]
+    print(f"  kernel bench launches {bench_launches}; one layer at b=128: "
+          f"fused_layer_q8c {lay['fused_layer_ms']:.4f} ms "
+          f"({lay['fused_layer_ms_cold_l2']:.4f} with the L2 cache flushed), "
+          f"bound {lay['bound_ms']:.4f} ms ({lay['bound_by']}), library "
+          f"{lay['library_ms']:.4f} ms; attention then the int8 MoE kernel "
+          f"on the legacy tiles {lay['two_kernel_ms']:.4f} ms "
+          f"({lay['two_kernel_ms_cold_l2']:.4f} flushed); megakernel one "
+          f"layer {lay['megakernel_l1_ms']:.4f}, per layer of 12 "
+          f"{lay['megakernel_per_layer_ms']:.4f} ms; expert products "
+          f"{fmt_rates(lay['stage_rates'])}", flush=True)
     phase("phase 20: kernel bench (bench_kernels_torch: moe, layer)", t)
 
     # ---- results -----------------------------------------------------------
@@ -1621,11 +1603,15 @@ def main():
             k: timing[1][k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}},
         "chunk_ms": {"b128": t128["chunk_ms"], "b1": timing[1]["chunk_ms"]},
+        "chunk_split_b128": split_b128,
         "action_mae": {"b128": results[128]["action_mae"],
                        "b1": results[1]["action_mae"]},
         "action_floor": {"b128": results[128]["action_floor"],
                          "b1": results[1]["action_floor"]},
         "stages_ms": stages,
+        "moe_stage_rates": {
+            k: stage_rates(v, moe_stage_costs(B * T, True, True))
+            for (k, v), B in zip(stages.items(), (128, 1))},
     }]
     m1, m8 = mega["b1-latency"], mega["b1-latency-max"]
     kernels.append({
@@ -1729,6 +1715,8 @@ def main():
             "library_ms")},
         "stages_ms": {"b128": b16["b128"]["stages_ms"],
                       "b1": b16["b1"]["stages_ms"]},
+        "moe_stage_rates": {"b128": b16["b128"]["stage_rates"],
+                            "b1": b16["b1"]["stage_rates"]},
         "bf16_config": {f"b{B}": row for B, row in bf16cfg.items()},
     })
     b8 = bench["fused_top2_mlp_q8"]

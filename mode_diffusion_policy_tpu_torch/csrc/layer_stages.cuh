@@ -3,8 +3,10 @@
 // the DiT megakernel (fused_dit_q8c.cu: every stage of every layer in one
 // cooperative launch, a grid-stride loop per stage) and the two halves of
 // the layer's two-kernel path (fused_attn_block_q8.cu, fused_top2_mlp_q8c.cu:
-// one __global__ launch per stage), and the bf16-compute MoE of the bf16
-// kernel configuration (fused_top2_mlp.cu, bf16 or int8 expert weights).
+// one __global__ launch per stage), and the row stages of the bf16-compute
+// MoE (fused_top2_mlp.cu). The expert products of fused_top2_mlp.cu and
+// fused_layer_q8c.cu run on wgmma (wgmma_stages.cuh) instead of the
+// wmma tiles here.
 //
 // Every stage is a __device__ function that computes ONE work item (a row,
 // a 64 x 64 output tile, query rows of a (head, sample)) with
@@ -733,15 +735,8 @@ __host__ __device__ inline int n_tiles(int M, int N) {
   return ((M + BM - 1) / BM) * (N / BN);
 }
 
-// ---- the bf16-compute top-2 MoE (fused_top2_mlp.cu) -------------------------
-// bf16 activations times expert weights held in bf16 (W = bf16) or in int8
-// (W = int8_t, per-output-channel scales applied after each product). The
-// int8 weight tile lands in shared memory as it is and is widened to bf16
-// there (exact: |q| <= 127), so both weight types run the same bf16 wmma
-// fragments in the same k order: with unit scales the two give the same
-// bits.
-
-// ---- ln2 without quantization: xm = bf16(rmsnorm(x_mid) * g2), one row --
+// ---- the bf16-compute MoE (fused_top2_mlp.cu) --------------------------------
+// ln2 without quantization: xm = bf16(rmsnorm(x_mid) * g2), one row --
 __device__ __forceinline__ void ln2_row(const bf16* xmid,
                                         const float* __restrict__ g, bf16* xm,
                                         int D, float rs_D, float eps, int row,
@@ -758,246 +753,6 @@ __device__ __forceinline__ void ln2_row(const bf16* xmid,
   for (int d = threadIdx.x; d < D; d += blockDim.x)
     xm[(size_t)row * D + d] =
         __float2bfloat16_rn(__fmul_rn(__fdiv_rn(ldb(xr + d), den), g[d]));
-}
-
-constexpr int kLDA16 = BK16 + 8;            // padded rows, as gemm_bf16_tile
-constexpr int kLDB16 = BN + 8;
-constexpr int kTileA16 = BM * kLDA16 * 2;   // bytes of one bf16 A tile
-constexpr int kTileB16 = BK16 * kLDB16 * 2; // bytes of one bf16 B tile
-
-// bytes of one weight tile as it is copied: bf16 padded, or int8 dense
-template <typename W>
-__host__ __device__ constexpr int raw_tile_bytes() {
-  return sizeof(W) == 2 ? kTileB16 : BK16 * BN;
-}
-
-// shared memory of the up (NB = 2 weight tiles: value, gate) and down
-// (NB = 1) tiles: kPipe stages of A and the raw weight tiles, plus (int8)
-// one widened bf16 copy of the NB weight tiles; the f32 epilogue reuses it
-template <typename W, int NB>
-__host__ __device__ constexpr int smem_moe16() {
-  return cmax(kPipe * (kTileA16 + NB * raw_tile_bytes<W>())
-                  + (sizeof(W) == 1 ? NB * kTileB16 : 0),
-              NB * BM * kLDC * 4);
-}
-
-__device__ __forceinline__ float ldw(const float* p) { return *p; }
-__device__ __forceinline__ float ldw(const bf16* p) {
-  return __bfloat162float(*p);
-}
-
-// A tile: rows m0.. of A [M, lda] (bf16), columns k0 .. k0 + BK16; rows past
-// M are zero-filled.
-__device__ __forceinline__ void load_a_bf16(bf16* As, const bf16* A, int lda,
-                                            int m0, int M, int k0) {
-  for (int ch = threadIdx.x; ch < BM * BK16 / 8; ch += kThreads) {
-    const int r = ch / (BK16 / 8), kc = (ch % (BK16 / 8)) * 8;
-    const bool ok = m0 + r < M;
-    cp_async16(As + r * kLDA16 + kc,
-               A + (size_t)(ok ? m0 + r : 0) * lda + k0 + kc, ok);
-  }
-}
-
-// Weight tile: rows k0 .. k0 + BK16, columns n0 .. n0 + BN of B [K, ldb].
-__device__ __forceinline__ void load_w(bf16* Bs, const bf16* B, int ldb,
-                                       int k0, int n0) {
-  for (int ch = threadIdx.x; ch < BK16 * BN / 8; ch += kThreads) {
-    const int r = ch / (BN / 8), nc = (ch % (BN / 8)) * 8;
-    cp_async16(Bs + r * kLDB16 + nc, B + (size_t)(k0 + r) * ldb + n0 + nc,
-               true);
-  }
-}
-
-__device__ __forceinline__ void load_w(int8_t* Bs, const int8_t* B, int ldb,
-                                       int k0, int n0) {
-  for (int ch = threadIdx.x; ch < BK16 * BN / 16; ch += kThreads) {
-    const int r = ch / (BN / 16), nc = (ch % (BN / 16)) * 16;
-    cp_async16(Bs + r * BN + nc, B + (size_t)(k0 + r) * ldb + n0 + nc, true);
-  }
-}
-
-// The int8 weight tile widened to a padded bf16 tile.
-__device__ __forceinline__ void widen_w(bf16* dst, const int8_t* src) {
-  for (int e = threadIdx.x; e < BK16 * BN / 4; e += kThreads) {
-    const int r = (e * 4) / BN, n = (e * 4) % BN;
-    const char4 v = *reinterpret_cast<const char4*>(src + r * BN + n);
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + r * kLDB16 + n);
-    d[0] = __floats2bfloat162_rn((float)v.x, (float)v.y);
-    d[1] = __floats2bfloat162_rn((float)v.z, (float)v.w);
-  }
-}
-
-// The bf16 weight tile(s) of a stage to multiply: the raw tiles themselves,
-// or (int8) their widened copy in `wide`, written here; the caller's
-// k_pipeline barriers keep every warp out of `wide` until all have
-// finished the previous stage's products.
-template <typename W, int NB>
-__device__ __forceinline__ const bf16* stage_w(const unsigned char* raw,
-                                               bf16* wide) {
-  if constexpr (sizeof(W) == 2) {
-    return reinterpret_cast<const bf16*>(raw);
-  } else {
-#pragma unroll
-    for (int t = 0; t < NB; ++t)
-      widen_w(wide + t * (BK16 * kLDB16),
-              reinterpret_cast<const int8_t*>(raw) + t * raw_tile_bytes<W>());
-    __syncthreads();
-    return wide;
-  }
-}
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC16;
-
-__device__ __forceinline__ void zero_f32(FragC16 (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-__device__ __forceinline__ void mma_tile_bf16(FragC16 (&acc)[2][2],
-                                              const bf16* As, const bf16* Bs,
-                                              int wm, int wn) {
-#pragma unroll
-  for (int kk = 0; kk < BK16; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * kLDA16 + kk, kLDA16);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(fb[j], Bs + kk * kLDB16 + wn + 16 * j, kLDB16);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void store_f32(float* C, FragC16 (&acc)[2][2],
-                                          int wm, int wn) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(C + (wm + 16 * i) * kLDC + wn + 16 * j,
-                              acc[i][j], kLDC, wmma::mem_row_major);
-}
-
-// ---- bf16 MoE up: act[slot, r, j] = bf16(value * silu(gate)), one tile --
-//   value = xm W1v (* s1v) + b1v, gate likewise, in f32
-// (the scales only for int8 weights; w1_s is not read for bf16 weights).
-// item -> (n tile over HH, m tile, slot) as moe_up_tile.
-template <typename W, typename Bias>
-__device__ __forceinline__ void moe_up16_tile(
-    const bf16* xm, const W* __restrict__ w1, const float* __restrict__ w1_s,
-    const Bias* __restrict__ b1, const int* __restrict__ idx, int step,
-    bf16* act, int M, int D, int HH, int E, int item, unsigned char* smem) {
-  constexpr int kRaw = raw_tile_bytes<W>();
-  constexpr int kStage = kTileA16 + 2 * kRaw;
-  const int n_nt = HH / BN, n_mt = (M + BM - 1) / BM;
-  const int slot = item / (n_nt * n_mt);
-  const int m0 = ((item / n_nt) % n_mt) * BM, n0 = (item % n_nt) * BN;
-  const int ex = expert_of(idx, step, slot, E);
-  const int H2 = 2 * HH;
-  const W* Wt = w1 + (size_t)ex * D * H2;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  bf16* wide = reinterpret_cast<bf16*>(smem + kPipe * kStage);
-
-  auto load = [&](int stage, int it) {
-    unsigned char* st = smem + stage * kStage;
-    load_a_bf16(reinterpret_cast<bf16*>(st), xm, D, m0, M, it * BK16);
-    load_w(reinterpret_cast<W*>(st + kTileA16), Wt, H2, it * BK16, n0);
-    load_w(reinterpret_cast<W*>(st + kTileA16 + kRaw), Wt, H2, it * BK16,
-           HH + n0);
-  };
-
-  FragC16 av[2][2], ag[2][2];
-  zero_f32(av);
-  zero_f32(ag);
-  k_pipeline(D / BK16, load, [&](int stage) {
-    const unsigned char* st = smem + stage * kStage;
-    const bf16* As = reinterpret_cast<const bf16*>(st);
-    const bf16* Bv = stage_w<W, 2>(st + kTileA16, wide);
-    const bf16* Bg = Bv + BK16 * kLDB16;   // the gate tile follows
-    mma_tile_bf16(av, As, Bv, wm, wn);
-    mma_tile_bf16(ag, As, Bg, wm, wn);
-  });
-  float* Cv = reinterpret_cast<float*>(smem);
-  float* Cg = Cv + BM * kLDC;
-  store_f32(Cv, av, wm, wn);
-  store_f32(Cg, ag, wm, wn);
-  __syncthreads();
-  const Bias* bv = b1 + (size_t)ex * H2;
-  for (int e = tid; e < BM * BN; e += kThreads) {
-    const int r = e / BN, n = e % BN;
-    const int gr = m0 + r, gn = n0 + n;
-    if (gr >= M) continue;
-    float v = Cv[r * kLDC + n], g = Cg[r * kLDC + n];
-    if constexpr (sizeof(W) == 1) {
-      const float* sv = w1_s + (size_t)ex * H2;
-      v = __fmul_rn(v, sv[gn]);
-      g = __fmul_rn(g, sv[HH + gn]);
-    }
-    v = __fadd_rn(v, ldw(bv + gn));
-    g = __fadd_rn(g, ldw(bv + HH + gn));
-    act[((size_t)slot * M + gr) * HH + gn] =
-        __float2bfloat16_rn(__fmul_rn(v, silu(g)));
-  }
-}
-
-// ---- bf16 MoE down: part[z] = p * (act W2 (* s2)), z = (slot, hidden block)
-// item -> (n tile over D, m tile, z) as moe_down_tile.
-template <typename W>
-__device__ __forceinline__ void moe_down16_tile(
-    const bf16* act, const W* __restrict__ w2, const float* __restrict__ w2_s,
-    const int* __restrict__ idx, const float* __restrict__ probs, int step,
-    float* part, int M, int D, int HH, int TH, int E, int item,
-    unsigned char* smem) {
-  constexpr int kRaw = raw_tile_bytes<W>();
-  constexpr int kStage = kTileA16 + kRaw;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int n_nt = D / BN, n_mt = (M + BM - 1) / BM;
-  const int m0 = ((item / n_nt) % n_mt) * BM, n0 = (item % n_nt) * BN;
-  const int n_h = HH / TH, z = item / (n_nt * n_mt);
-  const int slot = z / n_h, kb = z % n_h;
-  const int ex = expert_of(idx, step, slot, E);
-  const float p = probs[step * 2 + slot];
-  const W* Wt = w2 + (size_t)ex * HH * D;
-  const bf16* A = act + (size_t)slot * M * HH;
-  const int k_begin = kb * TH;
-  bf16* wide = reinterpret_cast<bf16*>(smem + kPipe * kStage);
-
-  auto load = [&](int stage, int it) {
-    unsigned char* st = smem + stage * kStage;
-    load_a_bf16(reinterpret_cast<bf16*>(st), A, HH, m0, M,
-                k_begin + it * BK16);
-    load_w(reinterpret_cast<W*>(st + kTileA16), Wt, D, k_begin + it * BK16,
-           n0);
-  };
-
-  FragC16 ac[2][2];
-  zero_f32(ac);
-  k_pipeline(TH / BK16, load, [&](int stage) {
-    const unsigned char* st = smem + stage * kStage;
-    mma_tile_bf16(ac, reinterpret_cast<const bf16*>(st),
-                  stage_w<W, 1>(st + kTileA16, wide), wm, wn);
-  });
-  float* C = reinterpret_cast<float*>(smem);
-  store_f32(C, ac, wm, wn);
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += kThreads) {
-    const int r = e / BN, n = e % BN;
-    const int gr = m0 + r, gn = n0 + n;
-    if (gr >= M) continue;
-    float y = C[r * kLDC + n];
-    if constexpr (sizeof(W) == 1) y = __fmul_rn(y, w2_s[(size_t)ex * D + gn]);
-    part[((size_t)z * M + gr) * D + gn] = __fmul_rn(p, y);
-  }
 }
 
 }  // namespace mdp

@@ -44,8 +44,8 @@ from ..ops.kernels.layer_kernel import (STACKED_QATTN, fused_dit_q8c,
 from ..ops.kernels.moe_kernel import fused_top2_mlp, fused_top2_mlp_q8c
 from ..ops.moe import moe_ffn_dense, moe_ffn_top2_gather
 from ..ops.primitives import DenseP, RMSNorm
-from ..ops.quant import (QuantizedAttn, QuantizedExperts, quantize_attn,
-                         quantize_experts)
+from ..ops.quant import (ExpertsKMajor, QuantizedAttn, QuantizedExperts,
+                         kmajor_experts, quantize_attn, quantize_experts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,8 +230,10 @@ class NoiseBlockMoE(nn.Module):
         self.experts_b1 = nn.Parameter(torch.zeros(E, 2 * Hh, device=device))
         self.experts_w2 = nn.Parameter(torch.empty(E, Hh, D, device=device))
         # int8 experts, quantized from the f32 weights by
-        # MoDeDiT.quantize_experts_ (use_int8_moe)
+        # MoDeDiT.quantize_experts_ (use_int8_moe), and their K-major copy
+        # for the whole-layer kernel (fused_layer)
         self.experts_q: Optional[QuantizedExperts] = None
+        self.experts_qt: Optional[ExpertsKMajor] = None
 
     def forward(self, x, c, *, moe_override=None, layer_impl=fused_layer_q8c,
                 attn_impl=fused_attn_block_q8, attn_impl_bf16=fused_attn_block,
@@ -266,6 +268,7 @@ class NoiseBlockMoE(nn.Module):
                     a.q_norm.g, a.k_norm.g, a.c_proj.kernel, self.ln_2.g,
                     self.experts_q, idx, p, step=step,
                     qattn=a.attn_q if cfg.use_int8_attn else None,
+                    qexp_t=self.experts_qt,
                     eps1=self.ln_1.eps, eps_qk=a.q_norm.eps,
                     eps2=self.ln_2.eps)
         if cfg.fused_attn:
@@ -370,11 +373,16 @@ class MoDeDiT(nn.Module):
 
     @torch.no_grad()
     def quantize_experts_(self):
-        """(Re)build every block's int8 experts from the f32 weights."""
+        """(Re)build every block's int8 experts from the f32 weights and,
+        where the whole-layer kernel serves them (``cfg.fused_layer``), the
+        K-major copy its products read (``kmajor_experts``: the int8 expert
+        bytes once more)."""
         for i, blk in enumerate(self.blocks):
             blk.experts_q = quantize_experts(*(
                 self.f32_param(f"blocks.{i}.{k}")
                 for k in ("experts_w1", "experts_b1", "experts_w2")))
+            blk.experts_qt = (kmajor_experts(blk.experts_q)
+                              if self.cfg.fused_layer else None)
 
     @torch.no_grad()
     def quantize_attn_(self):

@@ -27,6 +27,11 @@ one launch of ``csrc/fused_dit_q8c.cu`` (counterpart of the Pallas
 ``_mega_kernel``), from weights stacked on a leading L axis
 (``MoDeDiT.stack_layers``) and per-layer [L,S,2] routing tables.
 
+The CUDA layer kernel's int8 expert products (wgmma) read the experts
+from their K-major copy ``qexp_t`` (``quant.kmajor_experts``, made once per
+quantization by ``MoDeDiT.quantize_experts_``); the plain version takes it
+too and gives the same result with or without it.
+
 ``fused_layer_q8c`` and ``fused_dit_q8c`` launch their kernels for CUDA
 tensors (and raise on what they cannot take) and run their plain PyTorch
 versions, ``fused_layer_q8c_ref`` and ``fused_dit_q8c_ref``, only for CPU
@@ -41,15 +46,17 @@ import math
 
 import torch
 
-from ..quant import QuantizedAttn, QuantizedExperts
+from ..quant import ExpertsKMajor, QuantizedAttn, QuantizedExperts
 from ._common import _check, _check_widths, _hidden_block, _tables
 from .attn_kernel import fused_attn_block_q8_ref, fused_attn_block_ref
-from .moe_kernel import fused_top2_mlp_q8c_ref
+from .moe_kernel import (cuda_tile_plan, down_partials, fused_top2_mlp_q8c_ref,
+                         launch_error)
 
 
 def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
                         qexp: QuantizedExperts, top2_idx, top2_probs, *,
                         step=None, qattn: QuantizedAttn = None,
+                        qexp_t: ExpertsKMajor = None,
                         block_hidden: int = 1024,
                         eps1: float = 1e-6, eps_qk: float = 1e-6,
                         eps2: float = 1e-6,
@@ -60,7 +67,8 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     dtype). x [B,T,D]; c [1,1,D], [B,1,D] or [B,T,D]; wqkv [D,3D] (+bias
     [3D]); q_g/k_g [hd]; wout [D,D]; qexp int8 experts; top2_idx/probs
     [S,2] tables with a ``step`` row selector, or single [2] rows. With
-    ``qattn`` the projections are int8 and wqkv/bqkv/wout are ignored.
+    ``qattn`` the projections are int8 and wqkv/bqkv/wout are ignored;
+    with ``qexp_t`` the expert products read that K-major copy of qexp.
     ``acc_dtype`` is the accumulation type of the compute-dtype products
     (QKV, attention, c_proj) and ``red_dtype`` that of the other float
     reductions (the norms' sums of squares, the softmax): float32 as in the
@@ -70,7 +78,7 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     moe = functools.partial(
         fused_top2_mlp_q8c_ref, top2_idx=top2_idx, top2_probs=top2_probs,
         qexp=qexp, step=step, block_hidden=block_hidden, residual=True,
-        ln_g=ln2_g, ln_eps=eps2, red_dtype=red_dtype)
+        ln_g=ln2_g, ln_eps=eps2, red_dtype=red_dtype, qexp_t=qexp_t)
     kw = dict(ln_eps=eps1, qk_eps=eps_qk, acc_dtype=acc_dtype,
               red_dtype=red_dtype)
     # the two-kernel composition, exactly
@@ -121,7 +129,8 @@ def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
 
 _LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                    + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+                    + [ctypes.c_float] * 6 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,19 +145,21 @@ def _launcher():
 def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
                     qexp: QuantizedExperts, top2_idx, top2_probs, *,
                     step=None, qattn: QuantizedAttn = None,
-                    block_hidden: int = 1024, eps1: float = 1e-6,
-                    eps_qk: float = 1e-6, eps2: float = 1e-6) -> torch.Tensor:
+                    qexp_t: ExpertsKMajor = None, block_hidden: int = 1024,
+                    eps1: float = 1e-6, eps_qk: float = 1e-6,
+                    eps2: float = 1e-6) -> torch.Tensor:
     """One full NoiseBlockMoE inference layer.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 activations,
     bf16 projections, a shared [1,1,D] cond row, T <= 16, hd a multiple of
-    32). CPU tensors: the plain version ``fused_layer_q8c_ref``, with int8
+    32), which needs ``qexp_t``, the K-major copy of the int8 experts. CPU
+    tensors: the plain version ``fused_layer_q8c_ref``, with int8
     projections too (``qattn``). Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_layer_q8c_ref(
             x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, qexp, top2_idx,
-            top2_probs, step=step, qattn=qattn, block_hidden=block_hidden,
-            eps1=eps1, eps_qk=eps_qk, eps2=eps2)
+            top2_probs, step=step, qattn=qattn, qexp_t=qexp_t,
+            block_hidden=block_hidden, eps1=eps1, eps_qk=eps_qk, eps2=eps2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_q8c runs on CUDA or CPU, not {x.device}")
     if qattn is not None:
@@ -157,6 +168,11 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
             "CUDA kernel yet (ROADMAP.md Queue 2); fused_attn_block_q8 "
             "followed by fused_top2_mlp_q8c computes the same layer, and the "
             "DiT megakernel fused_dit_q8c has int8 projections too.")
+    if qexp_t is None:
+        raise ValueError(
+            "fused_layer_q8c on CUDA reads the K-major copy of the int8 "
+            "experts: pass qexp_t=kmajor_experts(qexp) (made once per "
+            "quantization by MoDeDiT.quantize_experts_)")
 
     dev = x.device
     if x.ndim != 3:
@@ -188,8 +204,8 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
                            (qexp.w1_s, "w1_s", (E, H2)),
                            (qexp.w2_s, "w2_s", (E, D))):
         _check(t, name, torch.float32, shape, dev)
-    _check(qexp.w1_q, "w1_q", torch.int8, (E, D, H2), dev)
-    _check(qexp.w2_q, "w2_q", torch.int8, (E, HH, D), dev)
+    _check(qexp_t.w1_t, "w1_t", torch.int8, (E, H2, D), dev)
+    _check(qexp_t.w2_t, "w2_t", torch.int8, (E, D, HH), dev)
     idx, probs, S, s = _tables(top2_idx, top2_probs, step)
     _check(idx, "top2_idx", torch.int32, (S, 2), dev)
     _check(probs, "top2_probs", torch.float32, (S, 2), dev)
@@ -206,20 +222,23 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     act = torch.empty(2, M, HH, dtype=torch.float32, device=dev)
     aq = torch.empty(2, M, HH, dtype=torch.int8, device=dev)
     sa = torch.empty(2, M, n_h, dtype=torch.float32, device=dev)
-    part = torch.empty(2 * n_h, M, D, dtype=torch.float32, device=dev)
+    plan = cuda_tile_plan(M, D, HH, TH, dev)
+    part = down_partials(plan, M, D, HH, TH, dev)
     out = torch.empty(B, T, D, dtype=bf, device=dev)
     p = [t.data_ptr() for t in (
-        x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, qexp.w1_q,
-        qexp.w1_s, b1, qexp.w2_q, qexp.w2_s, idx, probs)]
-    scratch = [t.data_ptr() for t in (h, qkv, o, xmid, xm, xq, sx, act, aq,
-                                      sa, part, out)]
+        x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, qexp_t.w1_t,
+        qexp.w1_s, b1, qexp_t.w2_t, qexp.w2_s, idx, probs)]
+    scratch = [None if t is None else t.data_ptr() for t in (
+        h, qkv, o, xmid, xm, xq, sx, act, aq, sa, part, out)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(*p, s, *scratch, B, T, D, H, HH, TH, E, eps1,
                           eps_qk, eps2, D ** -0.5, hd ** -0.5,
-                          float(1.0 / math.sqrt(hd)), stream)
+                          float(1.0 / math.sqrt(hd)), plan.tile, plan.ctas,
+                          stream)
     if err != 0:
-        raise RuntimeError(f"fused_layer_q8c launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_layer_q8c launch failed: "
+                           f"{launch_error(err)}")
     fused_layer_q8c.launches += 1
     return out
 

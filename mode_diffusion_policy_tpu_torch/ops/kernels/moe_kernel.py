@@ -28,6 +28,11 @@ expert weights cast to ``dt`` in each product and their per-channel scales
 applied after it: ``value = (xm W1v) * s1v + b1v``, ``contrib = (act W2) *
 s2``.
 
+``fused_top2_mlp``, ``fused_top2_mlp_q8`` and the whole-layer kernel of
+layer_kernel.py run their expert products on wgmma tiles over persistent
+CTAs; the wrappers choose the tiles by token count and pass the plan
+(``moe_tile_plan``) to the launchers.
+
 ``fused_top2_mlp_q8c`` launches ``csrc/fused_top2_mlp_q8c.cu``,
 ``fused_top2_mlp`` and ``fused_top2_mlp_q8`` launch the two entry points
 of ``csrc/fused_top2_mlp.cu``, for CUDA tensors (and raise on what they
@@ -38,11 +43,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..quant import QuantizedExperts
+from ..quant import ExpertsKMajor, QuantizedExperts
 from ._common import (_check, _check_moe_widths, _hidden_block,
                       _rmsnorm_rows, _routing_row, _tables)
 from .quant_math import dot_i8, quant_rows
@@ -127,13 +133,16 @@ def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
                            *, step=None, block_hidden: int = 1024,
                            residual: bool = False, ln_g=None,
                            ln_eps: float = 1e-6,
-                           red_dtype: torch.dtype = torch.float32
-                           ) -> torch.Tensor:
+                           red_dtype: torch.dtype = torch.float32,
+                           qexp_t: ExpertsKMajor = None) -> torch.Tensor:
     """Plain PyTorch version (any device, any float dtype). x [B,T,D];
     top2_idx/probs [S,2] tables with a ``step`` row selector, or single [2]
     rows; ``qexp`` the int8 experts. ``red_dtype`` is the accumulation type
     of the prenorm's sum of squares (float32 as in the kernel, or float64
-    for a near-exact evaluation). Returns x.dtype [B,T,D]."""
+    for a near-exact evaluation). With ``qexp_t`` (``kmajor_experts(qexp)``)
+    the products read the int8 weights from that K-major copy, as the
+    whole-layer kernel does, with the same result. Returns x.dtype
+    [B,T,D]."""
     B, T, D = x.shape
     dt = x.dtype
     HH = qexp.w1_q.shape[-1] // 2
@@ -146,9 +155,12 @@ def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
     idx, probs = _routing_row(top2_idx, top2_probs, step)
     for slot in range(2):
         e = idx[slot].to(qexp.w1_q.device)
-        w1, s1 = qexp.w1_q[e], qexp.w1_s[e].float()
-        b1 = qexp.b1[e].float()
-        w2, s2 = qexp.w2_q[e], qexp.w2_s[e].float()
+        if qexp_t is None:
+            w1, w2 = qexp.w1_q[e], qexp.w2_q[e]
+        else:
+            w1, w2 = qexp_t.w1_t[e].T, qexp_t.w2_t[e].T
+        s1, b1, s2 = (qexp.w1_s[e].float(), qexp.b1[e].float(),
+                      qexp.w2_s[e].float())
         p = probs[slot].to(x.device)
         for kb in range(HH // TH):
             vc = slice(kb * TH, (kb + 1) * TH)
@@ -159,6 +171,79 @@ def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
             contrib = dot_i8(aq, w2[vc]).float() * (sa * s2[None])
             acc = acc + p * contrib
     return acc.to(dt).reshape(B, T, D)
+
+
+class MoeTilePlan(NamedTuple):
+    """How the wgmma expert products of ``fused_top2_mlp(_q8)`` and
+    ``fused_layer_q8c`` cover their outputs (``csrc/wgmma_stages.cuh``)."""
+
+    tile: int        # rows and columns of an output tile: 128 or 64
+    ctas: int        # persistent CTAs per stage at most (the card's SMs)
+    n_mt: int        # row tiles over the M token rows
+    up_tiles: int    # 2 slots x n_mt x H / tile   (act columns)
+    down_tiles: int  # 128: n_mt x D / tile (out; each tile runs one pass
+    #                  per (slot, hidden block) and sums them); 64: one
+    #                  tile per pass, 2 H/TH x n_mt x D / tile (partials)
+
+
+# token rows above which the products take 128 x 128 tiles (two consumer
+# warpgroups); below, 64 x 64 tiles keep about 128 CTAs streaming the
+# expert weights (b=1: 14 rows)
+WIDE_TILE_ROWS = 256
+
+
+def moe_tile_plan(M: int, D: int, HH: int, TH: int, ctas: int
+                  ) -> MoeTilePlan:
+    tile = 128 if M > WIDE_TILE_ROWS else 64
+    n_mt = -(-M // tile)
+    passes = 1 if tile == 128 else 2 * (HH // TH)
+    return MoeTilePlan(tile, ctas, n_mt, 2 * n_mt * (HH // tile),
+                       passes * n_mt * (D // tile))
+
+
+def moe_tiles(plan: MoeTilePlan, stage: str, M: int, D: int, HH: int):
+    """Every output tile of the ``stage`` ("up" or "down") as the kernel
+    decodes tile t (column tile fastest, then row tile, then z) and hands
+    it to CTA t % grid: yields (cta, z, row range, column range) of
+    act[z] (up, z the slot: the value columns; the gate columns H + n are
+    read beside them), of out (down, 128 x 128 tiles: z = 0) or of the
+    partials part[z] (down, 64 x 64: z the (slot, hidden block))."""
+    up = stage == "up"
+    n_nt = (HH if up else D) // plan.tile
+    n = plan.up_tiles if up else plan.down_tiles
+    grid = min(plan.ctas, n)
+    for t in range(n):
+        nt, mt = t % n_nt, (t // n_nt) % plan.n_mt
+        yield (t % grid, t // (n_nt * plan.n_mt),
+               range(mt * plan.tile, min(M, (mt + 1) * plan.tile)),
+               range(nt * plan.tile, (nt + 1) * plan.tile))
+
+
+def launch_error(err: int) -> str:
+    """A launcher's error code in words: CUDA's, or the two of
+    ``csrc/wgmma_stages.cuh`` for a TMA tensor map that cannot be made."""
+    return {-1: "the driver has no cuTensorMapEncodeTiled",
+            -2: "cuTensorMapEncodeTiled refused a tensor"}.get(
+                err, f"CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cuda_tile_plan(M, D, HH, TH, device) -> MoeTilePlan:
+    """The plan for M token rows on a CUDA ``device``: one CTA per SM."""
+    return moe_tile_plan(M, D, HH, TH, _sm_count(device.index or 0))
+
+
+def down_partials(plan, M, D, HH, TH, device):
+    """The f32 partials [2 H/TH, M, D] of the down stage's passes under the
+    small-tile plan, or None: 128 x 128 tiles sum them in registers."""
+    if plan.tile == 128:
+        return None
+    return torch.empty(2 * (HH // TH), M, D, dtype=torch.float32,
+                       device=device)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int]
@@ -236,8 +321,8 @@ def fused_top2_mlp_q8c(x, top2_idx, top2_probs, qexp: QuantizedExperts, *,
         err = _launcher()(*ptrs, s, *scr, M, D, HH, TH, E, int(residual),
                           ln_eps, D ** -0.5, stream)
     if err != 0:
-        raise RuntimeError(f"fused_top2_mlp_q8c launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"fused_top2_mlp_q8c launch failed: "
+                           f"{launch_error(err)}")
     fused_top2_mlp_q8c.launches += 1
     return out
 
@@ -248,7 +333,7 @@ fused_top2_mlp_q8c.launches = 0
 def _bf16_argtypes(n_weights):
     return ([ctypes.c_void_p] * (4 + n_weights) + [ctypes.c_int]
             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+            + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,7 +350,8 @@ def _launch_bf16(name, x, top2_idx, top2_probs, weights, step, block_hidden,
     """Check the arguments of ``fused_top2_mlp`` or ``fused_top2_mlp_q8``
     on CUDA, allocate the output and scratch, and launch the kernel.
     ``weights`` are (tensor, name, dtype) rows in the launcher's argument
-    order, the first one w1 [E, D, 2H]."""
+    order, the first one w1 [E, D, 2H]; the launcher also takes the tile
+    plan of its wgmma products."""
     dev = x.device
     if x.ndim != 3:
         raise ValueError(f"x must be [B,T,D], got {tuple(x.shape)}")
@@ -288,13 +374,14 @@ def _launch_bf16(name, x, top2_idx, top2_probs, weights, step, block_hidden,
     _check(probs, "top2_probs", f32, (S, 2), dev)
 
     M = B * T
-    n_h = HH // TH
+    plan = cuda_tile_plan(M, D, HH, TH, dev)
 
     def buf(*shape, dtype):
         return torch.empty(*shape, dtype=dtype, device=dev)
 
     xm = buf(M, D, dtype=bf) if ln_g is not None else None
-    scratch = (xm, buf(2, M, HH, dtype=bf), buf(2 * n_h, M, D, dtype=f32))
+    scratch = (xm, buf(2, M, HH, dtype=bf),
+               down_partials(plan, M, D, HH, TH, dev))
     out = buf(B, T, D, dtype=bf)
     ptrs = [None if t is None else t.data_ptr() for t in (
         x, ln_g, *(w[0] for w in weights), idx, probs)]
@@ -303,9 +390,9 @@ def _launch_bf16(name, x, top2_idx, top2_probs, weights, step, block_hidden,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _bf16_launcher(f"{name}_launch", len(weights))(
             *ptrs, s, *scr, M, D, HH, TH, E, int(residual), ln_eps,
-            D ** -0.5, stream)
+            D ** -0.5, plan.tile, plan.ctas, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: {launch_error(err)}")
     return out
 
 

@@ -53,6 +53,23 @@ def quantize_experts(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor
                             w2_s.float().contiguous())
 
 
+class ExpertsKMajor(NamedTuple):
+    """The int8 experts with the contraction axis innermost, the layout in
+    which the int8 layer kernel's wgmma products read them (s8 wgmma takes
+    both operands K-major)."""
+
+    w1_t: torch.Tensor   # int8 [E, 2H, D]: w1_q transposed per expert
+    w2_t: torch.Tensor   # int8 [E, D, H]:  w2_q transposed per expert
+
+
+def kmajor_experts(q: QuantizedExperts) -> ExpertsKMajor:
+    """A K-major copy of ``q``'s int8 weights (``q`` itself stays as it is:
+    the plain versions and the other kernels read the JAX layout). Made
+    once per quantization, it costs the int8 expert bytes again."""
+    return ExpertsKMajor(q.w1_q.transpose(1, 2).contiguous(),
+                         q.w2_q.transpose(1, 2).contiguous())
+
+
 def dequantize_experts(q: QuantizedExperts):
     """Reference dequantization (for tests)."""
     w1 = q.w1_q.float() * q.w1_s[:, None, :]

@@ -145,7 +145,8 @@ def test_build_needs_nvcc_and_writes_under_ignored_build_dir(monkeypatch,
     assert [p.name for p in _build.sources()] == [
         "fused_attn_block.cu", "fused_attn_block_q8.cu", "fused_dit_q8c.cu",
         "fused_layer_q8c.cu", "fused_top2_mlp.cu", "fused_top2_mlp_q8c.cu"]
-    assert [p.name for p in _build.headers()] == ["layer_stages.cuh"]
+    assert [p.name for p in _build.headers()] == ["layer_stages.cuh",
+                                                  "wgmma_stages.cuh"]
     for src in _build.sources():
         lib = _build.library_path(src)
         assert lib.parent == _build.BUILD_DIR
@@ -158,3 +159,132 @@ def test_build_needs_nvcc_and_writes_under_ignored_build_dir(monkeypatch,
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# ---- the K-major expert copy that the CUDA layer kernel's wgmma products
+# read, and the tile plan of its expert products (no card needed)
+
+from mode_diffusion_policy_tpu_torch.models import modedit  # noqa: E402
+from mode_diffusion_policy_tpu_torch.ops.kernels import _build  # noqa: E402
+from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (  # noqa: E402,E501
+    moe_tile_plan, moe_tiles)
+from mode_diffusion_policy_tpu_torch.ops.quant import (  # noqa: E402
+    ExpertsKMajor, kmajor_experts)
+
+
+@pytest.fixture(scope="module")
+def experts():
+    a = _inputs(seed=3)
+    q = quantize_experts(*(torch.from_numpy(a[k]) for k in ("w1", "b1", "w2")))
+    return a, q, kmajor_experts(q)
+
+
+def test_kmajor_copy_is_the_transpose_of_the_jax_layout(experts):
+    _, q, qt = experts
+    E, D, H2 = q.w1_q.shape
+    assert qt.w1_t.shape == (E, H2, D) and qt.w2_t.shape == (E, D, H2 // 2)
+    for t in qt:
+        assert t.dtype == torch.int8 and t.is_contiguous()
+    assert torch.equal(qt.w1_t, q.w1_q.transpose(1, 2))
+    assert torch.equal(qt.w2_t, q.w2_q.transpose(1, 2))
+    # a copy: the JAX-layout tensors stay as they are, beside it
+    assert qt.w1_t.data_ptr() != q.w1_q.data_ptr()
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_plain_layer_from_the_kmajor_copy_gives_the_same_bits(experts, step):
+    a, q, qt = experts
+    args = (*(torch.from_numpy(a[k]) for k in _ORDER), q,
+            torch.from_numpy(IDX), torch.from_numpy(PROBS))
+    got = fused_layer_q8c_ref(*args, step=step, qexp_t=qt, block_hidden=128)
+    want = fused_layer_q8c_ref(*args, step=step, block_hidden=128)
+    assert torch.equal(got, want)
+
+
+def _tiny_dit(**flags):
+    cfg = modedit.MoDeDiTConfig(obs_dim=64, goal_dim=32, embed_dim=256,
+                                n_layers=2, n_heads=2, num_experts=4,
+                                top_k=2, **flags)
+    m = modedit.MoDeDiT(cfg, device="cpu")
+    m.init_weights_(torch.Generator().manual_seed(0))
+    return m.eval()
+
+
+def test_kmajor_copy_is_made_once_per_quantization_not_per_call(monkeypatch):
+    made = []
+
+    def counting(q):
+        made.append(q)
+        return kmajor_experts(q)
+
+    monkeypatch.setattr(modedit, "kmajor_experts", counting)
+    m = _tiny_dit(use_int8_moe=True, use_pallas_attn=True,
+                  use_fused_layer=True)
+    m.quantize_experts_()
+    assert len(made) == len(m.blocks)
+    for blk in m.blocks:
+        assert isinstance(blk.experts_qt, ExpertsKMajor)
+        assert torch.equal(blk.experts_qt.w1_t,
+                           blk.experts_q.w1_q.transpose(1, 2))
+    passed = []
+
+    def layer(*args, qexp_t=None, **kw):
+        passed.append(qexp_t)
+        return fused_layer_q8c_ref(*args, qexp_t=qexp_t, **kw)
+
+    m.layer_impl = layer
+    r = np.random.default_rng(4)
+    sigmas = torch.tensor([20.0, 1.0, 0.05])
+    with torch.no_grad():
+        sx, ge = m.embed_static_tokens(
+            {"state_images": torch.from_numpy(
+                r.standard_normal((2, 2, 64)).astype(np.float32))},
+            torch.from_numpy(r.standard_normal((2, 1, 32)).astype(np.float32)))
+        emb = m.process_sigma_embeddings(sigmas)
+        routing = m.precompute_routing(sigmas)
+        acts = torch.from_numpy(r.standard_normal((2, 10, 7)).astype(
+            np.float32))
+        for step in range(2):
+            m.forward_precomputed(sx, ge, emb[step][None], acts,
+                                  moe_overrides=[(i, p, step)
+                                                 for i, p in routing])
+    assert len(made) == len(m.blocks)          # no copy made per call
+    assert len(passed) == 2 * len(m.blocks)
+    assert [id(t) for t in passed] == 2 * [id(b.experts_qt) for b in m.blocks]
+    # only the whole-layer kernel reads it: other int8 configurations
+    # do not pay its memory
+    two = _tiny_dit(use_int8_moe=True, use_pallas_attn=True)
+    two.quantize_experts_()
+    assert all(b.experts_qt is None for b in two.blocks)
+
+
+@pytest.mark.parametrize("stage", ["up", "down"])
+@pytest.mark.parametrize("M", [14, 39, 1792])
+def test_tile_plan_covers_every_output_once(M, stage):
+    """The plan the wrappers pass to the wgmma stages (tile by token count,
+    persistent CTAs), decoded as the kernels decode it, at the flagship
+    widths: every element of act (up, value columns), of the output (down,
+    128 x 128 tiles: each sums all its (slot, hidden block) passes) or of
+    the partials (down, 64 x 64 tiles: one tile per pass) lies in exactly
+    one tile, and the CTAs share the tiles evenly."""
+    D, HH, TH, ctas = 1024, 4096, 1024, 132
+    plan = moe_tile_plan(M, D, HH, TH, ctas)
+    assert plan.tile == (128 if M > 256 else 64)
+    cols = HH if stage == "up" else D
+    nz = 2 if stage == "up" else 1 if plan.tile == 128 else 2 * HH // TH
+    hits = np.zeros((nz, M, cols), np.int32)
+    per_cta = np.zeros(ctas, np.int32)
+    for cta, z, rows, cs in moe_tiles(plan, stage, M, D, HH):
+        assert rows.start < M and len(cs) == plan.tile
+        hits[z, rows.start:rows.stop, cs.start:cs.stop] += 1
+        per_cta[cta] += 1
+    assert (hits == 1).all()
+    n = plan.up_tiles if stage == "up" else plan.down_tiles
+    used = per_cta[:min(ctas, n)]
+    assert used.sum() == n and used.max() - used.min() <= 1
+
+
+def test_nvcc_flags_keep_sm_90a():
+    """wgmma and setmaxnreg exist only for sm_90a."""
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags

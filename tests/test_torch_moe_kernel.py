@@ -258,3 +258,16 @@ def test_bf16_moe_wrappers_reject_other_devices(fn, n_weights):
     x = torch.zeros(1, 2, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fn(x, None, None, *([None] * n_weights))
+
+
+@pytest.mark.parametrize("residual", [True, False],
+                         ids=["residual", "no-residual"])
+def test_plain_q8c_moe_from_the_kmajor_copy_gives_the_same_bits(residual):
+    """The int8 MoE's plain version reading the experts from the K-major
+    copy (the layout of the whole-layer kernel's wgmma products) gives the
+    same bits as from the JAX layout: the int8 products are exact."""
+    from mode_diffusion_policy_tpu_torch.ops.quant import kmajor_experts
+    a = _inputs(12)
+    q = quantize_experts(*(torch.from_numpy(a[k]) for k in ("w1", "b1", "w2")))
+    got = _port(a, True, residual, True, qexp_t=kmajor_experts(q))
+    assert torch.equal(got, _port(a, True, residual, True))
