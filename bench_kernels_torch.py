@@ -1,7 +1,7 @@
 """Micro-benchmarks of the PyTorch/CUDA port's kernels at the flagship hot
 shapes, on one NVIDIA GPU.
 
-Usage: python3 bench_kernels_torch.py [moe|layer ...]   (default: both)
+Usage: python3 bench_kernels_torch.py [moe|layer|proj ...]   (default: all)
 
 Counterpart of ``bench_kernels.py``'s ``bench_moe`` and ``bench_layer``:
 
@@ -14,13 +14,19 @@ Counterpart of ``bench_kernels.py``'s ``bench_moe`` and ``bench_layer``:
   least time the card could take (bound), a PyTorch library route of the
   same function, the per-stage device ms and the expert-product stages'
   achieved TFLOP/s (TOP/s) and share of their bound;
-- ``layer``: one layer at b=128 as ``fused_layer_q8c`` (one launch, its
-  int8 expert products on wgmma; warm and L2-flushed, beside its bound, a
-  PyTorch library route and its per-stage ms and rates), as the attention
-  kernel then the int8 MoE kernel on the legacy wmma tiles (two launches,
-  the same bits: the A/B of the MoE tiles in one run), as a one-layer
-  ``fused_dit_q8c`` launch, and per layer of a 12-layer ``fused_dit_q8c``
-  launch.
+- ``layer``: one layer at b=128 as ``fused_layer_q8c`` with bf16
+  projections (one launch; warm and L2-flushed, beside its bound, a
+  PyTorch library route and its per-stage ms and rates), as the bf16
+  attention kernel then the int8 MoE kernel (two launches, the same bits),
+  as ``fused_layer_q8c`` with int8 projections beside the int8 attention
+  kernel then the int8 MoE kernel (one launch against two, the same bits),
+  as a one-layer ``fused_dit_q8c`` launch, and per layer of a 12-layer
+  ``fused_dit_q8c`` launch;
+- ``proj``: the int8 attention kernel ``fused_attn_block_q8`` under each
+  tile plan of its two wgmma projections (64 or 128 rows x 64 or 128
+  columns) at b=128 and b=1: the projection stages' device ms and rates,
+  the launch's ms and the wrapper's host ms per launch, the measurement
+  behind the default plan (``attn_kernel.proj_tile_plan``).
 
 Timing uses CUDA events around many launches after a warm-up (the method
 of ``chip_smoke.cuda_time_ms``, copied here). Each function returns a dict
@@ -81,6 +87,23 @@ def cuda_time_cold_ms(fn, iters):
 # a __global__ stage's name in a profiler key, with its integer template
 # arguments (the tile's consumer warpgroups, the kind of product)
 STAGE_NAME = r"(\w+_kernel)(<[\d, ]+>)?"
+
+
+def host_ms(fn, iters=100):
+    """ms of host time per call of ``fn`` in a loop that does not wait for
+    the card (the wrapper's checks, allocation and launches): where it
+    exceeds the device time, a loop of launches is bound by the host."""
+    import time
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return dt
 
 
 def stage_ms(fn, iters=10):
@@ -161,6 +184,19 @@ def moe_stage_costs(N, int8_products, int8_weights, partials=None,
     return {"moe_up": cost(up, up_bytes), "moe_down": cost(down, down_bytes)}
 
 
+def proj_stage_costs(N):
+    """{"qkv_wg": cost, "cproj_wg": cost} of the two int8 projection
+    stages of one fused_attn_block_q8 call over N token rows, each cost
+    (bf16 flops, int8 ops, bytes): the int8 rows and their scales read,
+    the int8 weight and its column scales (and bias) read, the output
+    written (QKV f32; c_proj bf16, with the residual read)."""
+    qkv = (0, 2 * N * D * 3 * D,
+           N * D + 4 * N + 3 * D * D + 2 * 4 * 3 * D + 4 * N * 3 * D)
+    cproj = (0, 2 * N * D * D,
+             N * D + 4 * N + D * D + 4 * D + 2 * N * D * 2)
+    return {"qkv_wg": qkv, "cproj_wg": cproj}
+
+
 def stage_rates(rows, costs):
     """For each stage of ``rows`` (device ms per launch, from stage_ms)
     whose name starts with a key of ``costs``: its achieved rate
@@ -224,6 +260,75 @@ def library_moe_bf16(x, ln_g, w1, b1, w2, e, p):
     return out.to(x.dtype)
 
 
+def quant_rows_lib(a):
+    """Per-row int8 quantization in stock torch ops (the library yardstick)."""
+    import torch
+    s = a.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    return torch.round(a * (1.0 / s)).clamp_(-127, 127).to(torch.int8), s
+
+
+def int_mm_rows(a, b):
+    """torch._int_mm needs more than 16 rows: pad a with zero rows."""
+    import torch
+    M = a.shape[0]
+    if M > 16:
+        return torch._int_mm(a, b)
+    pad = torch.zeros(32 - M, a.shape[1], dtype=a.dtype, device=a.device)
+    return torch._int_mm(torch.cat([a, pad]), b)[:M]
+
+
+def library_attn(x, c, ln1_g, qa, q_g, k_g):
+    """The int8-projection attention sub-block as stock PyTorch calls
+    (torch._int_mm for QKV and c_proj, SDPA in bf16): a speed yardstick."""
+    import torch
+    import torch.nn.functional as F
+    B, T, D = x.shape
+    hd = q_g.shape[0]
+    H = D // hd
+    x32 = x.reshape(B * T, D).float()
+    h = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + 1e-12) \
+        * ln1_g + c.reshape(1, D).float()
+    hq, hs = quant_rows_lib(h)
+    qkv = int_mm_rows(hq, qa.wqkv_q).float() * (hs * qa.wqkv_s) + qa.bqkv
+    q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+
+    def rms(a, g):
+        return (a * torch.rsqrt(a.pow(2).mean(-1, keepdim=True) + 1e-12)
+                * g).to(x.dtype)
+
+    o = F.scaled_dot_product_attention(rms(q, q_g), rms(k, k_g),
+                                       v.to(x.dtype), is_causal=True)
+    oq, os_ = quant_rows_lib(o.transpose(1, 2).reshape(B * T, D).float())
+    y = int_mm_rows(oq, qa.wout_q).float() * (os_ * qa.wout_s)
+    return (x32 + y).to(x.dtype).reshape(B, T, D)
+
+
+def library_moe(x, ln2_g, qe, e, p, TH):
+    """The int8 top-2 MoE with ln_2 and the residual as stock PyTorch calls
+    (torch._int_mm for the up and down products, the row quantizations in
+    torch ops): a speed yardstick."""
+    import torch
+    import torch.nn.functional as F
+    B, T, D = x.shape
+    x32 = x.reshape(B * T, D).float()
+    xm = (x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + 1e-12)
+          * ln2_g).to(x.dtype).float()
+    xq, sx = quant_rows_lib(xm)
+    acc = xm
+    HH = qe.w1_q.shape[-1] // 2
+    for slot in range(2):
+        up = int_mm_rows(xq, qe.w1_q[e[slot]]).float() \
+            * (sx * qe.w1_s[e[slot]]) + qe.b1[e[slot]]
+        act = up[:, :HH] * F.silu(up[:, HH:])
+        for kb in range(HH // TH):
+            aq, sa = quant_rows_lib(act[:, kb * TH:(kb + 1) * TH])
+            acc = acc + p[slot] * int_mm_rows(
+                aq, qe.w2_q[e[slot], kb * TH:(kb + 1) * TH]).float() \
+                * (sa * qe.w2_s[e[slot]])
+    return acc.to(x.dtype).reshape(B, T, D)
+
+
 def layer_cost(B, T, D, H, HH):
     """(bf16 flops, int8 ops, bytes) of one fused layer call with top-2
     routing: every input read once, the output written once, only the two
@@ -236,6 +341,16 @@ def layer_cost(B, T, D, H, HH):
     nbytes = (2 * N * D * 2 + 2 * (3 * D * D + D * D) + 3 * D * 4
               + 4 * D * 4 + 2 * expert)
     return bf16, int8, nbytes
+
+
+def layer_q8_cost(B, T, D, H, HH):
+    """(bf16 flops, int8 ops, bytes) of one fused layer call with int8
+    projections: layer_cost with the QKV and c_proj products in int8 and
+    their weights as int8 with f32 column scales."""
+    bf16, int8, nbytes = layer_cost(B, T, D, H, HH)
+    N = B * T
+    proj = 2 * N * D * 3 * D + 2 * N * D * D
+    return bf16 - proj, int8 + proj, nbytes - 4 * D * D + 4 * D * 4
 
 
 def library_attn_bf16(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout):
@@ -290,12 +405,14 @@ def bench_moe():
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
         fused_top2_mlp, fused_top2_mlp_q8, fused_top2_mlp_q8c,
         fused_top2_mlp_q8_ref, fused_top2_mlp_q8c_ref, fused_top2_mlp_ref)
-    from mode_diffusion_policy_tpu_torch.ops.quant import dequantize_experts
+    from mode_diffusion_policy_tpu_torch.ops.quant import (dequantize_experts,
+                                                       kmajor_experts)
     dev = torch.device("cuda", 0)
     out = {"fused_top2_mlp": {}, "fused_top2_mlp_q8": {},
            "fused_top2_mlp_q8c": {}}
     for B in (128, 1):
         a = moe_inputs(B, dev)
+        qt = kmajor_experts(a["q"])
         kw = dict(residual=True, ln_g=a["ln_g"])
         head = (a["x"], a["idx"], a["probs"])
         e, p = a["idx"][0].tolist(), a["probs"][0].tolist()
@@ -319,16 +436,17 @@ def bench_moe():
                 "weights with bf16 activations)",
                 moe_cost(B, False, True)),
             "fused_top2_mlp_q8c": (
-                lambda: fused_top2_mlp_q8c(*head, a["q"], **kw),
+                lambda: fused_top2_mlp_q8c(*head, a["q"], qexp_t=qt, **kw),
                 lambda: fused_top2_mlp_q8c_ref(*head, a["q"], **kw),
-                None, None, moe_cost(B, True, True)),
+                lambda: library_moe(a["x"], a["ln_g"], a["q"], e, p, 1024),
+                "library_moe: torch._int_mm products, row quantization, "
+                "SwishGLU and sum in torch ops",
+                moe_cost(B, True, True)),
         }
         n = 50 if B == 128 else 100
         for name, (kern, plain, lib, lib_is, cost) in rows.items():
             b_ms, by = bound(*cost)
             stages = stage_ms(kern)
-            # the legacy q8c kernel writes its partials at every size
-            q8c = name == "fused_top2_mlp_q8c" or None
             out[name][f"b{B}"] = dict(
                 ms=cuda_time_ms(kern, n),
                 ms_cold_l2=cuda_time_cold_ms(kern, 20),
@@ -338,8 +456,8 @@ def bench_moe():
                 gflop_bf16=cost[0] / 1e9, gop_int8=cost[1] / 1e9,
                 mbytes=cost[2] / 1e6, stages_ms=stages,
                 stage_rates=stage_rates(stages, moe_stage_costs(
-                    B * T, bool(q8c), name != "fused_top2_mlp",
-                    partials=q8c)))
+                    B * T, name == "fused_top2_mlp_q8c",
+                    name != "fused_top2_mlp")))
     return out
 
 
@@ -377,36 +495,59 @@ def layer_inputs(B, device, L=12, seed=0):
 
 
 def bench_layer():
-    """One layer at b=128 (ms per layer): fused_layer_q8c (its int8 expert
-    products on wgmma) warm and with the L2 cache flushed, beside its bound,
-    a PyTorch library route of the same layer (library_layer) and its
-    per-stage device ms and rates; the attention kernel then the int8 MoE
-    kernel on the legacy wmma tiles (two launches, the same bits: the A/B
-    of the MoE tiles in one run), warm and flushed; a one-layer
-    fused_dit_q8c launch, and a 12-layer fused_dit_q8c launch over 12."""
+    """One layer at b=128 (ms per layer): fused_layer_q8c with bf16
+    projections warm and with the L2 cache flushed, beside its bound, a
+    PyTorch library route of the same layer (library_layer) and its
+    per-stage device ms and rates; the bf16 attention kernel then the int8
+    MoE kernel (two launches, the same bits), warm and flushed;
+    fused_layer_q8c with int8 projections beside the int8 attention kernel
+    then the int8 MoE kernel (the same bits), warm and flushed, with its
+    bound, library route (library_attn then library_moe) and stages; a
+    one-layer fused_dit_q8c launch, and a 12-layer fused_dit_q8c launch
+    over 12."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
-        fused_attn_block)
+        fused_attn_block, fused_attn_block_q8)
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_dit_q8c, fused_layer_q8c)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
         fused_top2_mlp_q8c)
-    from mode_diffusion_policy_tpu_torch.ops.quant import dequantize_experts
+    from mode_diffusion_policy_tpu_torch.ops.quant import (dequantize_experts,
+                                                       kmajor_attn,
+                                                       quantize_attn)
     dev = torch.device("cuda", 0)
     B, n, H = 128, 50, 8
     w = layer_inputs(B, dev)
     L = w["stackL"]["wqkv"].shape[0]
     attn = (w["c"], w["ln1"], w["wqkv"], w["bqkv"], w["q_g"], w["k_g"],
             w["wout"])
+    qa = quantize_attn(w["wqkv"].float(), w["bqkv"], w["wout"].float())
+    qat = kmajor_attn(qa)
+    moe = dict(residual=True, ln_g=w["ln2"], qexp_t=w["qt"])
 
     def two_kernel():
         return fused_top2_mlp_q8c(fused_attn_block(w["x"], *attn), w["idx"],
-                                  w["probs"], w["q"], residual=True,
-                                  ln_g=w["ln2"])
+                                  w["probs"], w["q"], **moe)
 
     def one_layer():
         return fused_layer_q8c(w["x"], *attn, w["ln2"], w["q"], w["idx"],
                                w["probs"], qexp_t=w["qt"])
+
+    def two_kernel_q8():
+        return fused_top2_mlp_q8c(fused_attn_block_q8(
+            w["x"], w["c"], w["ln1"], qa, w["q_g"], w["k_g"], qattn_t=qat),
+            w["idx"], w["probs"], w["q"], **moe)
+
+    def one_layer_q8():
+        return fused_layer_q8c(w["x"], w["c"], w["ln1"], None, None,
+                               w["q_g"], w["k_g"], None, w["ln2"], w["q"],
+                               w["idx"], w["probs"], qattn=qa, qattn_t=qat,
+                               qexp_t=w["qt"])
+
+    def library_q8():
+        return library_moe(library_attn(w["x"], w["c"], w["ln1"], qa,
+                                        w["q_g"], w["k_g"]), w["ln2"], w["q"],
+                           w["idx"][0].tolist(), w["probs"][0].tolist(), 1024)
 
     def mega(stack, n):
         tabs = (w["idx"][None].expand(n, 1, 2).contiguous(),
@@ -419,7 +560,9 @@ def bench_layer():
     lib = (w["x"], *attn[:2], attn[2], attn[3].to(torch.bfloat16), *attn[4:],
            w["ln2"], deq, w["idx"][0].tolist(), w["probs"][0].tolist())
     b_ms, by = bound(*layer_cost(B, T, D, H, HH))
-    stages = stage_ms(one_layer)
+    b8_ms, by8 = bound(*layer_q8_cost(B, T, D, H, HH))
+    stages, stages8 = stage_ms(one_layer), stage_ms(one_layer_q8)
+    costs8 = {**moe_stage_costs(B * T, True, True), **proj_stage_costs(B * T)}
     return {f"b{B}": dict(
         fused_layer_ms=cuda_time_ms(one_layer, n),
         fused_layer_ms_cold_l2=cuda_time_cold_ms(one_layer, 20),
@@ -431,12 +574,57 @@ def bench_layer():
         stage_rates=stage_rates(stages, moe_stage_costs(B * T, True, True)),
         two_kernel_ms=cuda_time_ms(two_kernel, n),
         two_kernel_ms_cold_l2=cuda_time_cold_ms(two_kernel, 20),
+        int8_attn=dict(
+            fused_layer_ms=cuda_time_ms(one_layer_q8, n),
+            fused_layer_ms_cold_l2=cuda_time_cold_ms(one_layer_q8, 20),
+            bound_ms=b8_ms, bound_by=by8,
+            library_ms=cuda_time_ms(library_q8, 20),
+            library_is="library_attn then library_moe: torch._int_mm "
+                       "products, SDPA, row quantization in torch ops",
+            stages_ms=stages8, stage_rates=stage_rates(stages8, costs8),
+            two_kernel_ms=cuda_time_ms(two_kernel_q8, n),
+            two_kernel_ms_cold_l2=cuda_time_cold_ms(two_kernel_q8, 20)),
         megakernel_l1_ms=cuda_time_ms(mega(w["stack1"], 1), n),
         megakernel_per_layer_ms=cuda_time_ms(mega(w["stackL"], L),
                                              max(5, n // L)) / L)}
 
 
-ALL = {"moe": bench_moe, "layer": bench_layer}
+PROJ_TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
+
+
+def bench_proj():
+    """fused_attn_block_q8 at b=128 and b=1 under each tile plan of its two
+    projections (the same plan for both): {"b<B>": {"<rows>x<cols>":
+    {ms, host_ms, stages_ms, stage_rates}}}, and the default plan's name
+    ("default")."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block_q8, proj_tile_plan)
+    from mode_diffusion_policy_tpu_torch.ops.quant import (kmajor_attn,
+                                                       quantize_attn)
+    dev = torch.device("cuda", 0)
+    out = {}
+    for B in (128, 1):
+        w = layer_inputs(B, dev, L=1)
+        qa = quantize_attn(w["wqkv"].float(), w["bqkv"], w["wout"].float())
+        qat = kmajor_attn(qa)
+        d = proj_tile_plan(B * T, D, 1)
+        row = {"default": f"{d.tile_m}x{d.tile_n}"}
+        for tm, tn in PROJ_TILES:
+            def fn(tiles=(tm, tn, tm, tn)):
+                return fused_attn_block_q8(w["x"], w["c"], w["ln1"], qa,
+                                           w["q_g"], w["k_g"], qattn_t=qat,
+                                           tiles=tiles)
+            stages = stage_ms(fn)
+            row[f"{tm}x{tn}"] = dict(
+                ms=cuda_time_ms(fn, 50 if B == 128 else 100),
+                host_ms=host_ms(fn), stages_ms=stages,
+                stage_rates=stage_rates(stages, proj_stage_costs(B * T)))
+        out[f"b{B}"] = row
+    return out
+
+
+ALL = {"moe": bench_moe, "layer": bench_layer, "proj": bench_proj}
 
 
 def main(argv):

@@ -28,15 +28,22 @@ projections) or ``fused_attn_block_q8`` with one cond row per sample;
 then the bf16 kernel configuration (``use_pallas_moe`` and
 ``use_pallas_attn``, no int8, no preset) at b=128 and b=1: per layer and
 step ``fused_attn_block`` then the bf16 MoE kernel ``fused_top2_mlp``
-(120 + 120 launches per chunk); and the kernel bench
-(``bench_kernels_torch.py``), the path of ``fused_top2_mlp_q8``.
+(120 + 120 launches per chunk); the kernel bench
+(``bench_kernels_torch.py``), the path of ``fused_top2_mlp_q8`` and the
+measurement behind the int8 projections' tile plan; and the whole-layer
+kernel with int8 projections (``max-throughput``'s flags with
+``use_fused_layer``, the megakernel off) at b=128 and b=1: 120
+``fused_layer_q8c`` launches per chunk.
 
 For the megakernel it also checks each layer against the plain layer, the
 whole stack against the plain stack and (bf16 projections) against 12
 chained ``fused_layer_q8c`` launches, bit for bit; for the two-kernel
-layer, each kernel against its plain version and, on every layer,
-attention then MoE against a one-layer megakernel launch with int8
-projections, bit for bit; for ``fused_attn_block``, the kernel against its
+layer, each kernel against its plain version (at b=128, b=1 and 3 x 13
+tokens) and, on every layer, attention then MoE against a one-layer
+megakernel launch with int8 projections, bit for bit; for
+``fused_layer_q8c`` with int8 projections, the kernel against its plain
+version and, on every layer, against the int8 attention kernel then the
+int8 MoE kernel, bit for bit; for ``fused_attn_block``, the kernel against its
 plain version with a shared and a per-sample cond, and, on every layer,
 ``fused_attn_block`` then the MoE kernel against one ``fused_layer_q8c``
 launch, bit for bit; for both attention kernels, a per-sample cond of equal
@@ -47,9 +54,9 @@ kernel with unit scales against the bf16 kernel on the same weights, bit
 for bit. It checks the launch counts of
 every path and the kernel-vs-plain action error, times the kernels, their
 plain versions, a PyTorch-library composition of the same work, whole
-chunks and the encoders, with the achieved TFLOP/s (TOP/s) of the expert
-products that ``fused_layer_q8c``, ``fused_top2_mlp`` and
-``fused_top2_mlp_q8`` run on wgmma, and prints one JSON line for the
+chunks and the encoders, with the achieved TFLOP/s (TOP/s) of the
+products that the kernels run on wgmma (the expert products of every MoE
+kernel, the int8 attention's projections), and prints one JSON line for the
 kernels and a final status line. Every phase that fails exits non-zero; without CUDA nothing is run.
 Imports nothing of JAX.
 """
@@ -64,8 +71,10 @@ import time
 import warnings
 
 from bench_kernels_torch import (STAGE_NAME, fmt_rates, layer_cost,
+                                 layer_q8_cost, library_attn,
                                  library_attn_bf16, library_layer,
-                                 moe_stage_costs, stage_rates)
+                                 library_moe, moe_stage_costs,
+                                 proj_stage_costs, stage_rates)
 
 T0 = time.perf_counter()
 
@@ -155,7 +164,7 @@ def bound_of(bf16, int8, nbytes):
 DIT_KERNELS = (r"fused_dit_kernel|(ln1|ln1_quant|gemm_bf16|gemm_i8|attn|"
                r"quant_f32|ln2_quant|quant_row|moe_up|act_quant|moe_down|"
                r"moe_sum|ln2|moe_up_bf16|moe_down_bf16|moe_up_wg|moe_down_wg|"
-               r"moe_up_bf16_wg|moe_down_bf16_wg)_kernel")
+               r"moe_up_bf16_wg|moe_down_bf16_wg|qkv_wg|cproj_wg)_kernel")
 
 
 def chunk_split(policy, obs, goal, noise, chunk_ms):
@@ -243,8 +252,7 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c)
-    from mode_diffusion_policy_tpu_torch.ops.quant import (QuantizedExperts,
-                                                       kmajor_experts)
+    from mode_diffusion_policy_tpu_torch.ops.quant import QuantizedExperts
 
     dev = st["w1_q"].device
     int8_attn = "sqkv" in st
@@ -256,8 +264,9 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
     out = dict(max_abs_err=0.0, stack_max_abs_err=0.0, stack_vs_plain=[])
     qexp_L = [QuantizedExperts(*(st[k][l] for k in QuantizedExperts._fields))
               for l in range(L)]
-    # the K-major copies that fused_layer_q8c reads, made once
-    qt_L = [] if int8_attn else [kmajor_experts(q) for q in qexp_L]
+    # the K-major copies that fused_layer_q8c reads, made once per
+    # quantization (MoDeDiT.quantize_experts_)
+    qt_L = [blk.experts_qt for blk in dit.blocks]
     for B in (1, 128):
         for s in steps:
             x = torch.randn(B, T, D, generator=gen, device=dev).to(
@@ -375,75 +384,6 @@ def moe_cost(B, T, D, HH):
     return 0, int8, 2 * N * D * 2 + D * 4 + 2 * expert
 
 
-def quant_rows_lib(a):
-    """Per-row int8 quantization in stock torch ops (the library yardstick)."""
-    import torch
-    s = a.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
-    return torch.round(a * (1.0 / s)).clamp_(-127, 127).to(torch.int8), s
-
-
-def int_mm_rows(a, b):
-    """torch._int_mm needs more than 16 rows: pad a with zero rows."""
-    import torch
-    M = a.shape[0]
-    if M > 16:
-        return torch._int_mm(a, b)
-    pad = torch.zeros(32 - M, a.shape[1], dtype=a.dtype, device=a.device)
-    return torch._int_mm(torch.cat([a, pad]), b)[:M]
-
-
-def library_attn(x, c, ln1_g, qa, q_g, k_g):
-    """The int8-projection attention sub-block as stock PyTorch calls
-    (torch._int_mm for QKV and c_proj, SDPA in bf16): a speed yardstick."""
-    import torch
-    import torch.nn.functional as F
-    B, T, D = x.shape
-    hd = q_g.shape[0]
-    H = D // hd
-    x32 = x.reshape(B * T, D).float()
-    h = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + 1e-12) \
-        * ln1_g + c.reshape(1, D).float()
-    hq, hs = quant_rows_lib(h)
-    qkv = int_mm_rows(hq, qa.wqkv_q).float() * (hs * qa.wqkv_s) + qa.bqkv
-    q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2)
-               for t in qkv.chunk(3, dim=-1))
-
-    def rms(a, g):
-        return (a * torch.rsqrt(a.pow(2).mean(-1, keepdim=True) + 1e-12)
-                * g).to(x.dtype)
-
-    o = F.scaled_dot_product_attention(rms(q, q_g), rms(k, k_g),
-                                       v.to(x.dtype), is_causal=True)
-    oq, os_ = quant_rows_lib(o.transpose(1, 2).reshape(B * T, D).float())
-    y = int_mm_rows(oq, qa.wout_q).float() * (os_ * qa.wout_s)
-    return (x32 + y).to(x.dtype).reshape(B, T, D)
-
-
-def library_moe(x, ln2_g, qe, e, p, TH):
-    """The int8 top-2 MoE with ln_2 and the residual as stock PyTorch calls
-    (torch._int_mm for the up and down products, the row quantizations in
-    torch ops): a speed yardstick."""
-    import torch
-    import torch.nn.functional as F
-    B, T, D = x.shape
-    x32 = x.reshape(B * T, D).float()
-    xm = (x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + 1e-12)
-          * ln2_g).to(x.dtype).float()
-    xq, sx = quant_rows_lib(xm)
-    acc = xm
-    HH = qe.w1_q.shape[-1] // 2
-    for slot in range(2):
-        up = int_mm_rows(xq, qe.w1_q[e[slot]]).float() \
-            * (sx * qe.w1_s[e[slot]]) + qe.b1[e[slot]]
-        act = up[:, :HH] * F.silu(up[:, HH:])
-        for kb in range(HH // TH):
-            aq, sa = quant_rows_lib(act[:, kb * TH:(kb + 1) * TH])
-            acc = acc + p[slot] * int_mm_rows(
-                aq, qe.w2_q[e[slot], kb * TH:(kb + 1) * TH]).float() \
-                * (sa * qe.w2_s[e[slot]])
-    return acc.to(x.dtype).reshape(B, T, D)
-
-
 def layer_gate(name, got, want):
     """The bf16-step-relative layer gates; returns (max |diff|, share of
     the gate used)."""
@@ -461,15 +401,16 @@ def layer_gate(name, got, want):
 
 
 def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
-    """fused_attn_block_q8 and fused_top2_mlp_q8c at full width, b=128 and
-    b=1, on the flagship agent's int8 weights: each against its plain
-    version on the same input with the layer gates (the MoE kernel in all
-    four prenorm/residual combinations, the attention kernel also with one
-    cond row per sample, and with equal rows bit for bit against the
-    shared row); for every layer, attention then
-    MoE equal to a one-layer fused_dit_q8c launch with int8 projections,
-    bit for bit. Then the kernels', the plain versions' and the library
-    yardsticks' times."""
+    """fused_attn_block_q8 and fused_top2_mlp_q8c at full width, b=128, b=1
+    and a ragged 3 x 13 tokens, on the flagship agent's int8 weights and
+    their K-major copies: each against its plain version on the same input
+    with the layer gates (the MoE kernel in all four prenorm/residual
+    combinations, the attention kernel also with one cond row per sample,
+    and with equal rows bit for bit against the shared row); at b=128 and
+    b=1, for every layer, attention then MoE equal to a one-layer
+    fused_dit_q8c launch with int8 projections, bit for bit (identity i).
+    Then the kernels', the plain versions' and the library yardsticks'
+    times, the per-stage device ms and the wgmma stages' rates."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
         fused_attn_block_q8, fused_attn_block_q8_ref)
@@ -485,25 +426,30 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
     out = {"attn": dict(max_abs_err=0.0), "moe": dict(max_abs_err=0.0)}
 
     def kw_attn(blk):
-        return dict(ln_eps=blk.ln_1.eps, qk_eps=blk.attn.q_norm.eps)
+        return dict(ln_eps=blk.ln_1.eps, qk_eps=blk.attn.q_norm.eps,
+                    qattn_t=blk.attn.attn_qt)
 
     def attn_args(blk, x, c):
         a = blk.attn
         return (x, c, blk.ln_1.g, a.attn_q, a.q_norm.g, a.k_norm.g)
 
-    for B in (128, 1):
+    def moe(blk, y, idx, probs, **kw):
+        return fused_top2_mlp_q8c(y, idx, probs, blk.experts_q,
+                                  qexp_t=blk.experts_qt, **kw)
+
+    for B, TT in ((128, T), (1, T), (3, T - 1)):
         for s in steps:
             blk = dit.blocks[0]
             idx, probs = routing[0]
-            x = torch.randn(B, T, D, generator=gen, device=dev).to(
+            x = torch.randn(B, TT, D, generator=gen, device=dev).to(
                 torch.bfloat16)
             c = emb_all[s][None]
             args = attn_args(blk, x, c)
             y = fused_attn_block_q8(*args, **kw_attn(blk))
             torch.cuda.synchronize()
-            err, used = layer_gate(f"fused_attn_block_q8 b={B} step={s}", y,
-                                   fused_attn_block_q8_ref(*args,
-                                                           **kw_attn(blk)))
+            err, used = layer_gate(f"fused_attn_block_q8 {B}x{TT} step={s}",
+                                   y, fused_attn_block_q8_ref(
+                                       *args, **kw_attn(blk)))
             err2, used2 = check_cond_rows(
                 "fused_attn_block_q8", fused_attn_block_q8,
                 fused_attn_block_q8_ref, (args[0], *args[2:]), c,
@@ -517,29 +463,31 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
                 kw = dict(step=s, residual=resid,
                           ln_g=blk.ln_2.g if ln else None,
                           ln_eps=blk.ln_2.eps)
-                got = fused_top2_mlp_q8c(y, idx, probs, blk.experts_q, **kw)
+                got = moe(blk, y, idx, probs, **kw)
                 torch.cuda.synchronize()
                 err, used = layer_gate(
-                    f"fused_top2_mlp_q8c b={B} step={s} ln={ln} "
+                    f"fused_top2_mlp_q8c {B}x{TT} step={s} ln={ln} "
                     f"residual={resid}", got, fused_top2_mlp_q8c_ref(
                         y, idx, probs, blk.experts_q, **kw))
                 out["moe"]["max_abs_err"] = max(out["moe"]["max_abs_err"],
                                                 err)
                 msg.append(f"MoE ln={int(ln)} residual={int(resid)} "
                            f"{used:.2f}")
-            print(f"  b={B} step={s} experts {idx[s].tolist()}: within the "
-                  f"layer gates (share of the gate used: {', '.join(msg)})",
-                  flush=True)
-        # attention -> MoE == a one-layer megakernel launch, every layer
+            print(f"  {B} x {TT} tokens, step={s}, experts "
+                  f"{idx[s].tolist()}: within the layer gates (share of the "
+                  f"gate used: {', '.join(msg)})", flush=True)
+        if TT != T:
+            continue
+        # (i) attention -> MoE == a one-layer megakernel launch, every layer
         s = steps[-1]
         y = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
         c = emb_all[s][None]
         for l, blk in enumerate(dit.blocks):
             idx, probs = routing[l]
-            two = fused_top2_mlp_q8c(
-                fused_attn_block_q8(*attn_args(blk, y, c), **kw_attn(blk)),
-                idx, probs, blk.experts_q, step=s, residual=True,
-                ln_g=blk.ln_2.g, ln_eps=blk.ln_2.eps)
+            two = moe(blk, fused_attn_block_q8(*attn_args(blk, y, c),
+                                               **kw_attn(blk)),
+                      idx, probs, step=s, residual=True, ln_g=blk.ln_2.g,
+                      ln_eps=blk.ln_2.eps)
             st = {"ln1": blk.ln_1.g[None], "q_g": blk.attn.q_norm.g[None],
                   "k_g": blk.attn.k_norm.g[None], "ln2": blk.ln_2.g[None]}
             st.update({k: v[None] for k, v in zip(STACKED_QATTN,
@@ -573,15 +521,16 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
         rows = {
             "attn": (lambda: fused_attn_block_q8(*args, **kw_attn(blk)),
                      lambda: fused_attn_block_q8_ref(*args, **kw_attn(blk)),
-                     lambda: library_attn(*args), attn_cost(B, T, D, H)),
-            "moe": (lambda: fused_top2_mlp_q8c(y, idx, probs, blk.experts_q,
-                                               **moe_kw),
+                     lambda: library_attn(*args), attn_cost(B, T, D, H),
+                     proj_stage_costs(B * T)),
+            "moe": (lambda: moe(blk, y, idx, probs, **moe_kw),
                     lambda: fused_top2_mlp_q8c_ref(y, idx, probs,
                                                    blk.experts_q, **moe_kw),
                     lambda: library_moe(y, blk.ln_2.g, blk.experts_q, e, p,
-                                        TH), moe_cost(B, T, D, HH)),
+                                        TH), moe_cost(B, T, D, HH),
+                    moe_stage_costs(B * T, True, True)),
         }
-        for name, (kern, plain, lib, cost) in rows.items():
+        for name, (kern, plain, lib, cost, _) in rows.items():
             k_ms = cuda_time_ms(kern, iters)
             p_ms = cuda_time_ms(plain, 3)
             l_ms = cuda_time_ms(lib, 20)
@@ -592,10 +541,12 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
                   f"{bound:.4f} ms ({by}; {cost[1] / 1e9:.2f} GOP int8, "
                   f"{cost[2] / 1e6:.1f} MB), plain {p_ms:.3f} ms, library "
                   f"{l_ms:.4f} ms", flush=True)
-        out["attn"][f"stages_b{B}"] = kernel_stages(
-            rows["attn"][0], f"fused_attn_block_q8 b={B}")
-        out["moe"][f"stages_b{B}"] = kernel_stages(
-            rows["moe"][0], f"fused_top2_mlp_q8c b={B}")
+        for name, label in (("attn", "fused_attn_block_q8"),
+                            ("moe", "fused_top2_mlp_q8c")):
+            st_ms = kernel_stages(rows[name][0], f"{label} b={B}",
+                                  costs=rows[name][4])
+            out[name][f"stages_b{B}"] = st_ms
+            out[name][f"stage_rates_b{B}"] = stage_rates(st_ms, rows[name][4])
     return out
 
 
@@ -645,8 +596,9 @@ def check_attn_bf16(dit, routing, emb_all, steps, T, gen, cfg):
     row and with one per sample (layer gates), a per-sample cond of equal
     rows bit for bit against the shared row; on every layer, the kernel
     then fused_top2_mlp_q8c (ln_2, residual) against one fused_layer_q8c
-    launch with bf16 projections, bit for bit (chained). Then the kernel's,
-    the plain version's and the library yardstick's times."""
+    launch with bf16 projections, bit for bit (chained: identity ii).
+    Then the kernel's, the plain version's and the library yardstick's
+    times."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
         fused_attn_block, fused_attn_block_ref)
@@ -697,7 +649,7 @@ def check_attn_bf16(dit, routing, emb_all, steps, T, gen, cfg):
             two = fused_top2_mlp_q8c(
                 fused_attn_block(y, c, *w, **kw(blk)), idx, probs,
                 blk.experts_q, step=s, residual=True, ln_g=blk.ln_2.g,
-                ln_eps=blk.ln_2.eps)
+                ln_eps=blk.ln_2.eps, qexp_t=blk.experts_qt)
             one = fused_layer_q8c(
                 y, c, w[0], w[1], w[2], w[3], w[4], w[5], blk.ln_2.g,
                 blk.experts_q, idx, probs, step=s, qexp_t=blk.experts_qt,
@@ -1053,6 +1005,190 @@ def bf16_config_run(agent, results, cfg, zero_launches, launches_of):
             raise SystemExit(f"bf16 configuration b={B}: kernel path "
                              "disagrees with plain path")
         out[B] = row
+    return out
+
+
+def fused_layer_int8_run(agent, results, routing, emb_all, steps, T, gen,
+                         cfg, zero_launches, launches_of):
+    """The whole-layer kernel with int8 projections at full width: the
+    agent reconfigured with the flags that run it (use_int8_moe,
+    use_pallas_moe, use_pallas_attn, use_fused_layer, use_int8_attn; the
+    megakernel off: max-throughput's flags with the fused layer), the
+    folded bf16 encoders, served by RolloutPolicy(agent). Layer 0 of
+    fused_layer_q8c(qattn=) against its plain version with the layer gates
+    at b=128 and b=1; on all 12 layers (chained) equal to
+    fused_attn_block_q8 then fused_top2_mlp_q8c, bit for bit (identity
+    iii), at b=128 and b=1; one 10-step DDIM chunk at b=128 and at b=1
+    with the launch counters on (120 fused_layer_q8c launches, nothing
+    else), its action MAE against the plain version and the f32-vs-f64
+    floors, the chunk ms and its device split; the kernel's, the plain
+    version's and the library yardstick's times, and its stages."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block_q8)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_layer_q8c, fused_layer_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c)
+
+    agent.configure_(use_int8_moe=True, use_pallas_moe=True,
+                     use_pallas_attn=True, use_fused_layer=True,
+                     use_int8_attn=True, use_megakernel=False)
+    agent.q8 = None
+    agent.fold_encoders_for_inference()
+    agent.quantize_for_inference()
+    policy = RolloutPolicy(agent, seed=0)
+    dit = policy.agent.inner_model
+    L, S = cfg.n_layers, cfg.num_sampling_steps
+    D, H, HH = cfg.latent_dim, cfg.n_heads, 4 * cfg.latent_dim
+    dev = emb_all.device
+    out = {"max_abs_err": 0.0}
+
+    def layer(blk, x, c, idx, probs, s, fn=fused_layer_q8c):
+        a = blk.attn
+        return fn(x, c, blk.ln_1.g, None, None, a.q_norm.g, a.k_norm.g, None,
+                  blk.ln_2.g, blk.experts_q, idx, probs, step=s,
+                  qattn=a.attn_q, qattn_t=a.attn_qt, qexp_t=blk.experts_qt,
+                  eps1=blk.ln_1.eps, eps_qk=a.q_norm.eps, eps2=blk.ln_2.eps)
+
+    def two_kernel(blk, x, c, idx, probs, s):
+        a = blk.attn
+        y = fused_attn_block_q8(x, c, blk.ln_1.g, a.attn_q, a.q_norm.g,
+                                a.k_norm.g, ln_eps=blk.ln_1.eps,
+                                qk_eps=a.q_norm.eps, qattn_t=a.attn_qt)
+        return fused_top2_mlp_q8c(y, idx, probs, blk.experts_q, step=s,
+                                  residual=True, ln_g=blk.ln_2.g,
+                                  ln_eps=blk.ln_2.eps, qexp_t=blk.experts_qt)
+
+    for B in (128, 1):
+        blk = dit.blocks[0]
+        idx, probs = routing[0]
+        used = []
+        for s in steps:
+            x = torch.randn(B, T, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            c = emb_all[s][None]
+            got = layer(blk, x, c, idx, probs, s)
+            torch.cuda.synchronize()
+            err, u = layer_gate(f"fused_layer_q8c(qattn=) b={B} step={s}",
+                                got, layer(blk, x, c, idx, probs, s,
+                                           fn=fused_layer_q8c_ref))
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            used.append(f"step {s} {u:.2f}")
+        # (iii) the layer == attention kernel then MoE kernel, every layer
+        s = steps[-1]
+        y = torch.randn(B, T, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        c = emb_all[s][None]
+        for l, blk in enumerate(dit.blocks):
+            idx, probs = routing[l]
+            one = layer(blk, y, c, idx, probs, s)
+            two = two_kernel(blk, y, c, idx, probs, s)
+            diff = (one.float() - two.float()).abs().max().item()
+            if diff != 0.0:
+                raise SystemExit(f"b={B} layer {l}: fused_layer_q8c(qattn=) "
+                                 f"differs from fused_attn_block_q8 -> "
+                                 f"fused_top2_mlp_q8c ({diff:.3e})")
+            y = one
+        print(f"  fused_layer_q8c(qattn=) b={B}: layer 0 within the layer "
+              f"gates (share used: {', '.join(used)}); == fused_attn_block_q8"
+              f" -> fused_top2_mlp_q8c, bit for bit, on all {L} layers "
+              "(chained)", flush=True)
+
+    for B in (128, 1):
+        r = results[B]
+
+        def chunk():
+            return policy.predict_chunk(r["obs"], r["goal"], r["noise"])
+
+        chunk()                                   # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        kern = chunk()
+        torch.cuda.synchronize()
+        counts = launches_of()
+        want = {**dict.fromkeys(counts, 0), "fused_layer_q8c": L * S}
+        if counts != want:
+            raise SystemExit(f"fused layer, int8 projections, b={B}: "
+                             f"launches {counts}, expected {want}")
+        if tuple(kern.shape) != (B, cfg.act_window_size, cfg.action_dim) \
+                or not bool(torch.isfinite(kern).all()):
+            raise SystemExit(f"fused layer, int8 projections, b={B}: bad "
+                             f"chunk {tuple(kern.shape)}")
+        evals = {}
+        for key, kw in (("plain", {}),
+                        ("exact", {"acc_dtype": torch.float64}),
+                        ("exact_all", {"acc_dtype": torch.float64,
+                                       "red_dtype": torch.float64})):
+            dit.layer_impl = functools.partial(fused_layer_q8c_ref, **kw)
+            evals[key] = chunk()
+        dit.layer_impl = fused_layer_q8c
+
+        def mae_of(a, b):
+            return (a - b).abs().mean().item()
+
+        mae = mae_of(kern, evals["plain"])
+        floors = (mae_of(evals["plain"], evals["exact"]),
+                  mae_of(evals["plain"], evals["exact_all"]))
+        tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * max(floors))
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            chunk()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - c0) * 1e3)
+        row = dict(launches={k: v for k, v in counts.items() if v},
+                   action_mae=mae, action_floor=max(floors),
+                   chunk_ms=statistics.median(times))
+        row["split"] = chunk_split(policy, r["obs"], r["goal"], r["noise"],
+                                   row["chunk_ms"])
+        print(f"  fused layer with int8 projections b={B}, one 10-step DDIM "
+              f"chunk: launches {row['launches']}; action MAE "
+              f"kernel-vs-plain {mae:.3e} (tol {tol:.3e}), "
+              f"plain-f32-vs-plain-f64 {floors[0]:.3e} (products) / "
+              f"{floors[1]:.3e} (products, norms, softmax); chunk "
+              f"{row['chunk_ms']:.2f} ms (median of 3: "
+              f"{', '.join(f'{t:.2f}' for t in times)}); split "
+              f"{row['split']}", flush=True)
+        if mae > tol:
+            raise SystemExit(f"fused layer, int8 projections, b={B}: kernel "
+                             "path disagrees with plain path")
+        out[f"chunk_b{B}"] = row
+
+    # timing at step 0, layer 0
+    blk = dit.blocks[0]
+    idx, probs = routing[0]
+    for B in (128, 1):
+        x = torch.randn(B, T, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        c = emb_all[0][None]
+        a = blk.attn
+        e, p = idx[0].tolist(), probs[0].tolist()
+
+        def library():
+            y = library_attn(x, c, blk.ln_1.g, a.attn_q, a.q_norm.g,
+                             a.k_norm.g)
+            return library_moe(y, blk.ln_2.g, blk.experts_q, e, p,
+                               min(1024, HH))
+
+        k_ms = cuda_time_ms(lambda: layer(blk, x, c, idx, probs, 0),
+                            50 if B == 128 else 100)
+        p_ms = cuda_time_ms(lambda: layer(blk, x, c, idx, probs, 0,
+                                          fn=fused_layer_q8c_ref), 3)
+        l_ms = cuda_time_ms(library, 20)
+        bound, by = bound_of(*layer_q8_cost(B, T, D, H, HH))
+        costs = {**moe_stage_costs(B * T, True, True),
+                 **proj_stage_costs(B * T)}
+        st_ms = kernel_stages(lambda: layer(blk, x, c, idx, probs, 0),
+                              f"fused_layer_q8c(qattn=) b={B}", costs=costs)
+        out[B] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                      bound_by=by, stages_ms=st_ms,
+                      stage_rates=stage_rates(st_ms, costs))
+        print(f"  fused_layer_q8c(qattn=) b={B}: kernel {k_ms:.4f} ms/launch, "
+              f"bound {bound:.4f} ms ({by}), plain {p_ms:.3f} ms, library "
+              f"(library_attn then library_moe) {l_ms:.4f} ms", flush=True)
     return out
 
 
@@ -1572,17 +1708,41 @@ def main():
                 print(f"    expert products: {fmt_rates(row['stage_rates'])}",
                       flush=True)
     lay = bench_layer["b128"]
+    q8 = lay["int8_attn"]
     print(f"  kernel bench launches {bench_launches}; one layer at b=128: "
           f"fused_layer_q8c {lay['fused_layer_ms']:.4f} ms "
           f"({lay['fused_layer_ms_cold_l2']:.4f} with the L2 cache flushed), "
           f"bound {lay['bound_ms']:.4f} ms ({lay['bound_by']}), library "
-          f"{lay['library_ms']:.4f} ms; attention then the int8 MoE kernel "
-          f"on the legacy tiles {lay['two_kernel_ms']:.4f} ms "
-          f"({lay['two_kernel_ms_cold_l2']:.4f} flushed); megakernel one "
-          f"layer {lay['megakernel_l1_ms']:.4f}, per layer of 12 "
-          f"{lay['megakernel_per_layer_ms']:.4f} ms; expert products "
-          f"{fmt_rates(lay['stage_rates'])}", flush=True)
-    phase("phase 20: kernel bench (bench_kernels_torch: moe, layer)", t)
+          f"{lay['library_ms']:.4f} ms; fused_attn_block then "
+          f"fused_top2_mlp_q8c {lay['two_kernel_ms']:.4f} ms "
+          f"({lay['two_kernel_ms_cold_l2']:.4f} flushed); with int8 "
+          f"projections fused_layer_q8c {q8['fused_layer_ms']:.4f} ms "
+          f"({q8['fused_layer_ms_cold_l2']:.4f} flushed), bound "
+          f"{q8['bound_ms']:.4f} ms, library {q8['library_ms']:.4f} ms, "
+          f"fused_attn_block_q8 then fused_top2_mlp_q8c "
+          f"{q8['two_kernel_ms']:.4f} ms ({q8['two_kernel_ms_cold_l2']:.4f} "
+          f"flushed); megakernel one layer {lay['megakernel_l1_ms']:.4f}, "
+          f"per layer of 12 {lay['megakernel_per_layer_ms']:.4f} ms; expert "
+          f"products {fmt_rates(lay['stage_rates'])}; int8 layer's wgmma "
+          f"stages {fmt_rates(q8['stage_rates'])}", flush=True)
+    bench_proj = bench_kernels_torch.bench_proj()
+    for key, row in bench_proj.items():
+        print(f"  fused_attn_block_q8 {key} by projection tiles (default "
+              f"{row['default']}): " + "; ".join(
+                  f"{k} {v['ms']:.4f} ms (host {v['host_ms']:.4f}), "
+                  + ", ".join(f"{n.split('_kernel')[0]} {m:.4f}"
+                              for n, m in (v['stages_ms'] or {}).items()
+                              if "wg_kernel" in n)
+                  for k, v in row.items() if k != "default"), flush=True)
+    phase("phase 20: kernel bench (bench_kernels_torch: moe, layer, proj)",
+          t)
+
+    # ---- phase 21: the whole-layer kernel with int8 projections ----------
+    t = time.perf_counter()
+    layer8 = fused_layer_int8_run(agent, results, routing, emb_all, steps, T,
+                                  gen, cfg, zero_launches, launches_of)
+    phase("phase 21: fused_layer_q8c with int8 projections: vs plain, == "
+          "the two int8 kernels on every layer, chunks at b=128 and b=1", t)
 
     # ---- results -----------------------------------------------------------
     t128 = timing[128]
@@ -1612,6 +1772,25 @@ def main():
         "moe_stage_rates": {
             k: stage_rates(v, moe_stage_costs(B * T, True, True))
             for (k, v), B in zip(stages.items(), (128, 1))},
+        "int8_attn": {
+            "launches": layer8["chunk_b128"]["launches"]["fused_layer_q8c"],
+            "max_abs_err": layer8["max_abs_err"],
+            **{k: layer8[128][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+            "library_is": "library_attn then library_moe (torch._int_mm, "
+                          "SDPA, torch ops)",
+            "launches_are": "use_int8_moe, use_pallas_attn, use_fused_layer"
+                            ", use_int8_attn (megakernel off), b=128, one "
+                            "10-step DDIM chunk",
+            "b1": {k: layer8[1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+            "stages_ms": {"b128": layer8[128]["stages_ms"],
+                          "b1": layer8[1]["stages_ms"]},
+            "stage_rates": {"b128": layer8[128]["stage_rates"],
+                            "b1": layer8[1]["stage_rates"]},
+            "chunk": {"b128": layer8["chunk_b128"],
+                      "b1": layer8["chunk_b1"]},
+        },
     }]
     m1, m8 = mega["b1-latency"], mega["b1-latency-max"]
     kernels.append({
@@ -1674,6 +1853,8 @@ def main():
             "b1": dict(two[key][1]),
             "stages_ms": {"b128": two[key]["stages_b128"],
                           "b1": two[key]["stages_b1"]},
+            "stage_rates": {"b128": two[key]["stage_rates_b128"],
+                            "b1": two[key]["stage_rates_b1"]},
             "max_throughput": mt,
         })
     kernels.append({
@@ -1743,6 +1924,7 @@ def main():
                       "b1": b8["b1"]["stages_ms"]},
         "bench_q8c": bench["fused_top2_mlp_q8c"],
         "bench_layer": bench_layer,
+        "bench_proj": bench_proj,
     })
     phase("done", T0)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,17 +1,21 @@
 // One whole NoiseBlockMoE inference layer on Hopper (sm_90a).
 //
 // Replaces the TPU kernel mode_diffusion_policy_tpu/ops/pallas/layer_kernel.py
-// (_kernel, launched by fused_layer_q8c) on the `parity` serving path:
+// (_kernel, launched by fused_layer_q8c) on the `parity` serving path, and
+// its int8-projection variant (int8_attn=: the JAX block's use_fused_layer
+// with use_int8_attn, the megakernel off):
 //
 //   x_mid = x + c_proj(attn(qk_norm(wqkv(rmsnorm(x)*g1 + c) + b)))  (bf16 dots)
 //   out   = ln2(x_mid) + sum_{e in top2} p_e * W2_e q(act_e) s       (int8 dots)
 //   act_e = value * silu(gate),  [value | gate] = q(ln2(x_mid)) W1_e s + b1
 //
-// Design. One launcher, fused_layer_q8c_launch, runs a fixed sequence of
-// eight or nine __global__ kernels on the caller's stream and allocates
-// nothing. The row, attention and sum stages live in layer_stages.cuh,
-// shared with the DiT megakernel (fused_dit_q8c.cu); the two expert
-// products run on Hopper's wgmma fed by TMA (wgmma_stages.cuh):
+// Design. Two launchers run a fixed sequence of __global__ kernels on the
+// caller's stream and allocate nothing. The row, attention and sum stages
+// live in layer_stages.cuh, shared with the DiT megakernel
+// (fused_dit_q8c.cu); the int8 products run on Hopper's wgmma fed by TMA
+// (wgmma_stages.cuh), and the int8 stages' launch sequences are those of
+// the two-kernel path (int8_stages.cuh). fused_layer_q8c_launch, bf16
+// projections, eight or nine kernels:
 //   1 ln1_kernel          per row: h = bf16(rmsnorm(x)*g1 + c)
 //   2 gemm_bf16_kernel    qkv = h @ wqkv + b       (wmma bf16, f32 accum)
 //   3 attn_kernel         one CTA per (query rows, head, sample): QK-RMSNorm,
@@ -43,6 +47,12 @@
 // other kernels run), so the layer gives the same bits as the two-kernel
 // composition (fused_attn_block, then fused_top2_mlp_q8c) and as the
 // megakernel's layers.
+// fused_layer_q8c_q8_launch, int8 projections: stages 1-4 become the five
+// stages of fused_attn_block_q8.cu (ln1_quant, the QKV projection on
+// wgmma s8, attention with f32 o, o re-quantized, c_proj on wgmma s8 into
+// x_mid), reading a K-major copy of the projections (ops/quant.py
+// kmajor_attn); then stages 5-9. It equals fused_attn_block_q8 followed by
+// fused_top2_mlp_q8c bit for bit: the same stages in the same order.
 // The TPU kernel keeps x_mid and the quantized rows in VMEM between its
 // attention and MoE grid visits; here they pass through device memory (and
 // mostly L2) between launches. The cast chain and the rounding match the
@@ -64,14 +74,13 @@
 
 #include <initializer_list>
 
-#include "layer_stages.cuh"
-#include "wgmma_stages.cuh"
+#include "int8_stages.cuh"
 
 using namespace mdp;
 
 namespace {
 
-// ---- one work item per CTA of each stage ---------------------------------
+// ---- one work item per CTA of each bf16-projection stage ---------------
 __global__ void __launch_bounds__(kThreads)
 ln1_kernel(const bf16* x, const float* c, const float* g, bf16* h, int D,
            float rs_D, float eps) {
@@ -87,100 +96,6 @@ gemm_bf16_kernel(const bf16* A, const bf16* B, int M, int N, int K,
   extern __shared__ __align__(128) unsigned char smem[];
   gemm_bf16_tile<EPI>(A, B, M, N, K, bias, out_f32, resid, out_bf16,
                       blockIdx.x, smem);
-}
-
-__global__ void __launch_bounds__(kThreads)
-attn_kernel(const float* qkv, const float* qg, const float* kg, bf16* o,
-            int B, int T, int D, int H, int hd, float rs_hd, float eps_qk,
-            float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  attn_item(qkv, qg, kg, o, nullptr, B, T, D, H, hd, rs_hd, eps_qk, scale,
-            blockIdx.x, smem);
-}
-
-__global__ void __launch_bounds__(kThreads)
-ln2_quant_kernel(const bf16* xmid, const float* g, bf16* xm, int8_t* xq,
-                 float* sx, int D, float rs_D, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  ln2_quant_row(xmid, g, xm, xq, sx, D, rs_D, eps, blockIdx.x, smem);
-}
-
-template <int WG>
-__global__ void __launch_bounds__(128 * (WG + 1), 1)
-moe_up_wg_kernel(const __grid_constant__ CUtensorMap ta,
-                 const __grid_constant__ CUtensorMap tb,
-                 const __grid_constant__ wg::MoeArgs a) {
-  wg::gemm<wg::Up<WG, wg::kS8>>(&ta, &tb, a);
-}
-
-__global__ void __launch_bounds__(kThreads)
-act_quant_kernel(const float* act, int8_t* aq, float* sa, int M, int HH,
-                 int TH) {
-  __shared__ __align__(128) unsigned char smem[kSmemRed];
-  act_quant_item(act, aq, sa, M, HH, TH, blockIdx.x, smem);
-}
-
-template <int WG>
-__global__ void __launch_bounds__(128 * (WG + 1), 1)
-moe_down_wg_kernel(const __grid_constant__ CUtensorMap ta,
-                   const __grid_constant__ CUtensorMap tb,
-                   const __grid_constant__ wg::MoeArgs a) {
-  wg::gemm<wg::Down<WG, wg::kS8, WG == 2>>(&ta, &tb, a);
-}
-
-__global__ void __launch_bounds__(kThreads)
-moe_sum_kernel(const bf16* seed, const float* part, bf16* out, int MD,
-               int n_part) {
-  moe_sum_elems(seed, part, out, MD, n_part,
-                blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
-}
-
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
-// Stages 6-8: the int8 expert products on wgmma around the act
-// re-quantization, WG consumer warpgroups per CTA (tiles of 64 * WG rows);
-// the down stage adds its passes to the sum seeded with xm and writes out.
-template <int WG>
-int moe_stages(const void* xq, const void* sx, const void* w1_t,
-               const void* w1_s, const void* b1, const void* w2_t,
-               const void* w2_s, const void* idx, const void* probs, int step,
-               void* act, void* aq, void* sa, void* part, const void* xm,
-               void* out, int M, int D, int HH, int TH, int E, int ctas,
-               cudaStream_t st) {
-  using Up = wg::Up<WG, wg::kS8>;
-  using Down = wg::Down<WG, wg::kS8, WG == 2>;
-  const int n_h = HH / TH;
-  CUtensorMap m_xq, m_w1, m_aq, m_w2;
-  const uint64_t d_xq[2] = {(uint64_t)D, (uint64_t)M};
-  const uint64_t d_aq[3] = {(uint64_t)HH, (uint64_t)M, 2};
-  for (const int e : {wg::cached_map(&m_xq, xq, 1, 2, d_xq),
-                      wg::weight_map(&m_w1, w1_t, 1, D, 2 * HH, E),
-                      wg::cached_map(&m_aq, aq, 1, 3, d_aq),
-                      wg::weight_map(&m_w2, w2_t, 1, HH, D, E)})
-    if (e) return e;
-  const wg::MoeArgs up = wg::stage_args(
-      idx, probs, step, M, D, HH, TH, E, WG, Up::kNV, HH, 2, b1, sx, w1_s,
-      nullptr, act);
-  const wg::MoeArgs down = wg::stage_args(
-      idx, probs, step, M, D, HH, TH, E, WG, Down::kN, D,
-      WG == 2 ? 1 : 2 * n_h, nullptr, sa, w2_s, xm, WG == 2 ? out : part);
-  cudaError_t e = wg::run<Up>(moe_up_wg_kernel<WG>, m_xq, m_w1, up, ctas, st);
-  if (e != cudaSuccess) return (int)e;
-  act_quant_kernel<<<2 * M * n_h, kThreads, 0, st>>>(
-      (const float*)act, (int8_t*)aq, (float*)sa, M, HH, TH);
-  e = wg::run<Down>(moe_down_wg_kernel<WG>, m_aq, m_w2, down, ctas, st);
-  if (WG == 1 && e == cudaSuccess) {
-    const int MD = M * D;
-    moe_sum_kernel<<<(MD + 4 * kThreads - 1) / (4 * kThreads), kThreads, 0,
-                     st>>>((const bf16*)xm, (const float*)part, (bf16*)out,
-                           MD, 2 * n_h);
-    e = cudaGetLastError();
-  }
-  return (int)e;
 }
 
 }  // namespace
@@ -209,7 +124,7 @@ extern "C" int fused_layer_q8c_launch(
   const int attn_smem = smem_attn(T, hd);
   // the GEMM stages' pipelines (and long attention rows) need more than the
   // default 48 KB of dynamic shared memory
-  for (const cudaError_t e : {set_smem(attn_kernel, attn_smem),
+  for (const cudaError_t e : {set_smem(attn_kernel<bf16>, attn_smem),
                               set_smem(gemm_bf16_kernel<0>, kSmemGemm16),
                               set_smem(gemm_bf16_kernel<1>, kSmemGemm16)})
     if (e != cudaSuccess) return (int)e;
@@ -219,7 +134,7 @@ extern "C" int fused_layer_q8c_launch(
   gemm_bf16_kernel<0><<<n_tiles(M, 3 * D), kThreads, kSmemGemm16, st>>>(
       (const bf16*)h, (const bf16*)wqkv, M, 3 * D, D, (const float*)bqkv,
       (float*)qkv, nullptr, nullptr);
-  attn_kernel<<<attn_items(B, H, T), kThreads, attn_smem, st>>>(
+  attn_kernel<bf16><<<attn_items(B, H, T), kThreads, attn_smem, st>>>(
       (const float*)qkv, (const float*)q_g, (const float*)k_g, (bf16*)o, B, T,
       D, H, hd, rs_hd, eps_qk, scale);
   gemm_bf16_kernel<1><<<n_tiles(M, D), kThreads, kSmemGemm16, st>>>(
@@ -228,11 +143,43 @@ extern "C" int fused_layer_q8c_launch(
   ln2_quant_kernel<<<M, kThreads, smem_row(D), st>>>(
       (const bf16*)xmid, (const float*)ln2_g, (bf16*)xm, (int8_t*)xq,
       (float*)sx, D, rs_D, eps2);
-  return tile == 128
-             ? moe_stages<2>(xq, sx, w1_t, w1_s, b1, w2_t, w2_s, idx, probs,
-                             step, act, aq, sa, part, xm, out, M, D, HH, TH,
-                             E, ctas, st)
-             : moe_stages<1>(xq, sx, w1_t, w1_s, b1, w2_t, w2_s, idx, probs,
-                             step, act, aq, sa, part, xm, out, M, D, HH, TH,
-                             E, ctas, st);
+  return moe_q8c_stages(tile, xq, sx, w1_t, w1_s, b1, w2_t, w2_s, idx, probs,
+                        step, act, aq, sa, part, xm, out, M, D, HH, TH, E,
+                        ctas, st);
+}
+
+// The layer with int8 attention projections (the JAX kernel's int8_attn
+// variant): the attention stages of fused_attn_block_q8.cu into x_mid,
+// then ln2_quant and the MoE stages as above. The projections read the
+// K-major int8 copy wqkv_t [3D, D], wout_t [D, D] with their column scales
+// wqkv_s [3D], wout_s [D]; qkv_tiles and out_tiles are the (rows, columns)
+// of their output tiles (64 or 128 each); the other arguments are those of
+// fused_layer_q8c_launch. The result equals fused_attn_block_q8 followed by
+// fused_top2_mlp_q8c (ln_2, residual) bit for bit: the same stages.
+extern "C" int fused_layer_q8c_q8_launch(
+    const void* x, const void* c, const void* ln1_g, const void* wqkv_t,
+    const void* wqkv_s, const void* bqkv, const void* q_g, const void* k_g,
+    const void* wout_t, const void* wout_s, const void* ln2_g,
+    const void* w1_t, const void* w1_s, const void* b1, const void* w2_t,
+    const void* w2_s, const void* idx, const void* probs, int step, void* hq,
+    void* hs, void* qkv, void* o, void* oq, void* os, void* xmid, void* xm,
+    void* xq, void* sx, void* act, void* aq, void* sa, void* part, void* out,
+    int B, int T, int D, int H, int HH, int TH, int E, float eps1,
+    float eps_qk, float eps2, float rs_D, float rs_hd, float scale,
+    int qkv_tm, int qkv_tn, int out_tm, int out_tn, int tile, int ctas,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * T;
+  const int tiles[4] = {qkv_tm, qkv_tn, out_tm, out_tn};
+  if (const int e = attn_q8_stages(
+          x, c, 0, ln1_g, wqkv_t, wqkv_s, bqkv, q_g, k_g, wout_t, wout_s, hq,
+          hs, qkv, o, oq, os, xmid, B, T, D, H, eps1, eps_qk, rs_D, rs_hd,
+          scale, tiles, ctas, st))
+    return e;
+  ln2_quant_kernel<<<M, kThreads, smem_row(D), st>>>(
+      (const bf16*)xmid, (const float*)ln2_g, (bf16*)xm, (int8_t*)xq,
+      (float*)sx, D, rs_D, eps2);
+  return moe_q8c_stages(tile, xq, sx, w1_t, w1_s, b1, w2_t, w2_s, idx, probs,
+                        step, act, aq, sa, part, xm, out, M, D, HH, TH, E,
+                        ctas, st);
 }

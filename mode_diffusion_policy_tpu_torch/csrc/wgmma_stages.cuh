@@ -1,8 +1,9 @@
-// The expert products of the top-2 MoE on Hopper's warpgroup MMA (wgmma)
-// fed by the Tensor Memory Accelerator (TMA), for the bf16-compute MoE
-// (fused_top2_mlp.cu: bf16 or int8 weights) and the int8 layer
-// (fused_layer_q8c.cu). The other stages of those kernels stay in
-// layer_stages.cuh.
+// The expert products of the top-2 MoE and the int8 attention projections
+// on Hopper's warpgroup MMA (wgmma) fed by the Tensor Memory Accelerator
+// (TMA), for the bf16-compute MoE (fused_top2_mlp.cu: bf16 or int8
+// weights) and the int8 layer (int8_stages.cuh: fused_top2_mlp_q8c.cu,
+// fused_attn_block_q8.cu, fused_layer_q8c.cu). The other stages of those
+// kernels stay in layer_stages.cuh.
 //
 // Routing depends only on sigma: each of the two selected experts of a
 // routing row is a dense GEMM over all N = B*T token rows (no gather, no
@@ -16,6 +17,10 @@
 //         order to the residual seed in registers (128 x 128 tiles), or
 //         written as the f32 partials that moe_sum_elems adds in the same
 //         order (64 x 64 tiles).
+// and the int8 projections run on the same mainloop as one more stage:
+//   Proj  [N, D] x [D, 3D] (QKV, f32 out with the bias) or [N, D] x [D, D]
+//         (c_proj, added to the residual in bf16), one 2-D weight map in
+//         place of the expert coordinate.
 //
 // Design. A persistent CTA (one per SM at most) walks its tiles t =
 // blockIdx.x, + gridDim.x, ... . Warpgroups 0 .. kWG-1 consume, warpgroup
@@ -345,8 +350,8 @@ __device__ __forceinline__ void mma(int (&d)[N / 2], uint64_t da,
   else wgmma_s8_n256(d, da, db);
 }
 
-// ---- the four GEMM stages ---------------------------------------------------
-// Operands of every stage; each reads the ones its epilogue needs.
+// ---- the GEMM stages ---------------------------------------------------------
+// Operands of every MoE stage; each reads the ones its epilogue needs.
 struct MoeArgs {
   const int* idx;       // [S, 2] routing table
   const float* probs;   // [S, 2]
@@ -365,9 +370,11 @@ struct Tile {
                         // (slot, hidden block) of a partials tile
 };
 
-// Tile t -> (column tile fastest, row tile, z). The plan that the Python
-// wrappers take (ops/kernels/moe_kernel.py moe_tile_plan) mirrors it.
-__device__ __forceinline__ Tile tile_of(const MoeArgs& a, int t, int bm,
+// Tile t -> (column tile fastest, row tile, z). The plans that the Python
+// wrappers take (ops/kernels/moe_kernel.py moe_tile_plan, attn_kernel.py
+// proj_tile_plan) mirror it.
+template <class Args>
+__device__ __forceinline__ Tile tile_of(const Args& a, int t, int bm,
                                         int bn) {
   Tile tl;
   tl.n0 = (t % a.n_nt) * bn;
@@ -503,6 +510,7 @@ template <int WG, int KIND>
 struct Up : Shape<WG, 128 * WG, KIND> {
   using Sh = Shape<WG, 128 * WG, KIND>;
   using Acc = typename Sh::Acc;
+  using Args = MoeArgs;
   static constexpr bool S8 = Sh::S8, W8 = Sh::W8;
   static constexpr int kNV = 64 * WG;   // value (and gate) columns
   // staged columns: b1v, b1g (and int8: s1v, s1g), kNV floats each
@@ -616,6 +624,7 @@ template <int WG, int KIND, bool SUM>
 struct Down : Shape<WG, 64 * WG, KIND> {
   using Sh = Shape<WG, 64 * WG, KIND>;
   using Acc = typename Sh::Acc;
+  using Args = MoeArgs;
   static constexpr bool S8 = Sh::S8, W8 = Sh::W8;
   // staged columns: the int8 weights' s2 of both slots' experts
   static constexpr int kCols = KIND == kBf16 ? 1 : 2 * Sh::kN;
@@ -744,6 +753,105 @@ struct Down : Shape<WG, 64 * WG, KIND> {
   }
 };
 
+// The dense int8 x int8 projections of the attention sub-block (QKV and
+// c_proj of fused_attn_block_q8 and of fused_layer_q8c with int8
+// projections): out = A W over M rows, A [M, K] the int8 rows (hq or oq,
+// K-major as they are) and W [K, N] read from its K-major copy W_t [N, K]
+// (ops/quant.py kmajor_attn), in tiles of 64 WG rows x BN columns; the
+// column scales (and bias) staged in shared memory, the row scales in
+// registers, the same f32 operations in the same order as the legacy
+// tile's epilogues (layer_stages.cuh gemm_i8_tile):
+//   EPI 0 (QKV):    out_f32[r, n]  = acc * (sa[r] * sb[n]) + bias[n]
+//   EPI 1 (c_proj): out_bf16[r, n] = bf16(resid[r, n] + acc * (sa[r] * sb[n]))
+struct ProjArgs {
+  int M, N, K;                // rows, output columns, contraction
+  int n_mt, n_nt, n_tiles;    // tiles over rows, over columns, in all
+  const float* s_row;         // sa [M]: hs or os
+  const float* s_col;         // sb [N]: wqkv_s or wout_s
+  const float* bias;          // EPI 0: bqkv [N]
+  const bf16* resid;          // EPI 1: x [M, N]
+  void* out;                  // EPI 0: qkv f32 [M, N]; EPI 1: bf16 [M, N]
+};
+
+template <int WG, int BN, int EPI>
+struct Proj : Shape<WG, BN, kS8> {
+  using Sh = Shape<WG, BN, kS8>;
+  using Acc = int;
+  using Args = ProjArgs;
+  // staged columns: sb, and (EPI 0) the bias, BN floats each
+  static constexpr int kCols = (EPI == 0 ? 2 : 1) * BN;
+  struct Sum {};
+
+  __device__ static Tile tile(const ProjArgs& a, int t) {
+    return tile_of(a, t, Sh::kBM, BN);
+  }
+  __device__ static int passes(const ProjArgs&) { return 1; }
+  __device__ static int nk(const ProjArgs& a) { return a.K / 128; }
+  __device__ static void load(const CUtensorMap* ta, const CUtensorMap* tb,
+                              const ProjArgs&, const Tile& tl, int, int kt,
+                              uint32_t st, uint32_t bar) {
+    const int k0 = kt * 128;
+#pragma unroll
+    for (int w = 0; w < WG; ++w)
+      tma_2d(st + w * kBox, ta, bar, k0, tl.m0 + 64 * w);
+#pragma unroll
+    for (int c = 0; c < Sh::kChunks; ++c)
+      tma_2d(st + WG * kBox + c * kBox, tb, bar, k0, tl.n0 + 64 * c);
+  }
+  __device__ static void mma(Acc (&d)[Sh::kR], uint32_t st, uint32_t b,
+                             int wg) {
+    stage_mma<true, BN>(d, st + wg * kBox, b);
+  }
+  // cols[n]: sb; cols[BN + n]: the bias (EPI 0)
+  __device__ static Row operands(const ProjArgs& a, const Tile& tl, int wg,
+                                 float* cols) {
+    for (int i = threadIdx.x % 128; i < kCols; i += 128)
+      cols[i] = i < BN ? a.s_col[tl.n0 + i] : a.bias[tl.n0 + i - BN];
+    Row rw;
+    rw.r0 = row0(tl, wg);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      rw.s[r] = rw.r0 + 8 * r < a.M ? ldf(a.s_row + rw.r0 + 8 * r) : 0.f;
+    return rw;
+  }
+  __device__ static void seed(Sum&, const ProjArgs&, const Tile&,
+                              const Row&) {}
+  __device__ static void pass_operands(const ProjArgs&, const Tile&, int,
+                                       Row&) {}
+  __device__ static void finish(const Sum&, const ProjArgs&, const Tile&,
+                                const Row&) {}
+  __device__ static void store(const Acc (&d)[Sh::kR], const ProjArgs& a,
+                               const Tile& tl, const Row& rw,
+                               const float* cols, int, Sum&) {
+    const int c0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rw.r0 + 8 * r;
+        if (row >= a.M) continue;
+        const size_t at = (size_t)row * a.N + tl.n0 + c0 + 8 * j;
+        float y[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int n = c0 + 8 * j + c, i = 4 * j + 2 * r + c;
+          y[c] = __fmul_rn((float)d[i], __fmul_rn(rw.s[r], cols[n]));
+        }
+        if constexpr (EPI == 0) {
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at) =
+              make_float2(__fadd_rn(y[0], cols[BN + c0 + 8 * j]),
+                          __fadd_rn(y[1], cols[BN + c0 + 8 * j + 1]));
+        } else {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(a.resid + at));
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + at) =
+              __floats2bfloat162_rn(__fadd_rn(x.x, y[0]),
+                                    __fadd_rn(x.y, y[1]));
+        }
+      }
+  }
+};
+
 // ---- the mainloop ---------------------------------------------------------
 // Run by every thread of a CTA of 128 * (Op::kWG + 1) threads with
 // Op::kSmem bytes of dynamic shared memory. Each tile runs Op::passes
@@ -756,7 +864,8 @@ __device__ __forceinline__ void wg_barrier(int wg) {
 
 template <class Op>
 __device__ __forceinline__ void gemm(const CUtensorMap* ta,
-                                     const CUtensorMap* tb, const MoeArgs& a) {
+                                     const CUtensorMap* tb,
+                                     const typename Op::Args& a) {
   extern __shared__ unsigned char wg_smem[];
   __shared__ __align__(8) uint64_t bars[2 * Op::kStages];
   __shared__ float cols[Op::kWG][Op::kCols];
@@ -960,24 +1069,64 @@ inline MoeArgs stage_args(const void* idx, const void* probs, int step, int M,
   return a;
 }
 
-// Launch one stage's __global__ wrapper on at most `ctas` persistent CTAs.
-template <class Op, typename K>
-inline cudaError_t run(K kernel, const CUtensorMap& ta, const CUtensorMap& tb,
-                       const MoeArgs& a, int ctas, cudaStream_t st) {
-  // the shared-memory grant, once per kernel and device (it costs host
-  // time on every launch otherwise)
-  constexpr int kDevices = 64;
-  static bool granted[kDevices] = {};
+// Operands of a projection over M rows in tiles of 64 * wg rows x bn
+// columns out of N.
+inline ProjArgs proj_args(int M, int N, int K, int wg, int bn,
+                          const void* s_row, const void* s_col,
+                          const void* bias, const void* resid, void* out) {
+  ProjArgs a;
+  a.M = M; a.N = N; a.K = K;
+  a.n_mt = (M + 64 * wg - 1) / (64 * wg);
+  a.n_nt = N / bn;
+  a.n_tiles = a.n_mt * a.n_nt;
+  a.s_row = static_cast<const float*>(s_row);
+  a.s_col = static_cast<const float*>(s_col);
+  a.bias = static_cast<const float*>(bias);
+  a.resid = static_cast<const bf16*>(resid);
+  a.out = out;
+  return a;
+}
+
+// Grant a kernel `bytes` of dynamic shared memory, once per kernel and
+// device unless it asks for more later (cudaFuncSetAttribute costs host
+// time on every launch otherwise). Keyed by the kernel's own address: the
+// static state of an inline function is one object per process (a GNU
+// unique symbol), shared by every library of the port that includes this
+// header, where the same template instantiated in two libraries is two
+// kernels that each need their grant.
+inline cudaError_t grant_smem(const void* kernel, int bytes) {
+  struct Entry {
+    const void* kernel;
+    int dev, bytes;
+  };
+  constexpr int kGrants = 256;
+  static Entry done[kGrants];
+  static int used = 0;
+  static std::mutex mu;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (dev >= kDevices || !granted[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Op::kSmem);
-    if (e != cudaSuccess) return e;
-    if (dev < kDevices) granted[dev] = true;
+  std::lock_guard<std::mutex> lock(mu);
+  int i = 0;
+  while (i < used && !(done[i].kernel == kernel && done[i].dev == dev)) ++i;
+  if (i < used && done[i].bytes >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && i < kGrants) {
+    done[i] = Entry{kernel, dev, bytes};
+    if (i == used) ++used;
   }
+  return e;
+}
+
+// Launch one stage's __global__ wrapper on at most `ctas` persistent CTAs.
+template <class Op, typename K>
+inline cudaError_t run(K kernel, const CUtensorMap& ta, const CUtensorMap& tb,
+                       const typename Op::Args& a, int ctas,
+                       cudaStream_t st) {
+  const cudaError_t e =
+      grant_smem(reinterpret_cast<const void*>(kernel), Op::kSmem);
+  if (e != cudaSuccess) return e;
   kernel<<<a.n_tiles < ctas ? a.n_tiles : ctas, 128 * (Op::kWG + 1),
            Op::kSmem, st>>>(ta, tb, a);
   return cudaGetLastError();

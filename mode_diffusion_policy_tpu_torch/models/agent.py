@@ -300,7 +300,7 @@ class MoDEAgent(nn.Module):
         dit.stacked = None
         for blk in dit.blocks:
             blk.experts_q = blk.experts_qt = None
-            blk.attn.attn_q = None
+            blk.attn.attn_q = blk.attn.attn_qt = None
         if self.cfg.use_int8_moe:
             dit.quantize_experts_()
         if self.cfg.use_int8_attn:
@@ -436,7 +436,8 @@ def _serving_copy(agent: MoDEAgent) -> MoDEAgent:
     shared = list(agent.buffers()) + list(dit._f32_masters.values())
     shared += list((dit.stacked or {}).values())
     for blk in dit.blocks:
-        for q in (blk.experts_q, blk.experts_qt, blk.attn.attn_q):
+        for q in (blk.experts_q, blk.experts_qt, blk.attn.attn_q,
+                  blk.attn.attn_qt):
             shared += list(q or ())
     memo.update({id(t): t for t in shared})
     return copy.deepcopy(agent, memo)

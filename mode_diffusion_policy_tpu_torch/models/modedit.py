@@ -44,8 +44,9 @@ from ..ops.kernels.layer_kernel import (STACKED_QATTN, fused_dit_q8c,
 from ..ops.kernels.moe_kernel import fused_top2_mlp, fused_top2_mlp_q8c
 from ..ops.moe import moe_ffn_dense, moe_ffn_top2_gather
 from ..ops.primitives import DenseP, RMSNorm
-from ..ops.quant import (ExpertsKMajor, QuantizedAttn, QuantizedExperts,
-                         kmajor_experts, quantize_attn, quantize_experts)
+from ..ops.quant import (AttnKMajor, ExpertsKMajor, QuantizedAttn,
+                         QuantizedExperts, kmajor_attn, kmajor_experts,
+                         quantize_attn, quantize_experts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,8 +153,10 @@ class Attention(nn.Module):
         self.q_norm = RMSNorm(self.hd, eps=1e-6, device=device)
         self.k_norm = RMSNorm(self.hd, eps=1e-6, device=device)
         # int8 projections, quantized from the f32 weights by
-        # MoDeDiT.quantize_attn_ (use_int8_attn)
+        # MoDeDiT.quantize_attn_ (use_int8_attn), and their K-major copy
+        # for the CUDA int8 attention's products
         self.attn_q: Optional[QuantizedAttn] = None
+        self.attn_qt: Optional[AttnKMajor] = None
 
     def forward(self, x):
         B, T, D = x.shape
@@ -231,7 +234,7 @@ class NoiseBlockMoE(nn.Module):
         self.experts_w2 = nn.Parameter(torch.empty(E, Hh, D, device=device))
         # int8 experts, quantized from the f32 weights by
         # MoDeDiT.quantize_experts_ (use_int8_moe), and their K-major copy
-        # for the whole-layer kernel (fused_layer)
+        # for the CUDA int8 MoE's products (top-2)
         self.experts_q: Optional[QuantizedExperts] = None
         self.experts_qt: Optional[ExpertsKMajor] = None
 
@@ -263,19 +266,21 @@ class NoiseBlockMoE(nn.Module):
                 raise RuntimeError("int8 weights missing: call "
                                    "MoDEAgent.quantize_for_inference()")
             if cfg.fused_layer:
+                int8_attn = cfg.use_int8_attn
                 return layer_impl(
                     x, c, self.ln_1.g, a.wqkv.kernel, a.wqkv.bias,
                     a.q_norm.g, a.k_norm.g, a.c_proj.kernel, self.ln_2.g,
                     self.experts_q, idx, p, step=step,
-                    qattn=a.attn_q if cfg.use_int8_attn else None,
+                    qattn=a.attn_q if int8_attn else None,
                     qexp_t=self.experts_qt,
+                    qattn_t=a.attn_qt if int8_attn else None,
                     eps1=self.ln_1.eps, eps_qk=a.q_norm.eps,
                     eps2=self.ln_2.eps)
         if cfg.fused_attn:
             kw = dict(ln_eps=self.ln_1.eps, qk_eps=a.q_norm.eps)
             if cfg.use_int8_attn and a.attn_q is not None:
                 x = attn_impl(x, c, self.ln_1.g, a.attn_q, a.q_norm.g,
-                              a.k_norm.g, **kw)
+                              a.k_norm.g, qattn_t=a.attn_qt, **kw)
             else:
                 x = attn_impl_bf16(x, c, self.ln_1.g, a.wqkv.kernel,
                                    a.wqkv.bias, a.q_norm.g, a.k_norm.g,
@@ -287,7 +292,7 @@ class NoiseBlockMoE(nn.Module):
             # residual seed
             return moe_impl(x, idx, p, self.experts_q, step=step,
                             residual=True, ln_g=self.ln_2.g,
-                            ln_eps=self.ln_2.eps)
+                            ln_eps=self.ln_2.eps, qexp_t=self.experts_qt)
         w1, b1, w2 = (w.to(dt) for w in (self.experts_w1, self.experts_b1,
                                          self.experts_w2))
         if routed_top2 and cfg.use_pallas_moe:
@@ -374,24 +379,28 @@ class MoDeDiT(nn.Module):
     @torch.no_grad()
     def quantize_experts_(self):
         """(Re)build every block's int8 experts from the f32 weights and,
-        where the whole-layer kernel serves them (``cfg.fused_layer``), the
-        K-major copy its products read (``kmajor_experts``: the int8 expert
-        bytes once more)."""
+        where an int8 MoE kernel can read them (``use_int8_moe`` with top-2
+        routing: the whole-layer kernel and the int8 MoE kernel), the
+        K-major copy their products read (``kmajor_experts``: the int8
+        expert bytes once more)."""
+        copy = self.cfg.use_int8_moe and self.cfg.top_k == 2
         for i, blk in enumerate(self.blocks):
             blk.experts_q = quantize_experts(*(
                 self.f32_param(f"blocks.{i}.{k}")
                 for k in ("experts_w1", "experts_b1", "experts_w2")))
-            blk.experts_qt = (kmajor_experts(blk.experts_q)
-                              if self.cfg.fused_layer else None)
+            blk.experts_qt = kmajor_experts(blk.experts_q) if copy else None
 
     @torch.no_grad()
     def quantize_attn_(self):
         """(Re)build every block's int8 attention projections from the f32
-        weights."""
+        weights, and the K-major copy that the int8 attention kernels'
+        products read (``kmajor_attn``: the int8 projection bytes once
+        more)."""
         for i, blk in enumerate(self.blocks):
             blk.attn.attn_q = quantize_attn(*(
                 self.f32_param(f"blocks.{i}.attn.{k}")
                 for k in ("wqkv.kernel", "wqkv.bias", "c_proj.kernel")))
+            blk.attn.attn_qt = kmajor_attn(blk.attn.attn_q)
 
     @torch.no_grad()
     def precast_(self, dtype: torch.dtype):

@@ -1,6 +1,6 @@
 """Pieces shared by the kernel modules' plain versions and wrappers: the
-RMS norms, the causal attention of one layer, routing-table selection and
-the wrappers' argument checks."""
+RMS norms, the causal attention of one layer, routing-table selection, the
+wrappers' argument checks and their scratch memory."""
 from __future__ import annotations
 
 import math
@@ -132,3 +132,19 @@ def _tables(top2_idx, top2_probs, step, lead=()):
     if not 0 <= s < S:
         raise IndexError(f"step {s} outside the {S}-row routing tables")
     return idx, probs, S, s
+
+
+def _scratch(device, *nbytes):
+    """One allocation for the scratch buffers of a launch, ``nbytes`` each
+    (0: no buffer, passed as a null pointer), each at a 256-byte boundary:
+    one call into the caching allocator instead of one per buffer, which
+    costs host time on every launch. Returns the allocation, which must
+    outlive the launch, and the buffers' addresses."""
+    ptrs, total = [], 0
+    for n in nbytes:
+        ptrs.append(total if n else None)
+        total += -(-n // 256) * 256
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, [None if p is None else base + p for p in ptrs]
+

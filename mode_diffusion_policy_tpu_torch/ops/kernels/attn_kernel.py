@@ -29,19 +29,26 @@ x.dtype as the JAX kernels take it.
 tensors (and raise on what they cannot take: a per-token cond among
 others) and run the plain versions, ``fused_attn_block_ref`` and
 ``fused_attn_block_q8_ref``, only for CPU tensors. Their ``.launches``
-count kernel launches.
+count kernel launches. The int8 kernel's projections run on wgmma tiles
+over persistent CTAs and read the K-major copy of the int8 weights
+(``quant.kmajor_attn``, made once per quantization by
+``MoDeDiT.quantize_attn_``); the wrapper chooses the tiles by token count
+(``proj_tile_plan``). The plain version takes the copy too, with the same
+result.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
-from ..quant import QuantizedAttn
+from ..quant import AttnKMajor, QuantizedAttn
 from ._common import (_attend, _check, _check_attn_widths, _cond_rows,
-                      _rmsnorm_rows)
+                      _rmsnorm_rows, _scratch)
+from .moe_kernel import WIDE_TILE_ROWS, launch_error, sm_count
 from .quant_math import dot_i8, quant_rows
 
 
@@ -74,32 +81,89 @@ def fused_attn_block_ref(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
 def fused_attn_block_q8_ref(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
                             ln_eps: float = 1e-6, qk_eps: float = 1e-6,
                             acc_dtype: torch.dtype = torch.float32,
-                            red_dtype: torch.dtype = torch.float32
-                            ) -> torch.Tensor:
+                            red_dtype: torch.dtype = torch.float32,
+                            qattn_t: AttnKMajor = None) -> torch.Tensor:
     """Plain PyTorch version (any device, any float dtype). x [B,T,D];
     c one shared [1,1,D] row or one per sample or token ([B,1,D],
     [B,T,D]); ``qattn`` the int8 projections; q_g/k_g [hd]. ``acc_dtype``
     is the accumulation type of the attention's compute-dtype products and
     ``red_dtype`` that of the norms' sums of squares and the softmax:
     float32 as in the kernel, or float64 for near-exact evaluations of the
-    same cast chain. Returns x.dtype [B,T,D]."""
+    same cast chain. With ``qattn_t`` (``kmajor_attn(qattn)``) the products
+    read the int8 weights from that K-major copy, as the CUDA kernel does,
+    with the same result. Returns x.dtype [B,T,D]."""
     B, T, D = x.shape
+    if qattn_t is None:
+        wqkv, wout = qattn.wqkv_q, qattn.wout_q
+    else:
+        wqkv, wout = qattn_t.wqkv_t.T, qattn_t.wout_t.T
     x32 = x.reshape(B * T, D).float()
     h = _rmsnorm_rows(x32, ln_g, ln_eps, red_dtype) + _cond_rows(c, x)
     hq, hs = quant_rows(h)
-    qkv = dot_i8(hq, qattn.wqkv_q).float() \
+    qkv = dot_i8(hq, wqkv).float() \
         * (hs * qattn.wqkv_s.float()[None]) + qattn.bqkv.float()
     o = _attend(qkv, q_g, k_g, B, T, x.dtype, qk_eps, acc_dtype, red_dtype)
     oq, os_ = quant_rows(o)
-    y = dot_i8(oq, qattn.wout_q).float() * (os_ * qattn.wout_s.float()[None])
+    y = dot_i8(oq, wout).float() * (os_ * qattn.wout_s.float()[None])
     return (x32 + y).to(x.dtype).reshape(B, T, D)
+
+
+class ProjTilePlan(NamedTuple):
+    """How one int8 projection (QKV or c_proj) of ``fused_attn_block_q8``
+    and ``fused_layer_q8c(qattn=)`` covers its output [M, N] with wgmma
+    tiles (``csrc/wgmma_stages.cuh`` Proj)."""
+
+    tile_m: int      # rows of an output tile: 128 or 64
+    tile_n: int      # columns of an output tile: 128 or 64
+    ctas: int        # persistent CTAs at most (the card's SMs)
+    n_mt: int        # row tiles over the M token rows
+    n_nt: int        # column tiles over the N outputs
+    tiles: int       # n_mt x n_nt
+
+
+def proj_tile_plan(M: int, N: int, ctas: int, tile_m: int = None,
+                   tile_n: int = None) -> ProjTilePlan:
+    """The plan for M token rows and N output columns: 128 x 128 tiles
+    above 256 token rows (as the MoE stages), 64 x 64 below, unless
+    ``tile_m``/``tile_n`` say otherwise (64 or 128 each)."""
+    wide = 128 if M > WIDE_TILE_ROWS else 64
+    tm, tn = tile_m or wide, tile_n or wide
+    if tm not in (64, 128) or tn not in (64, 128) or N % tn:
+        raise ValueError(f"no projection tiles of {tm} x {tn} for N={N}")
+    n_mt, n_nt = -(-M // tm), N // tn
+    return ProjTilePlan(tm, tn, ctas, n_mt, n_nt, n_mt * n_nt)
+
+
+def proj_tiles(plan: ProjTilePlan, M: int):
+    """Every output tile of a projection as the kernel decodes tile t
+    (column tile fastest, then row tile) and hands it to CTA t % grid:
+    yields (cta, row range, column range)."""
+    grid = min(plan.ctas, plan.tiles)
+    for t in range(plan.tiles):
+        nt, mt = t % plan.n_nt, t // plan.n_nt
+        yield (t % grid, range(mt * plan.tile_m, min(M, (mt + 1) * plan.tile_m)),
+               range(nt * plan.tile_n, (nt + 1) * plan.tile_n))
+
+
+def proj_launch_args(M: int, D: int, device, tiles=None):
+    """The launchers' plan arguments for the two int8 projections of M
+    token rows on a CUDA ``device`` (one CTA per SM): QKV tile rows,
+    columns, c_proj tile rows, columns, CTAs. ``tiles``: the first four,
+    or None for the default plans (``proj_tile_plan``); a tuning knob, the
+    result does not depend on it."""
+    tm1, tn1, tm2, tn2 = tiles or (None,) * 4
+    ctas = sm_count(device.index or 0)
+    qkv = proj_tile_plan(M, 3 * D, ctas, tm1, tn1)
+    out = proj_tile_plan(M, D, ctas, tm2, tn2)
+    return [qkv.tile_m, qkv.tile_n, out.tile_m, out.tile_n, ctas]
 
 
 _ARGTYPES = {
     "fused_attn_block": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                          + [ctypes.c_float] * 5 + [ctypes.c_void_p]),
     "fused_attn_block_q8": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
-                            + [ctypes.c_float] * 5 + [ctypes.c_void_p]),
+                            + [ctypes.c_float] * 5 + [ctypes.c_int] * 5
+                            + [ctypes.c_void_p]),
 }
 
 
@@ -112,10 +176,11 @@ def _launcher(name):
     return fn
 
 
-def _prepare(name, x, c, ln_g, q_g, k_g):
+def _prepare(name, x, c, ln_g, q_g, k_g, c_dtype=torch.float32):
     """Device and shape checks shared by both wrappers. Returns (B, T, D,
-    H, hd, the cond rows as f32 [1 or B, D] rounded through x.dtype, their
-    stride per sample, ln_g, q_g, k_g as contiguous f32)."""
+    H, hd, the cond rows [1 or B, D] rounded to x.dtype, in ``c_dtype``
+    (f32, or x.dtype itself for the int8 kernel), their stride per sample,
+    ln_g, q_g, k_g as contiguous f32)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU, not {x.device}")
     if x.ndim != 3:
@@ -125,22 +190,23 @@ def _prepare(name, x, c, ln_g, q_g, k_g):
     H = D // hd
     c_stride = _check_attn_widths(T, D, H, hd, c, B)
     _check(x, "x", torch.bfloat16, (B, T, D), x.device)
-    c = c.reshape(-1, D).to(x.dtype).float().contiguous()
+    c = c.reshape(-1, D).to(x.dtype).to(c_dtype).contiguous()
+    _check(c, "c", c_dtype, (B if c_stride else 1, D), x.device)
     f32 = [t.float().contiguous() for t in (ln_g, q_g, k_g)]
-    for t, n, shape in ((c, "c", (B if c_stride else 1, D)),
-                        (f32[0], "ln_g", (D,)), (f32[1], "q_g", (hd,)),
+    for t, n, shape in ((f32[0], "ln_g", (D,)), (f32[1], "q_g", (hd,)),
                         (f32[2], "k_g", (hd,))):
         _check(t, n, torch.float32, shape, x.device)
     return (B, T, D, H, hd, c, c_stride, *f32)
 
 
-def _launch(name, ptrs, ints, x, ln_eps, qk_eps, D, hd):
+def _launch(name, ptrs, ints, x, ln_eps, qk_eps, D, hd, tail=()):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _launcher(name)(*ptrs, *ints, ln_eps, qk_eps, D ** -0.5,
-                              hd ** -0.5, float(1.0 / math.sqrt(hd)), stream)
+                              hd ** -0.5, float(1.0 / math.sqrt(hd)), *tail,
+                              stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: {launch_error(err)}")
 
 
 def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
@@ -180,43 +246,68 @@ def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
 fused_attn_block.launches = 0
 
 
+def check_kmajor_attn(qattn: QuantizedAttn, qattn_t: AttnKMajor, D, dev):
+    """The CUDA int8 attention's weight checks: the column scales and bias
+    of ``qattn``, the int8 weights of its K-major copy ``qattn_t``."""
+    f32, i8 = torch.float32, torch.int8
+    for t, name, dtype, shape in (
+            (qattn_t.wqkv_t, "wqkv_t", i8, (3 * D, D)),
+            (qattn.wqkv_s, "wqkv_s", f32, (3 * D,)),
+            (qattn.bqkv, "bqkv", f32, (3 * D,)),
+            (qattn_t.wout_t, "wout_t", i8, (D, D)),
+            (qattn.wout_s, "wout_s", f32, (D,))):
+        _check(t, name, dtype, shape, dev)
+
+
+def attn_q8_scratch(M, D):
+    """Bytes of the int8 attention stages' scratch over M rows: hq, hs,
+    qkv (f32), o (f32), oq, os."""
+    return M * D, 4 * M, 4 * M * 3 * D, 4 * M * D, M * D, 4 * M
+
+
+def need_kmajor_attn(name, qattn_t):
+    if qattn_t is None:
+        raise ValueError(
+            f"{name} on CUDA reads the K-major copy of the int8 projections: "
+            "pass qattn_t=kmajor_attn(qattn) (made once per quantization by "
+            "MoDeDiT.quantize_attn_)")
+
+
 def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
-                        ln_eps: float = 1e-6,
-                        qk_eps: float = 1e-6) -> torch.Tensor:
+                        ln_eps: float = 1e-6, qk_eps: float = 1e-6,
+                        qattn_t: AttnKMajor = None,
+                        tiles=None) -> torch.Tensor:
     """``x + attn(ln_1(x) + c)`` with int8 QKV and c_proj.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 x, a shared
     [1,1,D] cond row or one per sample [B,1,D], T <= 16 tokens per sample,
-    head dim a multiple of 32); a per-token cond raises. CPU tensors: the
-    plain version ``fused_attn_block_q8_ref``. Returns x.dtype [B,T,D]."""
+    head dim a multiple of 32), which needs ``qattn_t``, the K-major copy
+    of the int8 projections; a per-token cond raises. ``tiles`` (QKV rows,
+    columns, c_proj rows, columns; 64 or 128 each) overrides the
+    projections' tile plan (``proj_launch_args``). CPU tensors: the plain
+    version ``fused_attn_block_q8_ref``. Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_attn_block_q8_ref(x, c, ln_g, qattn, q_g, k_g,
-                                       ln_eps=ln_eps, qk_eps=qk_eps)
+                                       ln_eps=ln_eps, qk_eps=qk_eps,
+                                       qattn_t=qattn_t)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attn_block_q8 runs on CUDA or CPU, not "
+                         f"{x.device}")
+    need_kmajor_attn("fused_attn_block_q8", qattn_t)
     B, T, D, H, hd, c, c_stride, ln_g, q_g, k_g = _prepare(
-        "fused_attn_block_q8", x, c, ln_g, q_g, k_g)
-    dev, f32, i8 = x.device, torch.float32, torch.int8
-    for t, name, dtype, shape in (
-            (qattn.wqkv_q, "wqkv_q", i8, (D, 3 * D)),
-            (qattn.wqkv_s, "wqkv_s", f32, (3 * D,)),
-            (qattn.bqkv, "bqkv", f32, (3 * D,)),
-            (qattn.wout_q, "wout_q", i8, (D, D)),
-            (qattn.wout_s, "wout_s", f32, (D,))):
-        _check(t, name, dtype, shape, dev)
+        "fused_attn_block_q8", x, c, ln_g, q_g, k_g, c_dtype=x.dtype)
+    dev = x.device
+    check_kmajor_attn(qattn, qattn_t, D, dev)
 
     M = B * T
-
-    def buf(*shape, dtype):
-        return torch.empty(*shape, dtype=dtype, device=dev)
-
-    out = buf(B, T, D, dtype=torch.bfloat16)
-    scratch = (buf(M, D, dtype=i8), buf(M, dtype=f32),
-               buf(M, 3 * D, dtype=f32), buf(M, D, dtype=f32),
-               buf(M, D, dtype=i8), buf(M, dtype=f32))
-    ptrs = [t.data_ptr() for t in (x, c, ln_g, qattn.wqkv_q, qattn.wqkv_s,
-                                   qattn.bqkv, q_g, k_g, qattn.wout_q,
-                                   qattn.wout_s, *scratch, out)]
-    _launch("fused_attn_block_q8", ptrs, (B, T, D, H, c_stride), x, ln_eps,
-            qk_eps, D, hd)
+    plan = proj_launch_args(M, D, dev, tiles)
+    out = torch.empty(B, T, D, dtype=torch.bfloat16, device=dev)
+    keep, scratch = _scratch(dev, *attn_q8_scratch(M, D))
+    ptrs = [t.data_ptr() for t in (x, c, ln_g, qattn_t.wqkv_t, qattn.wqkv_s,
+                                   qattn.bqkv, q_g, k_g, qattn_t.wout_t,
+                                   qattn.wout_s)]
+    _launch("fused_attn_block_q8", ptrs + scratch + [out.data_ptr()],
+            (B, T, D, H, c_stride), x, ln_eps, qk_eps, D, hd, plan)
     fused_attn_block_q8.launches += 1
     return out
 

@@ -27,10 +27,14 @@ one launch of ``csrc/fused_dit_q8c.cu`` (counterpart of the Pallas
 ``_mega_kernel``), from weights stacked on a leading L axis
 (``MoDeDiT.stack_layers``) and per-layer [L,S,2] routing tables.
 
-The CUDA layer kernel's int8 expert products (wgmma) read the experts
-from their K-major copy ``qexp_t`` (``quant.kmajor_experts``, made once per
-quantization by ``MoDeDiT.quantize_experts_``); the plain version takes it
-too and gives the same result with or without it.
+The CUDA layer kernel's int8 products (wgmma) read the experts from their
+K-major copy ``qexp_t`` (``quant.kmajor_experts``, made once per
+quantization by ``MoDeDiT.quantize_experts_``) and, with int8 projections,
+the projections from theirs, ``qattn_t`` (``quant.kmajor_attn``, made by
+``MoDeDiT.quantize_attn_``); the plain version takes them too and gives the
+same result with or without them. With int8 projections the CUDA layer is
+a launcher of the stages of ``fused_attn_block_q8`` then those of
+``fused_top2_mlp_q8c``, so it equals that composition bit for bit.
 
 ``fused_layer_q8c`` and ``fused_dit_q8c`` launch their kernels for CUDA
 tensors (and raise on what they cannot take) and run their plain PyTorch
@@ -46,17 +50,20 @@ import math
 
 import torch
 
-from ..quant import ExpertsKMajor, QuantizedAttn, QuantizedExperts
-from ._common import _check, _check_widths, _hidden_block, _tables
-from .attn_kernel import fused_attn_block_q8_ref, fused_attn_block_ref
-from .moe_kernel import (cuda_tile_plan, down_partials, fused_top2_mlp_q8c_ref,
-                         launch_error)
+from ..quant import AttnKMajor, ExpertsKMajor, QuantizedAttn, QuantizedExperts
+from ._common import _check, _check_widths, _hidden_block, _scratch, _tables
+from .attn_kernel import (attn_q8_scratch, check_kmajor_attn,
+                          fused_attn_block_q8_ref, fused_attn_block_ref,
+                          need_kmajor_attn, proj_launch_args)
+from .moe_kernel import (cuda_tile_plan, fused_top2_mlp_q8c_ref, launch_error,
+                         moe_q8c_scratch, need_kmajor_experts)
 
 
 def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
                         qexp: QuantizedExperts, top2_idx, top2_probs, *,
                         step=None, qattn: QuantizedAttn = None,
                         qexp_t: ExpertsKMajor = None,
+                        qattn_t: AttnKMajor = None,
                         block_hidden: int = 1024,
                         eps1: float = 1e-6, eps_qk: float = 1e-6,
                         eps2: float = 1e-6,
@@ -68,7 +75,8 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     [3D]); q_g/k_g [hd]; wout [D,D]; qexp int8 experts; top2_idx/probs
     [S,2] tables with a ``step`` row selector, or single [2] rows. With
     ``qattn`` the projections are int8 and wqkv/bqkv/wout are ignored;
-    with ``qexp_t`` the expert products read that K-major copy of qexp.
+    with ``qexp_t`` (``qattn_t``) the expert (projection) products read
+    that K-major copy of qexp (qattn).
     ``acc_dtype`` is the accumulation type of the compute-dtype products
     (QKV, attention, c_proj) and ``red_dtype`` that of the other float
     reductions (the norms' sums of squares, the softmax): float32 as in the
@@ -84,7 +92,7 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     # the two-kernel composition, exactly
     if qattn is not None:
         return moe(fused_attn_block_q8_ref(x, c, ln1_g, qattn, q_g, k_g,
-                                           **kw))
+                                           qattn_t=qattn_t, **kw))
     return moe(fused_attn_block_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout,
                                     **kw))
 
@@ -127,17 +135,25 @@ def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
     return x
 
 
-_LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                    + [ctypes.c_float] * 6 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p])
+# the two launchers of csrc/fused_layer_q8c.cu: bf16 projections, int8
+# projections (whose tile plan comes before the MoE's)
+_LAUNCH_ARGTYPES = {
+    "fused_layer_q8c_launch": (
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] + [ctypes.c_void_p] * 12
+        + [ctypes.c_int] * 7 + [ctypes.c_float] * 6 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p]),
+    "fused_layer_q8c_q8_launch": (
+        [ctypes.c_void_p] * 18 + [ctypes.c_int] + [ctypes.c_void_p] * 15
+        + [ctypes.c_int] * 7 + [ctypes.c_float] * 6 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p]),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(entry: str):
     from ._build import load_library
-    fn = load_library("fused_layer_q8c").fused_layer_q8c_launch
-    fn.argtypes = _LAUNCH_ARGTYPES
+    fn = getattr(load_library("fused_layer_q8c"), entry)
+    fn.argtypes = _LAUNCH_ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn
 
@@ -145,34 +161,28 @@ def _launcher():
 def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
                     qexp: QuantizedExperts, top2_idx, top2_probs, *,
                     step=None, qattn: QuantizedAttn = None,
-                    qexp_t: ExpertsKMajor = None, block_hidden: int = 1024,
-                    eps1: float = 1e-6, eps_qk: float = 1e-6,
-                    eps2: float = 1e-6) -> torch.Tensor:
+                    qexp_t: ExpertsKMajor = None, qattn_t: AttnKMajor = None,
+                    block_hidden: int = 1024, eps1: float = 1e-6,
+                    eps_qk: float = 1e-6, eps2: float = 1e-6) -> torch.Tensor:
     """One full NoiseBlockMoE inference layer.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 activations,
-    bf16 projections, a shared [1,1,D] cond row, T <= 16, hd a multiple of
-    32), which needs ``qexp_t``, the K-major copy of the int8 experts. CPU
-    tensors: the plain version ``fused_layer_q8c_ref``, with int8
-    projections too (``qattn``). Returns x.dtype [B,T,D]."""
+    bf16 projections or int8 ones (``qattn``), a shared [1,1,D] cond row,
+    T <= 16, hd a multiple of 32), which needs ``qexp_t``, the K-major copy
+    of the int8 experts, and with ``qattn`` also ``qattn_t``, that of the
+    int8 projections. CPU tensors: the plain version
+    ``fused_layer_q8c_ref``. Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_layer_q8c_ref(
             x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, qexp, top2_idx,
             top2_probs, step=step, qattn=qattn, qexp_t=qexp_t,
-            block_hidden=block_hidden, eps1=eps1, eps_qk=eps_qk, eps2=eps2)
+            qattn_t=qattn_t, block_hidden=block_hidden, eps1=eps1,
+            eps_qk=eps_qk, eps2=eps2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_q8c runs on CUDA or CPU, not {x.device}")
+    need_kmajor_experts("fused_layer_q8c", qexp_t)
     if qattn is not None:
-        raise NotImplementedError(
-            "fused_layer_q8c with int8 attention projections (qattn) has no "
-            "CUDA kernel yet (ROADMAP.md Queue 2); fused_attn_block_q8 "
-            "followed by fused_top2_mlp_q8c computes the same layer, and the "
-            "DiT megakernel fused_dit_q8c has int8 projections too.")
-    if qexp_t is None:
-        raise ValueError(
-            "fused_layer_q8c on CUDA reads the K-major copy of the int8 "
-            "experts: pass qexp_t=kmajor_experts(qexp) (made once per "
-            "quantization by MoDeDiT.quantize_experts_)")
+        need_kmajor_attn("fused_layer_q8c with int8 projections", qattn_t)
 
     dev = x.device
     if x.ndim != 3:
@@ -186,18 +196,26 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     _check_widths(T, D, H, hd, TH, c)
     bf = torch.bfloat16
     _check(x, "x", bf, (B, T, D), dev)
-    wqkv = wqkv.to(bf)
-    wout = wout.to(bf)
-    _check(wqkv, "wqkv", bf, (D, 3 * D), dev)
-    _check(wout, "wout", bf, (D, D), dev)
-    c = c.reshape(D).to(x.dtype).float().contiguous()
+    if qattn is None:
+        wqkv = wqkv.to(bf)
+        wout = wout.to(bf)
+        _check(wqkv, "wqkv", bf, (D, 3 * D), dev)
+        _check(wout, "wout", bf, (D, D), dev)
+        bqkv = bqkv.float().contiguous()
+    else:
+        check_kmajor_attn(qattn, qattn_t, D, dev)
+        bqkv = qattn.bqkv
+    # the cond row rounded to x.dtype: in f32 for the bf16-projection
+    # stages, as it is (bf16) for the int8 ones
+    c = c.reshape(D).to(x.dtype)
+    c = (c.float() if qattn is None else c).contiguous()
+    _check(c, "c", torch.float32 if qattn is None else bf, (D,), dev)
     ln1_g = ln1_g.float().contiguous()
     ln2_g = ln2_g.float().contiguous()
-    bqkv = bqkv.float().contiguous()
     q_g = q_g.float().contiguous()
     k_g = k_g.float().contiguous()
     b1 = qexp.b1.float().contiguous()
-    for t, name, shape in ((c, "c", (D,)), (ln1_g, "ln1_g", (D,)),
+    for t, name, shape in ((ln1_g, "ln1_g", (D,)),
                            (ln2_g, "ln2_g", (D,)), (bqkv, "bqkv", (3 * D,)),
                            (q_g, "q_g", (hd,)), (k_g, "k_g", (hd,)),
                            (b1, "b1", (E, H2)),
@@ -211,31 +229,31 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     _check(probs, "top2_probs", torch.float32, (S, 2), dev)
 
     M = B * T
-    n_h = HH // TH
-    h = torch.empty(M, D, dtype=bf, device=dev)
-    qkv = torch.empty(M, 3 * D, dtype=torch.float32, device=dev)
-    o = torch.empty(M, D, dtype=bf, device=dev)
-    xmid = torch.empty(M, D, dtype=bf, device=dev)
-    xm = torch.empty(M, D, dtype=bf, device=dev)
-    xq = torch.empty(M, D, dtype=torch.int8, device=dev)
-    sx = torch.empty(M, dtype=torch.float32, device=dev)
-    act = torch.empty(2, M, HH, dtype=torch.float32, device=dev)
-    aq = torch.empty(2, M, HH, dtype=torch.int8, device=dev)
-    sa = torch.empty(2, M, n_h, dtype=torch.float32, device=dev)
     plan = cuda_tile_plan(M, D, HH, TH, dev)
-    part = down_partials(plan, M, D, HH, TH, dev)
+    moe_w = (ln2_g, qexp_t.w1_t, qexp.w1_s, b1, qexp_t.w2_t, qexp.w2_s, idx,
+             probs)
+    if qattn is None:
+        entry, tail = "fused_layer_q8c_launch", ()
+        w = (x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, *moe_w)
+        attn_bytes = (2 * M * D, 4 * M * 3 * D, 2 * M * D)   # h, qkv, o
+    else:
+        entry = "fused_layer_q8c_q8_launch"
+        tail = proj_launch_args(M, D, dev)[:4]
+        w = (x, c, ln1_g, qattn_t.wqkv_t, qattn.wqkv_s, bqkv, q_g, k_g,
+             qattn_t.wout_t, qattn.wout_s, *moe_w)
+        attn_bytes = attn_q8_scratch(M, D)
+    # the attention's scratch, x_mid, xm, then the MoE stages'
+    keep, scratch = _scratch(dev, *attn_bytes, 2 * M * D, 2 * M * D,
+                             *moe_q8c_scratch(plan, M, D, HH, TH))
     out = torch.empty(B, T, D, dtype=bf, device=dev)
-    p = [t.data_ptr() for t in (
-        x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, qexp_t.w1_t,
-        qexp.w1_s, b1, qexp_t.w2_t, qexp.w2_s, idx, probs)]
-    scratch = [None if t is None else t.data_ptr() for t in (
-        h, qkv, o, xmid, xm, xq, sx, act, aq, sa, part, out)]
+    p = [t.data_ptr() for t in w]
+    scratch.append(out.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher()(*p, s, *scratch, B, T, D, H, HH, TH, E, eps1,
-                          eps_qk, eps2, D ** -0.5, hd ** -0.5,
-                          float(1.0 / math.sqrt(hd)), plan.tile, plan.ctas,
-                          stream)
+        err = _launcher(entry)(*p, s, *scratch, B, T, D, H, HH, TH, E, eps1,
+                               eps_qk, eps2, D ** -0.5, hd ** -0.5,
+                               float(1.0 / math.sqrt(hd)), *tail, plan.tile,
+                               plan.ctas, stream)
     if err != 0:
         raise RuntimeError(f"fused_layer_q8c launch failed: "
                            f"{launch_error(err)}")

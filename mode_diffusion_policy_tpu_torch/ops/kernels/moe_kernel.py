@@ -28,10 +28,13 @@ expert weights cast to ``dt`` in each product and their per-channel scales
 applied after it: ``value = (xm W1v) * s1v + b1v``, ``contrib = (act W2) *
 s2``.
 
-``fused_top2_mlp``, ``fused_top2_mlp_q8`` and the whole-layer kernel of
-layer_kernel.py run their expert products on wgmma tiles over persistent
+All four MoE kernels (these three and the whole-layer kernel of
+layer_kernel.py) run their expert products on wgmma tiles over persistent
 CTAs; the wrappers choose the tiles by token count and pass the plan
-(``moe_tile_plan``) to the launchers.
+(``moe_tile_plan``) to the launchers. The int8 x int8 products read the
+K-major copy of the int8 experts (``quant.kmajor_experts``, made once per
+quantization by ``MoDeDiT.quantize_experts_``), which the CUDA wrappers of
+``fused_top2_mlp_q8c`` and ``fused_layer_q8c`` take as ``qexp_t``.
 
 ``fused_top2_mlp_q8c`` launches ``csrc/fused_top2_mlp_q8c.cu``,
 ``fused_top2_mlp`` and ``fused_top2_mlp_q8`` launch the two entry points
@@ -49,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..quant import ExpertsKMajor, QuantizedExperts
-from ._common import (_check, _check_moe_widths, _hidden_block,
+from ._common import (_check, _check_moe_widths, _hidden_block, _scratch,
                       _rmsnorm_rows, _routing_row, _tables)
 from .quant_math import dot_i8, quant_rows
 
@@ -141,8 +144,7 @@ def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
     of the prenorm's sum of squares (float32 as in the kernel, or float64
     for a near-exact evaluation). With ``qexp_t`` (``kmajor_experts(qexp)``)
     the products read the int8 weights from that K-major copy, as the
-    whole-layer kernel does, with the same result. Returns x.dtype
-    [B,T,D]."""
+    CUDA kernels do, with the same result. Returns x.dtype [B,T,D]."""
     B, T, D = x.shape
     dt = x.dtype
     HH = qexp.w1_q.shape[-1] // 2
@@ -174,8 +176,9 @@ def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
 
 
 class MoeTilePlan(NamedTuple):
-    """How the wgmma expert products of ``fused_top2_mlp(_q8)`` and
-    ``fused_layer_q8c`` cover their outputs (``csrc/wgmma_stages.cuh``)."""
+    """How the wgmma expert products of ``fused_top2_mlp(_q8)``,
+    ``fused_top2_mlp_q8c`` and ``fused_layer_q8c`` cover their outputs
+    (``csrc/wgmma_stages.cuh``)."""
 
     tile: int        # rows and columns of an output tile: 128 or 64
     ctas: int        # persistent CTAs per stage at most (the card's SMs)
@@ -228,13 +231,14 @@ def launch_error(err: int) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def cuda_tile_plan(M, D, HH, TH, device) -> MoeTilePlan:
     """The plan for M token rows on a CUDA ``device``: one CTA per SM."""
-    return moe_tile_plan(M, D, HH, TH, _sm_count(device.index or 0))
+    return moe_tile_plan(M, D, HH, TH, sm_count(device.index or 0))
 
 
 def down_partials(plan, M, D, HH, TH, device):
@@ -246,9 +250,18 @@ def down_partials(plan, M, D, HH, TH, device):
                        device=device)
 
 
+def moe_q8c_scratch(plan, M, D, HH, TH):
+    """Bytes of the int8 MoE stages' scratch over M rows under ``plan``:
+    xq, sx, act (f32), aq, sa, and the f32 partials of the small-tile plan
+    (0: none)."""
+    n_h = HH // TH
+    part = 0 if plan.tile == 128 else 4 * 2 * n_h * M * D
+    return M * D, 4 * M, 4 * 2 * M * HH, 2 * M * HH, 4 * 2 * M * n_h, part
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int]
              + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,24 +273,35 @@ def _launcher():
     return fn
 
 
+def need_kmajor_experts(name, qexp_t):
+    if qexp_t is None:
+        raise ValueError(
+            f"{name} on CUDA reads the K-major copy of the int8 experts: "
+            "pass qexp_t=kmajor_experts(qexp) (made once per quantization "
+            "by MoDeDiT.quantize_experts_)")
+
+
 def fused_top2_mlp_q8c(x, top2_idx, top2_probs, qexp: QuantizedExperts, *,
                        step=None, block_hidden: int = 1024,
                        residual: bool = False, ln_g=None,
-                       ln_eps: float = 1e-6) -> torch.Tensor:
+                       ln_eps: float = 1e-6,
+                       qexp_t: ExpertsKMajor = None) -> torch.Tensor:
     """The int8 top-2 MoE of x [B,T,D], optionally prenormed by ``ln_g``
     and seeded with its (prenormed) input (``residual``).
 
     CUDA tensors: one launch of the hand-written kernel (bf16 x, any token
-    count, D and block_hidden multiples of 128). CPU tensors: the plain
-    version ``fused_top2_mlp_q8c_ref``. Returns x.dtype [B,T,D]."""
+    count, D and block_hidden multiples of 128), which needs ``qexp_t``,
+    the K-major copy of the int8 experts. CPU tensors: the plain version
+    ``fused_top2_mlp_q8c_ref``. Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_top2_mlp_q8c_ref(
             x, top2_idx, top2_probs, qexp, step=step,
             block_hidden=block_hidden, residual=residual, ln_g=ln_g,
-            ln_eps=ln_eps)
+            ln_eps=ln_eps, qexp_t=qexp_t)
     if x.device.type != "cuda":
         raise ValueError(f"fused_top2_mlp_q8c runs on CUDA or CPU, not "
                          f"{x.device}")
+    need_kmajor_experts("fused_top2_mlp_q8c", qexp_t)
     dev = x.device
     if x.ndim != 3:
         raise ValueError(f"x must be [B,T,D], got {tuple(x.shape)}")
@@ -293,9 +317,9 @@ def fused_top2_mlp_q8c(x, top2_idx, top2_probs, qexp: QuantizedExperts, *,
         _check(ln_g, "ln_g", f32, (D,), dev)
     b1 = qexp.b1.float().contiguous()
     for t, name, dtype, shape in (
-            (qexp.w1_q, "w1_q", i8, (E, D, H2)),
+            (qexp_t.w1_t, "w1_t", i8, (E, H2, D)),
             (qexp.w1_s, "w1_s", f32, (E, H2)), (b1, "b1", f32, (E, H2)),
-            (qexp.w2_q, "w2_q", i8, (E, HH, D)),
+            (qexp_t.w2_t, "w2_t", i8, (E, D, HH)),
             (qexp.w2_s, "w2_s", f32, (E, D))):
         _check(t, name, dtype, shape, dev)
     idx, probs, S, s = _tables(top2_idx, top2_probs, step)
@@ -303,23 +327,18 @@ def fused_top2_mlp_q8c(x, top2_idx, top2_probs, qexp: QuantizedExperts, *,
     _check(probs, "top2_probs", f32, (S, 2), dev)
 
     M = B * T
-    n_h = HH // TH
-
-    def buf(*shape, dtype):
-        return torch.empty(*shape, dtype=dtype, device=dev)
-
-    xm = buf(M, D, dtype=bf) if ln_g is not None else None
-    scratch = (xm, buf(M, D, dtype=i8), buf(M, dtype=f32),
-               buf(2, M, HH, dtype=f32), buf(2, M, HH, dtype=i8),
-               buf(2, M, n_h, dtype=f32), buf(2 * n_h, M, D, dtype=f32))
-    out = buf(B, T, D, dtype=bf)
+    plan = cuda_tile_plan(M, D, HH, TH, dev)
+    keep, scr = _scratch(dev, 2 * M * D if ln_g is not None else 0,
+                         *moe_q8c_scratch(plan, M, D, HH, TH))
+    out = torch.empty(B, T, D, dtype=bf, device=dev)
     ptrs = [None if t is None else t.data_ptr() for t in (
-        x, ln_g, qexp.w1_q, qexp.w1_s, b1, qexp.w2_q, qexp.w2_s, idx, probs)]
-    scr = [None if t is None else t.data_ptr() for t in (*scratch, out)]
+        x, ln_g, qexp_t.w1_t, qexp.w1_s, b1, qexp_t.w2_t, qexp.w2_s, idx,
+        probs)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher()(*ptrs, s, *scr, M, D, HH, TH, E, int(residual),
-                          ln_eps, D ** -0.5, stream)
+        err = _launcher()(*ptrs, s, *scr, out.data_ptr(), M, D, HH, TH, E,
+                          int(residual), ln_eps, D ** -0.5, plan.tile,
+                          plan.ctas, stream)
     if err != 0:
         raise RuntimeError(f"fused_top2_mlp_q8c launch failed: "
                            f"{launch_error(err)}")

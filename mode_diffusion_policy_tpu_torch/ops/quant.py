@@ -100,3 +100,22 @@ def quantize_attn(wqkv: torch.Tensor, bqkv: torch.Tensor, wout: torch.Tensor
     wqkv_q, wqkv_s = q(wqkv)
     wout_q, wout_s = q(wout)
     return QuantizedAttn(wqkv_q, wqkv_s, _own_f32(bqkv), wout_q, wout_s)
+
+
+class AttnKMajor(NamedTuple):
+    """The int8 attention projections with the contraction axis innermost,
+    the layout in which the int8 attention kernels' wgmma products read
+    them (s8 wgmma takes both operands K-major). Kept apart from
+    ``QuantizedAttn``, whose field order the layer stack relies on."""
+
+    wqkv_t: torch.Tensor   # int8 [3D, D]: wqkv_q transposed
+    wout_t: torch.Tensor   # int8 [D, D]:  wout_q transposed
+
+
+def kmajor_attn(q: QuantizedAttn) -> AttnKMajor:
+    """A K-major copy of ``q``'s int8 weights (``q`` itself stays as it is:
+    the plain versions, the megakernel's layer stack and the JAX layout
+    read it). Made once per quantization, it costs the int8 projection
+    bytes again (4 D^2: 4.2 MB a layer at D = 1024)."""
+    return AttnKMajor(q.wqkv_q.t().contiguous(), q.wout_q.t().contiguous())
+

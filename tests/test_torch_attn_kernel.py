@@ -340,3 +340,127 @@ def test_int8_flips_explain_the_difference(seed):
           f"port vs JAX kernel max {np.abs(ref - kernel).max():.2e}, JAX "
           f"body vs JAX kernel max {d.max():.2e}; with the JAX rows "
           f"substituted max {np.abs(out_s - out_j).max():.2e}")
+
+
+# ---- the K-major copy of the int8 projections that the CUDA kernels'
+# wgmma products read, and the projections' tile plan (no card needed)
+
+from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (  # noqa: E402,E501
+    need_kmajor_attn, proj_tile_plan, proj_tiles)
+from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (  # noqa: E402,E501
+    fused_layer_q8c)
+from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (  # noqa: E402,E501
+    fused_top2_mlp_q8c, need_kmajor_experts)
+from mode_diffusion_policy_tpu_torch.ops.quant import (  # noqa: E402
+    AttnKMajor, kmajor_attn, kmajor_experts)
+
+
+@pytest.fixture(scope="module")
+def kmajor():
+    a = _inputs(30)
+    qa = _qa(a)
+    return a, qa, kmajor_attn(qa)
+
+
+def test_kmajor_attn_is_the_transpose_of_the_jax_layout(kmajor):
+    """``kmajor_attn`` holds the JAX quantizer's int8 projections
+    transposed ([3D, D] and [D, D]), as a copy beside them."""
+    a, qa, qt = kmajor
+    jqa = jax_qattn(*(jnp.asarray(a[k]) for k in ("wqkv", "bqkv", "wout")))
+    assert isinstance(qt, AttnKMajor)
+    assert qt.wqkv_t.shape == (3 * D, D) and qt.wout_t.shape == (D, D)
+    for t in qt:
+        assert t.dtype == torch.int8 and t.is_contiguous()
+    np.testing.assert_array_equal(qt.wqkv_t.numpy(),
+                                  np.asarray(jqa.wqkv_q).T)
+    np.testing.assert_array_equal(qt.wout_t.numpy(), np.asarray(jqa.wout_q).T)
+    assert qt.wqkv_t.data_ptr() != qa.wqkv_q.data_ptr()
+
+
+@pytest.mark.parametrize("c_rows", [1, B], ids=["shared-c", "per-sample-c"])
+def test_plain_attn_from_the_kmajor_copy_gives_the_same_bits(kmajor, c_rows):
+    """The plain int8 attention block reading its projections from the
+    K-major copy (the layout of the CUDA kernels' wgmma products) gives the
+    same bits as from the JAX layout: the int8 products are exact."""
+    a, qa, qt = kmajor
+    c = torch.from_numpy(_inputs(31, c_rows=c_rows)["c"])
+    args = (torch.from_numpy(a["x"]), c, torch.from_numpy(a["ln"]), qa,
+            torch.from_numpy(a["qg"]), torch.from_numpy(a["kg"]))
+    got = fused_attn_block_q8_ref(*args, qattn_t=qt)
+    torch.testing.assert_close(got, fused_attn_block_q8_ref(*args), rtol=0,
+                               atol=0)
+    # and the CPU wrapper hands the copy to the plain version
+    torch.testing.assert_close(fused_attn_block_q8(*args, qattn_t=qt), got,
+                               rtol=0, atol=0)
+
+
+def test_plain_int8_layer_from_both_kmajor_copies_gives_the_same_bits(
+        kmajor):
+    a, qa, qt = kmajor
+    qe, ln2, idx, probs = _experts(32)
+    args = (torch.from_numpy(a["x"]), torch.from_numpy(a["c"]),
+            torch.from_numpy(a["ln"]), None, None, torch.from_numpy(a["qg"]),
+            torch.from_numpy(a["kg"]), None, ln2, qe, idx, probs)
+    kw = dict(step=1, qattn=qa, block_hidden=128)
+    got = fused_layer_q8c_ref(*args, qattn_t=qt, qexp_t=kmajor_experts(qe),
+                              **kw)
+    torch.testing.assert_close(got, fused_layer_q8c_ref(*args, **kw), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("check, copy", [
+    (need_kmajor_attn, "int8 projections"),
+    (need_kmajor_experts, "int8 experts")], ids=["attn", "experts"])
+def test_cuda_int8_wrappers_need_the_kmajor_copies(check, copy):
+    """On CUDA the int8 wrappers read the K-major copies and raise without
+    them (the CPU and meta tensors of these tests stop at the device check
+    before it: ``test_*_rejects_other_devices``)."""
+    with pytest.raises(ValueError, match=f"K-major copy of the {copy}"):
+        check("the kernel", None)
+    check("the kernel", object())
+
+
+@pytest.mark.parametrize("fn, n_args, copy", [
+    (fused_attn_block_q8, 5, "qattn_t"),
+    (fused_top2_mlp_q8c, 3, "qexp_t"),
+    (fused_layer_q8c, 11, "qexp_t")],
+    ids=["fused_attn_block_q8", "fused_top2_mlp_q8c", "fused_layer_q8c"])
+def test_int8_wrappers_with_their_copies_still_reject_other_devices(
+        fn, n_args, copy):
+    x = torch.zeros(1, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fn(x, *([None] * n_args), **{copy: object()})
+
+
+@pytest.mark.parametrize("tiles", [(128, 128), (128, 64), (64, 128),
+                                   (64, 64), (None, None)],
+                         ids=["128x128", "128x64", "64x128", "64x64",
+                              "default"])
+@pytest.mark.parametrize("M", [14, 39, 1792])
+def test_proj_tile_plan_covers_every_output_once(M, tiles):
+    """The plan the wrappers pass to the wgmma projections, decoded as the
+    kernel decodes it, at the flagship widths (QKV N = 3072, c_proj N =
+    1024): every output element lies in exactly one tile and the CTAs
+    share the tiles evenly."""
+    D, ctas = 1024, 132
+    for N in (3 * D, D):
+        plan = proj_tile_plan(M, N, ctas, *tiles)
+        if tiles[0] is None:
+            wide = 128 if M > 256 else 64
+            assert (plan.tile_m, plan.tile_n) == (wide, wide)
+        hits = np.zeros((M, N), np.int32)
+        per_cta = np.zeros(ctas, np.int32)
+        for cta, rows, cols in proj_tiles(plan, M):
+            assert rows.start < M and len(cols) == plan.tile_n
+            hits[rows.start:rows.stop, cols.start:cols.stop] += 1
+            per_cta[cta] += 1
+        assert (hits == 1).all()
+        used = per_cta[:min(ctas, plan.tiles)]
+        assert used.sum() == plan.tiles and used.max() - used.min() <= 1
+
+
+def test_proj_tile_plan_refuses_tiles_the_kernel_has_not():
+    with pytest.raises(ValueError, match="no projection tiles"):
+        proj_tile_plan(1792, 3072, 132, 256, 128)
+    with pytest.raises(ValueError, match="no projection tiles"):
+        proj_tile_plan(14, 96, 132, 64, 64)

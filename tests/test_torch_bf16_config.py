@@ -15,11 +15,16 @@ in interpret mode, the port its kernels' plain versions).
   as in the JAX agent (int8 top-2 experts and the attention kernel).
 - (c) int8 attention projections without int8 experts:
   ``fused_attn_block_q8`` then the bf16 MoE kernel.
+- (d) the whole-layer kernel with int8 projections, the megakernel off
+  (``max-throughput``'s flags with ``use_fused_layer``): one
+  ``fused_layer_q8c(qattn=)`` call per layer and step, which the port ran
+  only on the CPU before its CUDA launcher existed.
 
-(a)-(c) start from the same random camera features (the encoders are held
+(a)-(d) start from the same random camera features (the encoders are held
 by tests/test_torch_slice.py), through ``MoDEAgent.denoise_actions``.
 
-Gate: action MAE <= 1e-3 (the parity budget). With int8 projections, (c),
+Gate: action MAE <= 1e-3 (the parity budget). With int8 projections, (c)
+and (d),
 one int8 rounding flip moves a whole sample (tests/test_torch_slice.py
 explains why): there the gate is max(1e-3, 2 x the distance between the
 port's plain evaluation and a near-exact one, with the products, norms and
@@ -43,6 +48,8 @@ from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
 from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera as tpre
 from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
     fused_attn_block_q8_ref)
+from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+    fused_layer_q8c_ref)
 from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
     fused_top2_mlp_ref)
 from mode_diffusion_policy_tpu_torch.utils.weights import from_jax_params
@@ -63,6 +70,9 @@ REPAIRED = {
     "c-int8-attn-without-int8-moe": dict(use_pallas_attn=True,
                                          use_int8_attn=True,
                                          use_pallas_moe=True),
+    "d-fused-layer-int8-attn-without-megakernel": dict(
+        use_int8_moe=True, use_pallas_moe=True, use_pallas_attn=True,
+        use_fused_layer=True, use_int8_attn=True),
 }
 
 
@@ -195,15 +205,20 @@ def test_repaired_combination_chunk_matches_jax(setup, name):
         want_counts["attn_impl_bf16"] = L * S      # then the plain gather
     elif name.startswith("b"):
         want_counts["dit_impl"] = S
-    else:
+    elif name.startswith("c"):
         want_counts.update(attn_impl=L * S, moe_impl_bf16=L * S)
+    else:
+        want_counts["layer_impl"] = L * S
     assert counts == want_counts, counts
     tol = 1e-3
+    # the near-exact evaluation: products, norms and softmax in f64
+    f64 = dict(acc_dtype=torch.float64, red_dtype=torch.float64)
     if name.startswith("c"):
-        # the near-exact evaluation: products, norms and softmax in f64
-        f64 = dict(acc_dtype=torch.float64, red_dtype=torch.float64)
         dit.attn_impl = functools.partial(fused_attn_block_q8_ref, **f64)
         dit.moe_impl_bf16 = functools.partial(fused_top2_mlp_ref, **f64)
+        tol = max(tol, 2.0 * np.abs(got - chunk()).mean())
+    elif name.startswith("d"):
+        dit.layer_impl = functools.partial(fused_layer_q8c_ref, **f64)
         tol = max(tol, 2.0 * np.abs(got - chunk()).mean())
     mae = np.abs(got - want).mean()
     assert mae <= tol, (mae, tol)

@@ -145,8 +145,8 @@ def test_build_needs_nvcc_and_writes_under_ignored_build_dir(monkeypatch,
     assert [p.name for p in _build.sources()] == [
         "fused_attn_block.cu", "fused_attn_block_q8.cu", "fused_dit_q8c.cu",
         "fused_layer_q8c.cu", "fused_top2_mlp.cu", "fused_top2_mlp_q8c.cu"]
-    assert [p.name for p in _build.headers()] == ["layer_stages.cuh",
-                                                  "wgmma_stages.cuh"]
+    assert [p.name for p in _build.headers()] == [
+        "int8_stages.cuh", "layer_stages.cuh", "wgmma_stages.cuh"]
     for src in _build.sources():
         lib = _build.library_path(src)
         assert lib.parent == _build.BUILD_DIR
@@ -251,11 +251,15 @@ def test_kmajor_copy_is_made_once_per_quantization_not_per_call(monkeypatch):
     assert len(made) == len(m.blocks)          # no copy made per call
     assert len(passed) == 2 * len(m.blocks)
     assert [id(t) for t in passed] == 2 * [id(b.experts_qt) for b in m.blocks]
-    # only the whole-layer kernel reads it: other int8 configurations
-    # do not pay its memory
+    # the int8 MoE kernel of the two-kernel layer reads it too; without
+    # int8 experts (or top-2 routing) no int8 MoE kernel runs, and no copy
+    # is paid for
     two = _tiny_dit(use_int8_moe=True, use_pallas_attn=True)
     two.quantize_experts_()
-    assert all(b.experts_qt is None for b in two.blocks)
+    assert all(isinstance(b.experts_qt, ExpertsKMajor) for b in two.blocks)
+    bf16 = _tiny_dit(use_pallas_attn=True)
+    bf16.quantize_experts_()
+    assert all(b.experts_qt is None for b in bf16.blocks)
 
 
 @pytest.mark.parametrize("stage", ["up", "down"])
@@ -288,3 +292,79 @@ def test_nvcc_flags_keep_sm_90a():
     """wgmma and setmaxnreg exist only for sm_90a."""
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
+
+
+@pytest.mark.parametrize("mode", ["max-throughput", "b1-latency-max"])
+def test_kmajor_copies_of_the_int8_presets_are_made_once_not_per_call(
+        monkeypatch, mode):
+    """Under the presets with int8 projections, quantize_experts_ and
+    quantize_attn_ make the K-major copies of the int8 experts and
+    projections once per quantization; the block hands the same copies to
+    the kernels' functions on every call: the routed path (the two int8
+    kernels, or the whole-layer kernel) and an inline call (the int8
+    attention kernel)."""
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block_q8_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.quant import (AttnKMajor,
+                                                           kmajor_attn)
+    from mode_diffusion_policy_tpu_torch.serving import PRESET_FLAGS
+    made = {"experts": 0, "attn": 0}
+
+    def counting(key, fn):
+        def wrapped(q):
+            made[key] += 1
+            return fn(q)
+        return wrapped
+
+    monkeypatch.setattr(modedit, "kmajor_experts",
+                        counting("experts", kmajor_experts))
+    monkeypatch.setattr(modedit, "kmajor_attn", counting("attn", kmajor_attn))
+    m = _tiny_dit(**PRESET_FLAGS[mode])
+    m.quantize_experts_()
+    m.quantize_attn_()
+    L = len(m.blocks)
+    assert made == {"experts": L, "attn": L}
+    for blk in m.blocks:
+        qt = blk.attn.attn_qt
+        assert isinstance(qt, AttnKMajor)
+        assert torch.equal(qt.wqkv_t, blk.attn.attn_q.wqkv_q.T)
+        assert torch.equal(qt.wout_t, blk.attn.attn_q.wout_q.T)
+        assert isinstance(blk.experts_qt, ExpertsKMajor)
+    passed = []
+
+    def hook(fn, key):
+        def wrapped(*args, **kw):
+            passed.append((key, id(kw.get(key))))
+            return fn(*args, **kw)
+        return wrapped
+
+    m.layer_impl = hook(hook(fused_layer_q8c_ref, "qexp_t"), "qattn_t")
+    m.attn_impl = hook(fused_attn_block_q8_ref, "qattn_t")
+    m.moe_impl = hook(fused_top2_mlp_q8c_ref, "qexp_t")
+    r = np.random.default_rng(5)
+    sigmas = torch.tensor([20.0, 1.0, 0.05])
+    with torch.no_grad():
+        states = {"state_images": torch.from_numpy(
+            r.standard_normal((2, 2, 64)).astype(np.float32))}
+        goals = torch.from_numpy(r.standard_normal((2, 1, 32)).astype(
+            np.float32))
+        acts = torch.from_numpy(r.standard_normal((2, 10, 7)).astype(
+            np.float32))
+        sx, ge = m.embed_static_tokens(states, goals)
+        emb = m.process_sigma_embeddings(sigmas)
+        routing = m.precompute_routing(sigmas)
+        for step in range(2):
+            m.forward_precomputed(sx, ge, emb[step][None], acts,
+                                  moe_overrides=[(i, p, step)
+                                                 for i, p in routing])
+        m.forward(states, acts, goals, sigmas[:2])          # routes inline
+    assert made == {"experts": L, "attn": L}       # no copy made per call
+    # per routed step and block: the whole-layer function (b1-latency-max)
+    # or the attention then the MoE function (max-throughput) get both
+    # copies; per inline block the attention function gets its copy
+    routed = [k for b in m.blocks for k in (("qattn_t", id(b.attn.attn_qt)),
+                                            ("qexp_t", id(b.experts_qt)))]
+    inline = [("qattn_t", id(b.attn.attn_qt)) for b in m.blocks]
+    assert passed == 2 * routed + inline
