@@ -22,11 +22,13 @@ Counterpart of ``bench_kernels.py``'s ``bench_moe`` and ``bench_layer``:
   kernel then the int8 MoE kernel (one launch against two, the same bits),
   as a one-layer ``fused_dit_q8c`` launch, and per layer of a 12-layer
   ``fused_dit_q8c`` launch;
-- ``proj``: the int8 attention kernel ``fused_attn_block_q8`` under each
-  tile plan of its two wgmma projections (64 or 128 rows x 64 or 128
+- ``proj``: the two attention kernels, ``fused_attn_block_q8`` (int8
+  projections) and ``fused_attn_block`` (bf16 projections), under each
+  tile plan of their two wgmma projections (64 or 128 rows x 64 or 128
   columns) at b=128 and b=1: the projection stages' device ms and rates,
   the launch's ms and the wrapper's host ms per launch, the measurement
-  behind the default plan (``attn_kernel.proj_tile_plan``).
+  behind the default plan (``attn_kernel.proj_tile_plan``), and whether
+  each plan's output equals the default plan's bit for bit.
 
 Timing uses CUDA events around many launches after a warm-up (the method
 of ``chip_smoke.cuda_time_ms``, copied here). Each function returns a dict
@@ -164,8 +166,7 @@ def moe_stage_costs(N, int8_products, int8_weights, partials=None,
     once and its output written once (up: act, bf16, or f32 for int8
     products; down: the bf16 sum's seed and output or, with ``partials``,
     its f32 partials, one per (slot, block_hidden block), as the wgmma
-    stages write them for few token rows (the default) and the legacy
-    stages always)."""
+    stages write them for few token rows (the default))."""
     if partials is None:
         from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
             WIDE_TILE_ROWS)
@@ -184,12 +185,18 @@ def moe_stage_costs(N, int8_products, int8_weights, partials=None,
     return {"moe_up": cost(up, up_bytes), "moe_down": cost(down, down_bytes)}
 
 
-def proj_stage_costs(N):
-    """{"qkv_wg": cost, "cproj_wg": cost} of the two int8 projection
-    stages of one fused_attn_block_q8 call over N token rows, each cost
-    (bf16 flops, int8 ops, bytes): the int8 rows and their scales read,
-    the int8 weight and its column scales (and bias) read, the output
-    written (QKV f32; c_proj bf16, with the residual read)."""
+def proj_stage_costs(N, bf16=False):
+    """{"qkv_wg": cost, "cproj_wg": cost} of the two projection stages of
+    one attention call over N token rows, each cost (bf16 flops, int8 ops,
+    bytes). int8 (fused_attn_block_q8): the int8 rows and their scales
+    read, the int8 weight and its column scales (and bias) read; bf16
+    (fused_attn_block): the bf16 rows and weight (and bias) read; the
+    output written (QKV f32; c_proj bf16, with the residual read)."""
+    if bf16:
+        qkv = (2 * N * D * 3 * D, 0,
+               2 * N * D + 2 * 3 * D * D + 4 * 3 * D + 4 * N * 3 * D)
+        cproj = (2 * N * D * D, 0, 2 * N * D + 2 * D * D + 2 * N * D * 2)
+        return {"qkv_wg": qkv, "cproj_wg": cproj}
     qkv = (0, 2 * N * D * 3 * D,
            N * D + 4 * N + 3 * D * D + 2 * 4 * 3 * D + 4 * N * 3 * D)
     cproj = (0, 2 * N * D * D,
@@ -463,7 +470,8 @@ def bench_moe():
 
 def layer_inputs(B, device, L=12, seed=0):
     """One layer's bench weights (bf16 projections, int8 experts) at D=1024,
-    8 heads of 128, and the same layer stacked L times."""
+    8 heads of 128, and the same layer stacked L times (with the K-major
+    int8 expert copies that the megakernel reads)."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.quant import (
         QuantizedExperts, kmajor_experts, quantize_experts)
@@ -488,6 +496,7 @@ def layer_inputs(B, device, L=12, seed=0):
     one = {k: w[k][None] for k in ("ln1", "q_g", "k_g", "ln2", "wqkv",
                                    "bqkv", "wout")}
     one.update({k: v[None] for k, v in zip(QuantizedExperts._fields, w["q"])})
+    one.update(w1_t=w["qt"].w1_t[None], w2_t=w["qt"].w2_t[None])
     w["stack1"] = one
     w["stackL"] = {k: v.expand(L, *v.shape[1:]).contiguous()
                    for k, v in one.items()}
@@ -571,7 +580,9 @@ def bench_layer():
         library_is="library_layer: cuBLAS bf16 products, SDPA, the int8 "
                    "experts dequantized to bf16 outside the timed call",
         stages_ms=stages,
-        stage_rates=stage_rates(stages, moe_stage_costs(B * T, True, True)),
+        stage_rates=stage_rates(stages, {
+            **moe_stage_costs(B * T, True, True),
+            **proj_stage_costs(B * T, bf16=True)}),
         two_kernel_ms=cuda_time_ms(two_kernel, n),
         two_kernel_ms_cold_l2=cuda_time_cold_ms(two_kernel, 20),
         int8_attn=dict(
@@ -593,13 +604,14 @@ PROJ_TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
 
 
 def bench_proj():
-    """fused_attn_block_q8 at b=128 and b=1 under each tile plan of its two
-    projections (the same plan for both): {"b<B>": {"<rows>x<cols>":
-    {ms, host_ms, stages_ms, stage_rates}}}, and the default plan's name
-    ("default")."""
+    """The two attention kernels at b=128 and b=1 under each tile plan of
+    their two projections (the same plan for both): {"b<B>": {"default":
+    the default plan's name, "int8" (fused_attn_block_q8) and "bf16"
+    (fused_attn_block): {"<rows>x<cols>": {ms, host_ms, stages_ms,
+    stage_rates, equal_to_default}}}}."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
-        fused_attn_block_q8, proj_tile_plan)
+        fused_attn_block, fused_attn_block_q8, proj_tile_plan)
     from mode_diffusion_policy_tpu_torch.ops.quant import (kmajor_attn,
                                                        quantize_attn)
     dev = torch.device("cuda", 0)
@@ -609,17 +621,28 @@ def bench_proj():
         qa = quantize_attn(w["wqkv"].float(), w["bqkv"], w["wout"].float())
         qat = kmajor_attn(qa)
         d = proj_tile_plan(B * T, D, 1)
+        kinds = {
+            "int8": lambda tiles: fused_attn_block_q8(
+                w["x"], w["c"], w["ln1"], qa, w["q_g"], w["k_g"],
+                qattn_t=qat, tiles=tiles),
+            "bf16": lambda tiles: fused_attn_block(
+                w["x"], w["c"], w["ln1"], w["wqkv"], w["bqkv"], w["q_g"],
+                w["k_g"], w["wout"], tiles=tiles)}
         row = {"default": f"{d.tile_m}x{d.tile_n}"}
-        for tm, tn in PROJ_TILES:
-            def fn(tiles=(tm, tn, tm, tn)):
-                return fused_attn_block_q8(w["x"], w["c"], w["ln1"], qa,
-                                           w["q_g"], w["k_g"], qattn_t=qat,
-                                           tiles=tiles)
-            stages = stage_ms(fn)
-            row[f"{tm}x{tn}"] = dict(
-                ms=cuda_time_ms(fn, 50 if B == 128 else 100),
-                host_ms=host_ms(fn), stages_ms=stages,
-                stage_rates=stage_rates(stages, proj_stage_costs(B * T)))
+        for kind, call in kinds.items():
+            want = call(None)
+            plans = {}
+            for tm, tn in PROJ_TILES:
+                def fn(tiles=(tm, tn, tm, tn)):
+                    return call(tiles)
+                stages = stage_ms(fn)
+                plans[f"{tm}x{tn}"] = dict(
+                    ms=cuda_time_ms(fn, 50 if B == 128 else 100),
+                    host_ms=host_ms(fn), stages_ms=stages,
+                    stage_rates=stage_rates(stages, proj_stage_costs(
+                        B * T, bf16=kind == "bf16")),
+                    equal_to_default=bool(torch.equal(fn(), want)))
+            row[kind] = plans
         out[f"b{B}"] = row
     return out
 

@@ -36,18 +36,25 @@ kernel with int8 projections (``max-throughput``'s flags with
 ``fused_layer_q8c`` launches per chunk.
 
 For the megakernel it also checks each layer against the plain layer, the
-whole stack against the plain stack and (bf16 projections) against 12
-chained ``fused_layer_q8c`` launches, bit for bit; for the two-kernel
+whole stack against the plain stack and against 12 chained
+``fused_layer_q8c`` launches (with int8 projections
+``fused_layer_q8c(qattn=)``), bit for bit, and prints its launch (grid,
+CTAs per SM, dynamic and static shared memory, ring stages, registers) and
+the device time of each stage of one step, read by the kernel after every
+grid barrier; for the two-kernel
 layer, each kernel against its plain version (at b=128, b=1 and 3 x 13
 tokens) and, on every layer, attention then MoE against a one-layer
 megakernel launch with int8 projections, bit for bit; for
 ``fused_layer_q8c`` with int8 projections, the kernel against its plain
 version and, on every layer, against the int8 attention kernel then the
 int8 MoE kernel, bit for bit; for ``fused_attn_block``, the kernel against its
-plain version with a shared and a per-sample cond, and, on every layer,
+plain version with a shared and a per-sample cond at b=128, b=1 and 3 x 13
+tokens, and, on every layer,
 ``fused_attn_block`` then the MoE kernel against one ``fused_layer_q8c``
 launch, bit for bit; for both attention kernels, a per-sample cond of equal
-rows against the shared row, bit for bit; for the int8 convs,
+rows against the shared row, bit for bit; for ``fused_attn_block``, also its
+output under every tile plan of its bf16 wgmma projections against the
+default plan's (reported); for the int8 convs,
 ``torch._int_mm`` against exact CPU sums; for ``fused_top2_mlp`` and
 ``fused_top2_mlp_q8``, each against its plain version, and the int8-weight
 kernel with unit scales against the bf16 kernel on the same weights, bit
@@ -161,9 +168,8 @@ def bound_of(bf16, int8, nbytes):
 
 # the __global__ names of every DiT kernel's stages (the megakernel's, the
 # layer kernel's, the two-kernel paths', the wgmma MoE stages')
-DIT_KERNELS = (r"fused_dit_kernel|(ln1|ln1_quant|gemm_bf16|gemm_i8|attn|"
-               r"quant_f32|ln2_quant|quant_row|moe_up|act_quant|moe_down|"
-               r"moe_sum|ln2|moe_up_bf16|moe_down_bf16|moe_up_wg|moe_down_wg|"
+DIT_KERNELS = (r"fused_dit_kernel|(ln1|ln1_quant|attn|quant_f32|ln2_quant|"
+               r"quant_row|act_quant|moe_sum|ln2|moe_up_wg|moe_down_wg|"
                r"moe_up_bf16_wg|moe_down_bf16_wg|qkv_wg|cproj_wg)_kernel")
 
 
@@ -245,14 +251,19 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
     steps: each layer (a one-layer slice of the stack) against the plain
     layer on the kernel's own input, with the layer gates; the whole stack
     against those single-layer launches chained (bit for bit) and against
-    12 chained fused_layer_q8c launches (bf16 projections, bit for bit); the
-    distance of the whole stack to the plain stack beside that of two plain
-    stacks. Then the kernel's, the plain version's and the library
-    yardstick's times."""
+    12 chained fused_layer_q8c launches (bf16 projections; with int8
+    projections fused_layer_q8c(qattn=); bit for bit); the distance of the
+    whole stack to the plain stack beside that of two plain stacks. Then
+    the kernel's, the plain version's and the library yardstick's times,
+    the launch's grid and shared memory, and the device time of each stage
+    of one step from the kernel's own clock reads after every grid
+    barrier."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        DIT_INFO, DIT_KMAJOR_ATTN, STACKED_QATTN, dit_stage_names,
         fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c)
-    from mode_diffusion_policy_tpu_torch.ops.quant import QuantizedExperts
+    from mode_diffusion_policy_tpu_torch.ops.quant import (
+        AttnKMajor, QuantizedAttn, QuantizedExperts)
 
     dev = st["w1_q"].device
     int8_attn = "sqkv" in st
@@ -300,21 +311,32 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
                 raise SystemExit(f"fused_dit_q8c {name} b={B} step={s}: the "
                                  f"stack differs from its layers chained "
                                  f"({chained:.3e})")
-            msg = ""
-            if not int8_attn:
-                z = x
-                for l in range(L):
+            # the stack == L chained per-layer kernel launches
+            z = x
+            for l in range(L):
+                if int8_attn:
+                    z = fused_layer_q8c(
+                        z, c, st["ln1"][l], None, None, st["q_g"][l],
+                        st["k_g"][l], None, st["ln2"][l], qexp_L[l],
+                        idx_L[l], p_L[l], step=s, qexp_t=qt_L[l],
+                        qattn=QuantizedAttn(*(st[k][l]
+                                              for k in STACKED_QATTN)),
+                        qattn_t=AttnKMajor(*(st[k][l]
+                                             for k in DIT_KMAJOR_ATTN)), **kw)
+                else:
                     z = fused_layer_q8c(
                         z, c, st["ln1"][l], st["wqkv"][l], st["bqkv"][l],
                         st["q_g"][l], st["k_g"][l], st["wout"][l],
                         st["ln2"][l], qexp_L[l], idx_L[l], p_L[l], step=s,
                         qexp_t=qt_L[l], **kw)
-                vs_layer = (full.float() - z.float()).abs().max().item()
-                msg = f", vs {L} chained fused_layer_q8c max {vs_layer:.1e}"
-                if vs_layer != 0.0:
-                    raise SystemExit(f"fused_dit_q8c b={B} step={s}: differs "
-                                     f"from {L} chained fused_layer_q8c "
-                                     f"launches ({vs_layer:.3e})")
+            vs_layer = (full.float() - z.float()).abs().max().item()
+            layer_name = ("fused_layer_q8c(qattn=)" if int8_attn
+                          else "fused_layer_q8c")
+            msg = f", vs {L} chained {layer_name} max {vs_layer:.1e}"
+            if vs_layer != 0.0:
+                raise SystemExit(f"fused_dit_q8c {name} b={B} step={s}: "
+                                 f"differs from {L} chained {layer_name} "
+                                 f"launches ({vs_layer:.3e})")
             plain = fused_dit_q8c_ref(x, c, st, idx_L, p_L, step=s, **kw)
             exact = fused_dit_q8c_ref(x, c, st, idx_L, p_L, step=s,
                                       acc_dtype=torch.float64, **kw)
@@ -333,7 +355,7 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
                                            d.max().item())
             out["stack_vs_plain"].append(dict(
                 B=B, step=s, mean=d.mean().item(), floor_mean=fl.mean().item()))
-        grid = list(fused_dit_q8c.last_grid)
+        info = dict(zip(DIT_INFO, fused_dit_q8c.last_grid))
 
         # timing at step 0 on this B
         x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -352,14 +374,41 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
 
         l_ms = cuda_time_ms(library, 3)
         bound, by = bound_of(*dit_cost(B, T, D, H, HH, L, int8_attn))
+        split = dit_split(fused_dit_q8c, dit_stage_names, x, c, st, idx_L,
+                          p_L, kw, int8_attn, info["consumer_warpgroups"])
         out[B] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
-                      bound_by=by, grid=grid)
-        print(f"  fused_dit_q8c {name} b={B}: kernel {k_ms:.4f} ms/launch "
-              f"(grid {grid[0]} CTAs, {grid[1]} per SM, {grid[2]} B shared "
-              f"memory), bound {bound:.4f} ms "
-              f"({by}), plain {p_ms:.3f} ms, library ({L} x library_layer) "
-              f"{l_ms:.4f} ms", flush=True)
+                      bound_by=by, info=info, stage_split_us=split)
+        print(f"  fused_dit_q8c {name} b={B}: kernel {k_ms:.4f} ms/launch, "
+              f"bound {bound:.4f} ms ({by}), plain {p_ms:.3f} ms, library "
+              f"({L} x library_layer) {l_ms:.4f} ms; launch {info}",
+              flush=True)
+        print(f"  fused_dit_q8c {name} b={B}: device us per step by stage "
+              f"(between grid barriers, summed over the {L} layers): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in split.items()),
+              flush=True)
     return out
+
+
+def dit_split(fused_dit_q8c, dit_stage_names, x, c, st, idx_L, p_L, kw,
+              int8_attn, wgs):
+    """One megakernel step with its clock buffer: the device us of each
+    stage (from one grid barrier to the next, as CTA 0 sees it), summed
+    over the layers, and the whole step ("total"). The SM clock of CTA 0
+    gives the intervals, %globaltimer their scale."""
+    import torch
+    names = dit_stage_names(int8_attn, 64 * wgs)
+    L = st["ln1"].shape[0]
+    times = torch.zeros(1 + L * len(names), 2, dtype=torch.int64,
+                        device=x.device)
+    fused_dit_q8c(x, c, st, idx_L, p_L, step=0, times=times, **kw)
+    t = times.cpu().double()
+    ns_per_clock = (t[-1, 0] - t[0, 0]) / (t[-1, 1] - t[0, 1])
+    gaps = ((t[1:, 1] - t[:-1, 1]) * ns_per_clock / 1e3).tolist()
+    split = dict.fromkeys(names, 0.0)
+    for i, us in enumerate(gaps):
+        split[names[i % len(names)]] += us
+    split["total"] = sum(gaps)
+    return split
 
 
 def attn_cost(B, T, D, H):
@@ -415,7 +464,7 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
         fused_attn_block_q8, fused_attn_block_q8_ref)
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        STACKED_QATTN, fused_dit_q8c)
+        DIT_KMAJOR, DIT_KMAJOR_ATTN, STACKED_QATTN, fused_dit_q8c)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
         fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
     from mode_diffusion_policy_tpu_torch.ops.quant import QuantizedExperts
@@ -494,6 +543,11 @@ def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
                                                   blk.attn.attn_q)})
             st.update({k: v[None] for k, v in zip(QuantizedExperts._fields,
                                                   blk.experts_q)})
+            # the K-major copies the megakernel's s8 products read
+            st.update({k: v[None] for k, v in zip(DIT_KMAJOR,
+                                                  blk.experts_qt)})
+            st.update({k: v[None] for k, v in zip(DIT_KMAJOR_ATTN,
+                                                  blk.attn.attn_qt)})
             one = fused_dit_q8c(y, c, st, idx[None], probs[None], step=s,
                                 eps1=blk.ln_1.eps, eps_qk=blk.attn.q_norm.eps,
                                 eps2=blk.ln_2.eps)
@@ -591,14 +645,17 @@ def check_cond_rows(name, kern, ref, args, c, c_rows, kw):
 
 
 def check_attn_bf16(dit, routing, emb_all, steps, T, gen, cfg):
-    """fused_attn_block at full width, b=128 and b=1, on the parity
-    policy's bf16 weights: against its plain version with a shared cond
-    row and with one per sample (layer gates), a per-sample cond of equal
-    rows bit for bit against the shared row; on every layer, the kernel
-    then fused_top2_mlp_q8c (ln_2, residual) against one fused_layer_q8c
-    launch with bf16 projections, bit for bit (chained: identity ii).
-    Then the kernel's, the plain version's and the library yardstick's
-    times."""
+    """fused_attn_block at full width, b=128, b=1 and 3 x 13 tokens, on the
+    parity policy's bf16 weights: against its plain version with a shared
+    cond row and with one per sample (layer gates), a per-sample cond of
+    equal rows bit for bit against the shared row; the output under every
+    tile plan of the bf16 wgmma projections against the default plan's
+    (reported: the kernels share the default plan at a given row count);
+    on every layer, the kernel then fused_top2_mlp_q8c (ln_2, residual)
+    against one fused_layer_q8c launch with bf16 projections, bit for bit
+    (chained: identity ii). Then the kernel's, the plain version's and the
+    library yardstick's times."""
+    from bench_kernels_torch import PROJ_TILES
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
         fused_attn_block, fused_attn_block_ref)
@@ -609,7 +666,7 @@ def check_attn_bf16(dit, routing, emb_all, steps, T, gen, cfg):
 
     dev = emb_all.device
     D, H = cfg.latent_dim, cfg.n_heads
-    out = {"max_abs_err": 0.0}
+    out = {"max_abs_err": 0.0, "plans_equal": {}}
 
     def weights(blk):
         a = blk.attn
@@ -619,26 +676,35 @@ def check_attn_bf16(dit, routing, emb_all, steps, T, gen, cfg):
     def kw(blk):
         return dict(ln_eps=blk.ln_1.eps, qk_eps=blk.attn.q_norm.eps)
 
-    for B in (128, 1):
+    for B, Tb in ((128, T), (1, T), (3, 13)):
         blk = dit.blocks[0]
         for s in steps:
-            x = torch.randn(B, T, D, generator=gen, device=dev).to(
+            x = torch.randn(B, Tb, D, generator=gen, device=dev).to(
                 torch.bfloat16)
             c = emb_all[s][None]
             args = (x, *weights(blk))
             got = fused_attn_block(x, c, *args[1:], **kw(blk))
             torch.cuda.synchronize()
-            err, used = layer_gate(f"fused_attn_block b={B} step={s}", got,
-                                   fused_attn_block_ref(x, c, *args[1:],
-                                                        **kw(blk)))
+            err, used = layer_gate(
+                f"fused_attn_block b={B} x {Tb} step={s}", got,
+                fused_attn_block_ref(x, c, *args[1:], **kw(blk)))
             err2, used2 = check_cond_rows(
                 "fused_attn_block", fused_attn_block, fused_attn_block_ref,
                 args, c, per_sample_cond(dit, B, gen), kw(blk))
             out["max_abs_err"] = max(out["max_abs_err"], err, err2)
-            print(f"  fused_attn_block b={B} step={s}: within the layer "
-                  f"gates (share used: shared cond {used:.2f}, per-sample "
-                  f"cond {used2:.2f}); per-sample cond of equal rows == "
-                  f"shared row, bit for bit", flush=True)
+            # the bf16 products' bits under every tile plan
+            equal = {f"{tm}x{tn}": bool(torch.equal(fused_attn_block(
+                x, c, *args[1:], tiles=(tm, tn, tm, tn), **kw(blk)), got))
+                for tm, tn in PROJ_TILES}
+            out["plans_equal"][f"b{B}x{Tb}_step{s}"] = equal
+            print(f"  fused_attn_block b={B} x {Tb} tokens step={s}: within "
+                  f"the layer gates (share used: shared cond {used:.2f}, "
+                  f"per-sample cond {used2:.2f}); per-sample cond of equal "
+                  f"rows == shared row, bit for bit; output under each "
+                  f"projection tile plan == the default plan's: {equal}",
+                  flush=True)
+        if B == 3:
+            continue
         # attention -> MoE == one fused_layer_q8c launch, every layer
         s = steps[-1]
         y = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -1443,12 +1509,16 @@ def main():
         int8_attn = "sqkv" in st
         nbytes = sum(v.numel() * v.element_size() for v in st.values())
         shared = sum(st[k].numel() * st[k].element_size()
-                     for k in ("w1_q", "w1_s", "b1", "w2_q", "w2_s")
-                     + (("wqkv", "sqkv", "bqkv", "wout", "sout")
-                        if int8_attn else ()))
+                     for k in ("w1_q", "w1_s", "b1", "w2_q", "w2_s", "w1_t",
+                               "w2_t")
+                     + (("wqkv", "sqkv", "bqkv", "wout", "sout", "wqkv_t",
+                         "wout_t") if int8_attn else ()))
+        kmajor = sum(st[k].numel() * st[k].element_size()
+                     for k in ("w1_t", "w2_t", "wqkv_t", "wout_t") if k in st)
         print(f"  {mode}: layer stack {nbytes / 1e6:.1f} MB, of which "
-              f"{shared / 1e6:.1f} MB hold the blocks' int8 weights (the "
-              f"blocks point at their slices); added "
+              f"{shared / 1e6:.1f} MB hold the blocks' int8 weights and "
+              f"their K-major copies ({kmajor / 1e6:.1f} MB; the blocks "
+              f"point at their slices); added "
               f"{(nbytes - shared) / 1e6:.1f} MB", flush=True)
         idx_L = torch.stack([i for i, _ in routing])
         p_L = torch.stack([p for _, p in routing])
@@ -1727,13 +1797,17 @@ def main():
           f"stages {fmt_rates(q8['stage_rates'])}", flush=True)
     bench_proj = bench_kernels_torch.bench_proj()
     for key, row in bench_proj.items():
-        print(f"  fused_attn_block_q8 {key} by projection tiles (default "
-              f"{row['default']}): " + "; ".join(
-                  f"{k} {v['ms']:.4f} ms (host {v['host_ms']:.4f}), "
-                  + ", ".join(f"{n.split('_kernel')[0]} {m:.4f}"
-                              for n, m in (v['stages_ms'] or {}).items()
-                              if "wg_kernel" in n)
-                  for k, v in row.items() if k != "default"), flush=True)
+        for kind, name in (("int8", "fused_attn_block_q8"),
+                           ("bf16", "fused_attn_block")):
+            print(f"  {name} {key} by projection tiles (default "
+                  f"{row['default']}): " + "; ".join(
+                      f"{k} {v['ms']:.4f} ms (host {v['host_ms']:.4f}), "
+                      + ", ".join(f"{n.split('_kernel')[0]} {m:.4f}"
+                                  for n, m in (v['stages_ms'] or {}).items()
+                                  if "wg_kernel" in n)
+                      + ("" if v["equal_to_default"] else
+                         ", output differs from the default plan's")
+                      for k, v in row[kind].items()), flush=True)
     phase("phase 20: kernel bench (bench_kernels_torch: moe, layer, proj)",
           t)
 
@@ -1804,9 +1878,14 @@ def main():
                                  "library_ms")},
         "shape": "12 layers, b=1 x 14 tokens, D=1024, hidden 4096, top-2 "
                  "of 4, bf16 attention projections (b1-latency)",
-        "grid": m1[1]["grid"],
+        "info": {"bf16": {f"b{B}": m1[B]["info"] for B in (1, 128)},
+                 "int8": {f"b{B}": m8[B]["info"] for B in (1, 128)}},
+        "stage_split_us": {
+            "bf16": {f"b{B}": m1[B]["stage_split_us"] for B in (1, 128)},
+            "int8": {f"b{B}": m8[B]["stage_split_us"] for B in (1, 128)}},
         "max_abs_err_is": "one-layer launches vs the plain layer on the "
-                          "same input (the whole launch equals them chained)",
+                          "same input (the whole launch equals them chained "
+                          "and 12 chained fused_layer_q8c launches)",
         "stack_max_abs_err": max(m1["stack_max_abs_err"],
                                  m8["stack_max_abs_err"]),
         "stack_vs_plain": {"b1-latency": m1["stack_vs_plain"],

@@ -29,9 +29,9 @@
 // columns (the plan `tiles`, `ctas` that the wrapper passes in), reading
 // the weights from their K-major copy (wqkv_t [3D, D], wout_t [D, D],
 // made once per quantization: ops/quant.py kmajor_attn) because s8 wgmma
-// takes both operands K-major. The s32 sums are exact and the epilogues
-// run the legacy wmma tiles' f32 operations in order, so the result still
-// equals one layer of the megakernel's attention, bit for bit. The TPU
+// takes both operands K-major. The s32 sums are exact and the megakernel
+// runs the same stages, so the result equals one layer of the megakernel's
+// attention, bit for bit. The TPU
 // kernel keeps h, qkv and o in VMEM inside one grid step of 16 whole
 // samples; here they pass through device memory (mostly L2) between
 // launches, and attention is computed on exactly B*T rows (no padding of

@@ -8,33 +8,55 @@
 //   x_mid = x + c_proj(attn(qk_norm(wqkv(rmsnorm(x)*g1 + c) + b)))
 //   x     = ln2(x_mid) + sum_{e in top2(l, step)} p_e * W2_e q(act_e) s
 //
-// with the per-layer weights reached by offsets into the stacked [L, ...]
-// tensors and the routing read from the [L, S, 2] tables at row `step`.
-// With int8 attention projections (b1-latency-max) h = rmsnorm(x)*g1 + c is
-// quantized per row in f32 (no bf16 cast), qkv = (hq wqkv_q) * (hs * sqkv)
-// + b, and the f32 attention rows are re-quantized per row before the int8
-// c_proj with its column scales: the JAX kernel's int8_attn cast chain.
+// with the per-layer weights reached through the layer (or, for the
+// experts, l * E + expert) coordinate of 3-D TMA maps over the stacked
+// [L, ...] weights and the routing read from the [L, S, 2] tables at row
+// `step`. With int8 attention projections (b1-latency-max) h = rmsnorm(x)
+// *g1 + c is quantized per row in f32 (no bf16 cast), qkv = (hq wqkv_q) *
+// (hs * sqkv) + b, and the f32 attention rows are re-quantized per row
+// before the int8 c_proj with its column scales: the JAX kernel's
+// int8_attn cast chain.
 //
 // Design. The TPU kernel walks a sequential (L, 2, n_h, token block) grid
-// with the activation resident in VMEM. Here one persistent grid (every SM
-// times the occupancy the kernel's registers and shared memory allow,
-// capped at the largest stage's work-item count, co-resident under
-// cudaLaunchCooperativeKernel) runs every stage of every layer as a
-// grid-stride loop over that stage's work items, with a grid barrier
-// (cooperative_groups grid.sync) between stages:
-//   ln1 (rows) | [int8: ln1 + row quant] -> QKV tiles -> attention (query
-//   rows of a head and sample) -> [int8: row quant of o] -> c_proj tiles
-//   (+ residual) ->
-//   ln2 + row quant -> MoE up tiles -> act quant -> MoE down partials ->
-//   ordered sum into the layer's output
-// = 9 barriers per layer (10 with int8 projections). The stage bodies are
-// those of the per-layer kernel (layer_stages.cuh): the same tiles in the
-// same k order, so with bf16 projections this kernel equals L chained
-// fused_layer_q8c launches bit for bit. The per-layer scratch is allocated
-// once by the wrapper and reused by every layer; x ping-pongs between two
-// bf16 buffers so that the last layer writes the output; the kernel
-// allocates nothing. CTAs left without a work item in a stage (c_proj has
-// 16 tiles at b=1) go straight to the barrier.
+// with the activation resident in VMEM. Here one persistent grid of one
+// CTA per SM, co-resident under cudaLaunchCooperativeKernel, runs every
+// stage of every layer, with a grid barrier (cooperative_groups grid.sync)
+// between stages:
+//   ln1 rows | [int8: ln1 + row quant] -> QKV (Proj) -> attention (query
+//   rows of a head and sample) -> [int8: row quant of o] -> c_proj (Proj,
+//   + residual) -> ln2 + row quant -> MoE up (Up) -> act quant -> MoE down
+//   (Down) -> [64-row tiles: the ordered sum of the down partials]
+// = 8 barriers per layer, one more with int8 projections and one more with
+// 64-row tiles (120 per step at b=1 with int8 projections). A CTA
+// is the per-layer kernels' wgmma CTA: kWG consumer warpgroups and one
+// producer warpgroup (kWG = 2, 128 x 128 tiles, above 256 token rows; kWG
+// = 1, 64 x 64 tiles, below: the plan of attn_kernel.proj_tile_plan and
+// moe_kernel.moe_tile_plan). The GEMM stages are the wgmma/TMA stages of
+// wgmma_stages.cuh (Proj in bf16 or int8, Up and Down in int8, Down summing
+// its passes in registers at 128 x 128), on ONE ring of shared-memory
+// stages whose mbarrier phases run on across stages and layers; the warp
+// roles and the register split (setmaxnreg) hold for the whole launch.
+// The row, attention, quantization and sum stages run on each consumer
+// warpgroup as a Team of 128 threads on its own named barrier, the order of
+// the per-layer kernels' 128-thread CTAs, in shared memory that the ring
+// lends them between GEMM stages. So the megakernel runs the per-layer
+// kernels' stages, tiles and k order: with bf16 projections it equals L
+// chained fused_layer_q8c launches bit for bit, with int8 projections L
+// chained fused_layer_q8c(qattn=) launches.
+//   Between stages: after a row stage every thread fences its generic
+// stores against the async proxy before the barrier (the next GEMM stage's
+// TMA reads them, and the ring's TMA writes reuse the row stages' shared
+// memory; the GEMM stages' outputs are read by generic loads), and
+// activations of this launch are read through L2 (__ldcg), never a stale
+// L1 line.
+//   The producer thread issues a stage's loads once the barrier before the
+// stage has passed: prefetching the next GEMM stage's weights into L2 ahead
+// of the barrier (cp.async.bulk.prefetch.tensor) made the step slower on
+// the H100, at b=1 and at b=128 (PERF.md, PR 11), because the stages are
+// bound by latency, not by the weights' bytes, and the prefetches delay the
+// producer's CTA at the barrier.
+//   With a `times` buffer, thread 0 of CTA 0 reads %globaltimer and its
+// clock after every barrier: the device time of each stage of the step.
 //
 // Bound on this card (H100 SXM, 989 TFLOP/s bf16, 1979 TOP/s int8,
 // 3.35 TB/s), flagship stack (12 layers, D = 1024, 8 heads, hidden 4096,
@@ -43,53 +65,58 @@
 //   8.4 MB of bf16 attention weights: 12 x 33.6 MB = 402.6 MB, 0.120 ms per
 //   step; with int8 projections 12 x 29.4 MB = 352 MB, 0.105 ms.
 //   b=128: operations, 12 x 0.0608 ms = 0.730 ms per step (bf16 attention).
-// What the persistent grid does about b=1: the per-layer kernel pulled the
-// expert weights with 16-64 CTAs per stage and paid nine launches per layer
-// (1,080 per 10-step chunk); here every CTA of the resident grid takes part
-// in every stage that has work for it, and a chunk is 10 launches. The
-// tiles are still 64 x 64 with M = 14 of 64 rows live at b=1, so the MoE
-// stages have 128 work items (the grid is capped there) and the QKV and
-// c_proj stages 48 and 16, each a chain of dependent k-steps: splitting k,
-// wgmma/TMA and fusing stages are work for later changes.
+// At b=1 the QKV stage has 48 tiles of 64 x 64 and c_proj 16, so most SMs
+// idle there; narrower column tiles (or split-K for the exact int8 sums)
+// are work for a later change.
 
 #include <cooperative_groups.h>
 
+#include <initializer_list>
+
 #include "layer_stages.cuh"
+#include "wgmma_stages.cuh"
 
 using namespace mdp;
 namespace cg = cooperative_groups;
 
 namespace {
 
+// The TMA maps of one launch: the A operands over the per-layer scratch,
+// the B operands over the stacked weights.
+struct DitMaps {
+  CUtensorMap a_qkv;    // h [M, D] bf16, or hq [M, D] int8
+  CUtensorMap a_out;    // o [M, D] bf16, or oq [M, D] int8
+  CUtensorMap a_up;     // xq [M, D] int8
+  CUtensorMap a_down;   // aq [2, M, HH] int8
+  CUtensorMap w_qkv;    // wqkv [L, D, 3D] bf16, or wqkv_t [L, 3D, D] int8
+  CUtensorMap w_out;    // wout [L, D, D] bf16, or wout_t [L, D, D] int8
+  CUtensorMap w1;       // w1_t [L E, 2HH, D] int8
+  CUtensorMap w2;       // w2_t [L E, D, HH] int8
+};
+
 struct DitArgs {
-  // inputs: activation, shared cond row, stacked weights, routing tables
+  // inputs: activation, shared f32 cond row, stacked vectors, routing
   const bf16* x;
   const float* c;
   const float* ln1;       // [L, D]
-  const void* wqkv;       // [L, D, 3D] bf16, or int8 with sqkv
   const float* sqkv;      // [L, 3D] (int8 projections)
   const float* bqkv;      // [L, 3D]
   const float* q_g;       // [L, hd]
   const float* k_g;       // [L, hd]
-  const void* wout;       // [L, D, D] bf16, or int8 with sout
   const float* sout;      // [L, D] (int8 projections)
   const float* ln2;       // [L, D]
-  const int8_t* w1_q;     // [L, E, D, 2HH]
   const float* w1_s;      // [L, E, 2HH]
   const float* b1;        // [L, E, 2HH]
-  const int8_t* w2_q;     // [L, E, HH, D]
   const float* w2_s;      // [L, E, D]
   const int* idx;         // [L, S, 2]
   const float* probs;     // [L, S, 2]
   // per-layer scratch, reused by every layer
-  bf16* h;                // [M, D]   bf16 projections
-  int8_t* hq;             // [M, D]   int8 projections
-  float* hs;              // [M]
+  void* h;                // [M, D] bf16 h, or int8 hq
+  float* hs;              // [M]    (int8 projections)
   float* qkv;             // [M, 3D]
-  bf16* o;                // [M, D]   bf16 projections
-  float* o32;             // [M, D]   int8 projections
-  int8_t* oq;             // [M, D]
-  float* os;              // [M]
+  void* o;                // [M, D] bf16 o, or f32 o (int8 projections)
+  int8_t* oq;             // [M, D] (int8 projections)
+  float* os;              // [M]    (int8 projections)
   bf16* xmid;             // [M, D]
   bf16* xm;               // [M, D]
   int8_t* xq;             // [M, D]
@@ -97,158 +124,286 @@ struct DitArgs {
   float* act;             // [2, M, HH]
   int8_t* aq;             // [2, M, HH]
   float* sa;              // [2, M, n_h]
-  float* part;            // [2 n_h, M, D]
+  float* part;            // [2 n_h, M, D] (64-row tiles)
   bf16* tmp;              // [M, D]   ping-pong partner of out
   bf16* out;              // [M, D]
-  int S, step, L, B, T, D, H, HH, TH, E, int8_attn;
+  unsigned long long* times;   // [marks, 2] (%globaltimer, clock), or null
+  int S, step, L, B, T, D, H, HH, TH, E;
+  int n_slots, ring_bytes, team_bytes;   // the shared-memory plan
   float eps1, eps_qk, eps2, rs_D, rs_hd, scale;
 };
 
-__global__ void __launch_bounds__(kThreads) fused_dit_kernel(DitArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// The GEMM stages of one layer under the plan of WG consumer warpgroups.
+template <int WG, bool Q8>
+struct Ops {
+  static constexpr int kBN = 64 * WG;   // projection tiles: 64 WG x 64 WG
+  static constexpr int kKind = Q8 ? wg::kS8 : wg::kBf16;
+  using Qkv = wg::Proj<WG, kBN, 0, kKind>;
+  using Out = wg::Proj<WG, kBN, 1, kKind>;
+  using Up = wg::Up<WG, wg::kS8>;
+  using Down = wg::Down<WG, wg::kS8, WG == 2>;
+  // one ring for all four: the largest stage, the most staged columns
+  static constexpr int kSlot =
+      cmax(cmax(Qkv::kStage, Out::kStage), cmax(Up::kStage, Down::kStage));
+  static constexpr int kCols =
+      cmax(cmax(Qkv::kCols, Out::kCols), cmax(Up::kCols, Down::kCols));
+  // row, attention, quantization and sum stages, then the GEMM stages:
+  // the grid barriers of one layer
+  static constexpr int kStages = 8 + Q8 + (WG == 1);
+  static_assert(kSlot % 1024 == 0, "ring stages stay 1024-aligned");
+};
+
+template <int WG, bool Q8>
+struct LayerArgs {
+  wg::ProjArgs qkv, out;
+  wg::MoeArgs up, down;
+  const bf16* src;   // the layer's input: x, or the previous layer's output
+  bf16* dst;         // its output (the last layer's: out)
+};
+
+// The routing rows of this step, [L, 2] experts and probabilities, copied
+// once per launch from the [L, S, 2] tables into shared memory: every GEMM
+// stage of the MoE reads its layer's two experts before its first load.
+struct Route {
+  const int* idx;
+  const float* probs;
+};
+
+template <int WG, bool Q8>
+__device__ __forceinline__ LayerArgs<WG, Q8> layer_args(const DitArgs& a,
+                                                        const Route& rt,
+                                                        int l) {
+  using O = Ops<WG, Q8>;
+  const int M = a.B * a.T, D = a.D, D3 = 3 * D, H2 = 2 * a.HH;
+  const int n_h = a.HH / a.TH, E = a.E;
+  LayerArgs<WG, Q8> r;
+  // x ping-pongs between tmp and out so that the last layer writes out
+  r.src = l == 0 ? a.x : (((a.L - l) & 1) ? a.tmp : a.out);
+  r.dst = ((a.L - 1 - l) & 1) ? a.tmp : a.out;
+  r.qkv = wg::proj_args(M, D3, D, WG, O::kBN, a.hs,
+                        Q8 ? a.sqkv + (size_t)l * D3 : nullptr,
+                        a.bqkv + (size_t)l * D3, nullptr, a.qkv, l);
+  r.out = wg::proj_args(M, D, D, WG, O::kBN, a.os,
+                        Q8 ? a.sout + (size_t)l * D : nullptr, nullptr,
+                        r.src, a.xmid, l);
+  const int* idx = rt.idx + 2 * l;
+  const float* probs = rt.probs + 2 * l;
+  r.up = wg::stage_args(idx, probs, 0, M, D, a.HH, a.TH, E, WG,
+                        O::Up::kNV, a.HH, 2, a.b1 + (size_t)l * E * H2, a.sx,
+                        a.w1_s + (size_t)l * E * H2, nullptr, a.act, l * E);
+  r.down = wg::stage_args(idx, probs, 0, M, D, a.HH, a.TH, E, WG,
+                          O::Down::kN, D, WG == 2 ? 1 : 2 * n_h, nullptr,
+                          a.sa, a.w2_s + (size_t)l * E * D, a.xm,
+                          WG == 2 ? (void*)r.dst : (void*)a.part, l * E);
+  return r;
+}
+
+// The producer warpgroup: its first thread issues every TMA load of the
+// GEMM stages; the warpgroup meets every grid barrier of the consumers'
+// stages.
+template <int WG, bool Q8>
+__device__ __forceinline__ void dit_producer(const DitMaps& m,
+                                             const DitArgs& a,
+                                             const wg::Ring& r,
+                                             const Route& rt) {
+  using O = Ops<WG, Q8>;
   cg::grid_group grid = cg::this_grid();
-  const int M = a.B * a.T, D = a.D, D3 = 3 * D, hd = D / a.H;
-  const int HH = a.HH, H2 = 2 * HH, E = a.E, n_h = HH / a.TH;
-  const int n_mt = (M + BM - 1) / BM;
-  const int g0 = blockIdx.x, gs = gridDim.x;
-
-  const bf16* src = a.x;
+  const bool lead = threadIdx.x % 128 == 0;
+  int it = 0;
+  // the eight tensor maps into the TMA unit's descriptor cache
+  if (lead)
+    for (const CUtensorMap* t : {&m.a_qkv, &m.a_out, &m.a_up, &m.a_down,
+                                 &m.w_qkv, &m.w_out, &m.w1, &m.w2})
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(t)) : "memory");
+  auto sync = [&](bool last) {
+    if (!(last && !a.times)) grid.sync();
+  };
   for (int l = 0; l < a.L; ++l) {
-    bf16* dst = ((a.L - 1 - l) & 1) ? a.tmp : a.out;
-    const float* ln1 = a.ln1 + (size_t)l * D;
-    const float* bqkv = a.bqkv + (size_t)l * D3;
-    const float* qg = a.q_g + (size_t)l * hd;
-    const float* kg = a.k_g + (size_t)l * hd;
-    const float* ln2 = a.ln2 + (size_t)l * D;
-    const int8_t* w1_q = a.w1_q + (size_t)l * E * D * H2;
-    const float* w1_s = a.w1_s + (size_t)l * E * H2;
-    const float* b1 = a.b1 + (size_t)l * E * H2;
-    const int8_t* w2_q = a.w2_q + (size_t)l * E * HH * D;
-    const float* w2_s = a.w2_s + (size_t)l * E * D;
-    const int* idx = a.idx + (size_t)l * a.S * 2;
-    const float* probs = a.probs + (size_t)l * a.S * 2;
-
-    // ---- attention sub-block -------------------------------------------
-    if (a.int8_attn) {
-      for (int i = g0; i < M; i += gs) {
-        ln1_quant_row(src, a.c, a.T, 0, ln1, a.hq, a.hs, D, a.rs_D, a.eps1, i,
-                      smem);
-        __syncthreads();
-      }
-      grid.sync();
-      const int8_t* w = (const int8_t*)a.wqkv + (size_t)l * D * D3;
-      for (int i = g0; i < n_tiles(M, D3); i += gs) {
-        gemm_i8_tile<0>(a.hq, a.hs, w, a.sqkv + (size_t)l * D3, M, D3, D,
-                        bqkv, a.qkv, nullptr, nullptr, i, smem);
-        __syncthreads();
-      }
-    } else {
-      for (int i = g0; i < M; i += gs) {
-        ln1_row(src, a.c, a.T, 0, ln1, a.h, D, a.rs_D, a.eps1, i, smem);
-        __syncthreads();
-      }
-      grid.sync();
-      const bf16* w = (const bf16*)a.wqkv + (size_t)l * D * D3;
-      for (int i = g0; i < n_tiles(M, D3); i += gs) {
-        gemm_bf16_tile<0>(a.h, w, M, D3, D, bqkv, a.qkv, nullptr, nullptr, i,
-                          smem);
-        __syncthreads();
-      }
+    const LayerArgs<WG, Q8> la = layer_args<WG, Q8>(a, rt, l);
+    sync(false);                                   // ln1
+    if (lead) {
+      wg::fence_proxy_async();
+      wg::produce<typename O::Qkv>(r, &m.a_qkv, &m.w_qkv, la.qkv, it);
     }
-    grid.sync();
-    for (int i = g0; i < attn_items(a.B, a.H, a.T); i += gs) {
-      attn_item(a.qkv, qg, kg, a.o, a.int8_attn ? a.o32 : nullptr, a.B, a.T,
-                D, a.H, hd, a.rs_hd, a.eps_qk, a.scale, i, smem);
-      __syncthreads();
+    sync(false);                                   // QKV
+    sync(false);                                   // attention
+    if (Q8) sync(false);                           // o quant
+    if (lead) {
+      wg::fence_proxy_async();
+      wg::produce<typename O::Out>(r, &m.a_out, &m.w_out, la.out, it);
     }
-    grid.sync();
-    if (a.int8_attn) {
-      for (int i = g0; i < M; i += gs) {
-        quant_f32_row(a.o32, a.oq, a.os, D, i, smem);
-        __syncthreads();
-      }
-      grid.sync();
-      const int8_t* w = (const int8_t*)a.wout + (size_t)l * D * D;
-      for (int i = g0; i < n_tiles(M, D); i += gs) {
-        gemm_i8_tile<1>(a.oq, a.os, w, a.sout + (size_t)l * D, M, D, D,
-                        nullptr, nullptr, src, a.xmid, i, smem);
-        __syncthreads();
-      }
-    } else {
-      const bf16* w = (const bf16*)a.wout + (size_t)l * D * D;
-      for (int i = g0; i < n_tiles(M, D); i += gs) {
-        gemm_bf16_tile<1>(a.o, w, M, D, D, nullptr, nullptr, src, a.xmid, i,
-                          smem);
-        __syncthreads();
-      }
+    sync(false);                                   // c_proj
+    sync(false);                                   // ln2 + quant
+    if (lead) {
+      wg::fence_proxy_async();
+      wg::produce<typename O::Up>(r, &m.a_up, &m.w1, la.up, it);
     }
-    grid.sync();
-
-    // ---- ln2 + int8 top-2 MoE --------------------------------------------
-    for (int i = g0; i < M; i += gs) {
-      ln2_quant_row(a.xmid, ln2, a.xm, a.xq, a.sx, D, a.rs_D, a.eps2, i, smem);
-      __syncthreads();
+    sync(false);                                   // up
+    sync(false);                                   // act quant
+    if (lead) {
+      wg::fence_proxy_async();
+      wg::produce<typename O::Down>(r, &m.a_down, &m.w2, la.down, it);
     }
-    grid.sync();
-    for (int i = g0; i < 2 * n_mt * (HH / BN); i += gs) {
-      moe_up_tile(a.xq, a.sx, w1_q, w1_s, b1, idx, a.step, a.act, M, D, HH, E,
-                  i, smem);
-      __syncthreads();
-    }
-    grid.sync();
-    for (int i = g0; i < 2 * M * n_h; i += gs) {
-      act_quant_item(a.act, a.aq, a.sa, M, HH, a.TH, i, smem);
-      __syncthreads();
-    }
-    grid.sync();
-    for (int i = g0; i < 2 * n_h * n_mt * (D / BN); i += gs) {
-      moe_down_tile(a.aq, a.sa, w2_q, w2_s, idx, probs, a.step, a.part, M, D,
-                    HH, a.TH, E, i, smem);
-      __syncthreads();
-    }
-    grid.sync();
-    moe_sum_elems(a.xm, a.part, dst, M * D, 2 * n_h,
-                  blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
-    src = dst;
-    if (l + 1 < a.L) grid.sync();
+    sync(WG == 2 && l + 1 == a.L);                 // down
+    if (WG == 1) sync(l + 1 == a.L);               // ordered sum
   }
 }
 
-}  // namespace
+// Consumer warpgroup wg: the products and epilogues of its 64 rows of
+// every GEMM tile, and, as a Team of 128 threads, its share of the work
+// items of the row, attention, quantization and sum stages. cols: its
+// staged column operands; scratch: its shared memory for the row stages.
+template <int WG, bool Q8>
+__device__ __forceinline__ void dit_consumer(const DitArgs& a,
+                                             const wg::Ring& r,
+                                             const Route& rt, float* cols,
+                                             unsigned char* scratch, int wg) {
+  using O = Ops<WG, Q8>;
+  cg::grid_group grid = cg::this_grid();
+  const Team tm{static_cast<int>(threadIdx.x % 128), 1 + wg};
+  const int team = blockIdx.x * WG + wg, teams = gridDim.x * WG;
+  const int M = a.B * a.T, D = a.D, hd = D / a.H, n_h = a.HH / a.TH;
+  const int n_attn = attn_items(a.B, a.H, a.T);
+  int it = 0, n_mark = 0;
+  auto mark = [&]() {
+    if (a.times && blockIdx.x == 0 && threadIdx.x == 0) {
+      unsigned long long g;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(g));
+      a.times[2 * n_mark] = g;
+      a.times[2 * n_mark + 1] = clock64();
+    }
+    ++n_mark;
+  };
+  // a row stage's stores (global and shared) before the next stage's TMA
+  // (async proxy): `fence`
+  auto end_stage = [&](bool last, bool fence) {
+    if (fence) wg::fence_proxy_async();
+    if (last && !a.times) return;
+    grid.sync();
+    mark();
+  };
+  mark();
+  for (int l = 0; l < a.L; ++l) {
+    const LayerArgs<WG, Q8> la = layer_args<WG, Q8>(a, rt, l);
+    const float* ln1 = a.ln1 + (size_t)l * D;
+    for (int i = team; i < M; i += teams) {
+      if constexpr (Q8)
+        ln1_quant_row(la.src, a.c, 1, 0, ln1, static_cast<int8_t*>(a.h),
+                      a.hs, D, a.rs_D, a.eps1, i, scratch, tm);
+      else
+        ln1_row(la.src, a.c, 1, 0, ln1, static_cast<bf16*>(a.h), D, a.rs_D,
+                a.eps1, i, scratch, tm);
+      tm.sync();
+    }
+    end_stage(false, true);
+    wg::consume<typename O::Qkv>(r, la.qkv, cols, 0, wg, it);
+    end_stage(false, false);
+    for (int i = team; i < n_attn; i += teams) {
+      attn_item(a.qkv, a.q_g + (size_t)l * hd, a.k_g + (size_t)l * hd,
+                Q8 ? nullptr : static_cast<bf16*>(a.o),
+                Q8 ? static_cast<float*>(a.o) : nullptr, a.B, a.T, D, a.H,
+                hd, a.rs_hd, a.eps_qk, a.scale, i, scratch, tm);
+      tm.sync();
+    }
+    end_stage(false, true);
+    if constexpr (Q8) {
+      for (int i = team; i < M; i += teams) {
+        quant_f32_row(static_cast<const float*>(a.o), a.oq, a.os, D, i,
+                      scratch, tm);
+        tm.sync();
+      }
+      end_stage(false, true);
+    }
+    wg::consume<typename O::Out>(r, la.out, cols, 0, wg, it);
+    end_stage(false, false);
+    for (int i = team; i < M; i += teams) {
+      ln2_quant_row(a.xmid, a.ln2 + (size_t)l * D, a.xm, a.xq, a.sx, D,
+                    a.rs_D, a.eps2, i, scratch, tm);
+      tm.sync();
+    }
+    end_stage(false, true);
+    wg::consume<typename O::Up>(r, la.up, cols, 0, wg, it);
+    end_stage(false, false);
+    // one warp per item
+    for (int i = team * 4 + tm.tid / 32; i < 2 * M * n_h; i += teams * 4)
+      act_quant_warp(a.act, a.aq, a.sa, M, a.HH, a.TH, i, tm.tid % 32);
+    end_stage(false, true);
+    wg::consume<typename O::Down>(r, la.down, cols, 0, wg, it);
+    end_stage(WG == 2 && l + 1 == a.L, false);
+    if constexpr (WG == 1) {
+      moe_sum_elems(a.xm, a.part, la.dst, M * D, 2 * n_h,
+                    team * kThreads + tm.tid, teams * kThreads);
+      end_stage(l + 1 == a.L, false);
+    }
+  }
+}
 
-// info (host memory, 3 ints) receives the grid size, the CTAs per SM and
-// the dynamic shared memory per CTA. Returns a CUDA error code; the kernel
-// does not run unless it is 0.
-extern "C" int fused_dit_q8c_launch(
-    const void* x, const void* c, const void* ln1, const void* wqkv,
-    const void* sqkv, const void* bqkv, const void* q_g, const void* k_g,
-    const void* wout, const void* sout, const void* ln2, const void* w1_q,
-    const void* w1_s, const void* b1, const void* w2_q, const void* w2_s,
-    const void* idx, const void* probs, int S, int step, void* h, void* hq,
-    void* hs, void* qkv, void* o, void* o32, void* oq, void* os, void* xmid,
-    void* xm, void* xq, void* sx, void* act, void* aq, void* sa, void* part,
-    void* tmp, void* out, int L, int B, int T, int D, int H, int HH, int TH,
-    int E, int int8_attn, float eps1, float eps_qk, float eps2, float rs_D,
-    float rs_hd, float scale, int* info, void* stream) {
-  DitArgs a;
-  a.x = (const bf16*)x; a.c = (const float*)c; a.ln1 = (const float*)ln1;
-  a.wqkv = wqkv; a.sqkv = (const float*)sqkv; a.bqkv = (const float*)bqkv;
-  a.q_g = (const float*)q_g; a.k_g = (const float*)k_g; a.wout = wout;
-  a.sout = (const float*)sout; a.ln2 = (const float*)ln2;
-  a.w1_q = (const int8_t*)w1_q; a.w1_s = (const float*)w1_s;
-  a.b1 = (const float*)b1; a.w2_q = (const int8_t*)w2_q;
-  a.w2_s = (const float*)w2_s; a.idx = (const int*)idx;
-  a.probs = (const float*)probs;
-  a.h = (bf16*)h; a.hq = (int8_t*)hq; a.hs = (float*)hs; a.qkv = (float*)qkv;
-  a.o = (bf16*)o; a.o32 = (float*)o32; a.oq = (int8_t*)oq; a.os = (float*)os;
-  a.xmid = (bf16*)xmid; a.xm = (bf16*)xm; a.xq = (int8_t*)xq;
-  a.sx = (float*)sx; a.act = (float*)act; a.aq = (int8_t*)aq;
-  a.sa = (float*)sa; a.part = (float*)part; a.tmp = (bf16*)tmp;
-  a.out = (bf16*)out;
-  a.S = S; a.step = step; a.L = L; a.B = B; a.T = T; a.D = D; a.H = H;
-  a.HH = HH; a.TH = TH; a.E = E; a.int8_attn = int8_attn;
-  a.eps1 = eps1; a.eps_qk = eps_qk; a.eps2 = eps2; a.rs_D = rs_D;
-  a.rs_hd = rs_hd; a.scale = scale;
+template <int WG, bool Q8>
+__global__ void __launch_bounds__(128 * (WG + 1), 1)
+fused_dit_kernel(const __grid_constant__ DitMaps m,
+                 const __grid_constant__ DitArgs a) {
+  using O = Ops<WG, Q8>;
+  extern __shared__ unsigned char smem[];
+  // [ring (1024-aligned), lent to the row stages | staged columns | bars |
+  // the routing rows]
+  const uint32_t s0 = wg::smem_u32(smem);
+  const uint32_t base = (s0 + 1023u) & ~1023u;
+  unsigned char* ring = smem + (base - s0);
+  float* cols = reinterpret_cast<float*>(ring + a.ring_bytes);
+  const uint32_t bars = base + a.ring_bytes + WG * O::kCols * 4;
+  const wg::Ring r{base, bars, bars + 8 * a.n_slots, O::kSlot, a.n_slots};
+  int* ridx = reinterpret_cast<int*>(smem + (bars - s0) + 16 * a.n_slots);
+  float* rp = reinterpret_cast<float*>(ridx + 2 * a.L);
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) wg::ring_init(r, WG);
+  for (int i = threadIdx.x; i < 2 * a.L; i += blockDim.x) {
+    const size_t at = ((size_t)(i / 2) * a.S + a.step) * 2 + i % 2;
+    ridx[i] = a.idx[at];
+    rp[i] = a.probs[at];
+  }
+  __syncthreads();
+  const Route rt{ridx, rp};
+  if (wg == WG) {
+    if constexpr (WG > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    dit_producer<WG, Q8>(m, a, r, rt);
+  } else {
+    if constexpr (WG > 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dit_consumer<WG, Q8>(a, r, rt, cols + wg * O::kCols,
+                         ring + wg * a.team_bytes, wg);
+  }
+}
+
+// The named slots of the launcher's pointer, int and float arrays
+// (ops/kernels/layer_kernel.py DIT_PTRS, DIT_INTS, DIT_FLOATS).
+enum Ptr {
+  kX, kC, kLn1, kWqkv, kSqkv, kBqkv, kQg, kKg, kWout, kSout, kLn2, kW1t,
+  kW1s, kB1, kW2t, kW2s, kIdx, kProbs, kH, kHs, kQkv, kO, kOq, kOs, kXmid,
+  kXm, kXq, kSx, kAct, kAq, kSa, kPart, kTmp, kOut, kNumPtr
+};
+enum Int {
+  iS, iStep, iL, iB, iT, iD, iH, iHH, iTH, iE, iInt8Attn, iTile, kNumInt
+};
+enum Flt { fEps1, fEpsQk, fEps2, fRsD, fRsHd, fScale, kNumFlt };
+
+constexpr int kMaxSmem = 232448;   // a CTA's shared memory on the H100
+
+template <int WG, bool Q8>
+int launch(const DitMaps& m, DitArgs a, int* info, cudaStream_t st) {
+  using O = Ops<WG, Q8>;
+  const auto kernel = fused_dit_kernel<WG, Q8>;
+  // the row stages' shared memory per team, lent by the ring
+  a.team_bytes =
+      (cmax(smem_row(a.D), smem_attn(a.T, a.D / a.H)) + 1023) / 1024 * 1024;
+  const int cols = WG * O::kCols * 4, route = 16 * a.L;
+  const int avail = kMaxSmem - 1024 - cols - 16 * wg::kMaxStages - route;
+  a.n_slots = std::min(wg::kMaxStages, avail / O::kSlot);
+  a.ring_bytes = std::max(a.n_slots * O::kSlot, WG * a.team_bytes);
+  if (a.n_slots < 2 || a.ring_bytes > avail)
+    return (int)cudaErrorInvalidValue;
+  const int dyn = 1024 + a.ring_bytes + cols + 16 * a.n_slots + route;
 
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -258,32 +413,103 @@ extern "C" int fused_dit_q8c_launch(
   if (!coop) return (int)cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const int smem = cmax(cmax(cmax(kSmemUp, kSmemGemm16), kSmemGemm8),
-                        cmax(smem_row(D), smem_attn(T, D / H)));
-  e = cudaFuncSetAttribute(fused_dit_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = wg::grant_smem(reinterpret_cast<const void*>(kernel), dyn);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_dit_kernel,
-                                                    kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    128 * (WG + 1), dyn);
   if (e != cudaSuccess) return (int)e;
+  // one CTA per SM, all co-resident: a grid that does not fit is refused
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // no more CTAs than the largest stage has work items: at b=1 that is 128
-  // (the MoE tiles), and every CTA beyond it would only add to the cost of
-  // each grid barrier
-  const int M = B * T, n_mt = (M + BM - 1) / BM, n_h = HH / TH;
-  int items = cmax(M, attn_items(B, H, T));
-  items = cmax(items, cmax(n_tiles(M, 3 * D), n_tiles(M, D)));
-  items = cmax(items, cmax(2 * n_mt * (HH / BN), 2 * M * n_h));
-  items = cmax(items, 2 * n_h * n_mt * (D / BN));
-  items = cmax(items, (M * D + kThreads - 1) / kThreads);
-  const int grid = items < sms * per_sm ? items : sms * per_sm;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = sms;
   info[0] = grid;
   info[1] = per_sm;
-  info[2] = smem;
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)fused_dit_kernel, dim3(grid),
-                                  dim3(kThreads), args, (size_t)smem,
-                                  static_cast<cudaStream_t>(stream));
+  info[2] = dyn;
+  info[3] = (int)fa.sharedSizeBytes;
+  info[4] = a.n_slots;
+  info[5] = WG;
+  info[6] = fa.numRegs;
+  info[7] = (int)fa.localSizeBytes;
+  void* args[] = {const_cast<DitMaps*>(&m), &a};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                  dim3(grid), dim3(128 * (WG + 1)), args,
+                                  (size_t)dyn, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// p: kNumPtr device addresses (the Ptr slots; the unused ones of a
+// projection kind may be 0), n: kNumInt ints, f: kNumFlt floats, each
+// count checked; info (host memory, 8 ints) receives the grid size, the
+// CTAs per SM, the dynamic and the static shared memory per CTA, the ring
+// stages, the consumer warpgroups, the registers per thread and the local
+// (spill) bytes per thread; times: null, or device memory for 2 x (1 +
+// L x barriers per layer) u64 (%globaltimer ns and SM clock after each
+// barrier). The int8 weights are the K-major stacked copies (w1_t [L, E,
+// 2HH, D], w2_t [L, E, D, HH] and, with int8 projections, wqkv_t [L, 3D,
+// D], wout_t [L, D, D]); bf16 projections are read as stored ([L, D, 3D],
+// [L, D, D]). n[iTile]: 128 (128 x 128 tiles) or 64. Returns a CUDA error
+// code, or wg::kErrNoEncode / kErrEncode when a TMA tensor map cannot be
+// made; the kernel does not run unless it is 0.
+extern "C" int fused_dit_q8c_launch(const unsigned long long* p, int n_p,
+                                    const int* n, int n_n, const float* f,
+                                    int n_f, int* info, void* times,
+                                    void* stream) {
+  if (n_p != kNumPtr || n_n != kNumInt || n_f != kNumFlt)
+    return (int)cudaErrorInvalidValue;
+  auto ptr = [&](int i) { return reinterpret_cast<void*>(p[i]); };
+  DitArgs a;
+  a.x = (const bf16*)ptr(kX); a.c = (const float*)ptr(kC);
+  a.ln1 = (const float*)ptr(kLn1); a.sqkv = (const float*)ptr(kSqkv);
+  a.bqkv = (const float*)ptr(kBqkv); a.q_g = (const float*)ptr(kQg);
+  a.k_g = (const float*)ptr(kKg); a.sout = (const float*)ptr(kSout);
+  a.ln2 = (const float*)ptr(kLn2); a.w1_s = (const float*)ptr(kW1s);
+  a.b1 = (const float*)ptr(kB1); a.w2_s = (const float*)ptr(kW2s);
+  a.idx = (const int*)ptr(kIdx); a.probs = (const float*)ptr(kProbs);
+  a.h = ptr(kH); a.hs = (float*)ptr(kHs); a.qkv = (float*)ptr(kQkv);
+  a.o = ptr(kO); a.oq = (int8_t*)ptr(kOq); a.os = (float*)ptr(kOs);
+  a.xmid = (bf16*)ptr(kXmid); a.xm = (bf16*)ptr(kXm);
+  a.xq = (int8_t*)ptr(kXq); a.sx = (float*)ptr(kSx);
+  a.act = (float*)ptr(kAct); a.aq = (int8_t*)ptr(kAq);
+  a.sa = (float*)ptr(kSa); a.part = (float*)ptr(kPart);
+  a.tmp = (bf16*)ptr(kTmp); a.out = (bf16*)ptr(kOut);
+  a.times = static_cast<unsigned long long*>(times);
+  a.S = n[iS]; a.step = n[iStep]; a.L = n[iL]; a.B = n[iB]; a.T = n[iT];
+  a.D = n[iD]; a.H = n[iH]; a.HH = n[iHH]; a.TH = n[iTH]; a.E = n[iE];
+  a.eps1 = f[fEps1]; a.eps_qk = f[fEpsQk]; a.eps2 = f[fEps2];
+  a.rs_D = f[fRsD]; a.rs_hd = f[fRsHd]; a.scale = f[fScale];
+  const bool q8 = n[iInt8Attn] != 0;
+  const int tile = n[iTile];
+  if (tile != 64 && tile != 128) return (int)cudaErrorInvalidValue;
+
+  const uint64_t M = (uint64_t)a.B * a.T, D = a.D, HH = a.HH;
+  const uint64_t L = a.L, LE = (uint64_t)a.L * a.E;
+  const int ae = q8 ? 1 : 2;   // the projections' element size
+  const uint64_t d_row[2] = {D, M};
+  const uint64_t d_aq[3] = {HH, M, 2};
+  const uint64_t d_qkv[3] = {q8 ? D : 3 * D, q8 ? 3 * D : D, L};
+  const uint64_t d_out[3] = {D, D, L};
+  const uint64_t d_w1[3] = {D, 2 * HH, LE};
+  const uint64_t d_w2[3] = {HH, D, LE};
+  DitMaps m;
+  for (const int e :
+       {wg::cached_map(&m.a_qkv, ptr(kH), ae, 2, d_row),
+        wg::cached_map(&m.a_out, ptr(q8 ? kOq : kO), ae, 2, d_row),
+        wg::cached_map(&m.a_up, ptr(kXq), 1, 2, d_row),
+        wg::cached_map(&m.a_down, ptr(kAq), 1, 3, d_aq),
+        wg::cached_map(&m.w_qkv, ptr(kWqkv), ae, 3, d_qkv),
+        wg::cached_map(&m.w_out, ptr(kWout), ae, 3, d_out),
+        wg::cached_map(&m.w1, ptr(kW1t), 1, 3, d_w1),
+        wg::cached_map(&m.w2, ptr(kW2t), 1, 3, d_w2)})
+    if (e) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile == 128)
+    return q8 ? launch<2, true>(m, a, info, st)
+              : launch<2, false>(m, a, info, st);
+  return q8 ? launch<1, true>(m, a, info, st)
+            : launch<1, false>(m, a, info, st);
 }

@@ -12,15 +12,15 @@
 // Design. Two launchers run a fixed sequence of __global__ kernels on the
 // caller's stream and allocate nothing. The row, attention and sum stages
 // live in layer_stages.cuh, shared with the DiT megakernel
-// (fused_dit_q8c.cu); the int8 products run on Hopper's wgmma fed by TMA
-// (wgmma_stages.cuh), and the int8 stages' launch sequences are those of
-// the two-kernel path (int8_stages.cuh). fused_layer_q8c_launch, bf16
+// (fused_dit_q8c.cu); every product runs on Hopper's wgmma fed by TMA
+// (wgmma_stages.cuh: Proj, Up, Down), and the launch sequences are those
+// of the two-kernel paths (int8_stages.cuh). fused_layer_q8c_launch, bf16
 // projections, eight or nine kernels:
 //   1 ln1_kernel          per row: h = bf16(rmsnorm(x)*g1 + c)
-//   2 gemm_bf16_kernel    qkv = h @ wqkv + b       (wmma bf16, f32 accum)
+//   2 qkv_wg_kernel       qkv = h @ wqkv + b       (wgmma bf16, f32 accum)
 //   3 attn_kernel         one CTA per (query rows, head, sample): QK-RMSNorm,
 //                         causal softmax over T <= 16 tokens, P V (f32 FMA)
-//   4 gemm_bf16_kernel    x_mid = bf16(x + o @ wout) (wmma bf16, f32 accum)
+//   4 cproj_wg_kernel     x_mid = bf16(x + o @ wout) (wgmma bf16, f32 accum)
 //   5 ln2_quant_kernel    xm = bf16(rmsnorm(x_mid)*g2); int8 rows of xm
 //   6 moe_up_wg_kernel    value/gate = xq @ W1_e (wgmma s8, s32 accum), act
 //   7 act_quant_kernel    int8 rows of act, one scale per block_hidden columns
@@ -31,22 +31,25 @@
 //                         (128 x 128 tiles); or (64 x 64 tiles, few token
 //                         rows) one tile per pass, written as f32 partials
 //   9 moe_sum_kernel      that this stage adds in the same order
-// The row and attention stages run 128 threads, the megakernel's block size,
-// so that the row reductions add in the same order in both kernels; stages
-// 2 and 4 use the legacy wmma tiles (64 x 64, a two-stage cp.async
-// pipeline: kPipe). Stages 6 and 8 run persistent CTAs of one TMA producer
+// Stages 1-4 are fused_attn_block's (int8_stages.cuh attn_bf16_stages).
+// The row and attention stages run 128 threads, the megakernel's team of
+// one consumer warpgroup, so that the row reductions add in the same order
+// in both kernels. The wgmma stages run persistent CTAs of one TMA producer
 // warpgroup and one or two wgmma consumer warpgroups on 128 x 128 output
-// tiles (64 x 64 for at most 256 token rows: the plan `tile`, `ctas` that
-// the wrapper passes in). s8 wgmma takes both operands K-major, so they
-// read a K-major copy of the int8 experts (w1_t [E, 2H, D], w2_t [E, D,
-// H]) that the model makes once per quantization; the JAX-layout w1_q and
-// w2_q stay beside it for the plain versions and the other kernels. The
-// s32 sums are exact and the epilogues keep the wmma stages' f32
-// operations in order (the down stage's sum too: the same additions in
-// the same order as the ordered sum over f32 partials in memory that the
-// other kernels run), so the layer gives the same bits as the two-kernel
-// composition (fused_attn_block, then fused_top2_mlp_q8c) and as the
-// megakernel's layers.
+// tiles (64 x 64 for at most 256 token rows: the plans that the wrapper
+// passes in, `tile` and the projections' tiles, and `ctas`). The bf16
+// projections read their weights MN-major as stored; s8 wgmma takes both
+// operands K-major, so the MoE stages read a K-major copy of the int8
+// experts (w1_t [E, 2H, D], w2_t [E, D, H]) that the model makes once per
+// quantization; the JAX-layout w1_q and w2_q stay beside it for the plain
+// versions and the other kernels. The s32 sums are exact, the bf16 ones run
+// in the tensor core's order under the megakernel's plan, and the
+// epilogues keep the JAX cast chain's f32 operations in order (the down
+// stage's sum too: the same additions in the same order as the ordered
+// sum over f32 partials in memory that the other kernels run), so the
+// layer gives the same bits as the two-kernel composition
+// (fused_attn_block, then fused_top2_mlp_q8c) and as the megakernel's
+// layers.
 // fused_layer_q8c_q8_launch, int8 projections: stages 1-4 become the five
 // stages of fused_attn_block_q8.cu (ln1_quant, the QKV projection on
 // wgmma s8, attention with f32 o, o re-quantized, c_proj on wgmma s8 into
@@ -67,41 +70,18 @@
 // (15.3 us), int8 products 2*N*D*2HH*2 + 2*N*HH*D*2 = 90.2 GOP (45.6 us),
 // bytes 41 MB (12 us): compute-bound, a floor of 61 us per launch with the
 // two tensor-core rates not overlapped, three quarters of it the int8
-// expert products that stages 6 and 8 put on wgmma (the legacy wmma tiles
-// ran them at 6% of the int8 rate). At b=1 (N = 14) the bound is the
-// bytes of the two selected experts, 25 MB (7.5 us); the 64 x 64 tiles
-// spread them over 128 CTAs.
-
-#include <initializer_list>
+// expert products. At b=1 (N = 14) the bound is the bytes of the two
+// selected experts, 25 MB (7.5 us); the 64 x 64 tiles spread them over 128
+// CTAs.
 
 #include "int8_stages.cuh"
 
 using namespace mdp;
 
-namespace {
-
-// ---- one work item per CTA of each bf16-projection stage ---------------
-__global__ void __launch_bounds__(kThreads)
-ln1_kernel(const bf16* x, const float* c, const float* g, bf16* h, int D,
-           float rs_D, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  ln1_row(x, c, 1, 0, g, h, D, rs_D, eps, blockIdx.x, smem);
-}
-
-template <int EPI>
-__global__ void __launch_bounds__(kThreads)
-gemm_bf16_kernel(const bf16* A, const bf16* B, int M, int N, int K,
-                 const float* bias, float* out_f32, const bf16* resid,
-                 bf16* out_bf16) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  gemm_bf16_tile<EPI>(A, B, M, N, K, bias, out_f32, resid, out_bf16,
-                      blockIdx.x, smem);
-}
-
-}  // namespace
-
 // The int8 experts as the K-major copy w1_t [E, 2H, D], w2_t [E, D, H]
-// with their scales w1_s [E, 2H], w2_s [E, D] and f32 b1 [E, 2H]. tile:
+// with their scales w1_s [E, 2H], w2_s [E, D] and f32 b1 [E, 2H]; c the f32
+// cond row [D]. qkv_tm, qkv_tn, out_tm, out_tn: the (rows, columns) of the
+// two projections' tiles (64 or 128 each). tile:
 // 128 (128 x 128 MoE output tiles, the down stage summing in registers) or
 // 64 (64 x 64, the down stage writing part [2 H / TH, M, D] f32 for the
 // ordered-sum stage; part is unused for 128); ctas: the most CTAs an MoE
@@ -117,29 +97,16 @@ extern "C" int fused_layer_q8c_launch(
     void* xmid, void* xm, void* xq, void* sx, void* act, void* aq, void* sa,
     void* part, void* out, int B, int T, int D, int H, int HH, int TH, int E,
     float eps1, float eps_qk, float eps2, float rs_D, float rs_hd,
-    float scale, int tile, int ctas, void* stream) {
+    float scale, int qkv_tm, int qkv_tn, int out_tm, int out_tn, int tile,
+    int ctas, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * T, hd = D / H;
-
-  const int attn_smem = smem_attn(T, hd);
-  // the GEMM stages' pipelines (and long attention rows) need more than the
-  // default 48 KB of dynamic shared memory
-  for (const cudaError_t e : {set_smem(attn_kernel<bf16>, attn_smem),
-                              set_smem(gemm_bf16_kernel<0>, kSmemGemm16),
-                              set_smem(gemm_bf16_kernel<1>, kSmemGemm16)})
-    if (e != cudaSuccess) return (int)e;
-  ln1_kernel<<<M, kThreads, smem_row(D), st>>>(
-      (const bf16*)x, (const float*)c, (const float*)ln1_g, (bf16*)h, D, rs_D,
-      eps1);
-  gemm_bf16_kernel<0><<<n_tiles(M, 3 * D), kThreads, kSmemGemm16, st>>>(
-      (const bf16*)h, (const bf16*)wqkv, M, 3 * D, D, (const float*)bqkv,
-      (float*)qkv, nullptr, nullptr);
-  attn_kernel<bf16><<<attn_items(B, H, T), kThreads, attn_smem, st>>>(
-      (const float*)qkv, (const float*)q_g, (const float*)k_g, (bf16*)o, B, T,
-      D, H, hd, rs_hd, eps_qk, scale);
-  gemm_bf16_kernel<1><<<n_tiles(M, D), kThreads, kSmemGemm16, st>>>(
-      (const bf16*)o, (const bf16*)wout, M, D, D, nullptr, nullptr,
-      (const bf16*)x, (bf16*)xmid);
+  const int M = B * T;
+  const int tiles[4] = {qkv_tm, qkv_tn, out_tm, out_tn};
+  if (const int e = attn_bf16_stages(x, c, 0, ln1_g, wqkv, bqkv, q_g, k_g,
+                                     wout, h, qkv, o, xmid, B, T, D, H, eps1,
+                                     eps_qk, rs_D, rs_hd, scale, tiles, ctas,
+                                     st))
+    return e;
   ln2_quant_kernel<<<M, kThreads, smem_row(D), st>>>(
       (const bf16*)xmid, (const float*)ln2_g, (bf16*)xm, (int8_t*)xq,
       (float*)sx, D, rs_D, eps2);

@@ -1,10 +1,13 @@
-// The launch sequences of the int8 layer on Hopper (sm_90a), shared by the
-// launchers that run them: the attention sub-block with int8 projections
-// (fused_attn_block_q8.cu, and fused_layer_q8c.cu's int8-projection
-// launcher) and the int8 x int8 top-2 MoE (fused_top2_mlp_q8c.cu and both
-// of fused_layer_q8c.cu's launchers). So the two-kernel path (attention
-// kernel, then MoE kernel) and the whole-layer kernel run the same stages
-// with the same tiles and give the same bits.
+// The launch sequences of the wgmma layer stages on Hopper (sm_90a), shared
+// by the launchers that run them: the attention sub-block with int8
+// projections (fused_attn_block_q8.cu, and fused_layer_q8c.cu's
+// int8-projection launcher), the int8 x int8 top-2 MoE
+// (fused_top2_mlp_q8c.cu and both of fused_layer_q8c.cu's launchers), and
+// the bf16 projections of the attention sub-block (fused_attn_block.cu and
+// fused_layer_q8c.cu's bf16-projection launcher: proj_stage<EPI, kBf16>).
+// So the two-kernel path (attention kernel, then MoE kernel) and the
+// whole-layer kernel run the same stages with the same tiles and give the
+// same bits.
 //
 //   attn_q8_stages  1 ln1_quant_kernel  per row: f32 h = rmsnorm(x)*g1 + c,
 //                                       int8 row + scale
@@ -19,15 +22,17 @@
 //                                       or f32 partials (64 x 64) that
 //                   9 moe_sum_kernel    adds in the same order
 // with the row, attention and sum stages of layer_stages.cuh (one work item
-// per CTA of 128 threads, the megakernel's block size, so their reductions
-// add in the megakernel's order) and the products on wgmma fed by TMA
-// (wgmma_stages.cuh: Proj, Up, Down), each stage one __global__ launch on
-// the caller's stream; nothing is allocated. The int8 products read the
-// K-major copies of the weights (ops/quant.py kmajor_attn, kmajor_experts):
-// s8 wgmma takes both operands K-major. Their s32 sums are exact and the
-// epilogues run the f32 operations of the legacy wmma tiles in the same
-// order, so the results equal the megakernel's (fused_dit_q8c.cu) bit for
-// bit.
+// per CTA of 128 threads, the megakernel's team of one consumer
+// warpgroup, so their reductions add in the megakernel's order) and the
+// products on wgmma fed by TMA (wgmma_stages.cuh: Proj, Up, Down), each
+// stage one __global__ launch on the caller's stream; nothing is
+// allocated. The int8 products read the K-major copies of the weights
+// (ops/quant.py kmajor_attn, kmajor_experts): s8 wgmma takes both operands
+// K-major; the bf16 projections read their weights MN-major, as stored.
+// The s32 sums are exact, the bf16 ones run in the tensor core's order
+// under the same tile plan as the megakernel's, and the epilogues run the
+// same f32 operations in the same order, so the results equal the
+// megakernel's (fused_dit_q8c.cu) bit for bit.
 #pragma once
 
 #include <initializer_list>
@@ -41,6 +46,15 @@
 namespace {
 
 using namespace mdp;
+
+// c: f32 cond rows (x's dtype widened), c_stride 0 for one row shared by
+// every sample, D for one row per sample
+__global__ void __launch_bounds__(kThreads)
+ln1_kernel(const bf16* x, const float* c, int T, int c_stride, const float* g,
+           bf16* h, int D, float rs_D, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  ln1_row(x, c, T, c_stride, g, h, D, rs_D, eps, blockIdx.x, smem);
+}
 
 // c: the cond rows in bf16, x's dtype, as the JAX kernel takes them (the
 // caller converts nothing on the served path, where they are bf16 already);
@@ -58,21 +72,22 @@ ln1_quant_kernel(const bf16* x, const bf16* c, int T, int c_stride,
   ln1_quant_row(x, cond, 1, 0, g, hq, hs, D, rs_D, eps, blockIdx.x, smem);
 }
 
-// WG consumer warpgroups, tiles of 64 WG rows x BN columns
-template <int WG, int BN>
+// WG consumer warpgroups, tiles of 64 WG rows x BN columns; KIND wg::kS8
+// (int8 projections) or wg::kBf16
+template <int WG, int BN, int KIND>
 __global__ void __launch_bounds__(128 * (WG + 1), 1)
 qkv_wg_kernel(const __grid_constant__ CUtensorMap ta,
               const __grid_constant__ CUtensorMap tb,
               const __grid_constant__ wg::ProjArgs a) {
-  wg::gemm<wg::Proj<WG, BN, 0>>(&ta, &tb, a);
+  wg::gemm<wg::Proj<WG, BN, 0, KIND>>(&ta, &tb, a);
 }
 
-template <int WG, int BN>
+template <int WG, int BN, int KIND>
 __global__ void __launch_bounds__(128 * (WG + 1), 1)
 cproj_wg_kernel(const __grid_constant__ CUtensorMap ta,
                 const __grid_constant__ CUtensorMap tb,
                 const __grid_constant__ wg::ProjArgs a) {
-  wg::gemm<wg::Proj<WG, BN, 1>>(&ta, &tb, a);
+  wg::gemm<wg::Proj<WG, BN, 1, KIND>>(&ta, &tb, a);
 }
 
 // O = float: o stays f32 for the re-quantization (int8 projections);
@@ -118,11 +133,13 @@ moe_up_wg_kernel(const __grid_constant__ CUtensorMap ta,
   wg::gemm<wg::Up<WG, wg::kS8>>(&ta, &tb, a);
 }
 
+// one warp per item: items 4 blockIdx.x .. 4 blockIdx.x + 3 of 2 M H / TH
 __global__ void __launch_bounds__(kThreads)
 act_quant_kernel(const float* act, int8_t* aq, float* sa, int M, int HH,
                  int TH) {
-  __shared__ __align__(128) unsigned char smem[kSmemRed];
-  act_quant_item(act, aq, sa, M, HH, TH, blockIdx.x, smem);
+  const int item = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (item < 2 * M * (HH / TH))
+    act_quant_warp(act, aq, sa, M, HH, TH, item, threadIdx.x % 32);
 }
 
 template <int WG>
@@ -146,36 +163,45 @@ cudaError_t set_smem(K kernel, int bytes) {
   return wg::grant_smem(reinterpret_cast<const void*>(kernel), bytes);
 }
 
-template <int WG, int BN, int EPI>
+template <int WG, int BN, int EPI, int KIND>
 int run_proj(const CUtensorMap& ma, const CUtensorMap& mw,
              const wg::ProjArgs& a, int ctas, cudaStream_t st) {
-  using Op = wg::Proj<WG, BN, EPI>;
+  using Op = wg::Proj<WG, BN, EPI, KIND>;
   if constexpr (EPI == 0)
-    return (int)wg::run<Op>(qkv_wg_kernel<WG, BN>, ma, mw, a, ctas, st);
+    return (int)wg::run<Op>(qkv_wg_kernel<WG, BN, KIND>, ma, mw, a, ctas, st);
   else
-    return (int)wg::run<Op>(cproj_wg_kernel<WG, BN>, ma, mw, a, ctas, st);
+    return (int)wg::run<Op>(cproj_wg_kernel<WG, BN, KIND>, ma, mw, a, ctas,
+                            st);
 }
 
-// One projection of M int8 rows a [M, K] (row scales sa) by the K-major
-// int8 weight w_t [N, K] (column scales sb), EPI 0 with the bias into f32
-// out, EPI 1 added to resid into bf16 out, in tiles of tm (64 or 128) rows
-// x tn (64 or 128) columns on at most `ctas` persistent CTAs.
-template <int EPI>
-int proj_stage(const void* a, const void* sa, const void* w_t, const void* sb,
+// One projection of M rows a [M, K] by the weight [K, N], EPI 0 with the
+// bias into f32 out, EPI 1 added to resid into bf16 out, in tiles of tm
+// (64 or 128) rows x tn (64 or 128) columns on at most `ctas` persistent
+// CTAs. KIND wg::kS8: int8 rows (row scales sa) and the K-major int8
+// weight w [N, K] (column scales sb); wg::kBf16: bf16 rows and the bf16
+// weight w [K, N] as it is stored (sa, sb unused).
+template <int EPI, int KIND = wg::kS8>
+int proj_stage(const void* a, const void* sa, const void* w, const void* sb,
                const void* bias, const void* resid, void* out, int M, int N,
                int K, int tm, int tn, int ctas, cudaStream_t st) {
+  constexpr int esz = KIND == wg::kS8 ? 1 : 2;
   CUtensorMap ma, mw;
   const uint64_t da[2] = {(uint64_t)K, (uint64_t)M};
-  const uint64_t dw[2] = {(uint64_t)K, (uint64_t)N};
-  for (const int e : {wg::cached_map(&ma, a, 1, 2, da),
-                      wg::cached_map(&mw, w_t, 1, 2, dw)})
+  const uint64_t dw[3] = {KIND == wg::kS8 ? (uint64_t)K : (uint64_t)N,
+                          KIND == wg::kS8 ? (uint64_t)N : (uint64_t)K, 1};
+  for (const int e : {wg::cached_map(&ma, a, esz, 2, da),
+                      wg::cached_map(&mw, w, esz, 3, dw)})
     if (e) return e;
   const wg::ProjArgs pa =
       wg::proj_args(M, N, K, tm / 64, tn, sa, sb, bias, resid, out);
-  if (tm == 128 && tn == 128) return run_proj<2, 128, EPI>(ma, mw, pa, ctas, st);
-  if (tm == 128 && tn == 64) return run_proj<2, 64, EPI>(ma, mw, pa, ctas, st);
-  if (tm == 64 && tn == 128) return run_proj<1, 128, EPI>(ma, mw, pa, ctas, st);
-  if (tm == 64 && tn == 64) return run_proj<1, 64, EPI>(ma, mw, pa, ctas, st);
+  if (tm == 128 && tn == 128)
+    return run_proj<2, 128, EPI, KIND>(ma, mw, pa, ctas, st);
+  if (tm == 128 && tn == 64)
+    return run_proj<2, 64, EPI, KIND>(ma, mw, pa, ctas, st);
+  if (tm == 64 && tn == 128)
+    return run_proj<1, 128, EPI, KIND>(ma, mw, pa, ctas, st);
+  if (tm == 64 && tn == 64)
+    return run_proj<1, 64, EPI, KIND>(ma, mw, pa, ctas, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -211,6 +237,36 @@ inline int attn_q8_stages(
                        tiles[2], tiles[3], ctas, st);
 }
 
+// The attention sub-block with bf16 projections, out = x + attn(...) (the
+// layer's x_mid): ln1, the QKV projection on wgmma bf16, attention with o
+// rounded to bf16, c_proj on wgmma bf16 added to x. c: f32 cond rows;
+// c_stride: 0 for one row shared by every sample, D for one row per
+// sample. tiles: the (rows, columns) of the QKV tiles, then of the c_proj
+// tiles.
+inline int attn_bf16_stages(
+    const void* x, const void* c, int c_stride, const void* ln1_g,
+    const void* wqkv, const void* bqkv, const void* q_g, const void* k_g,
+    const void* wout, void* h, void* qkv, void* o, void* out, int B, int T,
+    int D, int H, float eps1, float eps_qk, float rs_D, float rs_hd,
+    float scale, const int (&tiles)[4], int ctas, cudaStream_t st) {
+  const int M = B * T, hd = D / H;
+  const int attn_smem = smem_attn(T, hd);
+  if (const cudaError_t e = set_smem(attn_kernel<bf16>, attn_smem))
+    return (int)e;
+  ln1_kernel<<<M, kThreads, smem_row(D), st>>>(
+      (const bf16*)x, (const float*)c, T, c_stride, (const float*)ln1_g,
+      (bf16*)h, D, rs_D, eps1);
+  if (const int e = proj_stage<0, wg::kBf16>(
+          h, nullptr, wqkv, nullptr, bqkv, nullptr, qkv, M, 3 * D, D,
+          tiles[0], tiles[1], ctas, st))
+    return e;
+  attn_kernel<bf16><<<attn_items(B, H, T), kThreads, attn_smem, st>>>(
+      (const float*)qkv, (const float*)q_g, (const float*)k_g, (bf16*)o, B,
+      T, D, H, hd, rs_hd, eps_qk, scale);
+  return proj_stage<1, wg::kBf16>(o, nullptr, wout, nullptr, nullptr, x, out,
+                                  M, D, D, tiles[2], tiles[3], ctas, st);
+}
+
 // Stages 6-9: the int8 expert products on wgmma around the act
 // re-quantization, WG consumer warpgroups per CTA (tiles of 64 * WG rows);
 // the down stage adds its passes to the sum seeded with `seed` (nullptr:
@@ -241,7 +297,8 @@ int moe_stages(const void* xq, const void* sx, const void* w1_t,
       WG == 2 ? 1 : 2 * n_h, nullptr, sa, w2_s, seed, WG == 2 ? out : part);
   cudaError_t e = wg::run<Up>(moe_up_wg_kernel<WG>, m_xq, m_w1, up, ctas, st);
   if (e != cudaSuccess) return (int)e;
-  act_quant_kernel<<<2 * M * n_h, kThreads, 0, st>>>(
+  act_quant_kernel<<<(2 * M * n_h + kThreads / 32 - 1) / (kThreads / 32),
+                     kThreads, 0, st>>>(
       (const float*)act, (int8_t*)aq, (float*)sa, M, HH, TH);
   e = wg::run<Down>(moe_down_wg_kernel<WG>, m_aq, m_w2, down, ctas, st);
   if (WG == 1 && e == cudaSuccess) {

@@ -1,9 +1,11 @@
-// The expert products of the top-2 MoE and the int8 attention projections
-// on Hopper's warpgroup MMA (wgmma) fed by the Tensor Memory Accelerator
-// (TMA), for the bf16-compute MoE (fused_top2_mlp.cu: bf16 or int8
-// weights) and the int8 layer (int8_stages.cuh: fused_top2_mlp_q8c.cu,
-// fused_attn_block_q8.cu, fused_layer_q8c.cu). The other stages of those
-// kernels stay in layer_stages.cuh.
+// Every product of the port's kernels on Hopper's warpgroup MMA (wgmma) fed
+// by the Tensor Memory Accelerator (TMA): the expert products of the top-2
+// MoE and the attention projections, for the bf16-compute MoE
+// (fused_top2_mlp.cu: bf16 or int8 weights), the attention kernels and the
+// layer (int8_stages.cuh: fused_attn_block.cu, fused_attn_block_q8.cu,
+// fused_top2_mlp_q8c.cu, fused_layer_q8c.cu) and the DiT megakernel
+// (fused_dit_q8c.cu). The other stages of those kernels stay in
+// layer_stages.cuh.
 //
 // Routing depends only on sigma: each of the two selected experts of a
 // routing row is a dense GEMM over all N = B*T token rows (no gather, no
@@ -17,10 +19,15 @@
 //         order to the residual seed in registers (128 x 128 tiles), or
 //         written as the f32 partials that moe_sum_elems adds in the same
 //         order (64 x 64 tiles).
-// and the int8 projections run on the same mainloop as one more stage:
+// and the attention projections run on the same mainloop as one more stage:
 //   Proj  [N, D] x [D, 3D] (QKV, f32 out with the bias) or [N, D] x [D, D]
-//         (c_proj, added to the residual in bf16), one 2-D weight map in
-//         place of the expert coordinate.
+//         (c_proj, added to the residual in bf16), bf16 or int8 x int8,
+//         the weight map's outer coordinate the layer of a stacked weight
+//         (0 for one layer) in place of the expert.
+// Each stage is a pair of loops over one ring of shared-memory stages,
+// produce<Op> (the TMA producer) and consume<Op> (the wgmma consumers):
+// gemm<Op> runs one stage as a kernel of its own, and the DiT megakernel
+// (fused_dit_q8c.cu) runs every GEMM stage of every layer on one ring.
 //
 // Design. A persistent CTA (one per SM at most) walks its tiles t =
 // blockIdx.x, + gridDim.x, ... . Warpgroups 0 .. kWG-1 consume, warpgroup
@@ -41,18 +48,24 @@
 // expert index comes from the device routing table inside the kernel, as
 // the third coordinate of a tensor map over [E, rows, cols]: no host sync.
 //
-// Layouts. bf16 B is read as the JAX experts hold it, [K, N] with N
-// contiguous: MN-major (the transpose bit), one 8 KB box per 64 output
-// columns, LBO = 8 KB between them, SBO = 1 KB between 8-row groups of k.
-// s8 wgmma takes B only K-major, so the int8 layer reads a K-major copy of
-// the experts ([E, 2H, D] and [E, D, H], made once per quantization:
-// ops/quant.py kmajor_experts), one box per 64 output columns, SBO = 1 KB.
+// Layouts. bf16 B is read as the JAX weights hold it, [K, N] with N
+// contiguous (the experts, and the projections wqkv [D, 3D], wout [D, D]):
+// MN-major (the transpose bit), one 8 KB box per 64 output columns, LBO =
+// 8 KB between them, SBO = 1 KB between 8-row groups of k. s8 wgmma takes
+// B only K-major, so the int8 stages read K-major copies of the experts
+// ([E, 2H, D] and [E, D, H]: ops/quant.py kmajor_experts) and projections
+// ([3D, D] and [D, D]: kmajor_attn), made once per quantization (stacked
+// [L, ...] once per preset for the megakernel), one box per 64 output
+// columns, SBO = 1 KB.
 //
-// Rounding: only the order of the f32 sums inside a bf16 tile changes (the
-// tensor core's); the s32 sums of the int8 products are exact (|sum| <=
-// 1024 * 127^2 < 2^31), and every epilogue performs the same f32
-// operations per element in the same order as the wmma stages of
-// layer_stages.cuh, so the int8 layer gives the same bits as before.
+// Rounding: the f32 sums of a bf16 product run in the tensor core's order,
+// k-step by k-step, so every kernel that runs a bf16 stage under the same
+// tile plan gives the same bits (on the H100 the bf16 projections gave the
+// same bits under every tile plan too: chip_smoke.py phase 15, which
+// reports it); the s32 sums of the int8 products are
+// exact (|sum| <= 1024 * 127^2 < 2^31), whatever the tiles. Every epilogue
+// performs its f32 operations per element in the order of the JAX kernels'
+// cast chain.
 #pragma once
 
 #include <cuda.h>
@@ -119,6 +132,14 @@ __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(c2), "r"(bar) : "memory");
+}
+
+// Order this thread's generic-proxy writes (to global and shared memory)
+// before later async-proxy accesses (TMA) to the same memory, and the other
+// way round: inside one kernel, a stage's stores and the next stage's TMA
+// loads are ordered by this fence on both sides of the grid barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -357,6 +378,8 @@ struct MoeArgs {
   const float* probs;   // [S, 2]
   int step, M, D, HH, TH, E;
   int n_mt, n_nt, n_tiles;   // tiles over rows, over columns, in all
+  int ex0;              // the expert map's first coordinate of this layer's
+                        // experts (l * E in a stack of layers, else 0)
   const void* bias;     // b1 [E, 2H]: bf16 (bf16 MoE) or f32 (int8 layer)
   const float* s_row;   // int8: sx [M] (up), sa [2, M, H / TH] (down)
   const float* s_col;   // int8: w1_s [E, 2H] (up), w2_s [E, D] (down)
@@ -455,16 +478,16 @@ struct Shape {
   }
 
   // One B box of the stage: 64 output columns from col, 128 bytes of k
-  // from k0; bf16 [E, K, N] MN-major boxes, int8 K-major ([E, N, K]) boxes,
-  // or (W8) raw int8 [E, K, N] boxes of 64 k rows x 64 columns.
+  // from k0, of the outer coordinate ex (an expert, or a layer); bf16
+  // [E, K, N] MN-major boxes, int8 K-major ([E, N, K]) boxes, or (W8) raw
+  // int8 [E, K, N] boxes of 64 k rows x 64 columns.
+  static constexpr int kBBox = W8 ? kBox / 2 : kBox;
   __device__ static void load_b(const CUtensorMap* tb, uint32_t st, int c,
                                 int col, int k0, int ex, uint32_t bar) {
     if constexpr (S8)
-      tma_3d(st + WG * kBox + c * kBox, tb, bar, k0, col, ex);
-    else if constexpr (W8)
-      tma_3d(st + WG * kBox + c * (kBox / 2), tb, bar, col, k0, ex);
+      tma_3d(st + WG * kBox + c * kBBox, tb, bar, k0, col, ex);
     else
-      tma_3d(st + WG * kBox + c * kBox, tb, bar, col, k0, ex);
+      tma_3d(st + WG * kBox + c * kBBox, tb, bar, col, k0, ex);
   }
 };
 
@@ -499,6 +522,36 @@ __device__ __forceinline__ int row0(const Tile& tl, int wg) {
   return tl.m0 + 64 * wg + 16 * (tid / 32) + (tid % 32) / 4;
 }
 
+// The thread's two rows and (s_row: int8 products) their scales.
+__device__ __forceinline__ Row row_of(const Tile& tl, int wg, int M,
+                                      const float* s_row) {
+  Row rw;
+  rw.r0 = row0(tl, wg);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rw.s[r] = s_row && rw.r0 + 8 * r < M ? ldf(s_row + rw.r0 + 8 * r) : 0.f;
+  return rw;
+}
+
+// Stage N column operands cols[i] = f(i) in shared memory, the consumer
+// warpgroup's loads all issued before its first store (a load after a
+// store to the generic address of cols would wait for it).
+template <int N, class F>
+__device__ __forceinline__ void stage_cols(float* cols, F f) {
+  constexpr int kPer = (N + 127) / 128;
+  float v[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x % 128 + 128 * u;
+    v[u] = i < N ? f(i) : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x % 128 + 128 * u;
+    if (i < N) cols[i] = v[u];
+  }
+}
+
 // MoE up, one slot: act[slot, r, n] = value * silu(gate) of the value
 // columns n0 .. n0 + 64 WG and the gate columns H + n0 ..:
 //   bf16: act = bf16((xm W1v + b1v) * silu(xm W1g + b1g));
@@ -525,17 +578,25 @@ struct Up : Shape<WG, 128 * WG, KIND> {
   }
   __device__ static int passes(const MoeArgs&) { return 1; }
   __device__ static int nk(const MoeArgs& a) { return a.D / (S8 ? 128 : 64); }
+  // f(c, col, k0, ex) for every B box of k-step kt
+  template <class F>
+  __device__ static void for_b(const MoeArgs& a, const Tile& tl, int, int kt,
+                               F f) {
+#pragma unroll
+    for (int c = 0; c < 2 * WG; ++c)
+      // chunks 0 .. WG-1 value columns, then as many gate columns
+      f(c, (c < WG ? 0 : a.HH - kNV) + tl.n0 + 64 * c, kt * (S8 ? 128 : 64),
+        a.ex0 + tl.ex);
+  }
   __device__ static void load(const CUtensorMap* ta, const CUtensorMap* tb,
-                              const MoeArgs& a, const Tile& tl, int, int kt,
+                              const MoeArgs& a, const Tile& tl, int z, int kt,
                               uint32_t st, uint32_t bar) {
     const int k0 = kt * (S8 ? 128 : 64);
 #pragma unroll
     for (int w = 0; w < WG; ++w) tma_2d(st + w * kBox, ta, bar, k0, tl.m0 + 64 * w);
-#pragma unroll
-    for (int c = 0; c < 2 * WG; ++c)
-      // chunks 0 .. WG-1 value columns, then as many gate columns
-      Sh::load_b(tb, st, c, (c < WG ? 0 : a.HH - kNV) + tl.n0 + 64 * c, k0,
-                 tl.ex, bar);
+    for_b(a, tl, z, kt, [&](int c, int col, int k, int ex) {
+      Sh::load_b(tb, st, c, col, k, ex, bar);
+    });
   }
   __device__ static void mma(Acc (&d)[Sh::kR], uint32_t st, uint32_t b,
                              int wg) {
@@ -544,18 +605,13 @@ struct Up : Shape<WG, 128 * WG, KIND> {
   // cols[k * kNV + n]: k = 0 b1v, 1 b1g, (int8) 2 s1v, 3 s1g
   __device__ static Row operands(const MoeArgs& a, const Tile& tl, int wg,
                                  float* cols) {
+    const Row rw = row_of(tl, wg, a.M, S8 ? a.s_row : nullptr);
     const size_t eb = (size_t)tl.ex * 2 * a.HH + tl.n0;
-    for (int i = threadIdx.x % 128; i < kCols; i += 128) {
+    stage_cols<kCols>(cols, [&](int i) {
       const int k = i / kNV, n = i % kNV;
       const size_t at = eb + (k % 2 ? a.HH : 0) + n;
-      cols[i] = k < 2 ? bias_of(a.bias, at, KIND == kBf16) : a.s_col[at];
-    }
-    Row rw;
-    rw.r0 = row0(tl, wg);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      rw.s[r] = S8 && rw.r0 + 8 * r < a.M ? ldf(a.s_row + rw.r0 + 8 * r)
-                                          : 0.f;
+      return k < 2 ? bias_of(a.bias, at, KIND == kBf16) : a.s_col[at];
+    });
     return rw;
   }
   __device__ static void seed(Sum&, const MoeArgs&, const Tile&,
@@ -639,19 +695,30 @@ struct Down : Shape<WG, 64 * WG, KIND> {
     return SUM ? 2 * (a.HH / a.TH) : 1;
   }
   __device__ static int nk(const MoeArgs& a) { return a.TH / (S8 ? 128 : 64); }
+  __device__ static int k_of(const MoeArgs& a, int z, int kt) {
+    return (z % (a.HH / a.TH)) * a.TH + kt * (S8 ? 128 : 64);
+  }
+  // f(c, col, k0, ex) for every B box of k-step kt of pass `pass`
+  template <class F>
+  __device__ static void for_b(const MoeArgs& a, const Tile& tl, int pass,
+                               int kt, F f) {
+    const int z = SUM ? pass : tl.z;
+    const int ex = expert_of(a.idx, a.step, z / (a.HH / a.TH), a.E);
+#pragma unroll
+    for (int c = 0; c < WG; ++c)
+      f(c, tl.n0 + 64 * c, k_of(a, z, kt), a.ex0 + ex);
+  }
   __device__ static void load(const CUtensorMap* ta, const CUtensorMap* tb,
                               const MoeArgs& a, const Tile& tl, int pass,
                               int kt, uint32_t st, uint32_t bar) {
     const int z = SUM ? pass : tl.z;
-    const int n_h = a.HH / a.TH, slot = z / n_h;
-    const int ex = expert_of(a.idx, a.step, slot, a.E);
-    const int k0 = (z % n_h) * a.TH + kt * (S8 ? 128 : 64);
+    const int k0 = k_of(a, z, kt), slot = z / (a.HH / a.TH);
 #pragma unroll
     for (int w = 0; w < WG; ++w)
       tma_3d(st + w * kBox, ta, bar, k0, tl.m0 + 64 * w, slot);
-#pragma unroll
-    for (int c = 0; c < WG; ++c)
-      Sh::load_b(tb, st, c, tl.n0 + 64 * c, k0, ex, bar);
+    for_b(a, tl, pass, kt, [&](int c, int col, int k, int ex) {
+      Sh::load_b(tb, st, c, col, k, ex, bar);
+    });
   }
   __device__ static void mma(Acc (&d)[Sh::kR], uint32_t st, uint32_t b,
                              int wg) {
@@ -660,14 +727,14 @@ struct Down : Shape<WG, 64 * WG, KIND> {
   // cols[slot * kN + n]: s2 of the slot's expert
   __device__ static Row operands(const MoeArgs& a, const Tile& tl, int wg,
                                  float* cols) {
-    if constexpr (KIND != kBf16)
-      for (int i = threadIdx.x % 128; i < kCols; i += 128) {
-        const int ex = expert_of(a.idx, a.step, i / Sh::kN, a.E);
-        cols[i] = a.s_col[(size_t)ex * a.D + tl.n0 + i % Sh::kN];
-      }
-    Row rw;
-    rw.r0 = row0(tl, wg);
-    return rw;
+    if constexpr (KIND != kBf16) {
+      const int ex[2] = {expert_of(a.idx, a.step, 0, a.E),
+                         expert_of(a.idx, a.step, 1, a.E)};
+      stage_cols<kCols>(cols, [&](int i) {
+        return a.s_col[(size_t)ex[i / Sh::kN] * a.D + tl.n0 + i % Sh::kN];
+      });
+    }
+    return row_of(tl, wg, a.M, nullptr);
   }
   // int8 products: this pass's row scales sa, loaded under its products
   __device__ static void pass_operands(const MoeArgs& a, const Tile& tl,
@@ -692,9 +759,11 @@ struct Down : Shape<WG, 64 * WG, KIND> {
         for (int r = 0; r < 2; ++r) {
           const int row = rw.r0 + 8 * r, i = 4 * j + 2 * r;
           float2 v = make_float2(0.f, 0.f);
+          // through L2 (__ldcg): the megakernel wrote the seed in this launch
           if (a.seed && row < a.M)
-            v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                a.seed + (size_t)row * a.D + tl.n0 + c0 + 8 * j));
+            v = __bfloat1622float2(
+                __ldcg(reinterpret_cast<const __nv_bfloat162*>(
+                    a.seed + (size_t)row * a.D + tl.n0 + c0 + 8 * j)));
           sum.v[i] = v.x;
           sum.v[i + 1] = v.y;
         }
@@ -753,65 +822,85 @@ struct Down : Shape<WG, 64 * WG, KIND> {
   }
 };
 
-// The dense int8 x int8 projections of the attention sub-block (QKV and
-// c_proj of fused_attn_block_q8 and of fused_layer_q8c with int8
-// projections): out = A W over M rows, A [M, K] the int8 rows (hq or oq,
-// K-major as they are) and W [K, N] read from its K-major copy W_t [N, K]
-// (ops/quant.py kmajor_attn), in tiles of 64 WG rows x BN columns; the
-// column scales (and bias) staged in shared memory, the row scales in
-// registers, the same f32 operations in the same order as the legacy
-// tile's epilogues (layer_stages.cuh gemm_i8_tile):
-//   EPI 0 (QKV):    out_f32[r, n]  = acc * (sa[r] * sb[n]) + bias[n]
-//   EPI 1 (c_proj): out_bf16[r, n] = bf16(resid[r, n] + acc * (sa[r] * sb[n]))
+// The dense projections of the attention sub-block (QKV and c_proj of
+// fused_attn_block, fused_attn_block_q8, both fused_layer_q8c launchers and
+// the DiT megakernel): out = A W over M rows, in tiles of 64 WG rows x BN
+// columns, W the layer `layer` of a [L, ., .] weight map (L = 1 for one
+// layer). Two kinds:
+//   bf16 (KIND kBf16): A [M, K] the bf16 rows (h or o); W [K, N] read
+//   MN-major as it is stored, one box per 64 output columns; the epilogues
+//   of the JAX kernel's cast chain
+//     EPI 0 (QKV):    out_f32[r, n]  = acc + bias[n]
+//     EPI 1 (c_proj): out_bf16[r, n] = bf16(resid[r, n] + acc)
+//   int8 (KIND kS8): A [M, K] the int8 rows (hq or oq) and W [K, N] read
+//   from its K-major copy W_t [N, K] (ops/quant.py kmajor_attn), the
+//   column scales (and bias) staged in shared memory, the row scales in
+//   registers:
+//     EPI 0 (QKV):    out_f32[r, n]  = acc * (sa[r] * sb[n]) + bias[n]
+//     EPI 1 (c_proj): out_bf16[r, n] = bf16(resid[r, n] + acc * (sa[r] * sb[n]))
 struct ProjArgs {
   int M, N, K;                // rows, output columns, contraction
   int n_mt, n_nt, n_tiles;    // tiles over rows, over columns, in all
-  const float* s_row;         // sa [M]: hs or os
-  const float* s_col;         // sb [N]: wqkv_s or wout_s
+  int layer;                  // the weight map's outer coordinate
+  const float* s_row;         // int8: sa [M], hs or os
+  const float* s_col;         // int8: sb [N], wqkv_s or wout_s
   const float* bias;          // EPI 0: bqkv [N]
   const bf16* resid;          // EPI 1: x [M, N]
   void* out;                  // EPI 0: qkv f32 [M, N]; EPI 1: bf16 [M, N]
 };
 
-template <int WG, int BN, int EPI>
-struct Proj : Shape<WG, BN, kS8> {
-  using Sh = Shape<WG, BN, kS8>;
-  using Acc = int;
+template <int WG, int BN, int EPI, int KIND = kS8>
+struct Proj : Shape<WG, BN, KIND> {
+  static_assert(KIND != kW8, "the projections have no widened kind");
+  using Sh = Shape<WG, BN, KIND>;
+  using Acc = typename Sh::Acc;
   using Args = ProjArgs;
-  // staged columns: sb, and (EPI 0) the bias, BN floats each
-  static constexpr int kCols = (EPI == 0 ? 2 : 1) * BN;
+  static constexpr bool S8 = Sh::S8;
+  // staged columns: int8, sb and (EPI 0) the bias; bf16, (EPI 0) the bias;
+  // BN floats each
+  static constexpr int kCols =
+      S8 ? (EPI == 0 ? 2 : 1) * BN : (EPI == 0 ? BN : 1);
   struct Sum {};
 
   __device__ static Tile tile(const ProjArgs& a, int t) {
     return tile_of(a, t, Sh::kBM, BN);
   }
   __device__ static int passes(const ProjArgs&) { return 1; }
-  __device__ static int nk(const ProjArgs& a) { return a.K / 128; }
+  __device__ static int nk(const ProjArgs& a) { return a.K / (S8 ? 128 : 64); }
+  // f(c, col, k0, layer) for every B box of k-step kt
+  template <class F>
+  __device__ static void for_b(const ProjArgs& a, const Tile& tl, int, int kt,
+                               F f) {
+#pragma unroll
+    for (int c = 0; c < Sh::kChunks; ++c)
+      f(c, tl.n0 + 64 * c, kt * (S8 ? 128 : 64), a.layer);
+  }
   __device__ static void load(const CUtensorMap* ta, const CUtensorMap* tb,
-                              const ProjArgs&, const Tile& tl, int, int kt,
+                              const ProjArgs& a, const Tile& tl, int z, int kt,
                               uint32_t st, uint32_t bar) {
-    const int k0 = kt * 128;
+    const int k0 = kt * (S8 ? 128 : 64);
 #pragma unroll
     for (int w = 0; w < WG; ++w)
       tma_2d(st + w * kBox, ta, bar, k0, tl.m0 + 64 * w);
-#pragma unroll
-    for (int c = 0; c < Sh::kChunks; ++c)
-      tma_2d(st + WG * kBox + c * kBox, tb, bar, k0, tl.n0 + 64 * c);
+    for_b(a, tl, z, kt, [&](int c, int col, int k, int l) {
+      Sh::load_b(tb, st, c, col, k, l, bar);
+    });
   }
   __device__ static void mma(Acc (&d)[Sh::kR], uint32_t st, uint32_t b,
                              int wg) {
-    stage_mma<true, BN>(d, st + wg * kBox, b);
+    stage_mma<S8, BN>(d, st + wg * kBox, b);
   }
-  // cols[n]: sb; cols[BN + n]: the bias (EPI 0)
+  // int8: cols[n] sb, cols[BN + n] the bias (EPI 0); bf16: cols[n] the
+  // bias (EPI 0)
   __device__ static Row operands(const ProjArgs& a, const Tile& tl, int wg,
                                  float* cols) {
-    for (int i = threadIdx.x % 128; i < kCols; i += 128)
-      cols[i] = i < BN ? a.s_col[tl.n0 + i] : a.bias[tl.n0 + i - BN];
-    Row rw;
-    rw.r0 = row0(tl, wg);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      rw.s[r] = rw.r0 + 8 * r < a.M ? ldf(a.s_row + rw.r0 + 8 * r) : 0.f;
+    const Row rw = row_of(tl, wg, a.M, S8 ? a.s_row : nullptr);
+    if constexpr (S8)
+      stage_cols<kCols>(cols, [&](int i) {
+        return i < BN ? a.s_col[tl.n0 + i] : a.bias[tl.n0 + i - BN];
+      });
+    else if constexpr (EPI == 0)
+      stage_cols<BN>(cols, [&](int i) { return a.bias[tl.n0 + i]; });
     return rw;
   }
   __device__ static void seed(Sum&, const ProjArgs&, const Tile&,
@@ -823,7 +912,26 @@ struct Proj : Shape<WG, BN, kS8> {
   __device__ static void store(const Acc (&d)[Sh::kR], const ProjArgs& a,
                                const Tile& tl, const Row& rw,
                                const float* cols, int, Sum&) {
+    constexpr int kBias = S8 ? BN : 0;   // where the staged bias starts
     const int c0 = 2 * (threadIdx.x % 4);
+    // EPI 1: this thread's residual values, loaded together ahead of the
+    // stores (a load between two stores waits for its own round trip),
+    // through L2 (__ldcg): the megakernel wrote x in this launch
+    float2 x[EPI == 1 ? BN / 8 : 1][2];
+    if constexpr (EPI == 1) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = rw.r0 + 8 * r;
+          x[j][r] = row < a.M
+                        ? __bfloat1622float2(__ldcg(
+                              reinterpret_cast<const __nv_bfloat162*>(
+                                  a.resid + (size_t)row * a.N + tl.n0 + c0 +
+                                  8 * j)))
+                        : make_float2(0.f, 0.f);
+        }
+    }
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -835,33 +943,122 @@ struct Proj : Shape<WG, BN, kS8> {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int n = c0 + 8 * j + c, i = 4 * j + 2 * r + c;
-          y[c] = __fmul_rn((float)d[i], __fmul_rn(rw.s[r], cols[n]));
+          if constexpr (S8)
+            y[c] = __fmul_rn((float)d[i], __fmul_rn(rw.s[r], cols[n]));
+          else
+            y[c] = d[i];
         }
         if constexpr (EPI == 0) {
           *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at) =
-              make_float2(__fadd_rn(y[0], cols[BN + c0 + 8 * j]),
-                          __fadd_rn(y[1], cols[BN + c0 + 8 * j + 1]));
+              make_float2(__fadd_rn(y[0], cols[kBias + c0 + 8 * j]),
+                          __fadd_rn(y[1], cols[kBias + c0 + 8 * j + 1]));
         } else {
-          const float2 x = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(a.resid + at));
           *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + at) =
-              __floats2bfloat162_rn(__fadd_rn(x.x, y[0]),
-                                    __fadd_rn(x.y, y[1]));
+              __floats2bfloat162_rn(__fadd_rn(x[j][r].x, y[0]),
+                                    __fadd_rn(x[j][r].y, y[1]));
         }
       }
   }
 };
 
 // ---- the mainloop ---------------------------------------------------------
-// Run by every thread of a CTA of 128 * (Op::kWG + 1) threads with
-// Op::kSmem bytes of dynamic shared memory. Each tile runs Op::passes
-// products of nk k-steps (the down stage: one per (slot, hidden block)),
-// each followed by Op::store; Op::finish ends the tile.
+// A ring of n stages in shared memory, `slot` bytes apart from base (1024-
+// aligned), each with a "full" mbarrier (the producer's TMA loads, with
+// their byte count) and an "empty" one (one arrival per consumer
+// warpgroup once its products have read the stage). Both sides count the
+// k-steps they pass through the ring in `it`, which runs on across stages
+// (and, in the megakernel, across layers): k-step it uses stage it % n,
+// in its (it / n)-th round.
+struct Ring {
+  uint32_t base, full, empty;   // shared-memory addresses
+  int slot, n;                  // bytes between stages, stages
+};
+
+// Run by one thread, before any other thread of the CTA touches the ring.
+__device__ __forceinline__ void ring_init(const Ring& r, int consumers) {
+  for (int s = 0; s < r.n; ++s) {
+    mbar_init(r.full + 8 * s, 1);
+    mbar_init(r.empty + 8 * s, consumers);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wg_barrier(int wg) {
   // the 128 threads of consumer warpgroup wg (barrier 0 is __syncthreads)
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
+// The producer of one GEMM stage, run by ONE thread: every load of this
+// CTA's tiles t = blockIdx.x, + gridDim.x, ... into the ring.
+template <class Op>
+__device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* ta,
+                                        const CUtensorMap* tb,
+                                        const typename Op::Args& a, int& it) {
+  const int nk = Op::nk(a), passes = Op::passes(a);
+  for (int t = blockIdx.x; t < a.n_tiles; t += gridDim.x) {
+    const Tile tl = Op::tile(a, t);
+    for (int z = 0; z < passes; ++z)
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % r.n;
+        if (it >= r.n) mbar_wait(r.empty + 8 * s, ((it / r.n) - 1) & 1);
+        mbar_expect_tx(r.full + 8 * s, Op::kStage);
+        Op::load(ta, tb, a, tl, z, kt, r.base + s * r.slot, r.full + 8 * s);
+      }
+  }
+}
+
+// The consumers of one GEMM stage, run by every thread of consumer
+// warpgroup wg: the same tiles as the producer, its 64 rows of each, each
+// tile running Op::passes products of nk k-steps, each followed by
+// Op::store; Op::finish ends the tile. cols: the warpgroup's Op::kCols
+// staged column operands; wide: the W8 widened copies.
+template <class Op>
+__device__ __forceinline__ void consume(const Ring& r,
+                                        const typename Op::Args& a,
+                                        float* cols, uint32_t wide, int wg,
+                                        int& it) {
+  const int nk = Op::nk(a), passes = Op::passes(a);
+  for (int t = blockIdx.x; t < a.n_tiles; t += gridDim.x) {
+    const Tile tl = Op::tile(a, t);
+    // the previous tile's epilogue has read cols: stage this tile's
+    // operands, whose loads then run under the products
+    wg_barrier(wg);
+    Row rw = Op::operands(a, tl, wg, cols);
+    typename Op::Sum sum;
+    Op::seed(sum, a, tl, rw);
+    for (int z = 0; z < passes; ++z) {
+      Op::pass_operands(a, tl, z, rw);
+      typename Op::Acc d[Op::kR];
+#pragma unroll
+      for (int i = 0; i < Op::kR; ++i) d[i] = 0;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % r.n;
+        const uint32_t st = r.base + s * r.slot;
+        mbar_wait(r.full + 8 * s, (it / r.n) & 1);
+        const uint32_t b = Op::operand_b(st, wide, it);
+        fence_acc(d);
+        wgmma_fence();
+        Op::mma(d, st, b, wg);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(d);
+        // the products of the previous k-step have read their stage
+        if (kt > 0 && threadIdx.x % 128 == 0)
+          mbar_arrive(r.empty + 8 * ((it - 1) % r.n));
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (threadIdx.x % 128 == 0) mbar_arrive(r.empty + 8 * ((it - 1) % r.n));
+      if (z == 0) wg_barrier(wg);   // the staged columns are in place
+      Op::store(d, a, tl, rw, cols, z, sum);
+    }
+    Op::finish(sum, a, tl, rw);
+  }
+}
+
+// One GEMM stage as a kernel of its own: run by every thread of a CTA of
+// 128 * (Op::kWG + 1) threads with Op::kSmem bytes of dynamic shared
+// memory; warpgroup Op::kWG produces, the others consume.
 template <class Op>
 __device__ __forceinline__ void gemm(const CUtensorMap* ta,
                                      const CUtensorMap* tb,
@@ -869,78 +1066,22 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta,
   extern __shared__ unsigned char wg_smem[];
   __shared__ __align__(8) uint64_t bars[2 * Op::kStages];
   __shared__ float cols[Op::kWG][Op::kCols];
-  const uint32_t ring = (smem_u32(wg_smem) + 1023u) & ~1023u;
-  const uint32_t wide = ring + Op::kStages * Op::kStage;   // W8 only
-  const uint32_t full = smem_u32(bars), empty = full + 8 * Op::kStages;
+  const Ring r{(smem_u32(wg_smem) + 1023u) & ~1023u, smem_u32(bars),
+               smem_u32(bars) + 8 * Op::kStages, Op::kStage, Op::kStages};
+  const uint32_t wide = r.base + Op::kStages * Op::kStage;   // W8 only
   const int wg = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < Op::kStages; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, Op::kWG);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) ring_init(r, Op::kWG);
   __syncthreads();
-  const int nk = Op::nk(a), passes = Op::passes(a);
+  int it = 0;
   if (wg == Op::kWG) {
     // the producer warpgroup: one thread issues every load
     if constexpr (Op::kWG > 1)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x % 128 == 0) {
-      int it = 0;
-      for (int t = blockIdx.x; t < a.n_tiles; t += gridDim.x) {
-        const Tile tl = Op::tile(a, t);
-        for (int z = 0; z < passes; ++z)
-          for (int kt = 0; kt < nk; ++kt, ++it) {
-            const int s = it % Op::kStages;
-            if (it >= Op::kStages)
-              mbar_wait(empty + 8 * s, ((it / Op::kStages) - 1) & 1);
-            mbar_expect_tx(full + 8 * s, Op::kStage);
-            Op::load(ta, tb, a, tl, z, kt, ring + s * Op::kStage,
-                     full + 8 * s);
-          }
-      }
-    }
+    if (threadIdx.x % 128 == 0) produce<Op>(r, ta, tb, a, it);
   } else {
     if constexpr (Op::kWG > 1)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    int it = 0;
-    for (int t = blockIdx.x; t < a.n_tiles; t += gridDim.x) {
-      const Tile tl = Op::tile(a, t);
-      // the previous tile's epilogue has read cols: stage this tile's
-      // operands, whose loads then run under the products
-      wg_barrier(wg);
-      Row rw = Op::operands(a, tl, wg, cols[wg]);
-      typename Op::Sum sum;
-      Op::seed(sum, a, tl, rw);
-      for (int z = 0; z < passes; ++z) {
-        Op::pass_operands(a, tl, z, rw);
-        typename Op::Acc d[Op::kR];
-#pragma unroll
-        for (int i = 0; i < Op::kR; ++i) d[i] = 0;
-        for (int kt = 0; kt < nk; ++kt, ++it) {
-          const int s = it % Op::kStages;
-          mbar_wait(full + 8 * s, (it / Op::kStages) & 1);
-          const uint32_t b = Op::operand_b(ring + s * Op::kStage, wide, it);
-          fence_acc(d);
-          wgmma_fence();
-          Op::mma(d, ring + s * Op::kStage, b, wg);
-          wgmma_commit();
-          wgmma_wait<1>();
-          fence_acc(d);
-          // the products of the previous k-step have read their stage
-          if (kt > 0 && threadIdx.x % 128 == 0)
-            mbar_arrive(empty + 8 * ((it - 1) % Op::kStages));
-        }
-        wgmma_wait<0>();
-        fence_acc(d);
-        if (threadIdx.x % 128 == 0)
-          mbar_arrive(empty + 8 * ((it - 1) % Op::kStages));
-        if (z == 0) wg_barrier(wg);   // the staged columns are in place
-        Op::store(d, a, tl, rw, cols[wg], z, sum);
-      }
-      Op::finish(sum, a, tl, rw);
-    }
+    consume<Op>(r, a, cols[wg], wide, wg, it);
   }
 }
 
@@ -1048,11 +1189,11 @@ inline int weight_map(CUtensorMap* out, const void* ptr, int esz,
 // Operands of a stage over M rows with tiles of 64 * wg rows and `bn`
 // columns out of n_cols, for nz slots (up: 2), (slot, hidden block) pairs
 // (down writing partials: 2 H / TH) or 1 (down summing its passes).
-inline MoeArgs stage_args(const void* idx, const void* probs, int step, int M,
-                          int D, int HH, int TH, int E, int wg, int bn,
-                          int n_cols, int nz, const void* bias,
-                          const void* s_row, const void* s_col,
-                          const void* seed, void* out) {
+__host__ __device__ inline MoeArgs stage_args(
+    const void* idx, const void* probs, int step, int M, int D, int HH,
+    int TH, int E, int wg, int bn, int n_cols, int nz, const void* bias,
+    const void* s_row, const void* s_col, const void* seed, void* out,
+    int ex0 = 0) {
   MoeArgs a;
   a.idx = static_cast<const int*>(idx);
   a.probs = static_cast<const float*>(probs);
@@ -1061,6 +1202,7 @@ inline MoeArgs stage_args(const void* idx, const void* probs, int step, int M,
   a.n_mt = (M + 64 * wg - 1) / (64 * wg);
   a.n_nt = n_cols / bn;
   a.n_tiles = nz * a.n_mt * a.n_nt;
+  a.ex0 = ex0;
   a.bias = bias;
   a.s_row = static_cast<const float*>(s_row);
   a.s_col = static_cast<const float*>(s_col);
@@ -1070,12 +1212,14 @@ inline MoeArgs stage_args(const void* idx, const void* probs, int step, int M,
 }
 
 // Operands of a projection over M rows in tiles of 64 * wg rows x bn
-// columns out of N.
-inline ProjArgs proj_args(int M, int N, int K, int wg, int bn,
-                          const void* s_row, const void* s_col,
-                          const void* bias, const void* resid, void* out) {
+// columns out of N, from layer `layer` of the weight map.
+__host__ __device__ inline ProjArgs proj_args(
+    int M, int N, int K, int wg, int bn, const void* s_row,
+    const void* s_col, const void* bias, const void* resid, void* out,
+    int layer = 0) {
   ProjArgs a;
   a.M = M; a.N = N; a.K = K;
+  a.layer = layer;
   a.n_mt = (M + 64 * wg - 1) / (64 * wg);
   a.n_nt = N / bn;
   a.n_tiles = a.n_mt * a.n_nt;

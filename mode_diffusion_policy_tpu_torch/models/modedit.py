@@ -39,7 +39,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.kernels.attn_kernel import fused_attn_block, fused_attn_block_q8
-from ..ops.kernels.layer_kernel import (STACKED_QATTN, fused_dit_q8c,
+from ..ops.kernels.layer_kernel import (DIT_KMAJOR, DIT_KMAJOR_ATTN,
+                                        STACKED_QATTN, fused_dit_q8c,
                                         fused_layer_q8c)
 from ..ops.kernels.moe_kernel import fused_top2_mlp, fused_top2_mlp_q8c
 from ..ops.moe import moe_ffn_dense, moe_ffn_top2_gather
@@ -438,8 +439,12 @@ class MoDeDiT(nn.Module):
         (``fused_dit_q8c``), in the dtypes it takes: ln1/ln2, q_g/k_g and
         bqkv in f32; wqkv/wout in the compute dtype (the serving precast's
         values), or int8 with their scales sqkv/sout under use_int8_attn;
-        the int8 experts. Reads the blocks' int8 weights, so it runs after
-        the quantizers."""
+        the int8 experts; and the K-major copies of the int8 weights that
+        the CUDA megakernel's s8 wgmma products read (``DIT_KMAJOR``: w1_t
+        [L,E,2H,D], w2_t [L,E,D,H], each layer's slice ``kmajor_experts``
+        of its experts; with use_int8_attn ``DIT_KMAJOR_ATTN``: wqkv_t
+        [L,3D,D], wout_t [L,D,D], ``kmajor_attn``). Reads the blocks' int8
+        weights, so it runs after the quantizers."""
         dt = self.cfg.dtype
         blocks = list(self.blocks)
         if any(b.experts_q is None for b in blocks) or (
@@ -464,22 +469,31 @@ class MoDeDiT(nn.Module):
             out["wout"] = stack(lambda b: b.attn.c_proj.kernel.to(dt))
         for k in QuantizedExperts._fields:
             out[k] = stack(lambda b, k=k: getattr(b.experts_q, k))
+        # the K-major copies: each layer's matrices transposed
+        for k, src in zip(DIT_KMAJOR, ("w1_q", "w2_q")):
+            out[k] = out[src].transpose(-1, -2).contiguous()
+        if self.cfg.use_int8_attn:
+            for k, src in zip(DIT_KMAJOR_ATTN, ("wqkv", "wout")):
+                out[k] = out[src].transpose(-1, -2).contiguous()
         return out
 
     @torch.no_grad()
     def stack_layers_(self):
         """Build and cache ``stack_layers()`` in ``self.stacked``, once per
-        preset (not per chunk), and point every block's int8 tensors at
-        their slices of the stack, so that the int8 weights are not held
-        twice."""
+        preset (not per chunk), and point every block's int8 tensors and
+        their K-major copies at their slices of the stack, so that no int8
+        weight is held twice."""
         self.stacked = None
         st = self.stack_layers()
         for l, blk in enumerate(self.blocks):
             blk.experts_q = QuantizedExperts(
                 *(st[k][l] for k in QuantizedExperts._fields))
+            blk.experts_qt = ExpertsKMajor(*(st[k][l] for k in DIT_KMAJOR))
             if self.cfg.use_int8_attn:
                 blk.attn.attn_q = QuantizedAttn(
                     *(st[k][l] for k in STACKED_QATTN))
+                blk.attn.attn_qt = AttnKMajor(
+                    *(st[k][l] for k in DIT_KMAJOR_ATTN))
         self.stacked = st
         return st
 

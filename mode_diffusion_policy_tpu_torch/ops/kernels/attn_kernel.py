@@ -29,12 +29,14 @@ x.dtype as the JAX kernels take it.
 tensors (and raise on what they cannot take: a per-token cond among
 others) and run the plain versions, ``fused_attn_block_ref`` and
 ``fused_attn_block_q8_ref``, only for CPU tensors. Their ``.launches``
-count kernel launches. The int8 kernel's projections run on wgmma tiles
-over persistent CTAs and read the K-major copy of the int8 weights
-(``quant.kmajor_attn``, made once per quantization by
-``MoDeDiT.quantize_attn_``); the wrapper chooses the tiles by token count
-(``proj_tile_plan``). The plain version takes the copy too, with the same
-result.
+count kernel launches. Both kernels' projections run on wgmma tiles over
+persistent CTAs (``csrc/wgmma_stages.cuh`` Proj), and the wrappers choose
+the tiles by token count (``proj_tile_plan``), the plan of the whole-layer
+kernel and the megakernel at the same row count. The bf16 kernel reads its
+weights as they are stored; the int8 kernel reads the K-major copy of the
+int8 weights (``quant.kmajor_attn``, made once per quantization by
+``MoDeDiT.quantize_attn_``), which the plain version takes too, with the
+same result.
 """
 from __future__ import annotations
 
@@ -109,9 +111,9 @@ def fused_attn_block_q8_ref(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
 
 
 class ProjTilePlan(NamedTuple):
-    """How one int8 projection (QKV or c_proj) of ``fused_attn_block_q8``
-    and ``fused_layer_q8c(qattn=)`` covers its output [M, N] with wgmma
-    tiles (``csrc/wgmma_stages.cuh`` Proj)."""
+    """How one projection (QKV or c_proj; bf16 or int8) of the attention
+    kernels, ``fused_layer_q8c`` and ``fused_dit_q8c`` covers its output
+    [M, N] with wgmma tiles (``csrc/wgmma_stages.cuh`` Proj)."""
 
     tile_m: int      # rows of an output tile: 128 or 64
     tile_n: int      # columns of an output tile: 128 or 64
@@ -146,11 +148,13 @@ def proj_tiles(plan: ProjTilePlan, M: int):
 
 
 def proj_launch_args(M: int, D: int, device, tiles=None):
-    """The launchers' plan arguments for the two int8 projections of M
+    """The launchers' plan arguments for the two projections of M
     token rows on a CUDA ``device`` (one CTA per SM): QKV tile rows,
     columns, c_proj tile rows, columns, CTAs. ``tiles``: the first four,
-    or None for the default plans (``proj_tile_plan``); a tuning knob, the
-    result does not depend on it."""
+    or None for the default plans (``proj_tile_plan``); a tuning knob. The
+    int8 products' exact sums do not depend on it; the bf16 products sum in
+    the tensor core's order, which ``chip_smoke.py`` checks under each
+    plan."""
     tm1, tn1, tm2, tn2 = tiles or (None,) * 4
     ctas = sm_count(device.index or 0)
     qkv = proj_tile_plan(M, 3 * D, ctas, tm1, tn1)
@@ -160,7 +164,8 @@ def proj_launch_args(M: int, D: int, device, tiles=None):
 
 _ARGTYPES = {
     "fused_attn_block": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                         + [ctypes.c_float] * 5 + [ctypes.c_void_p]),
+                         + [ctypes.c_float] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p]),
     "fused_attn_block_q8": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
                             + [ctypes.c_float] * 5 + [ctypes.c_int] * 5
                             + [ctypes.c_void_p]),
@@ -210,14 +215,18 @@ def _launch(name, ptrs, ints, x, ln_eps, qk_eps, D, hd, tail=()):
 
 
 def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
-                     ln_eps: float = 1e-6,
-                     qk_eps: float = 1e-6) -> torch.Tensor:
+                     ln_eps: float = 1e-6, qk_eps: float = 1e-6,
+                     tiles=None) -> torch.Tensor:
     """``x + attn(ln_1(x) + c)`` with bf16 QKV and c_proj.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 x, a shared
     [1,1,D] cond row or one per sample [B,1,D], T <= 16 tokens per sample,
-    head dim a multiple of 32); a per-token cond raises. CPU tensors: the
-    plain version ``fused_attn_block_ref``. Returns x.dtype [B,T,D]."""
+    head dim a multiple of 32); a per-token cond raises. ``tiles`` (QKV
+    rows, columns, c_proj rows, columns; 64 or 128 each) overrides the
+    projections' tile plan (``proj_launch_args``): the default plan is the
+    one under which the kernel equals ``fused_layer_q8c``'s attention
+    bit for bit. CPU tensors: the plain version ``fused_attn_block_ref``.
+    Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_attn_block_ref(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout,
                                     ln_eps=ln_eps, qk_eps=qk_eps)
@@ -231,14 +240,13 @@ def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
                                   (wout, "wout", bf, (D, D))):
         _check(t, name, dtype, shape, dev)
     M = B * T
+    plan = proj_launch_args(M, D, dev, tiles)
     out = torch.empty(B, T, D, dtype=bf, device=dev)
-    scratch = (torch.empty(M, D, dtype=bf, device=dev),
-               torch.empty(M, 3 * D, dtype=torch.float32, device=dev),
-               torch.empty(M, D, dtype=bf, device=dev))
-    ptrs = [t.data_ptr() for t in (x, c, ln_g, wqkv, bqkv, q_g, k_g, wout,
-                                   *scratch, out)]
-    _launch("fused_attn_block", ptrs, (B, T, D, H, c_stride), x, ln_eps,
-            qk_eps, D, hd)
+    # h, qkv, o
+    keep, scratch = _scratch(dev, 2 * M * D, 4 * M * 3 * D, 2 * M * D)
+    ptrs = [t.data_ptr() for t in (x, c, ln_g, wqkv, bqkv, q_g, k_g, wout)]
+    _launch("fused_attn_block", ptrs + scratch + [out.data_ptr()],
+            (B, T, D, H, c_stride), x, ln_eps, qk_eps, D, hd, plan)
     fused_attn_block.launches += 1
     return out
 

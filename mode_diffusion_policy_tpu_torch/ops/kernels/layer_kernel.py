@@ -23,9 +23,14 @@ fused_attn_block_ref(x)`` (or ``fused_attn_block_q8_ref`` with ``qattn``)
 ``, residual=True, ln_g=ln2_g)``.
 
 ``fused_dit_q8c`` is the same layer chained over all L layers of the DiT in
-one launch of ``csrc/fused_dit_q8c.cu`` (counterpart of the Pallas
-``_mega_kernel``), from weights stacked on a leading L axis
-(``MoDeDiT.stack_layers``) and per-layer [L,S,2] routing tables.
+one cooperative launch of ``csrc/fused_dit_q8c.cu`` (counterpart of the
+Pallas ``_mega_kernel``), from weights stacked on a leading L axis
+(``MoDeDiT.stack_layers``) and per-layer [L,S,2] routing tables. Its GEMM
+stages are the per-layer kernel's wgmma stages under the same tile plan
+(``dit_tile_plan``), so it equals L chained ``fused_layer_q8c`` launches bit
+for bit; on CUDA it reads the stack's K-major int8 copies (``DIT_KMAJOR``:
+the experts' and, with int8 projections, the projections'), which
+``MoDeDiT.stack_layers`` makes once per preset.
 
 The CUDA layer kernel's int8 products (wgmma) read the experts from their
 K-major copy ``qexp_t`` (``quant.kmajor_experts``, made once per
@@ -47,16 +52,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..quant import AttnKMajor, ExpertsKMajor, QuantizedAttn, QuantizedExperts
 from ._common import _check, _check_widths, _hidden_block, _scratch, _tables
-from .attn_kernel import (attn_q8_scratch, check_kmajor_attn,
+from .attn_kernel import (ProjTilePlan, attn_q8_scratch, check_kmajor_attn,
                           fused_attn_block_q8_ref, fused_attn_block_ref,
-                          need_kmajor_attn, proj_launch_args)
-from .moe_kernel import (cuda_tile_plan, fused_top2_mlp_q8c_ref, launch_error,
-                         moe_q8c_scratch, need_kmajor_experts)
+                          need_kmajor_attn, proj_launch_args, proj_tile_plan)
+from .moe_kernel import (MoeTilePlan, cuda_tile_plan, fused_top2_mlp_q8c_ref,
+                         launch_error, moe_q8c_scratch, moe_tile_plan,
+                         need_kmajor_experts)
 
 
 def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
@@ -100,18 +107,28 @@ def fused_layer_q8c_ref(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
 # the keys of a MoDeDiT.stack_layers dict that hold QuantizedAttn's fields,
 # in the order of its fields
 STACKED_QATTN = ("wqkv", "sqkv", "bqkv", "wout", "sout")
+# the keys of the stack's K-major int8 copies, in the order of the fields
+# of ExpertsKMajor and AttnKMajor (the latter with int8 projections only)
+DIT_KMAJOR = ("w1_t", "w2_t")
+DIT_KMAJOR_ATTN = ("wqkv_t", "wout_t")
 
 
 def _stacked_layer(stacked, l):
     """Layer ``l`` of a ``MoDeDiT.stack_layers`` dict: (attention weights
-    for ``fused_layer_q8c_ref``, int8 experts, QuantizedAttn or None)."""
+    for ``fused_layer_q8c_ref``, int8 experts, QuantizedAttn or None, and
+    the K-major copies ExpertsKMajor and AttnKMajor, each None where the
+    stack has none)."""
     qexp = QuantizedExperts(*(stacked[k][l]
                               for k in QuantizedExperts._fields))
+    qexp_t = (ExpertsKMajor(*(stacked[k][l] for k in DIT_KMAJOR))
+              if DIT_KMAJOR[0] in stacked else None)
     if "sqkv" in stacked:
         qa = QuantizedAttn(*(stacked[k][l] for k in STACKED_QATTN))
-        return (None, stacked["bqkv"][l], None), qexp, qa
-    return (stacked["wqkv"][l], stacked["bqkv"][l], stacked["wout"][l]), \
-        qexp, None
+        qa_t = (AttnKMajor(*(stacked[k][l] for k in DIT_KMAJOR_ATTN))
+                if DIT_KMAJOR_ATTN[0] in stacked else None)
+        return (None, stacked["bqkv"][l], None), qexp, qa, qexp_t, qa_t
+    return ((stacked["wqkv"][l], stacked["bqkv"][l], stacked["wout"][l]),
+            qexp, None, qexp_t, None)
 
 
 def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
@@ -123,15 +140,19 @@ def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
     chained over the L layers of ``stacked`` (``MoDeDiT.stack_layers``), x
     carried in its own dtype between layers. top2_idx/probs are [L,S,2]
     tables with a ``step`` row selector, or [L,2] single rows. int8
-    attention projections when ``stacked`` has "sqkv"."""
+    attention projections when ``stacked`` has "sqkv". Where the stack
+    holds its K-major int8 copies (``DIT_KMAJOR``, ``DIT_KMAJOR_ATTN``) the
+    int8 products read them, as the CUDA kernel does, with the same
+    result."""
     for l in range(stacked["wqkv"].shape[0]):
-        (wqkv, bqkv, wout), qexp, qa = _stacked_layer(stacked, l)
+        (wqkv, bqkv, wout), qexp, qa, qexp_t, qa_t = _stacked_layer(
+            stacked, l)
         x = fused_layer_q8c_ref(
             x, c, stacked["ln1"][l], wqkv, bqkv, stacked["q_g"][l],
             stacked["k_g"][l], wout, stacked["ln2"][l], qexp, top2_idx[l],
-            top2_probs[l], step=step, qattn=qa, block_hidden=block_hidden,
-            eps1=eps1, eps_qk=eps_qk, eps2=eps2, acc_dtype=acc_dtype,
-            red_dtype=red_dtype)
+            top2_probs[l], step=step, qattn=qa, qexp_t=qexp_t, qattn_t=qa_t,
+            block_hidden=block_hidden, eps1=eps1, eps_qk=eps_qk, eps2=eps2,
+            acc_dtype=acc_dtype, red_dtype=red_dtype)
     return x
 
 
@@ -140,7 +161,7 @@ def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
 _LAUNCH_ARGTYPES = {
     "fused_layer_q8c_launch": (
         [ctypes.c_void_p] * 16 + [ctypes.c_int] + [ctypes.c_void_p] * 12
-        + [ctypes.c_int] * 7 + [ctypes.c_float] * 6 + [ctypes.c_int] * 2
+        + [ctypes.c_int] * 7 + [ctypes.c_float] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_void_p]),
     "fused_layer_q8c_q8_launch": (
         [ctypes.c_void_p] * 18 + [ctypes.c_int] + [ctypes.c_void_p] * 15
@@ -232,13 +253,15 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     plan = cuda_tile_plan(M, D, HH, TH, dev)
     moe_w = (ln2_g, qexp_t.w1_t, qexp.w1_s, b1, qexp_t.w2_t, qexp.w2_s, idx,
              probs)
+    # the two projections' tile plans (QKV rows, columns, c_proj rows,
+    # columns): fused_attn_block's and the megakernel's
+    tail = proj_launch_args(M, D, dev)[:4]
     if qattn is None:
-        entry, tail = "fused_layer_q8c_launch", ()
+        entry = "fused_layer_q8c_launch"
         w = (x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, *moe_w)
         attn_bytes = (2 * M * D, 4 * M * 3 * D, 2 * M * D)   # h, qkv, o
     else:
         entry = "fused_layer_q8c_q8_launch"
-        tail = proj_launch_args(M, D, dev)[:4]
         w = (x, c, ln1_g, qattn_t.wqkv_t, qattn.wqkv_s, bqkv, q_g, k_g,
              qattn_t.wout_t, qattn.wout_s, *moe_w)
         attn_bytes = attn_q8_scratch(M, D)
@@ -264,9 +287,71 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
 fused_layer_q8c.launches = 0
 
 
-_DIT_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
-                 + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 2)
+
+
+class DitTilePlan(NamedTuple):
+    """How the megakernel covers the outputs of its GEMM stages: the
+    per-layer kernels' plans at the same row count (so that it gives their
+    bits), on a grid of one CTA per SM that hands tile t of every stage to
+    CTA t % grid."""
+
+    tile: int             # 128 (two consumer warpgroups) or 64 (one)
+    grid: int             # CTAs: one per SM
+    qkv: ProjTilePlan     # QKV [M, 3D]
+    out: ProjTilePlan     # c_proj [M, D]
+    moe: MoeTilePlan      # the up and down stages (moe_kernel.moe_tiles)
+
+
+def dit_tile_plan(M: int, D: int, HH: int, TH: int, ctas: int
+                  ) -> DitTilePlan:
+    """The megakernel's plan for M token rows on ``ctas`` SMs."""
+    moe = moe_tile_plan(M, D, HH, TH, ctas)
+    return DitTilePlan(moe.tile, ctas, proj_tile_plan(M, 3 * D, ctas),
+                       proj_tile_plan(M, D, ctas), moe)
+
+
+def dit_stage_names(int8_attn: bool, tile: int):
+    """The stages of one layer of the megakernel, in order, each ended by a
+    grid barrier (the intervals of its ``times`` buffer)."""
+    names = ["ln1_quant" if int8_attn else "ln1", "qkv", "attn"]
+    if int8_attn:
+        names.append("o_quant")
+    names += ["c_proj", "ln2_quant", "moe_up", "act_quant", "moe_down"]
+    if tile == 64:
+        names.append("moe_sum")
+    return names
+
+
+def need_kmajor_stack(stacked):
+    """The CUDA megakernel reads the stack's K-major int8 copies: raise
+    without them (``MoDeDiT.stack_layers`` makes them)."""
+    keys = DIT_KMAJOR + (DIT_KMAJOR_ATTN if "sqkv" in stacked else ())
+    missing = [k for k in keys if k not in stacked]
+    if missing:
+        raise ValueError(
+            f"fused_dit_q8c on CUDA reads the K-major int8 copies of the "
+            f"stack ({', '.join(missing)} missing): pass the stack of "
+            "MoDeDiT.stack_layers, which makes them once per preset")
+
+
+# the named slots of csrc/fused_dit_q8c.cu's pointer, int and float arrays
+DIT_PTRS = ("x", "c", "ln1", "wqkv", "sqkv", "bqkv", "q_g", "k_g", "wout",
+            "sout", "ln2", "w1_t", "w1_s", "b1", "w2_t", "w2_s", "idx",
+            "probs", "h", "hs", "qkv", "o", "oq", "os", "xmid", "xm", "xq",
+            "sx", "act", "aq", "sa", "part", "tmp", "out")
+DIT_INTS = ("S", "step", "L", "B", "T", "D", "H", "HH", "TH", "E",
+            "int8_attn", "tile")
+DIT_FLOATS = ("eps1", "eps_qk", "eps2", "rs_D", "rs_hd", "scale")
+# the launcher's info: grid, CTAs per SM, dynamic and static shared memory
+# per CTA (bytes), ring stages, consumer warpgroups, registers per thread,
+# local memory bytes per thread (stack frame and spills)
+DIT_INFO = ("grid", "ctas_per_sm", "dynamic_smem", "static_smem",
+            "ring_stages", "consumer_warpgroups", "registers", "local_bytes")
+
+
+# fused_dit_q8c_launch: the three arrays with their lengths, info, times,
+# stream
+_DIT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,30 +363,48 @@ def _dit_launcher():
     return fn
 
 
+def dit_scratch(M, D, HH, TH, tile, int8_attn):
+    """Bytes of the megakernel's per-layer scratch over M rows, in the order
+    of its DIT_PTRS slots from "h" to "tmp" (0: unused)."""
+    n_h = HH // TH
+    q8 = int(int8_attn)
+    return ((2 - q8) * M * D, 4 * M * q8, 4 * M * 3 * D, (2 + 2 * q8) * M * D,
+            M * D * q8, 4 * M * q8, 2 * M * D, 2 * M * D, M * D, 4 * M,
+            4 * 2 * M * HH, 2 * M * HH, 4 * 2 * M * n_h,
+            0 if tile == 128 else 4 * 2 * n_h * M * D, 2 * M * D)
+
+
 def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
                   block_hidden: int = 1024, eps1: float = 1e-6,
-                  eps_qk: float = 1e-6, eps2: float = 1e-6) -> torch.Tensor:
+                  eps_qk: float = 1e-6, eps2: float = 1e-6,
+                  times=None) -> torch.Tensor:
     """All L NoiseBlockMoE inference layers of one denoise step.
 
     ``stacked`` is ``MoDeDiT.stack_layers()``: ln1/ln2 [L,D], q_g/k_g
     [L,hd], bqkv [L,3D] in f32; wqkv [L,D,3D] and wout [L,D,D] in bf16, or
-    int8 with their f32 column scales sqkv [L,3D] / sout [L,D]; the int8
-    experts w1_q [L,E,D,2H], w1_s/b1 [L,E,2H], w2_q [L,E,H,D], w2_s [L,E,D].
-    top2_idx/probs are [L,S,2] tables (int32 / f32) with a ``step`` row
-    selector, or [L,2] single rows.
+    int8 with their f32 column scales sqkv [L,3D] / sout [L,D] and their
+    K-major copies wqkv_t [L,3D,D] / wout_t [L,D,D]; the int8 experts w1_q
+    [L,E,D,2H], w1_s/b1 [L,E,2H], w2_q [L,E,H,D], w2_s [L,E,D] and their
+    K-major copies w1_t [L,E,2H,D], w2_t [L,E,D,H]. top2_idx/probs are
+    [L,S,2] tables (int32 / f32) with a ``step`` row selector, or [L,2]
+    single rows.
 
     CUDA tensors: ONE cooperative launch of the hand-written megakernel
-    (bf16 activations, a shared [1,1,D] cond row, T <= 16); a device
-    without cooperative launch, or a grid that does not fit, raises.
-    CPU tensors: the plain version ``fused_dit_q8c_ref``. Returns x.dtype
-    [B,T,D]. The info of the last launch (grid size, CTAs per SM, shared
-    memory per CTA) is kept in ``fused_dit_q8c.last_grid``."""
+    (bf16 activations, a shared [1,1,D] cond row, T <= 16), which needs the
+    K-major copies; a device without cooperative launch, a grid that does
+    not fit or a tensor map that cannot be made raises. ``times``: None, or
+    a CUDA int64 tensor [1 + L * len(dit_stage_names(...)), 2] that the
+    kernel fills with %globaltimer (ns) and the clock of CTA 0 after every
+    grid barrier. CPU tensors: the plain version ``fused_dit_q8c_ref``.
+    Returns x.dtype [B,T,D]. The info of the last launch (``DIT_INFO``) is
+    kept in ``fused_dit_q8c.last_grid``."""
     if x.device.type == "cpu":
         return fused_dit_q8c_ref(
             x, c, stacked, top2_idx, top2_probs, step=step,
             block_hidden=block_hidden, eps1=eps1, eps_qk=eps_qk, eps2=eps2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dit_q8c runs on CUDA or CPU, not {x.device}")
+    need_kmajor_stack(stacked)
 
     dev = x.device
     if x.ndim != 3:
@@ -316,16 +419,17 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
     TH = _hidden_block(HH, block_hidden)
     _check_widths(T, D, H, hd, TH, c)
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    wdt = i8 if int8_attn else bf
     _check(x, "x", bf, (B, T, D), dev)
-    want = {"ln1": (f32, (L, D)), "wqkv": (wdt, (L, D, 3 * D)),
-            "bqkv": (f32, (L, 3 * D)), "q_g": (f32, (L, hd)),
-            "k_g": (f32, (L, hd)), "wout": (wdt, (L, D, D)),
-            "ln2": (f32, (L, D)), "w1_q": (i8, (L, E, D, H2)),
+    want = {"ln1": (f32, (L, D)), "bqkv": (f32, (L, 3 * D)),
+            "q_g": (f32, (L, hd)), "k_g": (f32, (L, hd)),
+            "ln2": (f32, (L, D)), "w1_t": (i8, (L, E, H2, D)),
             "w1_s": (f32, (L, E, H2)), "b1": (f32, (L, E, H2)),
-            "w2_q": (i8, (L, E, HH, D)), "w2_s": (f32, (L, E, D))}
+            "w2_t": (i8, (L, E, D, HH)), "w2_s": (f32, (L, E, D))}
     if int8_attn:
-        want.update(sqkv=(f32, (L, 3 * D)), sout=(f32, (L, D)))
+        want.update(wqkv_t=(i8, (L, 3 * D, D)), sqkv=(f32, (L, 3 * D)),
+                    wout_t=(i8, (L, D, D)), sout=(f32, (L, D)))
+    else:
+        want.update(wqkv=(bf, (L, D, 3 * D)), wout=(bf, (L, D, D)))
     for k, (dt, shape) in want.items():
         _check(stacked[k], k, dt, shape, dev)
     c = c.reshape(D).to(x.dtype).float().contiguous()
@@ -334,42 +438,37 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
     _check(probs, "top2_probs", f32, (L, S, 2), dev)
 
     M = B * T
-    n_h = HH // TH
-
-    def buf(*shape, dtype):
-        return torch.empty(*shape, dtype=dtype, device=dev)
-
-    none = None
-    h = none if int8_attn else buf(M, D, dtype=bf)
-    o = none if int8_attn else buf(M, D, dtype=bf)
-    hq, hs, o32, oq, os_ = ((buf(M, D, dtype=i8), buf(M, dtype=f32),
-                             buf(M, D, dtype=f32), buf(M, D, dtype=i8),
-                             buf(M, dtype=f32)) if int8_attn
-                            else (none,) * 5)
-    scratch = [h, hq, hs, buf(M, 3 * D, dtype=f32), o, o32, oq, os_,
-               buf(M, D, dtype=bf), buf(M, D, dtype=bf), buf(M, D, dtype=i8),
-               buf(M, dtype=f32), buf(2, M, HH, dtype=f32),
-               buf(2, M, HH, dtype=i8), buf(2, M, n_h, dtype=f32),
-               buf(2 * n_h, M, D, dtype=f32), buf(M, D, dtype=bf)]
-    out = buf(B, T, D, dtype=bf)
-    ptrs = [t.data_ptr() for t in (x, c, stacked["ln1"], stacked["wqkv"])]
-    ptrs.append(stacked["sqkv"].data_ptr() if int8_attn else None)
-    ptrs += [stacked[k].data_ptr() for k in ("bqkv", "q_g", "k_g", "wout")]
-    ptrs.append(stacked["sout"].data_ptr() if int8_attn else None)
-    ptrs += [stacked[k].data_ptr() for k in
-             ("ln2", "w1_q", "w1_s", "b1", "w2_q", "w2_s")]
-    ptrs += [idx.data_ptr(), probs.data_ptr()]
-    scr = [None if t is None else t.data_ptr() for t in scratch]
-    info = (ctypes.c_int * 3)()
+    tile = cuda_tile_plan(M, D, HH, TH, dev).tile
+    if times is not None:
+        n = 1 + L * len(dit_stage_names(int8_attn, tile))
+        _check(times, "times", torch.int64, (n, 2), dev)
+    keep, scratch = _scratch(dev, *dit_scratch(M, D, HH, TH, tile,
+                                               int8_attn))
+    out = torch.empty(B, T, D, dtype=bf, device=dev)
+    w = {k: stacked[k] for k in want}
+    w.update(x=x, c=c, idx=idx, probs=probs, out=out)
+    if int8_attn:
+        w.update(wqkv=w.pop("wqkv_t"), wout=w.pop("wout_t"))
+    ptrs = {k: t.data_ptr() for k, t in w.items()}
+    ptrs.update(zip(DIT_PTRS[DIT_PTRS.index("h"):DIT_PTRS.index("out")],
+                    scratch))
+    ints = dict(S=S, step=s, L=L, B=B, T=T, D=D, H=H, HH=HH, TH=TH, E=E,
+                int8_attn=int(int8_attn), tile=tile)
+    flts = dict(eps1=eps1, eps_qk=eps_qk, eps2=eps2, rs_D=D ** -0.5,
+                rs_hd=hd ** -0.5, scale=float(1.0 / math.sqrt(hd)))
+    p = (ctypes.c_uint64 * len(DIT_PTRS))(*(ptrs.get(k) or 0
+                                            for k in DIT_PTRS))
+    n_ = (ctypes.c_int * len(DIT_INTS))(*(ints[k] for k in DIT_INTS))
+    f_ = (ctypes.c_float * len(DIT_FLOATS))(*(flts[k] for k in DIT_FLOATS))
+    info = (ctypes.c_int * len(DIT_INFO))()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _dit_launcher()(
-            *ptrs, S, s, *scr, out.data_ptr(), L, B, T, D, H, HH, TH, E,
-            int(int8_attn), eps1, eps_qk, eps2, D ** -0.5, hd ** -0.5,
-            float(1.0 / math.sqrt(hd)), info, stream)
+            p, len(DIT_PTRS), n_, len(DIT_INTS), f_, len(DIT_FLOATS), info,
+            None if times is None else times.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"fused_dit_q8c cooperative launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"fused_dit_q8c cooperative launch failed: "
+                           f"{launch_error(err)}")
     fused_dit_q8c.launches += 1
     fused_dit_q8c.last_grid = tuple(info)
     return out

@@ -4,22 +4,23 @@ A/B of two checkouts on the same card.
     python3 scripts/ab_moe_layer_torch.py [ROOT] [--save FILE]
     python3 scripts/ab_moe_layer_torch.py --compare FILE FILE [FILE ...]
 
-ROOT (default: the checkout holding this script) is the root of a checkout
-of this repository; its kernels are built from its own csrc/ and timed at
-b=128 and b=1 (x 14 tokens, D=1024, 8 heads of 128, hidden 4096, top-2 of
-4, ln_2 and the residual fused, seeded random weights from that
-checkout's bench_kernels_torch inputs): fused_top2_mlp, fused_top2_mlp_q8,
-fused_top2_mlp_q8c, fused_attn_block_q8 (its projections quantized from
-the bench layer's bf16 weights) and fused_layer_q8c (bf16 projections),
-each warm (CUDA events around 50 or 100 launches), with the L2 cache
-flushed before each launch, and as the sum of its stages' device times
-(torch.profiler): at b=1 the launches are bound by the host, whose time
-moves between processes, and the device time is the number that compares
-the kernels. Where the checkout's wrappers take the K-major weight copies
-(qexp_t, qattn_t), they get them. Run it from two checkouts in turns in one
-call (A, B, B, A) to compare them; it prints one JSON line with the card's
-name and power limit. With --save it also writes each kernel's output to
-FILE (torch.save, on the CPU); --compare then says, kernel by kernel,
+ROOT (default: the checkout holding this script) is the root of a checkout of
+this repository; its kernels are built from its own csrc/ and timed at b=128
+and b=1 (x 14 tokens, D=1024, 8 heads of 128, hidden 4096, top-2 of 4, ln_2 and
+the residual fused, seeded random weights from that checkout's
+bench_kernels_torch inputs): fused_top2_mlp, fused_top2_mlp_q8,
+fused_top2_mlp_q8c, fused_attn_block_q8 (its projections quantized from the
+bench layer's bf16 weights), fused_attn_block, fused_layer_q8c (bf16
+projections) and fused_dit_q8c (the bench layer stacked 12 times, bf16
+projections), each warm (CUDA events around 50 or 100 launches), with the L2
+cache flushed before each launch, and as the sum of its stages' device times
+(torch.profiler): at b=1 the launches are bound by the host, whose time moves
+between processes, and the device time is the number that compares the kernels.
+Where the checkout's wrappers take the K-major weight copies (qexp_t, qattn_t,
+the megakernel stack's w1_t and w2_t), they get them. Run it from two checkouts
+in turns in one call (A, B, B, A) to compare them; it prints one JSON line with
+the card's name and power limit. With --save it also writes each kernel's
+output to FILE (torch.save, on the CPU); --compare then says, kernel by kernel,
 whether the saved outputs of several runs are equal bit for bit (the same
 seeded inputs on both trees). Needs CUDA for the timing; imports nothing of
 JAX.
@@ -61,9 +62,9 @@ def main(argv):
     import bench_kernels_torch as bk
     from mode_diffusion_policy_tpu_torch.ops import quant
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
-        fused_attn_block_q8)
+        fused_attn_block, fused_attn_block_q8)
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        fused_layer_q8c)
+        fused_dit_q8c, fused_layer_q8c)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
         fused_top2_mlp, fused_top2_mlp_q8, fused_top2_mlp_q8c)
     card = subprocess.run(
@@ -82,7 +83,13 @@ def main(argv):
         a = bk.moe_inputs(B, dev)
         kw = dict(residual=True, ln_g=a["ln_g"])
         head = (a["x"], a["idx"], a["probs"])
-        w = bk.layer_inputs(B, dev, L=1)
+        w = bk.layer_inputs(B, dev)
+        stack = dict(w["stackL"])
+        stack.setdefault("w1_t", stack["w1_q"].transpose(-1, -2).contiguous())
+        stack.setdefault("w2_t", stack["w2_q"].transpose(-1, -2).contiguous())
+        L = stack["wqkv"].shape[0]
+        tabs = (w["idx"][None].expand(L, 1, 2).contiguous(),
+                w["probs"][None].expand(L, 1, 2).contiguous())
         lkw, mkw, akw = {}, {}, {}
         if takes(fused_layer_q8c, "qexp_t"):
             lkw["qexp_t"] = quant.kmajor_experts(w["q"])
@@ -104,9 +111,13 @@ def main(argv):
                 ("fused_attn_block_q8",
                  lambda: fused_attn_block_q8(w["x"], w["c"], w["ln1"], qa,
                                              w["q_g"], w["k_g"], **akw)),
+                ("fused_attn_block",
+                 lambda: fused_attn_block(w["x"], *attn)),
                 ("fused_layer_q8c",
                  lambda: fused_layer_q8c(w["x"], *attn, w["ln2"], w["q"],
-                                         w["idx"], w["probs"], **lkw))):
+                                         w["idx"], w["probs"], **lkw)),
+                ("fused_dit_q8c",
+                 lambda: fused_dit_q8c(w["x"], w["c"], stack, *tabs))):
             outputs[f"{name} b{B}"] = fn().cpu()
             stages = bk.stage_ms(fn)
             out[f"{name} b{B}"] = dict(

@@ -28,9 +28,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 EDITS = {
     "base": [],
-    "noepi": [("Op::store(d, a, tl, rw, cols[wg], z, sum);",
-               "if (a.M < 0) Op::store(d, a, tl, rw, cols[wg], z, sum);")],
-    "noprod": [("Op::mma(d, ring + s * Op::kStage, b, wg);", "")],
+    "noepi": [("Op::store(d, a, tl, rw, cols, z, sum);",
+               "if (a.M < 0) Op::store(d, a, tl, rw, cols, z, sum);")],
+    "noprod": [("Op::mma(d, st, b, wg);", "")],
 }
 
 

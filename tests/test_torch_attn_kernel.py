@@ -464,3 +464,45 @@ def test_proj_tile_plan_refuses_tiles_the_kernel_has_not():
         proj_tile_plan(1792, 3072, 132, 256, 128)
     with pytest.raises(ValueError, match="no projection tiles"):
         proj_tile_plan(14, 96, 132, 64, 64)
+
+
+# ---- the bf16 projections' tile plan, shared with the whole-layer kernel
+# and the megakernel (no card needed)
+
+from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (  # noqa: E402,E501
+    dit_tile_plan)
+
+
+@pytest.mark.parametrize("tiles", [None, (64, 64, 64, 64),
+                                   (128, 128, 128, 128)],
+                         ids=["default", "64x64", "128x128"])
+def test_cpu_bf16_wrapper_takes_a_tile_plan(tiles):
+    """``tiles`` only chooses the CUDA kernel's projection tiles: the CPU
+    wrapper runs the plain version whatever it is, uncounted."""
+    a = _inputs(33, B)
+    args = _bf16_args(a, torch.float32)
+    before = fused_attn_block.launches
+    torch.testing.assert_close(fused_attn_block(*args, tiles=tiles),
+                               fused_attn_block_ref(*args), rtol=0, atol=0)
+    assert fused_attn_block.launches == before
+
+
+@pytest.mark.parametrize("B_", [1, 128])
+def test_bf16_projection_plan_covers_every_output_once(B_):
+    """The bf16 projections' default plan at the flagship widths (QKV N =
+    3072, c_proj N = 1024, 132 SMs) at b=1 and b=128 x 14 tokens: every
+    output element in exactly one tile, 64 x 64 tiles at b=1 and 128 x 128
+    at b=128, the plan the whole-layer kernel and the megakernel run at the
+    same row count (so that their bf16 sums, in the tensor core's order,
+    give the same bits)."""
+    D, ctas, M = 1024, 132, B_ * 14
+    mega = dit_tile_plan(M, D, 4096, 1024, ctas)
+    for N, shared in ((3 * D, mega.qkv), (D, mega.out)):
+        plan = proj_tile_plan(M, N, ctas)
+        assert plan == shared
+        assert (plan.tile_m, plan.tile_n) == ((64, 64) if B_ == 1
+                                              else (128, 128))
+        hits = np.zeros((M, N), np.int32)
+        for cta, rows, cols in proj_tiles(plan, M):
+            hits[rows.start:rows.stop, cols.start:cols.stop] += 1
+        assert (hits == 1).all()

@@ -262,3 +262,258 @@ def test_plain_layer_red_dtype_reaches_the_norms():
     d = (out64 - out32).abs()
     assert d.max() > 0
     assert d.mean() <= 1e-4 and d.max() <= 5e-3
+
+
+# ---- the megakernel's K-major stack, tile plan and launch interface (no
+# card needed)
+
+import ctypes  # noqa: E402
+import re  # noqa: E402
+
+from mode_diffusion_policy_tpu_torch.models.modedit import MoDeDiT  # noqa: E402,E501
+from mode_diffusion_policy_tpu_torch.models.modedit import \
+    MoDeDiTConfig  # noqa: E402
+from mode_diffusion_policy_tpu_torch.ops.kernels import attn_kernel  # noqa: E402,E501
+from mode_diffusion_policy_tpu_torch.ops.kernels import layer_kernel  # noqa: E402,E501
+from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (  # noqa: E402,E501
+    proj_tiles)
+from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (  # noqa: E402,E501
+    moe_tiles)
+from mode_diffusion_policy_tpu_torch.ops.quant import (  # noqa: E402
+    kmajor_attn, kmajor_experts)
+
+
+def _kmajor(st):
+    """The stack with the K-major int8 copies that MoDeDiT.stack_layers
+    adds: each layer's matrices transposed."""
+    out = dict(st)
+    for k, src in zip(layer_kernel.DIT_KMAJOR, ("w1_q", "w2_q")):
+        out[k] = st[src].transpose(-1, -2).contiguous()
+    if "sqkv" in st:
+        for k, src in zip(layer_kernel.DIT_KMAJOR_ATTN, ("wqkv", "wout")):
+            out[k] = st[src].transpose(-1, -2).contiguous()
+    return out
+
+
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["bf16-attn", "int8-attn"])
+def stacked_model(request):
+    """A 3-layer port DiT (D=256, 2 heads) with int8 experts, the megakernel
+    on and int8 projections or not, quantized and stacked once."""
+    cfg = MoDeDiTConfig(obs_dim=64, goal_dim=32, embed_dim=256, n_layers=3,
+                        n_heads=2, num_experts=4, top_k=2, use_int8_moe=True,
+                        use_pallas_attn=True, use_fused_layer=True,
+                        use_int8_attn=request.param, use_megakernel=True)
+    m = MoDeDiT(cfg, device="cpu")
+    m.init_weights_(torch.Generator().manual_seed(0))
+    m.quantize_experts_()
+    if request.param:
+        m.quantize_attn_()
+    m.stack_layers_()
+    return m
+
+
+def test_stack_layers_makes_the_kmajor_copies_once(stacked_model):
+    """stack_layers_ makes the stacked K-major copies of the int8 experts
+    (and projections) once per preset; every block's experts_qt (attn_qt)
+    is a slice of them, in their storage, equal to kmajor_experts
+    (kmajor_attn) of that layer."""
+    m = stacked_model
+    st = m.stacked
+    L, E = len(m.blocks), m.cfg.num_experts
+    D, H2 = m.cfg.embed_dim, st["w1_q"].shape[-1]
+    assert st["w1_t"].shape == (L, E, H2, D)
+    assert st["w2_t"].shape == (L, E, D, H2 // 2)
+    int8_attn = m.cfg.use_int8_attn
+    assert ("wqkv_t" in st) == int8_attn and ("wout_t" in st) == int8_attn
+    for l, blk in enumerate(m.blocks):
+        want = kmajor_experts(blk.experts_q)
+        for k, t, w in zip(layer_kernel.DIT_KMAJOR, blk.experts_qt, want):
+            assert t.untyped_storage().data_ptr() == \
+                st[k].untyped_storage().data_ptr()
+            assert t.data_ptr() == st[k][l].data_ptr()
+            torch.testing.assert_close(t, w, rtol=0, atol=0)
+        if int8_attn:
+            want = kmajor_attn(blk.attn.attn_q)
+            for k, t, w in zip(layer_kernel.DIT_KMAJOR_ATTN, blk.attn.attn_qt,
+                               want):
+                assert t.untyped_storage().data_ptr() == \
+                    st[k].untyped_storage().data_ptr()
+                assert t.data_ptr() == st[k][l].data_ptr()
+                torch.testing.assert_close(t, w, rtol=0, atol=0)
+
+
+def test_restacking_replaces_the_kmajor_copies(stacked_model):
+    """A second stack_layers_ (a preset applied again) builds one new stack
+    and points the blocks at it: no K-major copy survives beside it."""
+    m = stacked_model
+    old = m.stacked["w1_t"].untyped_storage().data_ptr()
+    m.stack_layers_()
+    new = m.stacked["w1_t"].untyped_storage().data_ptr()
+    assert new != old
+    assert all(b.experts_qt.w1_t.untyped_storage().data_ptr() == new
+               for b in m.blocks)
+
+
+@pytest.mark.parametrize("int8_attn", [False, True],
+                         ids=["bf16-attn", "int8-attn"])
+def test_plain_dit_from_the_kmajor_stack_gives_the_same_bits(int8_attn):
+    """The plain megakernel fed the stacked K-major copies (the layout the
+    CUDA kernel's s8 products read) gives the bits of the JAX layout: the
+    int8 products are exact. And it still matches the JAX megakernel
+    (interpret mode) within test_plain_dit_matches_jax_megakernel's
+    tolerance."""
+    x, c, layers = _layers(seed=14)
+    st = _stack(layers, int8_attn, "torch")
+    args = (torch.from_numpy(x), torch.from_numpy(c))
+    tabs = (torch.from_numpy(IDX), torch.from_numpy(PROBS))
+    got = fused_dit_q8c_ref(*args, _kmajor(st), *tabs, step=2)
+    torch.testing.assert_close(got, fused_dit_q8c_ref(*args, st, *tabs,
+                                                      step=2),
+                               rtol=0, atol=0)
+    want = np.asarray(jax_dit(
+        jnp.asarray(x), jnp.asarray(c), _stack(layers, int8_attn, "jax"),
+        jnp.asarray(IDX), jnp.asarray(PROBS), step=jnp.int32(2),
+        block_samples=4, block_hidden=1024, interpret=True))
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("int8_attn", [False, True],
+                         ids=["bf16-attn", "int8-attn"])
+def test_cuda_dit_needs_the_kmajor_stack(int8_attn):
+    """On CUDA the megakernel reads the stack's K-major int8 copies and
+    refuses a stack without them (the CPU and meta tensors of these tests
+    stop at the device check before it)."""
+    _, _, layers = _layers(seed=15)
+    st = _stack(layers, int8_attn, "torch")
+    with pytest.raises(ValueError, match="K-major int8 copies"):
+        layer_kernel.need_kmajor_stack(st)
+    full = _kmajor(st)
+    layer_kernel.need_kmajor_stack(full)
+    if int8_attn:
+        # the experts' copies alone do not do for int8 projections
+        del full["wout_t"]
+        with pytest.raises(ValueError, match="wout_t missing"):
+            layer_kernel.need_kmajor_stack(full)
+
+
+@pytest.mark.parametrize("B", [1, 128])
+def test_dit_tile_plan_covers_every_output_once(B):
+    """The megakernel's plan at the flagship widths (D=1024, hidden 4096,
+    block_hidden 1024, 132 SMs), decoded as the kernel decodes it: the
+    per-layer kernels' plans at the same row count (128 x 128 tiles above
+    256 token rows, 64 x 64 below), every output element of the QKV,
+    c_proj, up and down stages in exactly one tile, on a grid of one CTA
+    per SM."""
+    D, HH, TH, ctas = 1024, 4096, 1024, 132
+    M = B * 14
+    plan = layer_kernel.dit_tile_plan(M, D, HH, TH, ctas)
+    tile = 128 if M > 256 else 64
+    assert plan.tile == tile and plan.grid == ctas
+    for proj, N in ((plan.qkv, 3 * D), (plan.out, D)):
+        assert (proj.tile_m, proj.tile_n) == (tile, tile)
+        hits = np.zeros((M, N), np.int32)
+        for cta, rows, cols in proj_tiles(proj, M):
+            assert 0 <= cta < ctas
+            hits[rows.start:rows.stop, cols.start:cols.stop] += 1
+        assert (hits == 1).all()
+    moe = plan.moe
+    assert moe.tile == tile
+    up = np.zeros((2, M, HH), np.int32)
+    for cta, z, rows, cols in moe_tiles(moe, "up", M, D, HH):
+        assert 0 <= cta < ctas
+        up[z, rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (up == 1).all()
+    # down: one sum per output (128 x 128), or one partial per (slot,
+    # hidden block) and output (64 x 64)
+    n_z = 1 if tile == 128 else 2 * (HH // TH)
+    down = np.zeros((n_z, M, D), np.int32)
+    for cta, z, rows, cols in moe_tiles(moe, "down", M, D, HH):
+        down[z, rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (down == 1).all()
+
+
+@pytest.mark.parametrize("int8_attn", [False, True],
+                         ids=["bf16-attn", "int8-attn"])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_dit_stages_and_scratch_match_the_kernel(int8_attn, tile):
+    """The stage names (the intervals of the kernel's clock buffer) follow
+    its grid barriers: eight per layer, one more with int8 projections and
+    one more with 64-row tiles; the scratch fills the pointer slots from
+    "h" to "tmp", each used buffer where the kernel reads one."""
+    names = layer_kernel.dit_stage_names(int8_attn, tile)
+    assert len(names) == 8 + int8_attn + (tile == 64)
+    assert names[1] == "qkv" and names[-1] == ("moe_sum" if tile == 64
+                                               else "moe_down")
+    scratch = layer_kernel.dit_scratch(14, 256, 1024, 256, tile, int8_attn)
+    slots = layer_kernel.DIT_PTRS
+    used = dict(zip(slots[slots.index("h"):slots.index("out")], scratch))
+    assert len(used) == len(scratch)
+    assert all(used[k] > 0 for k in ("h", "qkv", "o", "xmid", "xm", "xq",
+                                     "sx", "act", "aq", "sa", "tmp"))
+    assert (used["oq"] > 0) == (used["hs"] > 0) == (used["os"] > 0) \
+        == int8_attn
+    assert (used["part"] > 0) == (tile == 64)
+
+
+# ---- the launchers' C interfaces against the wrappers' ctypes types
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int*": ctypes.c_void_p, "const int*": ctypes.c_void_p,
+            "const float*": ctypes.c_void_p,
+            "const unsigned long long*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_signature(source, entry):
+    text = (_build.CSRC_DIR / source).read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", text,
+                  re.S)
+    assert m, entry
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    return [_C_TYPES[p.rsplit(" ", 1)[0].replace(" *", "*")] for p in params]
+
+
+@pytest.mark.parametrize("source, entry, argtypes", [
+    ("fused_attn_block.cu", "fused_attn_block_launch",
+     attn_kernel._ARGTYPES["fused_attn_block"]),
+    ("fused_attn_block_q8.cu", "fused_attn_block_q8_launch",
+     attn_kernel._ARGTYPES["fused_attn_block_q8"]),
+    ("fused_layer_q8c.cu", "fused_layer_q8c_launch",
+     layer_kernel._LAUNCH_ARGTYPES["fused_layer_q8c_launch"]),
+    ("fused_layer_q8c.cu", "fused_layer_q8c_q8_launch",
+     layer_kernel._LAUNCH_ARGTYPES["fused_layer_q8c_q8_launch"]),
+    ("fused_dit_q8c.cu", "fused_dit_q8c_launch", layer_kernel._DIT_ARGTYPES),
+], ids=["fused_attn_block", "fused_attn_block_q8", "fused_layer_q8c",
+        "fused_layer_q8c_q8", "fused_dit_q8c"])
+def test_launcher_argtypes_match_the_c_signatures(source, entry, argtypes):
+    """Each wrapper's ctypes argument types follow its launcher's C
+    parameters one for one (pointers, ints, floats): a launcher that gains
+    an argument its wrapper does not pass would read garbage on the card."""
+    assert _c_signature(source, entry) == list(argtypes)
+
+
+@pytest.mark.parametrize("enum, names", [
+    ("Ptr", layer_kernel.DIT_PTRS), ("Int", layer_kernel.DIT_INTS),
+    ("Flt", layer_kernel.DIT_FLOATS)], ids=["pointers", "ints", "floats"])
+def test_dit_slots_match_the_kernel(enum, names):
+    """The wrapper fills the megakernel's pointer, int and float arrays in
+    the order of the kernel's slot enums (kX, iS, fEps1, ...)."""
+    text = (_build.CSRC_DIR / "fused_dit_q8c.cu").read_text()
+    body = re.search(r"enum " + enum + r" \{(.*?)\};", text, re.S).group(1)
+    slots = [s.strip() for s in body.split(",") if s.strip()]
+    assert slots[-1].startswith("kNum")
+    kernel = [s[1:].lower() for s in slots[:-1]]
+    assert kernel == [n.replace("_", "").lower() for n in names]
+
+
+def test_build_hash_covers_a_new_header(tmp_path, monkeypatch):
+    """A header added to csrc/ enters every library's hash, as the headers
+    there already do."""
+    before = {s.name: _build.library_path(s) for s in _build.sources()}
+    extra = tmp_path / "new_stages.cuh"
+    extra.write_text("// a new shared header\n")
+    headers = _build.headers()
+    monkeypatch.setattr(_build, "headers", lambda: [*headers, extra])
+    after = {s.name: _build.library_path(s) for s in _build.sources()}
+    assert all(before[k] != after[k] for k in before)

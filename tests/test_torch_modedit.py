@@ -388,13 +388,22 @@ def _mega_pair(params, int8_attn):
                          ids=["bf16-attn", "int8-attn"])
 def test_stack_layers_matches_jax(setup, int8_attn):
     """The port's cached layer stack against the JAX stack_layers, leaf by
-    leaf: the same keys, the same int8 tensors, the same f32 values."""
+    leaf: the JAX keys, the same int8 tensors, the same f32 values; and
+    beside them the K-major int8 copies that the CUDA megakernel reads,
+    each the transpose of its JAX tensor's matrices."""
     params, _ = setup
     jdit, jv, port = _mega_pair(params, int8_attn)
     want = jdit.apply(jv, method=JDiT.stack_layers)
     got = port.stacked
-    assert set(got) == set(want)
+    kmajor = {"w1_t": "w1_q", "w2_t": "w2_q"}
+    if int8_attn:
+        kmajor.update(wqkv_t="wqkv", wout_t="wout")
+    assert set(got) == set(want) | set(kmajor)
     assert ("sqkv" in got) == int8_attn
+    for k, src in kmajor.items():
+        np.testing.assert_array_equal(
+            got[k].numpy(), np.swapaxes(np.asarray(want[src]), -1, -2),
+            err_msg=k)
     for k, w in want.items():
         w = np.asarray(w)
         assert tuple(got[k].shape) == w.shape, k
