@@ -66,11 +66,30 @@ products that the kernels run on wgmma (the expert products of every MoE
 kernel, the int8 attention's projections), and prints one JSON line for the
 kernels and a final status line. Every phase that fails exits non-zero; without CUDA nothing is run.
 Imports nothing of JAX.
+
+Phase 22 trains: the flagship with the shipped CALVIN training settings
+(``TRAIN_MODEL``, ``TRAIN_OPT``, ``TRAIN_EMA``, ``TRAIN_TRANSFORMS``: the
+YAML values mapped onto the port's config as the JAX ``build_agent`` maps
+them) through ``Trainer.setup`` and ``Trainer.fit`` for one epoch of 8
+batches at B=32 of synthetic CALVIN-sized uint8 frames, with one
+validation batch and a rollout hook, once with the bf16 training state
+(``bf16_full_state``, stochastic rounding) and once with the f32 master
+state: finite losses, 8 optimizer steps, each step's LR equal to
+``tri_stage_schedule``, EMA apart from the parameters; a fresh Trainer on
+the same log dir resumes with every tensor equal bit for bit; the trained
+EMA weights are served through ``parity`` at b=128 (120
+``fused_layer_q8c`` launches, the kernel-vs-plain action MAE rule); the
+gradient of one b=8 batch in f32 and in the bf16 compute dtype against
+float64 on the card; the median step, its forward+backward and
+optimizer+EMA split, the device idle share and the peak memory with and
+without ``encoder_remat``, printed as one ``train`` JSON line before the
+``kernels`` line.
 """
 from __future__ import annotations
 
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1258,6 +1277,486 @@ def fused_layer_int8_run(agent, results, routing, emb_all, steps, T, gen,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: training
+# ---------------------------------------------------------------------------
+
+# the shipped training settings mapped onto MoDEAgentConfig the way JAX
+# config/builders.build_agent maps them (no config loader in the port yet):
+# conf/model/mode_agent.yaml (widths, dropouts, goal drop, density, EDM),
+# conf/config_calvin.yaml:24-42 (precision bf16, bf16_full_state,
+# auto_layout), conf/callbacks/calvin.yaml:5-14 (EMA) and
+# conf/datamodule/transforms/calvin_transforms.yaml:3-22 (cameras). The
+# router aux weights are the from-scratch ones (the YAML's comment on
+# entropy_gamma: 0.01 when training from scratch, which random weights
+# are; router_z_delta 0.001, the JAX config's default and bench_train.py's)
+TRAIN_MODEL = dict(latent_dim=1024, n_layers=12, n_heads=8, cond_dim=512,
+                   resnet_type="50", num_experts=4, top_k=2,
+                   attn_pdrop=0.3, mlp_pdrop=0.1, goal_drop=0.1,
+                   embed_pdrob=0.0, use_argmax=False,
+                   sigma_sample_density_type="loglogistic", sigma_data=0.5,
+                   sigma_min=0.001, sigma_max=80.0, entropy_gamma=0.01,
+                   router_z_delta=0.001, encoder_remat=True)
+TRAIN_OPT = dict(learning_rate=1e-4, betas=(0.9, 0.95),
+                 transformer_weight_decay=0.05, use_lr_scheduler=True,
+                 total_steps=45000, phase_ratio=(0.02, 0.08, 0.9),
+                 init_lr_scale=0.1, final_lr_scale=1e-6)
+TRAIN_EMA = dict(inv_gamma=1.0, power=2 / 3, min_value=0.0,
+                 max_value=0.9999, start_step=0)
+TRAIN_IMG = 224
+TRAIN_TRANSFORMS = {"train": {
+    cam: [{"_target_": "torchvision.transforms.Resize", "size": TRAIN_IMG},
+          {"_target_": "mode.utils.transforms.RandomShiftsAug", "pad": pad},
+          {"_target_": "mode.utils.transforms.ScaleImageTensor"},
+          {"_target_": "torchvision.transforms.Normalize"}]
+    for cam, pad in (("rgb_static", 10), ("rgb_gripper", 4))}}
+# CALVIN's frames and the reference's per-GPU batch
+TRAIN_B, STATIC_HW, GRIPPER_HW, N_BATCHES = 32, 200, 84, 8
+GRAD_B = 8
+# gates of the gradient check against float64 on the card: the loss and
+# each DiT leaf (relative L2) in f32 as asked, the rest by the floor rule
+# (twice JAX's own error). At a random init the encoders' gradients are
+# ill-conditioned (BatchNorm ResNet-50), and the bf16 compute dtype carries
+# that into the DiT's. JAX's own gradients lie from its float64 ones, on
+# this check's inputs (uniform uint8 frames at CALVIN's sizes, resized to
+# 224 and normalized, b=8, a 512-wide goal) with a 12-layer DiT at D=256
+# (`scripts/train_grad_precision.py --layers 12 --cond 512 --frames uint8`
+# on the CPU, its own random weights; D=1024 does not fit there), by:
+# - f32: 3.86e-2 over the encoders' leaves, worst leaf 4.84e-2;
+# - bf16: 1.32e-1 over the DiT's leaves (3.95e-2 with 2 layers: the error
+#   grows with the depth) and 1.16 over the encoders'.
+# The bf16 encoders' total is printed but not gated: JAX's own is above
+# the 1.0 of a zero gradient, so no gate of the floor rule could fail one
+# (the CPU test test_bf16_compute_grads_match_jax holds the port's bf16
+# gradient to JAX's leaf by leaf).
+GRAD_F32_LOSS_REL, GRAD_F32_LEAF_REL = 1e-5, 1e-3
+GRAD_F32_ENC_LEAF_REL, GRAD_F32_ENC_TOTAL_REL = 2 * 4.84e-2, 2 * 3.86e-2
+GRAD_BF16_LOSS_REL = 2e-2
+GRAD_BF16_DIT_TOTAL_REL = 2 * 1.32e-1
+
+
+def train_batches(gen, n, B, dev):
+    """Synthetic CALVIN-sized batches made on the card: uint8 static and
+    gripper frames, 10 x 7 actions, a 512-wide language embedding."""
+    import torch
+    out = []
+    for _ in range(n):
+        out.append({
+            "rgb_static": torch.randint(0, 256, (B, 1, STATIC_HW, STATIC_HW,
+                                                 3), generator=gen,
+                                        device=dev, dtype=torch.uint8),
+            "rgb_gripper": torch.randint(0, 256, (B, 1, GRIPPER_HW,
+                                                  GRIPPER_HW, 3),
+                                         generator=gen, device=dev,
+                                         dtype=torch.uint8),
+            "actions": torch.randn(B, 10, 7, generator=gen, device=dev)
+            * 0.3,
+            "lang_emb": torch.randn(B, 1, 512, generator=gen, device=dev)})
+    return out
+
+
+def eval_batch(batch):
+    from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
+    out = dict(batch)
+    for cam in ("rgb_static", "rgb_gripper"):
+        out[cam] = preprocess_camera(batch[cam], size=TRAIN_IMG)
+    return out
+
+
+def device_busy_ms(fn):
+    """One call of ``fn`` under torch.profiler: the device time of the
+    kernels it launches (None when the trace holds no device time) and the
+    host time of the same call, up to a synchronize, in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+        averages = prof.key_averages()
+    busy = 0.0
+    for ev in averages:
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        busy += (us or 0.0) / 1e3
+    return busy or None, host
+
+
+def fit_run(bf16_state, log_dir, batches, val, dev):
+    """Trainer.setup + Trainer.fit for one epoch of ``batches`` on a new
+    flagship agent, each step timed (host clock to a synchronize, and CUDA
+    events split at the optimizer), the applied LR and the optimizer count
+    recorded. Gates: finite losses, count == len(batches), every step's LR
+    == tri_stage_schedule(count), EMA != params."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        MoDEAgent, MoDEAgentConfig)
+    from mode_diffusion_policy_tpu_torch.training.loop import Trainer
+    from mode_diffusion_policy_tpu_torch.training.optim import \
+        tri_stage_schedule
+    from mode_diffusion_policy_tpu_torch.training_common import (
+        make_train_preprocess, parse_camera_pipelines)
+    cfg = MoDEAgentConfig(dtype=torch.bfloat16, **TRAIN_MODEL)
+    agent = MoDEAgent(cfg, device=dev)
+    trainer = Trainer(
+        agent, log_dir=log_dir, max_epochs=1,
+        limit_train_batches=len(batches), limit_val_batches=1,
+        rollout_freq=1, optimizer_kwargs=TRAIN_OPT, ema_kwargs=TRAIN_EMA,
+        preprocess_fn=make_train_preprocess(
+            parse_camera_pipelines(TRAIN_TRANSFORMS)),
+        rollout_callback=lambda ag, variables, epoch: {
+            "eval_lh/avg_seq_len": 1.0},
+        auto_layout=True, bf16_full_state=bf16_state, device=dev)
+    state = trainer.setup(seed=0)
+    opt = trainer._optimizer
+    sched = tri_stage_schedule(TRAIN_OPT["learning_rate"],
+                               TRAIN_OPT["total_steps"],
+                               TRAIN_OPT["phase_ratio"])
+    rec = {"step_ms": [], "fwd_bwd_ms": [], "opt_ema_ms": [], "loss": [],
+           "lr_ok": []}
+    events = {}
+    update = opt.update_with_ema
+
+    def timed_update(*a, **k):
+        events["opt0"].record()
+        out = update(*a, **k)
+        events["opt1"].record()
+        return out
+
+    opt.update_with_ema = timed_update
+    step = trainer._train_step
+
+    def timed_step(st, batch):
+        count = st.opt_state.count
+        for k in ("s0", "opt0", "opt1", "s1"):
+            events[k] = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events["s0"].record()
+        st, metrics = step(st, batch)
+        events["s1"].record()
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["fwd_bwd_ms"].append(events["s0"].elapsed_time(events["opt0"]))
+        rec["opt_ema_ms"].append(events["opt0"].elapsed_time(events["opt1"]))
+        rec["loss"].append(float(metrics["train/total_loss"]))
+        rec["lr_ok"].append(bool(opt.last_lr == sched(count)))
+        return st, metrics
+
+    trainer._train_step = timed_step
+    t0 = time.perf_counter()
+    state = trainer.fit(state, lambda: iter(batches), lambda: iter([val]))
+    rec["fit_s"] = time.perf_counter() - t0
+    ema_moved = any(not torch.equal(state.ema_params[n].float(), p.float())
+                    for n, p in state.params.items())
+    kind = "bf16_full_state" if bf16_state else "f32_state"
+    print(f"  {kind}: {len(rec['loss'])} steps, losses "
+          f"{[round(x, 4) for x in rec['loss']]}, step ms "
+          f"{[round(x, 1) for x in rec['step_ms']]}, optimizer count "
+          f"{state.opt_state.count}, LR == tri_stage_schedule at every step "
+          f"{all(rec['lr_ok'])}, EMA != params {ema_moved}, fit "
+          f"{rec['fit_s']:.1f} s (checkpoints included)", flush=True)
+    if not (all(math.isfinite(x) for x in rec["loss"])
+            and state.opt_state.count == len(batches) == state.step
+            and all(rec["lr_ok"]) and ema_moved and state.epoch == 1):
+        raise SystemExit(f"{kind}: the fit failed its gates")
+    opt.update_with_ema = update
+    trainer._train_step = step
+    return trainer, state, rec
+
+
+def step_profile(trainer, state, batch, rec):
+    """On the fit's own trainer (its preprocessing included): the device
+    idle share of one more step (profiler busy time over the host time of
+    the same step) and the peak memory of one step with and without
+    encoder_remat."""
+    import torch
+    busy, host = device_busy_ms(lambda: trainer._train_step(state, batch))
+    peaks = {}
+    for remat in (True, False):
+        trainer.agent.configure_(encoder_remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer._train_step(state, batch)
+        torch.cuda.synchronize()
+        peaks["remat" if remat else "no_remat"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer.agent.configure_(encoder_remat=True)
+    return {
+        "step_ms_median_3_8": statistics.median(rec["step_ms"][2:]),
+        "step_ms_spread_3_8": [min(rec["step_ms"][2:]),
+                               max(rec["step_ms"][2:])],
+        "fwd_bwd_ms_median": statistics.median(rec["fwd_bwd_ms"][2:]),
+        "opt_ema_ms_median": statistics.median(rec["opt_ema_ms"][2:]),
+        "profiled_step_host_ms": host, "device_busy_ms": busy,
+        "idle_share": None if busy is None else 1.0 - busy / host,
+        "peak_gib": peaks, "losses": rec["loss"],
+        "fit_s_with_checkpoint": rec["fit_s"]}
+
+
+def round_trip(log_dir, state, dev):
+    """A fresh Trainer on the same log dir auto-resumes: every tensor of the
+    state equals the saved one bit for bit, and step, epoch, the optimizer
+    count and the generator state continue."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        MoDEAgent, MoDEAgentConfig)
+    from mode_diffusion_policy_tpu_torch.training.loop import Trainer
+    agent = MoDEAgent(MoDEAgentConfig(dtype=torch.bfloat16, **TRAIN_MODEL),
+                      device=dev)
+    t2 = Trainer(agent, log_dir=log_dir, max_epochs=2,
+                 optimizer_kwargs=TRAIN_OPT, ema_kwargs=TRAIN_EMA,
+                 bf16_full_state=True, device=dev)
+    s2 = t2.setup(seed=1)
+    bad = []
+    n_tensors = 0
+    for what, a, b in (("params", state.params, s2.params),
+                       ("ema", state.ema_params, s2.ema_params),
+                       ("mu", state.opt_state.mu, s2.opt_state.mu),
+                       ("nu", state.opt_state.nu, s2.opt_state.nu),
+                       ("batch_stats", state.batch_stats, s2.batch_stats)):
+        for n, x in a.items():
+            n_tensors += 1
+            if b[n].dtype != x.dtype or not torch.equal(b[n], x):
+                bad.append(f"{what}:{n}")
+    rng_ok = torch.equal(s2.rng.get_state(), state.rng.get_state())
+    ok = (t2.resumed and not bad and rng_ok and s2.step == state.step
+          and s2.epoch == state.epoch
+          and s2.opt_state.count == state.opt_state.count)
+    print(f"  round trip: resumed {t2.resumed} at step {s2.step} epoch "
+          f"{s2.epoch} count {s2.opt_state.count}; {n_tensors} tensors, "
+          f"{len(bad)} differ; generator state equal {rng_ok}", flush=True)
+    if not ok:
+        raise SystemExit(f"checkpoint round trip failed: {bad[:5]}")
+    return {"tensors": n_tensors, "bit_equal": True, "step": s2.step,
+            "epoch": s2.epoch, "generator_equal": rng_ok}
+
+
+def grad_check(weights, batches, dev):
+    """One batch (b=8) through the loss and its gradient with the same
+    weights, sigma, noise and Gumbel noise, the dropouts off: f32 and the
+    bf16 compute dtype against float64 on the card."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        MoDEAgent, MoDEAgentConfig)
+    from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
+    Bg = min(GRAD_B, TRAIN_B)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    raw = {k: v[:Bg] for k, v in batches[0].items()}
+    batch = dict(raw)
+    for cam in ("rgb_static", "rgb_gripper"):
+        batch[cam] = preprocess_camera(raw[cam], size=TRAIN_IMG)
+    model = dict(TRAIN_MODEL, attn_pdrop=0.0, mlp_pdrop=0.0, goal_drop=0.0)
+    T = 1 + 1 + 2 + 10
+    draws = {"noise": torch.randn(Bg, 10, 7, generator=gen, device=dev),
+             "gumbel": [-torch.log(-torch.log(torch.rand(
+                 Bg, T, 4, generator=gen, device=dev).clamp_min(1e-30)))
+                 for _ in range(TRAIN_MODEL["n_layers"])]}
+    res = {}
+    for name, dt in (("f64", torch.float64), ("f32", torch.float32),
+                     ("bf16", torch.bfloat16)):
+        agent = MoDEAgent(MoDEAgentConfig(dtype=dt, **model), device=dev)
+        if "sigma" not in draws:
+            draws["sigma"] = agent.sample_density(gen, (Bg,), dev)
+        agent.load_state_dict(weights)
+        if dt == torch.float64:
+            agent = agent.double()
+        cast = torch.float64 if dt == torch.float64 else torch.float32
+        b = {k: v.to(cast) if v.is_floating_point() else v
+             for k, v in batch.items()}
+        d = {"sigma": draws["sigma"].to(cast),
+             "noise": draws["noise"].to(cast),
+             "gumbel": [g.to(cast) for g in draws["gumbel"]]}
+        loss, _ = agent.training_loss(b, None, **d)
+        loss.backward()
+        loss = float(loss.detach())
+        grads = {n: p.grad for n, p in agent.named_parameters()}
+        if name == "f64":
+            l64, g64 = loss, grads
+            # leaves whose gradient is zero to rounding (within 1e-6 of
+            # their part's largest) have no relative error
+            top = {dit: max(float(g.norm()) for n, g in g64.items()
+                            if n.startswith("inner_model.") == dit)
+                   for dit in (True, False)}
+            continue
+        leaf, sq = {}, {"dit": [0.0, 0.0], "encoders": [0.0, 0.0]}
+        for n, g in g64.items():
+            err = float((grads[n].double() - g).norm())
+            ref = float(g.norm())
+            part = sq["dit" if n.startswith("inner_model.") else "encoders"]
+            part[0], part[1] = part[0] + err ** 2, part[1] + ref ** 2
+            if ref > 1e-6 * top[n.startswith("inner_model.")]:
+                leaf[n] = err / ref
+        dit = {n: e for n, e in leaf.items() if n.startswith("inner_model.")}
+        enc = {n: e for n, e in leaf.items() if n not in dit}
+        wd, we = max(dit, key=dit.get), max(enc, key=enc.get)
+        res[name] = {
+            "loss": loss, "loss_rel": abs(loss - l64) / abs(l64),
+            "dit_worst_leaf": [wd, dit[wd]],
+            "encoders_worst_leaf": [we, enc[we]],
+            "dit_total_rel": (sq["dit"][0] / sq["dit"][1]) ** 0.5,
+            "encoders_total_rel": (sq["encoders"][0]
+                                   / sq["encoders"][1]) ** 0.5,
+            "total_rel": ((sq["dit"][0] + sq["encoders"][0])
+                          / (sq["dit"][1] + sq["encoders"][1])) ** 0.5,
+            "leaves": len(leaf), "leaves_near_zero": len(g64) - len(leaf)}
+        del agent, grads
+        torch.cuda.empty_cache()
+    f32, b16 = res["f32"], res["bf16"]
+    gates = {"f32_loss_rel": (f32["loss_rel"], GRAD_F32_LOSS_REL),
+             "f32_dit_leaf_rel_l2": (f32["dit_worst_leaf"][1],
+                                     GRAD_F32_LEAF_REL),
+             "f32_encoder_leaf_rel_l2": (f32["encoders_worst_leaf"][1],
+                                         GRAD_F32_ENC_LEAF_REL),
+             "f32_encoders_total_rel_l2": (f32["encoders_total_rel"],
+                                           GRAD_F32_ENC_TOTAL_REL),
+             "bf16_loss_rel": (b16["loss_rel"], GRAD_BF16_LOSS_REL),
+             "bf16_dit_total_rel_l2": (b16["dit_total_rel"],
+                                       GRAD_BF16_DIT_TOTAL_REL)}
+    print(f"  gradient vs f64 (b={Bg}, loss {l64:.6f}, {f32['leaves']} "
+          f"leaves, {f32['leaves_near_zero']} with a zero gradient): "
+          + "; ".join(f"{k} {v:.2e} (gate {g:.2e})"
+                      for k, (v, g) in gates.items())
+          + f"; not gated: bf16 encoders' total "
+          f"{b16['encoders_total_rel']:.2e}; worst f32 leaves "
+          f"{f32['dit_worst_leaf'][0]}, {f32['encoders_worst_leaf'][0]}; "
+          f"all leaves' total f32 {f32['total_rel']:.2e}, bf16 "
+          f"{b16['total_rel']:.2e}", flush=True)
+    if not all(v <= g for v, g in gates.values()):
+        raise SystemExit("gradient check against float64 failed")
+    res["f64_loss"] = l64
+    res["gates"] = {k: {"value": v, "gate": g} for k, (v, g) in gates.items()}
+    return res
+
+
+def serve_trained(state, dev, zero_launches, launches_of):
+    """The trained EMA weights (and running statistics) in a new agent,
+    served through RolloutPolicy.with_serving_mode(agent, "parity") at
+    b=128: 120 fused_layer_q8c launches per chunk, and the kernel-vs-plain
+    action MAE within max(1e-3, 2 x the plain-vs-plain floor)."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        MoDEAgent, MoDEAgentConfig, RolloutPolicy)
+    from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_layer_q8c, fused_layer_q8c_ref)
+    cfg = MoDEAgentConfig(dtype=torch.bfloat16, **TRAIN_MODEL)
+    agent = MoDEAgent(cfg, device=dev)
+    sd = {n: t.float() for n, t in state.ema_params.items()}
+    sd.update({n: t.float() for n, t in state.batch_stats.items()})
+    agent.load_state_dict(sd)
+    policy = RolloutPolicy.with_serving_mode(agent, mode="parity", seed=0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B = 128
+    obs = {k: preprocess_camera(torch.randint(
+        0, 256, (B, 1, hw, hw, 3), generator=gen, device=dev,
+        dtype=torch.uint8), size=TRAIN_IMG) for k, hw in (("rgb_static", STATIC_HW),
+                                         ("rgb_gripper", GRIPPER_HW))}
+    goal = {"lang_emb": torch.randn(B, 1, 512, generator=gen, device=dev)}
+    noise = torch.randn(B, 10, 7, generator=gen, device=dev)
+    zero_launches()
+    kern = policy.predict_chunk(obs, goal, noise)
+    torch.cuda.synchronize()
+    counts = launches_of()
+    dit = policy.agent.inner_model
+    dit.layer_impl = fused_layer_q8c_ref
+    plain = policy.predict_chunk(obs, goal, noise)
+    dit.layer_impl = functools.partial(fused_layer_q8c_ref,
+                                       acc_dtype=torch.float64)
+    exact = policy.predict_chunk(obs, goal, noise)
+    dit.layer_impl = fused_layer_q8c
+    mae = (kern - plain).abs().mean().item()
+    floor = (plain - exact).abs().mean().item()
+    tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * floor)
+    launches = counts.pop("fused_layer_q8c")
+    print(f"  the trained EMA weights served by parity at b={B}: {launches} "
+          f"fused_layer_q8c launches, others {counts}; action MAE "
+          f"kernel-vs-plain {mae:.3e} (tol {tol:.3e}), floor {floor:.3e}",
+          flush=True)
+    if not (launches == 120 and not any(counts.values()) and mae <= tol
+            and bool(torch.isfinite(kern).all())):
+        raise SystemExit("serving the trained weights failed")
+    return {"launches": launches, "action_mae": mae, "action_floor": floor,
+            "tol": tol}
+
+
+def train_phase(smi, zero_launches, launches_of, dev=None):
+    """Phase 22: the flagship train step and the Trainer on the card (with
+    autograd on: the serving phases run with it off)."""
+    import torch
+    with torch.enable_grad():
+        return _train_phase(smi, zero_launches, launches_of,
+                            dev or torch.device("cuda", 0))
+
+
+def _train_phase(smi, zero_launches, launches_of, dev):
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        print(f"  device memory held by the earlier phases: "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batches = train_batches(gen, N_BATCHES, TRAIN_B, dev)
+    val = eval_batch(train_batches(gen, 1, TRAIN_B, dev)[0])
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = {"card": smi, "batch": TRAIN_B, "steps": N_BATCHES,
+           "model": {k: v for k, v in TRAIN_MODEL.items()},
+           "optimizer": TRAIN_OPT, "ema": TRAIN_EMA}
+    try:
+        t = time.perf_counter()
+        trainer, state, rec = fit_run(True, f"{root}/bf16", batches, val, dev)
+        out["round_trip"] = round_trip(f"{root}/bf16", state, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["bf16_full_state"] = step_profile(trainer, state, batches[0],
+                                              rec)
+        phase("phase 22a: Trainer.fit with the bf16 training state, "
+              "checkpoint round trip", t)
+        t = time.perf_counter()
+        out["serve"] = serve_trained(state, dev, zero_launches, launches_of)
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("phase 22b: the trained EMA weights served by parity", t)
+        t = time.perf_counter()
+        trainer, state, rec = fit_run(False, f"{root}/f32", batches, val, dev)
+        out["f32_state"] = step_profile(trainer, state, batches[0], rec)
+        weights = {n: p.detach().float().clone()
+                   for n, p in trainer.agent.state_dict().items()}
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("phase 22c: Trainer.fit with the f32 master state", t)
+        t = time.perf_counter()
+        out["grad_check"] = grad_check(weights, batches, dev)
+        phase("phase 22d: gradients against float64", t)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for kind in ("bf16_full_state", "f32_state"):
+        r = out[kind]
+        print(f"  {kind}: median step {r['step_ms_median_3_8']:.1f} ms "
+              f"(steps 3-8, {r['step_ms_spread_3_8'][0]:.1f}-"
+              f"{r['step_ms_spread_3_8'][1]:.1f}), forward+backward "
+              f"{r['fwd_bwd_ms_median']:.1f} ms, optimizer+EMA "
+              f"{r['opt_ema_ms_median']:.1f} ms; one profiled step: host "
+              f"{r['profiled_step_host_ms']:.1f} ms, device busy "
+              f"{r['device_busy_ms']} ms, idle share {r['idle_share']}; "
+              f"peak {r['peak_gib']['remat']:.2f} GiB (no remat "
+              f"{r['peak_gib']['no_remat']:.2f})", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -1818,6 +2317,12 @@ def main():
     phase("phase 21: fused_layer_q8c with int8 projections: vs plain, == "
           "the two int8 kernels on every layer, chunks at b=128 and b=1", t)
 
+    # ---- phase 22: training -------------------------------------------------
+    # the serving agents are freed first: the training state takes ~20 B per
+    # parameter, and the f64 gradient check a float64 copy of the model
+    del agent, policy, policies, dit, pdit, blk, a, deq, deq_layers
+    train = train_phase(smi, zero_launches, launches_of)
+
     # ---- results -----------------------------------------------------------
     t128 = timing[128]
     kernels = [{
@@ -2006,6 +2511,7 @@ def main():
         "bench_proj": bench_proj,
     })
     phase("done", T0)
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

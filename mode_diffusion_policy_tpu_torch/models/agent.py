@@ -1,4 +1,4 @@
-"""MoDEAgent (inference) and RolloutPolicy, in PyTorch.
+"""MoDEAgent (inference and training) and RolloutPolicy, in PyTorch.
 
 Counterpart of ``mode_diffusion_policy_tpu/models/agent.py``. The JAX agent
 is a set of pure functions over a caller-held variables tree; here the agent
@@ -32,6 +32,16 @@ over the policy's precast bf16 weights.
 The policy precasts its own copy of the agent (``RolloutPolicy``): the
 caller's parameters stay f32 and untouched, as the JAX policy's "training
 state is untouched".
+
+Training (``training_loss``, ``validation_denoise``; driven by
+``training.loop``): camera frames through both raw FiLM-ResNet-50 encoders
+in train mode (batch statistics, their running-statistics update returned,
+the activations rematerialized in the backward pass with
+``encoder_remat``), the DiT in train mode, the EDM loss on sigmas from the
+configured density, plus the router aux losses. Training reads the
+agent's own parameters and never a serving cache (folded or int8 weights,
+precast copies, the megakernel's stack): an optimizer step would leave
+those stale, so serving after training builds a new policy.
 """
 from __future__ import annotations
 
@@ -43,22 +53,26 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..utils.device import resolve_device
-from .edm.precond import denoiser_forward, edm_scalings
+from .edm.densities import make_sample_density
+from .edm.precond import denoiser_forward, denoiser_loss, edm_scalings
 from .edm.samplers import sample_loop
 from .edm.schedules import get_noise_schedule
-from .encoders.resnet import (FiLMResNetPolicy, calibration_stats,
-                              fold_resnet_params, infer_q8_skip,
-                              quantize_resnet_params)
-from .modedit import MoDeDiT, MoDeDiTConfig
+from .encoders.resnet import (FiLMResNetPolicy, batch_stats_updates,
+                              calibration_stats, fold_resnet_params,
+                              infer_q8_skip, quantize_resnet_params)
+from .modedit import (MoDeDiT, MoDeDiTConfig, load_balancing_loss,
+                      router_z_loss)
 
 logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
 class MoDEAgentConfig:
-    """The inference fields of the JAX ``MoDEAgentConfig``."""
+    """The fields of the JAX ``MoDEAgentConfig`` that the ported paths read
+    (inference and training), with its defaults."""
 
     latent_dim: int = 1024
     multistep: int = 10
@@ -68,16 +82,24 @@ class MoDEAgentConfig:
     sigma_min: float = 0.001
     sigma_max: float = 80.0
     noise_scheduler: str = "exponential"
+    sigma_sample_density_type: str = "loglogistic"
     cond_dim: int = 512
     resnet_type: str = "50"
     act_window_size: int = 10
     action_dim: int = 7
     obs_seq_len: int = 1
     goal_seq_len: int = 1
+    entropy_gamma: float = 0.0     # weight of load_balancing_loss
+    router_z_delta: float = 0.001  # weight of router_z_loss
     n_layers: int = 12
     n_heads: int = 8
     num_experts: int = 4
     top_k: int = 2
+    embed_pdrob: float = 0.0
+    goal_drop: float = 0.1
+    attn_pdrop: float = 0.3
+    mlp_pdrop: float = 0.1
+    use_argmax: bool = False
     seed: int = 42
     dtype: Any = torch.float32
     use_pallas_moe: bool = False
@@ -86,6 +108,12 @@ class MoDEAgentConfig:
     use_fused_layer: bool = False
     use_int8_attn: bool = False
     use_megakernel: bool = False
+    use_grouped_moe: bool = False
+    # rematerialize the encoders' activations in the training backward
+    # (torch.utils.checkpoint): one more encoder forward for their memory
+    encoder_remat: bool = True
+    # "batch" (BatchNorm) or "group" (GroupNorm(32), no running statistics)
+    encoder_norm: str = "batch"
 
     @property
     def obs_dim(self) -> int:
@@ -99,6 +127,9 @@ class MoDEAgentConfig:
             goal_seq_len=self.goal_seq_len, obs_seq_len=self.obs_seq_len,
             action_seq_len=self.act_window_size,
             num_experts=self.num_experts, top_k=self.top_k, dtype=self.dtype,
+            embed_pdrob=self.embed_pdrob, goal_drop=self.goal_drop,
+            attn_pdrop=self.attn_pdrop, mlp_pdrop=self.mlp_pdrop,
+            use_argmax=self.use_argmax, use_grouped_moe=self.use_grouped_moe,
             use_int8_moe=self.use_int8_moe,
             use_pallas_moe=self.use_pallas_moe,
             use_pallas_attn=self.use_pallas_attn,
@@ -156,7 +187,8 @@ class MoDEAgent(nn.Module):
         self.inner_model = MoDeDiT(cfg.dit_config(), self.device)
         for name in ENCODERS:
             self.add_module(name, FiLMResNetPolicy(
-                cfg.cond_dim, 50, cfg.dtype, device=self.device))
+                cfg.cond_dim, 50, cfg.dtype, device=self.device,
+                norm=cfg.encoder_norm))
         self.folded = None   # nn.ModuleDict of BN-folded encoders, once built
         self.q8 = None       # nn.ModuleDict of int8 encoders, once built
         self.q8_clips = {}   # the calibrated clip label of each int8 encoder
@@ -164,6 +196,10 @@ class MoDEAgent(nn.Module):
         self.sigmas = get_noise_schedule(cfg.num_sampling_steps,
                                          cfg.noise_scheduler, cfg.sigma_min,
                                          cfg.sigma_max)
+        self.sample_density = make_sample_density(
+            cfg.sigma_sample_density_type, sigma_data=cfg.sigma_data,
+            sigma_min=cfg.sigma_min, sigma_max=cfg.sigma_max,
+            num_sampling_steps=cfg.num_sampling_steps)
         self.init_weights_(cfg.seed)
 
     @torch.no_grad()
@@ -200,7 +236,14 @@ class MoDEAgent(nn.Module):
     def fold_encoders_for_inference(self):
         """Fold the encoder BatchNorms into their convs and rewrite the 7x7/2
         stems as 4x4/1 convs over a space-to-depth input (exact rewrites).
-        ``embed_visual_obs`` then prefers the folded encoders."""
+        ``embed_visual_obs`` then prefers the folded encoders. GroupNorm
+        encoders (``encoder_norm="group"``) have no statistics to fold:
+        a no-op, as in the JAX package."""
+        if self.cfg.encoder_norm != "batch":
+            logger.info("encoder_norm=%r has no foldable statistics; "
+                        "fold_encoders_for_inference is a no-op",
+                        self.cfg.encoder_norm)
+            return self
         folded = {}
         for name in ENCODERS:
             mod = FiLMResNetPolicy(self.cfg.cond_dim, 50, self.cfg.dtype,
@@ -319,21 +362,136 @@ class MoDEAgent(nn.Module):
         return self
 
     @torch.no_grad()
-    def embed_visual_obs(self, rgb_static, rgb_gripper, latent_goal):
+    def embed_visual_obs(self, rgb_static, rgb_gripper, latent_goal, *,
+                         serving: bool = True):
         """rgb_*: preprocessed [B, T, H, W, 3] NHWC; latent_goal [B,1,cond] or
         [B,cond]. Returns {'state_images': [B, 2T, obs_dim]}. Runs the
-        int8 encoders when built, else the folded ones, else the raw."""
+        int8 encoders when built, else the folded ones, else the raw (only
+        the raw with ``serving=False``)."""
         B, T = rgb_static.shape[:2]
         cond = latent_goal[:, 0] if latent_goal.ndim == 3 else latent_goal
         cond_rep = cond.repeat_interleave(T, dim=0) if T > 1 else cond
         feats = []
         for name, imgs in zip(ENCODERS, (rgb_static, rgb_gripper)):
-            mod = (self.q8[name] if self.q8 is not None
-                   else self.folded[name] if self.folded is not None
+            mod = (self.q8[name] if serving and self.q8 is not None
+                   else self.folded[name]
+                   if serving and self.folded is not None
                    else getattr(self, name))
             x = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
             feats.append(mod(x, cond_rep).reshape(B, T, -1))
         return {"state_images": torch.cat(feats, dim=1)}
+
+    def embed_visual_obs_train(self, rgb_static, rgb_gripper, latent_goal):
+        """The raw encoders in train mode (batch statistics), with autograd:
+        returns ({'state_images': [B, 2T, obs_dim]}, batch_stats updates
+        {buffer name: new running value}). With ``cfg.encoder_remat`` each
+        encoder's activations are recomputed in the backward pass
+        (``torch.utils.checkpoint``); the running-statistics update is
+        taken from the first forward only (``resnet.batch_stats_updates``),
+        so it happens once per step."""
+        B, T = rgb_static.shape[:2]
+        cond = latent_goal[:, 0] if latent_goal.ndim == 3 else latent_goal
+        cond_rep = cond.repeat_interleave(T, dim=0) if T > 1 else cond
+        feats, updates = [], {}
+        for name, imgs in zip(ENCODERS, (rgb_static, rgb_gripper)):
+            mod = getattr(self, name)
+            x = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
+            with batch_stats_updates(mod, f"{name}.") as sink:
+                if self.cfg.encoder_remat:
+                    out = torch.utils.checkpoint.checkpoint(
+                        mod, x, cond_rep, True, use_reentrant=False,
+                        preserve_rng_state=False)
+                else:
+                    out = mod(x, cond_rep, True)
+            updates.update(sink)
+            feats.append(out.reshape(B, T, -1))
+        return {"state_images": torch.cat(feats, dim=1)}, updates
+
+    def check_trainable(self):
+        """Raise if a serving cache of the weights exists: training updates
+        the parameters, and a folded or int8 encoder, an int8 expert or
+        projection, a precast or the megakernel's stack would go stale."""
+        dit = self.inner_model
+        caches = [n for n, c in (
+            ("folded encoders", self.folded), ("int8 encoders", self.q8),
+            ("precast f32 masters", dit._f32_masters or None),
+            ("megakernel stack", dit.stacked)) if c is not None]
+        if any(b.experts_q is not None or b.attn.attn_q is not None
+               for b in dit.blocks):
+            caches.append("int8 DiT weights")
+        if caches:
+            raise RuntimeError(
+                "this agent holds serving caches of its weights ("
+                + ", ".join(caches) + "); train a fresh agent and build a "
+                "RolloutPolicy from the trained weights afterwards")
+
+    def training_loss(self, batch: Dict[str, Any], generator=None, *,
+                      sigma=None, noise=None, gumbel=None):
+        """batch: {'rgb_static': [B,T,H,W,3] preprocessed, 'rgb_gripper',
+        'actions': [B,W,7], 'lang_emb': [B,1,cond]}. Returns (total_loss,
+        (metrics, batch_stats_updates)), as the JAX agent's.
+
+        The JAX agent splits its key five ways (sigma, noise, dropout,
+        router, goal); here the draws come from ``generator`` in a fixed
+        order: sigma, noise, then the DiT's own (goal drop, embedding
+        dropout, and per layer attention dropout, Gumbel routing, expert
+        dropout). ``sigma`` [B], ``noise`` (the actions' shape) and
+        ``gumbel`` (per-layer [B,T,E]) replace their draws."""
+        cfg = self.cfg
+        dev = self.device
+        latent_goal = batch["lang_emb"].to(dev, torch.float32)
+        perceptual_emb, bs_updates = self.embed_visual_obs_train(
+            batch["rgb_static"].to(dev), batch["rgb_gripper"].to(dev),
+            latent_goal)
+        actions = batch["actions"].to(dev, torch.float32)
+        if sigma is None:
+            sigma = self.sample_density(generator, (actions.shape[0],), dev)
+        if noise is None:
+            noise = torch.randn(actions.shape, generator=generator,
+                                device=dev)
+        aux_out = {}
+
+        def inner_apply(states, scaled_actions, goal, sig):
+            pred, aux = self.inner_model(states, scaled_actions, goal, sig,
+                                         train=True, generator=generator,
+                                         gumbel=gumbel, return_aux=True)
+            aux_out["layers"] = aux
+            return pred
+
+        act_loss, _ = denoiser_loss(inner_apply, perceptual_emb, actions,
+                                    latent_goal, noise.to(dev),
+                                    sigma.to(dev), sigma_data=cfg.sigma_data)
+        total = act_loss
+        metrics = {"train/action_loss": act_loss}
+        aux_layers = aux_out["layers"]
+        if cfg.entropy_gamma > 0:
+            lb = load_balancing_loss(aux_layers)
+            total = total + cfg.entropy_gamma * lb
+            metrics["train/load_balancing_loss"] = lb
+        if cfg.router_z_delta > 0:
+            zl = router_z_loss(aux_layers)
+            total = total + cfg.router_z_delta * zl
+            metrics["train/router_z_delta"] = zl
+        metrics["train/total_loss"] = total
+        metrics["expert_counts"] = torch.stack(
+            [a["expert_counts"] for a in aux_layers]).detach()
+        return total, (metrics, bs_updates)
+
+    @torch.no_grad()
+    def validation_denoise(self, batch: Dict[str, Any], generator=None, *,
+                           noise=None):
+        """The full inference-schedule denoise through the raw encoders
+        (running statistics) + MSE against the batch's actions: returns
+        (pred, {'val_act/lang_act_loss_pp': mse})."""
+        dev = self.device
+        latent_goal = batch["lang_emb"].to(dev, torch.float32)
+        emb = self.embed_visual_obs(batch["rgb_static"].to(dev),
+                                    batch["rgb_gripper"].to(dev),
+                                    latent_goal, serving=False)
+        pred = self.denoise_actions(emb, latent_goal, generator=generator,
+                                    noise=noise)
+        mse = ((pred - batch["actions"].to(dev, torch.float32)) ** 2).mean()
+        return pred, {"val_act/lang_act_loss_pp": mse}
 
     @torch.no_grad()
     def precompute_routing(self, sigmas: Optional[np.ndarray] = None):

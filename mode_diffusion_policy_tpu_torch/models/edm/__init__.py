@@ -1,6 +1,8 @@
-from .precond import denoiser_forward, edm_scalings
+from .densities import SIGMA_DENSITIES, make_sample_density
+from .precond import denoiser_forward, denoiser_loss, edm_scalings
 from .samplers import SAMPLERS, sample_loop
 from .schedules import NOISE_SCHEDULES, get_noise_schedule
 
-__all__ = ["denoiser_forward", "edm_scalings", "SAMPLERS", "sample_loop",
+__all__ = ["denoiser_forward", "denoiser_loss", "edm_scalings",
+           "SIGMA_DENSITIES", "make_sample_density", "SAMPLERS", "sample_loop",
            "NOISE_SCHEDULES", "get_noise_schedule"]

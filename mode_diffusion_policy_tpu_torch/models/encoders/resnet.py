@@ -7,6 +7,10 @@ Public functions take the JAX package's NHWC images; convolutions run
 NCHW through ``torch.nn.functional.conv2d`` (the JAX package leaves them to
 XLA as well). Conv weights are stored OIHW as ``weight``; BatchNorm keeps
 the JAX names: ``scale``/``bias`` parameters and ``mean``/``var`` buffers.
+In train mode (``forward(..., train=True)``) BatchNorm normalizes on batch
+statistics with flax's semantics and hands its running-statistics update
+to ``batch_stats_updates``; ``norm="group"`` builds GroupNorm(32) under the
+same names.
 
 The int8 encoders of the ``max-throughput`` preset (``q8``, counterpart of
 the JAX ``QuantConv``, ``quantize_resnet_params`` and ``infer_q8_skip``)
@@ -21,18 +25,19 @@ scales, ``act_scale``.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.primitives import DenseP
+from ...ops.primitives import DenseP, at_least_f32
 
 STAGE_SIZES = {50: (3, 4, 6, 3)}
 STAGE_WIDTHS = (64, 128, 256, 512)
 EXPANSION = 4
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9      # flax's convention: new = 0.9 * old + 0.1 * batch
 
 
 def space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -173,7 +178,17 @@ class QuantConv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW channels with running statistics."""
+    """BatchNorm over NCHW channels with flax's semantics: inference on the
+    running statistics; in train mode on the batch statistics (f32, the
+    biased variance), with the running statistics' update ``0.9 * old +
+    0.1 * batch`` (flax momentum 0.9 is torch's 0.1; the batch variance is
+    the biased one, where ``F.batch_norm`` would keep the unbiased).
+
+    The update is returned, not applied: while ``batch_stats_updates``
+    holds a ``sink`` dict, a train-mode forward writes its new running
+    values there, and the caller applies them. A rematerialized forward
+    (``torch.utils.checkpoint``) runs again in the backward pass, after
+    the sink is gone, so the update is taken exactly once per step."""
 
     def __init__(self, ch, dtype=torch.float32, device=None):
         super().__init__()
@@ -182,11 +197,77 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch, device=device))
         self.register_buffer("mean", torch.zeros(ch, device=device))
         self.register_buffer("var", torch.ones(ch, device=device))
+        self.sink: Optional[Dict[str, torch.Tensor]] = None
+        self.sink_key = ""
 
-    def forward(self, x):
-        y = F.batch_norm(x.float(), self.mean, self.var, self.scale,
-                         self.bias, training=False, eps=BN_EPS)
+    def forward(self, x, train: bool = False):
+        x32 = at_least_f32(x)
+        scale, bias = self.scale.to(x32.dtype), self.bias.to(x32.dtype)
+        if not train:
+            y = F.batch_norm(x32, self.mean.to(x32.dtype),
+                             self.var.to(x32.dtype), scale, bias,
+                             training=False, eps=BN_EPS)
+            return y.to(self.dtype)
+        # flax's statistics: the "fast" variance E[x^2] - E[x]^2, clamped
+        # at 0, differentiated through (not F.batch_norm's two-pass one)
+        mean = x32.mean(dim=(0, 2, 3))
+        var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + BN_EPS) * scale
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] \
+            + bias[:, None, None]
+        if self.sink is not None:
+            with torch.no_grad():
+                self.sink[self.sink_key + "mean"] = \
+                    BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean
+                self.sink[self.sink_key + "var"] = \
+                    BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var
         return y.to(self.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm(min(32, C)) under a BatchNorm's parameter names (``scale``,
+    ``bias``; no running statistics): the JAX encoders' ``norm="group"``,
+    the same in train and eval."""
+
+    def __init__(self, ch, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.groups = min(32, ch)
+        self.scale = nn.Parameter(torch.ones(ch, device=device))
+        self.bias = nn.Parameter(torch.zeros(ch, device=device))
+
+    def forward(self, x, train: bool = False):
+        x32 = at_least_f32(x)
+        return F.group_norm(x32, self.groups, self.scale.to(x32.dtype),
+                            self.bias.to(x32.dtype),
+                            eps=BN_EPS).to(self.dtype)
+
+
+NORMS = {"batch": BatchNorm, "group": GroupNorm}
+
+
+def make_norm(kind: str, ch, dtype, device):
+    if kind not in NORMS:
+        raise ValueError(f"unknown encoder norm kind {kind!r} "
+                         "(expected 'batch' or 'group')")
+    return NORMS[kind](ch, dtype, device)
+
+
+@contextlib.contextmanager
+def batch_stats_updates(module: nn.Module, prefix: str = ""):
+    """While open, every train-mode ``BatchNorm`` forward under ``module``
+    writes its new running statistics into the yielded dict, keyed by the
+    buffer's path (``prefix`` + module path + ``.mean`` / ``.var``)."""
+    sink: Dict[str, torch.Tensor] = {}
+    bns = [(n, m) for n, m in module.named_modules()
+           if isinstance(m, BatchNorm)]
+    for n, m in bns:
+        m.sink, m.sink_key = sink, f"{prefix}{n}." if n else prefix
+    try:
+        yield sink
+    finally:
+        for _, m in bns:
+            m.sink = None
 
 
 class Bottleneck(nn.Module):
@@ -195,7 +276,8 @@ class Bottleneck(nn.Module):
     conv biases in place of their BatchNorms."""
 
     def __init__(self, cin, planes, stride=1, has_downsample=False,
-                 dtype=torch.float32, folded=False, q8=False, device=None):
+                 dtype=torch.float32, folded=False, q8=False, device=None,
+                 norm="batch"):
         super().__init__()
         self.folded = folded
         self.has_downsample = has_downsample
@@ -212,17 +294,17 @@ class Bottleneck(nn.Module):
                     ci, co, k, s, use_bias=folded, dtype=dtype,
                     device=device))
             if not folded:
-                self.add_module(bn, BatchNorm(co, dtype, device))
+                self.add_module(bn, make_norm(norm, co, dtype, device))
 
-    def _cbn(self, x, conv, bn):
+    def _cbn(self, x, conv, bn, train):
         x = getattr(self, conv)(x)
-        return x if self.folded else getattr(self, bn)(x)
+        return x if self.folded else getattr(self, bn)(x, train)
 
-    def forward(self, x):
-        out = F.relu(self._cbn(x, "conv1", "bn1"))
-        out = F.relu(self._cbn(out, "conv2", "bn2"))
-        out = self._cbn(out, "conv3", "bn3")
-        identity = (self._cbn(x, "downsample_conv", "downsample_bn")
+    def forward(self, x, train: bool = False):
+        out = F.relu(self._cbn(x, "conv1", "bn1", train))
+        out = F.relu(self._cbn(out, "conv2", "bn2", train))
+        out = self._cbn(out, "conv3", "bn3", train)
+        identity = (self._cbn(x, "downsample_conv", "downsample_bn", train)
                     if self.has_downsample else x)
         return F.relu(out + identity)
 
@@ -232,10 +314,13 @@ class ResNetBackbone(nn.Module):
 
     ``q8`` (folded trunks only): False, True (int8 convs with dynamic
     activation scales) or "static" (calibrated scales); ``q8_skip`` names
-    the stages ("stem", "layer1" .. "layer4") whose convs stay float."""
+    the stages ("stem", "layer1" .. "layer4") whose convs stay float.
+    ``norm``: "batch" (BatchNorm) or "group" (GroupNorm(32), the JAX
+    encoders' training-mode swap) on the unfolded trunk."""
 
     def __init__(self, depth=50, dtype=torch.float32, folded=False,
-                 q8=False, q8_skip: Tuple[str, ...] = (), device=None):
+                 q8=False, q8_skip: Tuple[str, ...] = (), device=None,
+                 norm="batch"):
         super().__init__()
         if depth not in STAGE_SIZES:
             raise NotImplementedError(
@@ -252,7 +337,7 @@ class ResNetBackbone(nn.Module):
                                 use_bias=True, dtype=dtype, device=device)
         else:
             self.conv1 = Conv2d(3, 64, 7, 2, dtype=dtype, device=device)
-            self.bn1 = BatchNorm(64, dtype, device)
+            self.bn1 = make_norm(norm, 64, dtype, device)
         self.stages = []
         cin = 64
         for s, (n, width) in enumerate(zip(STAGE_SIZES[depth], STAGE_WIDTHS)):
@@ -263,21 +348,22 @@ class ResNetBackbone(nn.Module):
                 name = f"layer{s + 1}_{b}"
                 q8_b = False if f"layer{s + 1}" in q8_skip else q8
                 self.add_module(name, Bottleneck(cin, width, stride, has_ds,
-                                                 dtype, folded, q8_b, device))
+                                                 dtype, folded, q8_b, device,
+                                                 norm))
                 names.append(name)
                 cin = width * EXPANSION
             self.stages.append(names)
 
-    def forward(self, x_nhwc, stage_films):
+    def forward(self, x_nhwc, stage_films, train: bool = False):
         if self.folded:
             x = space_to_depth_2x2(x_nhwc).permute(0, 3, 1, 2)
             x = self.conv1(x)
         else:
-            x = self.bn1(self.conv1(x_nhwc.permute(0, 3, 1, 2)))
+            x = self.bn1(self.conv1(x_nhwc.permute(0, 3, 1, 2)), train)
         x = F.max_pool2d(F.relu(x), 3, 2, 1)
         for names, (gamma, beta) in zip(self.stages, stage_films):
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, train)
             x = (1.0 + gamma[:, :, None, None]) * x + beta[:, :, None, None]
         return x
 
@@ -285,11 +371,12 @@ class ResNetBackbone(nn.Module):
 class FiLMResNetPolicy(nn.Module):
     """Backbone + zero-init stage FiLM ``(1+gamma)*x + beta`` + global
     average pool: images [B,H,W,3] (NHWC), condition [B,cond] or
-    [B,1,cond] -> [B, 2048]."""
+    [B,1,cond] -> [B, 2048]. ``train=True`` normalizes on batch
+    statistics (see ``BatchNorm``)."""
 
     def __init__(self, condition_dim, depth=50, dtype=torch.float32,
                  folded=False, q8=False, q8_skip: Tuple[str, ...] = (),
-                 device=None):
+                 device=None, norm="batch"):
         super().__init__()
         self.dtype = dtype
         for s, width in enumerate(STAGE_WIDTHS):
@@ -299,16 +386,16 @@ class FiLMResNetPolicy(nn.Module):
                 nn.init.zeros_(d.kernel)
                 self.add_module(f"film{s + 1}_{part}", d)
         self.resnet = ResNetBackbone(depth, dtype, folded, q8,
-                                     tuple(q8_skip), device)
+                                     tuple(q8_skip), device, norm)
 
-    def forward(self, x, condition):
+    def forward(self, x, condition, train: bool = False):
         if condition.ndim == 3:
             condition = condition[:, 0, :]
         condition = condition.to(self.dtype)
         films = [(getattr(self, f"film{s + 1}_gamma")(condition),
                   getattr(self, f"film{s + 1}_beta")(condition))
                  for s in range(len(STAGE_WIDTHS))]
-        x = self.resnet(x.to(self.dtype), films)
+        x = self.resnet(x.to(self.dtype), films, train)
         return x.mean(dim=(2, 3))
 
 

@@ -25,6 +25,15 @@ A call without routing tables (a sampler's off-schedule evaluation) routes
 inline; with ``use_pallas_attn`` its attention sub-block is still one
 kernel launch, with the block's own cond token, one row per sample.
 
+Training (``forward(..., train=True)``) runs the plain PyTorch path only,
+as the JAX package runs no kernel under ``train``: dropout on the attention
+probabilities (``attn_pdrop``), on the SwishGLU activations of the experts
+(``mlp_pdrop``) and on the embeddings (``embed_pdrob``), Gumbel top-k
+routing (unless ``use_argmax``), goal drop, and per layer the router aux
+outputs that ``load_balancing_loss`` and ``router_z_loss`` read
+(``return_aux``). Its random draws come from one ``torch.Generator``; the
+Gumbel noise can be passed in instead.
+
 Parameter names and layouts follow the JAX tree (``blocks_{i}`` becomes
 ``blocks.{i}``), which ``utils/weights.py`` relies on.
 """
@@ -43,8 +52,10 @@ from ..ops.kernels.layer_kernel import (DIT_KMAJOR, DIT_KMAJOR_ATTN,
                                         STACKED_QATTN, fused_dit_q8c,
                                         fused_layer_q8c)
 from ..ops.kernels.moe_kernel import fused_top2_mlp, fused_top2_mlp_q8c
-from ..ops.moe import moe_ffn_dense, moe_ffn_top2_gather
-from ..ops.primitives import DenseP, RMSNorm
+from ..ops.moe import (moe_ffn_dense, moe_ffn_top2_gather,
+                       moe_ffn_topk_grouped)
+from ..ops.primitives import (DenseP, RMSNorm, at_least_f32, dropout,
+                              gumbel_topk_sample)
 from ..ops.quant import (AttnKMajor, ExpertsKMajor, QuantizedAttn,
                          QuantizedExperts, kmajor_attn, kmajor_experts,
                          quantize_attn, quantize_experts)
@@ -52,12 +63,13 @@ from ..ops.quant import (AttnKMajor, ExpertsKMajor, QuantizedAttn,
 
 @dataclasses.dataclass(frozen=True)
 class MoDeDiTConfig:
-    """The inference hyperparameters of the JAX ``MoDeDiTConfig`` at the
-    values the served model uses: goal-conditioned, causal, a cond-only
-    router (temperature 1, renormalized top-k) and the noise token as the
-    first input token. The JAX config's other options (proprio, shared or
-    identity experts, cross-attention, goal-in-routing, the other kernels)
-    are not fields here; ROADMAP.md lists them."""
+    """The hyperparameters of the JAX ``MoDeDiTConfig`` at the values the
+    shipped model uses: goal-conditioned, causal, a cond-only router
+    (temperature 1, renormalized top-k) and the noise token as the first
+    input token, with the training options (dropouts, goal drop, argmax or
+    Gumbel routing, the grouped MoE). The JAX config's other options
+    (proprio, shared or identity experts, cross-attention,
+    goal-in-routing) are not fields here; ROADMAP.md lists them."""
 
     obs_dim: int = 2048            # FiLM-ResNet-50 feature dim
     goal_dim: int = 512            # CLIP text embedding dim
@@ -71,6 +83,15 @@ class MoDeDiTConfig:
     num_experts: int = 4
     top_k: int = 2
     dtype: torch.dtype = torch.float32
+    # training (JAX MoDeDiTConfig defaults, conf/model/mode_agent.yaml)
+    embed_pdrob: float = 0.0
+    goal_drop: float = 0.1         # elementwise Bernoulli goal dropout
+    attn_pdrop: float = 0.3
+    mlp_pdrop: float = 0.1
+    use_argmax: bool = False       # deterministic top-k in training too
+    use_grouped_moe: bool = False  # training/eval inline path: only the
+                                   # selected experts, sorted by expert
+                                   # (ops/moe.moe_ffn_topk_grouped)
     use_int8_moe: bool = False     # int8 experts (quantized once, see
                                    # MoDeDiT.quantize_experts_); on the
                                    # routed inference path the int8 top-2
@@ -148,6 +169,7 @@ class Attention(nn.Module):
     def __init__(self, cfg: MoDeDiTConfig, device=None):
         super().__init__()
         D, H = cfg.embed_dim, cfg.n_heads
+        self.cfg = cfg
         self.H, self.hd, self.dtype = H, D // H, cfg.dtype
         self.wqkv = DenseP(D, 3 * D, True, cfg.dtype, device)
         self.c_proj = DenseP(D, D, False, cfg.dtype, device)
@@ -159,16 +181,20 @@ class Attention(nn.Module):
         self.attn_q: Optional[QuantizedAttn] = None
         self.attn_qt: Optional[AttnKMajor] = None
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator=None):
+        """In train mode the attention probabilities, cast to the compute
+        dtype, go through dropout (``attn_pdrop``)."""
         B, T, D = x.shape
         q, k, v = (t.reshape(B, T, self.H, self.hd)
                    for t in self.wqkv(x).chunk(3, dim=-1))
         q, k = self.q_norm(q), self.k_norm(k)
-        logits = torch.einsum("bthd,bshd->bhts", q, k).float() \
+        logits = at_least_f32(torch.einsum("bthd,bshd->bhts", q, k)) \
             / math.sqrt(self.hd)
         mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
         logits = logits.masked_fill(~mask, float("-inf"))
         attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        if train:
+            attn = dropout(attn, self.cfg.attn_pdrop, generator)
         y = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, D)
         return self.c_proj(y)
 
@@ -186,8 +212,9 @@ class CondRouterMLP(nn.Module):
 
 
 class RouterCond(nn.Module):
-    """Noise-conditioned top-k router (eval: deterministic top-k): it sees
-    only the cond token, broadcast over the tokens. Returns
+    """Noise-conditioned top-k router: it sees only the cond token,
+    broadcast over the tokens; deterministic top-k in eval (and with
+    ``use_argmax``), Gumbel top-k sampling in training. Returns
     (mask [B,T,E], idx [B,T,k], router_probs [B,T,E] masked and
     renormalized, probs [B,T,E], shifted logits [B,T,E])."""
 
@@ -197,15 +224,22 @@ class RouterCond(nn.Module):
         self.mlp = CondRouterMLP(cfg.embed_dim, cfg.num_experts, cfg.dtype,
                                  device)
 
-    def forward(self, inputs, cond):
+    def forward(self, inputs, cond, train: bool = False, generator=None,
+                gumbel=None):
+        """``gumbel`` [B,T,E]: the training draw's Gumbel noise, else drawn
+        from ``generator``."""
         cfg = self.cfg
         T = inputs.shape[1]
         router_in = (cond.repeat_interleave(T // cond.shape[1], dim=1)
                      if cond.shape[1] != T else cond)
-        logits = self.mlp(router_in).float()
+        logits = at_least_f32(self.mlp(router_in))
         logits = logits - logits.amax(dim=-1, keepdim=True)
         probs = torch.softmax(logits, dim=-1).clamp(1e-9, 1 - 1e-9)
-        idx = torch.topk(probs, cfg.top_k, dim=-1).indices
+        if train and not cfg.use_argmax:
+            idx = gumbel_topk_sample(torch.log(probs), cfg.top_k,
+                                     generator=generator, gumbel=gumbel)
+        else:
+            idx = torch.topk(probs, cfg.top_k, dim=-1).indices
         mask = F.one_hot(idx, cfg.num_experts).to(probs.dtype).sum(dim=-2)
         router_probs = probs * mask
         router_probs = router_probs / router_probs.sum(dim=-1, keepdim=True)
@@ -241,7 +275,8 @@ class NoiseBlockMoE(nn.Module):
 
     def forward(self, x, c, *, moe_override=None, layer_impl=fused_layer_q8c,
                 attn_impl=fused_attn_block_q8, attn_impl_bf16=fused_attn_block,
-                moe_impl=fused_top2_mlp_q8c, moe_impl_bf16=fused_top2_mlp):
+                moe_impl=fused_top2_mlp_q8c, moe_impl_bf16=fused_top2_mlp,
+                train=False, generator=None, gumbel=None, return_aux=False):
         """moe_override: (idx [k], p [k]) rows, or (idx [S,k], p [S,k],
         step) sigma tables with the scheduled step; None routes inline.
         ``layer_impl`` is the whole-layer function used on the routed path
@@ -252,11 +287,19 @@ class NoiseBlockMoE(nn.Module):
         with top-2 routing, ln_2 and the MoE are ``moe_impl`` (int8 experts,
         ``cfg.use_int8_moe``) or ``moe_impl_bf16`` (the compute-dtype
         experts, ``cfg.use_pallas_moe``). Follows JAX
-        ``NoiseBlockMoE.__call__`` and ``_override_out``."""
+        ``NoiseBlockMoE.__call__`` and ``_override_out``.
+
+        ``train`` runs the plain path with its dropouts and Gumbel routing
+        (draws from ``generator``, or the given ``gumbel`` noise);
+        ``return_aux`` runs the plain path too and returns ``(x, aux)``,
+        aux the layer's router outputs (None on a routed call)."""
         cfg = self.cfg
         dt = cfg.dtype
         a = self.attn
-        routed_top2 = moe_override is not None and cfg.top_k == 2
+        # no kernel in train mode or for the aux outputs, as in JAX
+        kernels = not (train or return_aux)
+        routed_top2 = kernels and moe_override is not None \
+            and cfg.top_k == 2
         kernel_moe = routed_top2 and cfg.use_int8_moe
         if routed_top2:
             idx, p, *rest = moe_override
@@ -277,7 +320,7 @@ class NoiseBlockMoE(nn.Module):
                     qattn_t=a.attn_qt if int8_attn else None,
                     eps1=self.ln_1.eps, eps_qk=a.q_norm.eps,
                     eps2=self.ln_2.eps)
-        if cfg.fused_attn:
+        if kernels and cfg.fused_attn:
             kw = dict(ln_eps=self.ln_1.eps, qk_eps=a.q_norm.eps)
             if cfg.use_int8_attn and a.attn_q is not None:
                 x = attn_impl(x, c, self.ln_1.g, a.attn_q, a.q_norm.g,
@@ -287,7 +330,7 @@ class NoiseBlockMoE(nn.Module):
                                    a.wqkv.bias, a.q_norm.g, a.k_norm.g,
                                    a.c_proj.kernel, **kw)
         else:
-            x = x + self.attn(self.ln_1(x) + c)
+            x = x + self.attn(self.ln_1(x) + c, train, generator)
         if kernel_moe:
             # ln_2 fused into the MoE function, the normed input as the
             # residual seed
@@ -303,12 +346,42 @@ class NoiseBlockMoE(nn.Module):
                                  residual=True, ln_g=self.ln_2.g,
                                  ln_eps=self.ln_2.eps)
         x = self.ln_2(x)
+        aux = None
         if moe_override is not None:
             idx, p, *rest = moe_override
             idx, p = _routing_row(idx, p, rest[0] if rest else None)
-            return x + moe_ffn_top2_gather(x, idx, p.to(dt), w1, b1, w2)
-        _, _, router_probs, _, _ = self.router(x, c)
-        return x + moe_ffn_dense(x, router_probs.to(dt), w1, b1, w2)
+            x = x + moe_ffn_top2_gather(x, idx, p.to(dt), w1, b1, w2)
+        else:
+            mask, idx, router_probs, probs, logits = self.router(
+                x, c, train, generator, gumbel)
+            drop = None
+            if train and cfg.mlp_pdrop > 0.0:
+                def drop(act):
+                    return dropout(act, cfg.mlp_pdrop, generator)
+            out = self._experts_out(x, router_probs, idx, w1, b1, w2, drop)
+            if return_aux:
+                B, T, _ = x.shape
+                counts = mask.sum(dim=(0, 1))
+                aux = {"logits": logits, "probs": probs,
+                       "router_mask": mask,
+                       "load_balancing_term": cfg.num_experts * (
+                           router_probs.mean(dim=(0, 1))
+                           * (counts / (B * T))).sum(),
+                       "expert_counts": counts, "tokens": B * T}
+            x = x + out
+        return (x, aux) if return_aux else x
+
+    def _experts_out(self, x, router_probs, idx, w1, b1, w2, drop=None):
+        """The routed experts' output on the inline path: the dense
+        4-expert sum, or with ``use_grouped_moe`` only the selected pairs
+        (the same weighted sum); ``drop`` is the training dropout on the
+        SwishGLU activations."""
+        if self.cfg.use_grouped_moe:
+            pair_p = torch.gather(router_probs, -1, idx)
+            return moe_ffn_topk_grouped(x, pair_p.to(x.dtype), idx, w1, b1,
+                                        w2, drop)
+        return moe_ffn_dense(x, router_probs.to(self.cfg.dtype), w1, b1, w2,
+                             drop)
 
     def route_for_cond(self, c):
         """Router only, on cond tokens [S,1,D]: top-k (idx [S,k] int32,
@@ -499,60 +572,92 @@ class MoDeDiT(nn.Module):
 
     def process_sigma_embeddings(self, sigma):
         """log(sigma)/4 -> Linear -> Linear; sigma [S] -> [S,1,D]."""
-        s = (torch.log(sigma.float()) / 4.0).reshape(-1, 1).to(self.cfg.dtype)
+        s = (torch.log(at_least_f32(sigma)) / 4.0).reshape(-1, 1).to(
+            self.cfg.dtype)
         return self.sigma_linear(self.sigma_emb(s))[:, None, :]
 
-    def preprocess_goals(self, goals):
+    def preprocess_goals(self, goals, train: bool = False, generator=None):
+        """[B,(1,)goal] -> [B,1,goal]; in training, elementwise Bernoulli
+        goal drop (``goal_drop``), the draw from ``generator``."""
         cfg = self.cfg
         if goals.ndim == 2:
             goals = goals[:, None, :]
         if goals.shape[-1] == 2 * cfg.obs_dim:
             goals = goals[..., : cfg.obs_dim]
+        if train and cfg.goal_drop > 0.0:
+            mask = torch.rand(goals.shape, generator=generator,
+                              device=goals.device) < cfg.goal_drop
+            goals = goals * (1.0 - mask.to(goals.dtype))
         return goals
 
-    def _blocks(self, x, cond_token, moe_overrides):
+    def _blocks(self, x, cond_token, moe_overrides, train=False,
+                generator=None, gumbel=None, return_aux=False):
+        """The block stack; returns ``(x, aux_layers)``, the per-layer aux
+        outputs under ``return_aux`` (else an empty list)."""
+        aux_layers = []
         for i, block in enumerate(self.blocks):
             ov = None if moe_overrides is None else moe_overrides[i]
             x = block(x, cond_token, moe_override=ov,
                       layer_impl=self.layer_impl, attn_impl=self.attn_impl,
                       attn_impl_bf16=self.attn_impl_bf16,
                       moe_impl=self.moe_impl,
-                      moe_impl_bf16=self.moe_impl_bf16)
-        return x
+                      moe_impl_bf16=self.moe_impl_bf16, train=train,
+                      generator=generator,
+                      gumbel=None if gumbel is None else gumbel[i],
+                      return_aux=return_aux)
+            if return_aux:
+                x, aux = x
+                aux_layers.append(aux)
+        return x, aux_layers
 
     def forward(self, states: Dict[str, torch.Tensor], actions, goals, sigma,
-                *, moe_overrides=None):
-        """Predict denoised actions (eval). states['state_images'] [B,2,obs];
-        actions [B,W,act] (pre-scaled by c_in); goals [B,(1,)goal]; sigma [B]."""
-        cfg = self.cfg
-        dt = cfg.dtype
-        emb_t = self.process_sigma_embeddings(sigma)
-        static_x, _ = self.embed_static_tokens(states, goals)
-        g = cfg.goal_seq_len
-        action_x = self.action_emb(actions.to(dt)) + self.pos_emb.to(dt)[:, g:, :]
-        x = self._blocks(torch.cat([emb_t, static_x, action_x], dim=1), emb_t,
-                         moe_overrides)
-        return self.out(self.ln(x)[:, -cfg.action_seq_len:, :])
+                *, moe_overrides=None, train: bool = False, generator=None,
+                gumbel=None, return_aux: bool = False):
+        """Predict denoised actions. states['state_images'] [B,2,obs];
+        actions [B,W,act] (pre-scaled by c_in); goals [B,(1,)goal]; sigma [B].
 
-    def embed_static_tokens(self, states, goals):
+        ``train``: goal drop, embedding dropout and every block in train
+        mode (draws from ``generator``; ``gumbel`` is an optional list of
+        per-layer Gumbel noise [B,T,E]). ``return_aux`` returns ``(pred,
+        aux_layers)``, the per-layer router outputs."""
+        emb_t = self.process_sigma_embeddings(sigma)
+        static_x, _ = self.embed_static_tokens(states, goals, train,
+                                               generator)
+        x = self._step_tokens(static_x, emb_t, actions, train, generator)
+        x, aux_layers = self._blocks(x, emb_t, moe_overrides, train,
+                                     generator, gumbel, return_aux)
+        pred = self.out(self.ln(x)[:, -self.cfg.action_seq_len:, :])
+        return (pred, aux_layers) if return_aux else pred
+
+    def _embed_drop(self, x, train, generator):
+        """The embedding dropout (``embed_pdrob``) in train mode."""
+        return dropout(x, self.cfg.embed_pdrob, generator) if train else x
+
+    def embed_static_tokens(self, states, goals, train: bool = False,
+                            generator=None):
         """Step-invariant tokens [B, g+2, D] (goal token + both camera tokens,
-        position-embedded) and the raw goal embedding."""
+        position-embedded) and the raw goal embedding; in train mode with
+        the goal drop and the embedding dropout (draws from
+        ``generator``)."""
         cfg = self.cfg
         dt = cfg.dtype
-        goals = self.preprocess_goals(goals)
+        goals = self.preprocess_goals(goals, train, generator)
         state_embed = self.tok_emb(states["state_images"].to(dt))
         goal_embed = self.goal_emb(goals.to(dt))
         pos = self.pos_emb.to(dt)
         g = cfg.goal_seq_len
         state_x = state_embed + pos[:, g:g + 1, :]
-        return torch.cat([goal_embed + pos[:, :g, :], state_x], dim=1), \
-            goal_embed
+        static_x = torch.cat([goal_embed + pos[:, :g, :], state_x], dim=1)
+        return self._embed_drop(static_x, train, generator), goal_embed
 
-    def _step_tokens(self, static_x, emb_t, actions):
+    def _step_tokens(self, static_x, emb_t, actions, train: bool = False,
+                     generator=None):
         dt = self.cfg.dtype
         B = actions.shape[0]
         g = self.cfg.goal_seq_len
-        action_x = self.action_emb(actions.to(dt)) + self.pos_emb.to(dt)[:, g:, :]
+        action_x = self._embed_drop(
+            self.action_emb(actions.to(dt)) + self.pos_emb.to(dt)[:, g:, :],
+            train, generator)
         return torch.cat([emb_t.expand(B, -1, -1), static_x.expand(B, -1, -1),
                           action_x], dim=1)
 
@@ -562,7 +667,7 @@ class MoDeDiT(nn.Module):
         action tokens; ``emb_t`` [1,1,D] is the step's sigma token and also
         the (shared) cond token of every block."""
         x = self._step_tokens(static_x, emb_t, actions)
-        x = self._blocks(x, emb_t, moe_overrides)
+        x, _ = self._blocks(x, emb_t, moe_overrides)
         return self.out(self.ln(x[:, -self.cfg.action_seq_len:, :]))
 
     def forward_precomputed_mega(self, static_x, goal_embed, emb_t, actions,
@@ -583,3 +688,17 @@ class MoDeDiT(nn.Module):
         """Per layer (idx [S,k] int32, probs [S,k] f32) for sigmas [S]."""
         emb = self.process_sigma_embeddings(sigmas)
         return [block.route_for_cond(emb) for block in self.blocks]
+
+
+def load_balancing_loss(aux_layers) -> torch.Tensor:
+    """Mean over layers of the layers' load-balancing terms."""
+    terms = [a["load_balancing_term"] for a in aux_layers if a is not None]
+    return torch.stack(terms).mean() if terms else torch.zeros(())
+
+
+def router_z_loss(aux_layers, eps: float = 1e-6) -> torch.Tensor:
+    """Mean over layers of the token mean of log(sum(exp(logits)) + eps)^2,
+    on the max-shifted logits the router returns."""
+    losses = [(torch.log(torch.exp(a["logits"]).sum(dim=-1) + eps) ** 2)
+              .mean() for a in aux_layers if a is not None]
+    return torch.stack(losses).mean() if losses else torch.zeros(())

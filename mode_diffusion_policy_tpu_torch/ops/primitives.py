@@ -6,6 +6,8 @@ modules leaf by leaf.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -24,10 +26,17 @@ class RMSNorm(nn.Module):
                                          device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = at_least_f32(x)
         norm = torch.linalg.vector_norm(x32, dim=-1, keepdim=True) \
             * (self.dim ** -0.5)
         return (x32 / norm.clamp_min(self.eps) * self.g).to(x.dtype)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or in f64 when it is f64: the JAX package's f32 casts,
+    which a float64 evaluation (the gradient check against f64) keeps in
+    f64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def swish_glu(h: torch.Tensor) -> torch.Tensor:
@@ -65,3 +74,34 @@ class DenseP(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
+
+
+def gumbel_topk_sample(log_probs: torch.Tensor, k: int, *,
+                       generator: Optional[torch.Generator] = None,
+                       gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sample k items without replacement from categorical(log_probs) by the
+    Gumbel-top-k trick: the top k of ``log_probs + g``, g standard Gumbel
+    noise of ``log_probs``'s shape, given as ``gumbel`` or drawn from
+    ``generator`` as -log(-log(u)), u uniform in [tiny, 1)."""
+    if gumbel is None:
+        tiny = torch.finfo(log_probs.dtype).tiny
+        u = torch.rand(log_probs.shape, generator=generator,
+                       device=log_probs.device, dtype=log_probs.dtype)
+        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+    return torch.topk(log_probs + gumbel.to(log_probs), k, dim=-1).indices
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep each element with
+    probability 1 - rate (a uniform draw from ``generator`` below it) and
+    scale the kept ones by 1 / (1 - rate), the scale in ``x``'s dtype.
+    Rate 0 returns ``x``."""
+    if rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    scale = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))

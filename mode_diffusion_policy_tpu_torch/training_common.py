@@ -1,0 +1,128 @@
+"""Shared helpers of the training entry points (counterpart of
+``mode_diffusion_policy_tpu/training_common.py:1-129``).
+
+The camera pipelines are parsed from the datamodule's transforms config
+(``conf/datamodule/transforms/*.yaml``) and run on the card inside the
+train step (``make_train_step(preprocess_fn=...)``): raw uint8 frames go to
+the card once. Each camera takes its own draws from the train state's
+generator, as the reference's per-camera torchvision transforms are
+independent.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Callable, Dict, Optional
+
+import torch
+
+from .ops.image import preprocess_camera, random_word_dropout
+from .utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_PIPELINES = {
+    "rgb_static": {"size": 224, "pad": 10},
+    "rgb_gripper": {"size": 224, "pad": 4},
+}
+CAMERAS = ("rgb_static", "rgb_gripper")
+
+
+def persist_resolved_config(cfg: Dict, log_dir) -> None:
+    """Write the resolved run config to ``<log_dir>/.hydra/config.yaml``
+    (the reference's hydra run-dir layout, which evaluation reads back)."""
+    import yaml
+    from pathlib import Path
+
+    def plain(node):
+        if isinstance(node, dict):
+            return {str(k): plain(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [plain(v) for v in node]
+        if isinstance(node, (str, int, float, bool)) or node is None:
+            return node
+        return str(node)
+
+    d = Path(log_dir) / ".hydra"
+    d.mkdir(parents=True, exist_ok=True)
+    with open(d / "config.yaml", "w") as f:
+        yaml.safe_dump(plain(cfg), f, sort_keys=False)
+
+
+def parse_camera_pipelines(transforms_cfg: Optional[Dict]) -> Dict[str, Dict]:
+    """{'rgb_static': {'size', 'pad'[, 'jitter', 'erasing']}, ...} from the
+    (train) transform specs, plus 'word_dropout_p' for a language
+    RandomWordDropout entry."""
+    out = {k: dict(v) for k, v in DEFAULT_PIPELINES.items()}
+    train = (transforms_cfg or {}).get("train", {})
+    for cam in out:
+        for spec in train.get(cam, []):
+            target = str(spec.get("_target_", ""))
+            if target.endswith("Resize"):
+                out[cam]["size"] = int(spec.get("size", out[cam]["size"]))
+            elif target.endswith("RandomShiftsAug"):
+                out[cam]["pad"] = int(spec.get("pad", out[cam]["pad"]))
+            elif target.endswith("RobustColorJitter"):
+                out[cam]["jitter"] = {
+                    "brightness": float(spec.get("brightness", 0.3)),
+                    "contrast": float(spec.get("contrast", 0.3)),
+                    "saturation": float(spec.get("saturation", 0.3)),
+                    "hue": float(spec.get("hue", 0.1))}
+            elif target.endswith("RobustRandomErasing"):
+                out[cam]["erasing"] = {
+                    "p": float(spec.get("p", 0.2)),
+                    "scale": tuple(spec.get("scale", (0.02, 0.33))),
+                    "ratio": tuple(spec.get("ratio", (0.3, 3.3))),
+                    "value": float(spec.get("value", 0))}
+    for lang_key in ("language", "lang", "lang_emb"):
+        for spec in train.get(lang_key, []):
+            if str(spec.get("_target_", "")).endswith("RandomWordDropout"):
+                out["word_dropout_p"] = float(spec.get("p", 0.1))
+    return out
+
+
+def make_train_preprocess(pipelines: Dict[str, Dict]) -> Callable:
+    """``preprocess(batch, generator)``: uint8 frames -> augmented,
+    normalized float32 on the batch's device (train mode), the cameras in
+    order, then the optional word dropout; draws from ``generator``."""
+
+    def preprocess(batch, generator):
+        out = dict(batch)
+        for cam in CAMERAS:
+            p = pipelines[cam]
+            out[cam] = preprocess_camera(
+                batch[cam], size=p["size"], shift_pad=p["pad"], train=True,
+                jitter=p.get("jitter"), erasing=p.get("erasing"),
+                generator=generator)
+        wd_p = pipelines.get("word_dropout_p")
+        if wd_p and "lang_emb" in batch:
+            lang = batch["lang_emb"]
+            u = torch.rand(lang.shape, generator=generator,
+                           device=lang.device)
+            out["lang_emb"] = random_word_dropout(lang, u, wd_p)
+        return out
+
+    return preprocess
+
+
+def make_data_iters(datamodule, pipelines: Dict[str, Dict], device="cuda"):
+    """(train_iter, val_iter) over any object with ``train_batches(epoch)``
+    and ``val_batches()``: train batches stay raw uint8 (preprocessed in the
+    train step); validation batches are preprocessed here, eval mode, on
+    ``device`` (CUDA unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    keep = ("rgb_static", "rgb_gripper", "actions", "lang_emb")
+
+    def train_iter(epoch=0):
+        for batch in datamodule.train_batches(epoch):
+            yield {k: batch[k] for k in keep}
+
+    def val_iter(epoch=0):
+        for batch in datamodule.val_batches():
+            out = {k: batch[k] for k in keep}
+            for cam in CAMERAS:
+                out[cam] = preprocess_camera(
+                    torch.as_tensor(out[cam], device=dev),
+                    size=pipelines[cam]["size"])
+            yield out
+
+    return train_iter, val_iter

@@ -4,8 +4,11 @@ The port keeps the JAX tree's names and layouts (dense kernels [in, out],
 stacked experts), so the mapping is by path: ``blocks_{i}`` becomes
 ``blocks.{i}``, and a 4-d conv ``kernel`` (HWIO) becomes the OIHW
 ``weight`` (an int8 ``kernel_q`` stays ``kernel_q``, turned OIHW).
-Encoder BatchNorm statistics come from the ``batch_stats`` collection. Leaves are numpy arrays (``jax.tree.map(np.asarray, ...)``);
-this module imports no JAX.
+Encoder BatchNorm statistics come from the ``batch_stats`` collection.
+``from_jax_train_state`` carries a whole JAX ``TrainState`` (parameters,
+statistics, ``FusedAdamWEmaState`` moments, EMA, step, epoch) into the
+port's. Leaves are numpy arrays (``jax.tree.map(np.asarray, ...)``; bf16
+leaves as ml_dtypes bfloat16); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -91,3 +94,72 @@ def from_jax_params(variables: Mapping, cfg, *, device="cuda"):
         getattr(agent, name).load_state_dict(resnet_state_dict(
             variables["params"][name], variables["batch_stats"][name]))
     return agent
+
+
+def port_name(path: str, ndim: int) -> str:
+    """The port's name of a JAX leaf path (``inner_model.blocks_0.x`` ->
+    ``inner_model.blocks.0.x``; a 4-d conv ``kernel`` -> ``weight``)."""
+    path = re.sub(r"^inner_model\.blocks_(\d+)\.", r"inner_model.blocks.\1.",
+                  path)
+    if path.endswith(".kernel") and ndim == 4:
+        path = path[: -len("kernel")] + "weight"
+    return path
+
+
+def port_tensor(v, ndim_rule=True) -> torch.Tensor:
+    """A numpy leaf (f32, or ml_dtypes bfloat16) as a tensor of the same
+    dtype; 4-d conv kernels HWIO -> OIHW."""
+    a = np.asarray(v)
+    bf16 = a.dtype.name == "bfloat16"
+    a = a.astype(np.float32)
+    if ndim_rule and a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+def port_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``params``-like tree (``inner_model``, ``static_resnet``,
+    ``gripper_resnet``) -> {port name: tensor}."""
+    return {port_name(k, np.ndim(v)): port_tensor(v)
+            for k, v in _flatten(tree).items()}
+
+
+def from_jax_train_state(state, cfg, *, device="cuda"):
+    """(agent, TrainState) of the port holding a JAX ``TrainState`` (numpy
+    leaves): the agent's parameters in the state's dtype, the encoders'
+    running statistics, the ``FusedAdamWEmaState`` count and moments, the
+    EMA weights, step and epoch. The port's state has the ``FusedAdamWEma``
+    flat layout (its optimizer's, with the JAX config's decay mask), and a
+    generator seeded with ``cfg.seed`` (a JAX key has no torch
+    counterpart). A ``FusedAdamWEma`` from ``make_optimizer`` updates it
+    as it is (the update reads the layout from ``state.params``)."""
+    from ..models.agent import MoDEAgent
+    from ..training.optim import FusedAdamWEmaState, decay_mask, FlatLayout
+    from ..training.state import TrainState, encoder_batch_stats
+
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    agent = from_jax_params(variables, cfg, device=device)
+    dev = agent.device
+    params = port_tree(state.params)
+    named = dict(agent.named_parameters())
+    with torch.no_grad():
+        for n, p in named.items():
+            p.data = params[n].to(dev)
+    layout = FlatLayout(named, decay_mask(named))
+    flat_params = layout.flatten_params_(named)
+    opt = state.opt_state
+
+    def flat(tree):
+        t = port_tree(tree)
+        return layout.new(dev, lambda g: t[g.names[0]].dtype,
+                          init={n: v.to(dev) for n, v in t.items()})
+
+    ts = TrainState(step=int(np.asarray(state.step)), params=flat_params,
+                    batch_stats=encoder_batch_stats(agent),
+                    opt_state=FusedAdamWEmaState(int(np.asarray(opt.count)),
+                                                 flat(opt.mu), flat(opt.nu)),
+                    ema_params=flat(state.ema_params),
+                    rng=torch.Generator(device=dev).manual_seed(cfg.seed),
+                    epoch=int(np.asarray(state.epoch)))
+    return agent, ts

@@ -18,6 +18,9 @@ from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
                                                      SERVING_MODES,
                                                      UNPORTED_MODES,
                                                      resolve_serving_mode)
+from mode_diffusion_policy_tpu_torch.training.loop import (Trainer,
+                                                           make_train_step)
+from mode_diffusion_policy_tpu_torch.training.optim import make_optimizer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "mode_diffusion_policy_tpu_torch"
@@ -104,7 +107,7 @@ def test_kernel_bench_skips_without_cuda(monkeypatch, capsys):
         bench_kernels_torch.main(["warp"])
 
 
-def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
@@ -113,6 +116,15 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     agent = MoDEAgent(MoDEAgentConfig(**TINY), device="cpu")
     assert next(agent.parameters()).device.type == "cpu"
+    # the training entry points: CUDA by default, the CPU when asked
+    opt, _ = make_optimizer(dict(agent.named_parameters()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(agent, log_dir=str(tmp_path / "run"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(agent, opt)
+    assert Trainer(agent, log_dir=str(tmp_path / "run"),
+                   device="cpu").device.type == "cpu"
+    assert callable(make_train_step(agent, opt, device="cpu"))
 
 
 def test_serving_mode_names():
