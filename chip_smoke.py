@@ -84,9 +84,25 @@ float64 on the card; the median step, its forward+backward and
 optimizer+EMA split, the device idle share and the peak memory with and
 without ``encoder_remat``, printed as one ``train`` JSON line before the
 ``kernels`` line.
+
+Phase 23 evaluates phase 22's trained EMA weights (its bf16 run directory,
+kept until then) through the ``evaluate_calvin`` CLI
+(``evaluate(parse_args(argv))``: ``--checkpoint`` on the run, 8 chains on
+the fake env at 224 px, 25 env steps per subtask) under ``parity``,
+``reference`` and ``b1-latency``: equal results, 120 ``fused_layer_q8c``
+/ 0 / 10 ``fused_dit_q8c`` launches per chunk, every logged action (before
+the gripper's binarization) within max(1e-3, 2 x the b=1 floor) of the
+``reference`` run's, one CLIP tower call per distinct instruction; then
+the agent proxy on 127.0.0.1 (actions bit-equal to an in-process wrapper,
+recovery after a request that raises) and the Trainer's rollout hook
+(``build_calvin_rollout_callback`` on the fake env). It prints env steps
+per second, the chunk's ms inside the loop, the host ms per env step, the
+tower's ms, a subtask's device idle share and the proxy's round trip, as
+one ``eval`` JSON line before the ``kernels`` line.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -95,6 +111,8 @@ import statistics
 import subprocess
 import time
 import warnings
+
+import numpy as np
 
 from bench_kernels_torch import (STAGE_NAME, fmt_rates, layer_cost,
                                  layer_q8_cost, library_attn,
@@ -1685,19 +1703,20 @@ def serve_trained(state, dev, zero_launches, launches_of):
             "tol": tol}
 
 
-def train_phase(smi, zero_launches, launches_of, dev=None):
+def train_phase(smi, zero_launches, launches_of, root, dev=None):
     """Phase 22: the flagship train step and the Trainer on the card (with
-    autograd on: the serving phases run with it off)."""
+    autograd on: the serving phases run with it off). The bf16 run's
+    directory, ``<root>/bf16``, stays for phase 23; the caller removes
+    ``root``."""
     import torch
     with torch.enable_grad():
-        return _train_phase(smi, zero_launches, launches_of,
+        return _train_phase(smi, zero_launches, launches_of, root,
                             dev or torch.device("cuda", 0))
 
 
-def _train_phase(smi, zero_launches, launches_of, dev):
+def _train_phase(smi, zero_launches, launches_of, root, dev):
     import gc
     import shutil
-    import tempfile
 
     import torch
     gc.collect()
@@ -1709,40 +1728,37 @@ def _train_phase(smi, zero_launches, launches_of, dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     batches = train_batches(gen, N_BATCHES, TRAIN_B, dev)
     val = eval_batch(train_batches(gen, 1, TRAIN_B, dev)[0])
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     out = {"card": smi, "batch": TRAIN_B, "steps": N_BATCHES,
            "model": {k: v for k, v in TRAIN_MODEL.items()},
            "optimizer": TRAIN_OPT, "ema": TRAIN_EMA}
-    try:
-        t = time.perf_counter()
-        trainer, state, rec = fit_run(True, f"{root}/bf16", batches, val, dev)
-        out["round_trip"] = round_trip(f"{root}/bf16", state, dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["bf16_full_state"] = step_profile(trainer, state, batches[0],
-                                              rec)
-        phase("phase 22a: Trainer.fit with the bf16 training state, "
-              "checkpoint round trip", t)
-        t = time.perf_counter()
-        out["serve"] = serve_trained(state, dev, zero_launches, launches_of)
-        del trainer, state
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase("phase 22b: the trained EMA weights served by parity", t)
-        t = time.perf_counter()
-        trainer, state, rec = fit_run(False, f"{root}/f32", batches, val, dev)
-        out["f32_state"] = step_profile(trainer, state, batches[0], rec)
-        weights = {n: p.detach().float().clone()
-                   for n, p in trainer.agent.state_dict().items()}
-        del trainer, state
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase("phase 22c: Trainer.fit with the f32 master state", t)
-        t = time.perf_counter()
-        out["grad_check"] = grad_check(weights, batches, dev)
-        phase("phase 22d: gradients against float64", t)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    trainer, state, rec = fit_run(True, f"{root}/bf16", batches, val, dev)
+    out["round_trip"] = round_trip(f"{root}/bf16", state, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bf16_full_state"] = step_profile(trainer, state, batches[0],
+                                          rec)
+    phase("phase 22a: Trainer.fit with the bf16 training state, "
+          "checkpoint round trip", t)
+    t = time.perf_counter()
+    out["serve"] = serve_trained(state, dev, zero_launches, launches_of)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 22b: the trained EMA weights served by parity", t)
+    t = time.perf_counter()
+    trainer, state, rec = fit_run(False, f"{root}/f32", batches, val, dev)
+    out["f32_state"] = step_profile(trainer, state, batches[0], rec)
+    weights = {n: p.detach().float().clone()
+               for n, p in trainer.agent.state_dict().items()}
+    del trainer, state
+    shutil.rmtree(f"{root}/f32", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 22c: Trainer.fit with the f32 master state", t)
+    t = time.perf_counter()
+    out["grad_check"] = grad_check(weights, batches, dev)
+    phase("phase 22d: gradients against float64", t)
     for kind in ("bf16_full_state", "f32_state"):
         r = out[kind]
         print(f"  {kind}: median step {r['step_ms_median_3_8']:.1f} ms "
@@ -1754,6 +1770,400 @@ def _train_phase(smi, zero_launches, launches_of, dev):
               f"{r['device_busy_ms']} ms, idle share {r['idle_share']}; "
               f"peak {r['peak_gib']['remat']:.2f} GiB (no remat "
               f"{r['peak_gib']['no_remat']:.2f})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23: evaluation (the CALVIN long-horizon CLI, the agent proxy, the
+# Trainer's rollout hook) on phase 22's trained EMA weights
+# ---------------------------------------------------------------------------
+
+# 8 five-task chains on the fake env at 224 px, every task solvable after
+# 25 env steps (three chunks per subtask), 360 steps allowed per subtask
+EVAL_SEQUENCES, EVAL_STEPS_TO_SUCCESS, EVAL_EP_LEN = 8, 25, 360
+PROXY_STEPS = 30
+EVAL_KEYS = {"eval_lh/avg_seq_len"} | {f"eval_lh/sr_chain_{i}"
+                                       for i in range(1, 6)}
+CAMS = ("rgb_static", "rgb_gripper")
+
+
+def eval_argv(root, mode):
+    """The CLI's argv for one run on phase 22's bf16 run directory."""
+    return ["--checkpoint", f"{root}/bf16", "--fake-env",
+            "--fake-steps-to-success", str(EVAL_STEPS_TO_SUCCESS),
+            "--num-sequences", str(EVAL_SEQUENCES),
+            "--ep-len", str(EVAL_EP_LEN), "--image-size", str(TRAIN_IMG),
+            "--bf16", "--serving-mode", mode, "--num-videos", "0",
+            "--log-dir", f"{root}/eval_{mode}"]
+
+
+@contextlib.contextmanager
+def eval_probe():
+    """Class-level wrappers that record one evaluation run: every action
+    the env wrapper receives (before its gripper binarization) and the host
+    ms of its step (fake env + wrapper), the ms of every policy step and
+    chunk (host clock to a synchronize; the chunk's copy to the host
+    synchronizes there anyway), of every CLIP tower call, and the rollout
+    loop's wall seconds. The originals are restored on exit."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.evaluation import \
+        evaluate_calvin as ec
+    from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
+    from mode_diffusion_policy_tpu_torch.models.encoders.clip_text import \
+        LangClip
+    from mode_diffusion_policy_tpu_torch.rollout.env import CalvinEnvWrapper
+    from mode_diffusion_policy_tpu_torch.rollout.rollout_long_horizon import \
+        LongHorizonEvaluator
+    rec = {k: [] for k in ("actions", "env_ms", "step_ms", "chunk_ms",
+                           "tower_ms", "loop_s")}
+
+    def timed(fn, key, sync=False, scale=1e3, log_action=False):
+        def wrapped(self, *a, **k):
+            if log_action:
+                rec["actions"].append(np.array(a[0], np.float64).reshape(-1))
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t0) * scale)
+            return out
+        return wrapped
+
+    plan = [(CalvinEnvWrapper, "step", dict(key="env_ms", log_action=True)),
+            (ec.PreprocPolicy, "step", dict(key="step_ms")),
+            (RolloutPolicy, "predict_chunk", dict(key="chunk_ms", sync=True)),
+            (LangClip, "__call__", dict(key="tower_ms", sync=True)),
+            (LongHorizonEvaluator, "evaluate_policy",
+             dict(key="loop_s", sync=True, scale=1.0))]
+    saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in plan]
+    try:
+        for cls, name, kw in plan:
+            setattr(cls, name, timed(cls.__dict__[name], **kw))
+        yield rec
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def eval_run(root, mode, zero_launches, launches_of):
+    """``evaluate_calvin`` (``evaluate(parse_args(argv))``: ``main`` without
+    its two printed lines) on phase 22's run directory under ``mode``, the
+    launches of every kernel counted from 0 over the whole run."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.evaluation import \
+        evaluate_calvin as ec
+    args = ec.parse_args(eval_argv(root, mode))
+    t0 = time.perf_counter()
+    with eval_probe() as rec:
+        zero_launches()
+        ev = ec.evaluate(args)
+        torch.cuda.synchronize()
+        counts = launches_of()
+    rec["run_s"] = time.perf_counter() - t0
+    path = f"{args.log_dir}/results.json"
+    with open(path) as f:
+        rec["ranking"] = json.load(f)["0"]
+    rec["counts"] = counts
+    return ev, rec
+
+
+def eval_floor(ev, mode, dev):
+    """At b=1 on the run's own weights and one of its observations: the
+    plain-f32-vs-plain-f64 action distance of the preset's DiT function
+    (``parity``: the layer; ``b1-latency``: the whole stack, products and
+    then also norms and softmax in f64), and the kernel-vs-plain one."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c,
+        fused_layer_q8c_ref)
+    policy = ev.policy
+    raw = ev.env.get_obs()["rgb_obs"]
+    obs = {c: preprocess_camera(torch.as_tensor(raw[c], device=dev),
+                                size=TRAIN_IMG) for c in CAMS}
+    goal = {"lang_text": "open the drawer"}
+    noise = torch.randn(1, 10, 7, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    dit = policy.agent.inner_model
+    attr, kern_fn, ref = (("layer_impl", fused_layer_q8c, fused_layer_q8c_ref)
+                          if mode == "parity" else
+                          ("dit_impl", fused_dit_q8c, fused_dit_q8c_ref))
+    kern = policy.predict_chunk(obs, goal, noise)
+    setattr(dit, attr, ref)
+    plain = policy.predict_chunk(obs, goal, noise)
+    floors = []
+    variants = [dict(acc_dtype=torch.float64)]
+    if mode != "parity":
+        variants.append(dict(acc_dtype=torch.float64,
+                             red_dtype=torch.float64))
+    for kw in variants:
+        setattr(dit, attr, functools.partial(ref, **kw))
+        floors.append((plain - policy.predict_chunk(obs, goal, noise))
+                      .abs().mean().item())
+    setattr(dit, attr, kern_fn)
+    return max(floors), (kern - plain).abs().mean().item()
+
+
+def subtask_idle(ev):
+    """One subtask of the first chain, run again on the same policy: its
+    wall ms, then its device busy ms under torch.profiler; the idle share
+    is one minus busy over the unprofiled wall time (chunk_split's
+    reading)."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.evaluation.utils import \
+        get_env_state_for_initial_condition
+    evaluator, policy = ev.evaluator, ev.policy
+    state, seq = evaluator.eval_sequences[0]
+
+    def run():
+        robot, scene = get_env_state_for_initial_condition(state)
+        evaluator.env.reset(robot_obs=robot, scene_obs=scene)
+        if not evaluator.rollout(policy, seq[0]):
+            raise SystemExit("phase 23: the profiled subtask failed")
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, _ = device_busy_ms(run)
+    return {"subtask": seq[0], "env_steps": EVAL_STEPS_TO_SUCCESS,
+            "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": None if busy is None else max(0.0, 1 - busy / wall)}
+
+
+def proxy_check(ev, dev):
+    """The agent proxy on 127.0.0.1 at a free port, in a thread: __init__,
+    PROXY_STEPS steps of raw CALVIN-shaped observations over two
+    instructions, a request that raises on the server, a fresh __init__
+    and 3 steps, __shutdown__. Every action must equal an in-process
+    CalvinAgentWrapper's (same agent, seed and inputs) bit for bit."""
+    from mode_diffusion_policy_tpu_torch.data.calvin_dataset import (
+        DEFAULT_OBS_SPACE, DEFAULT_PROPRIO)
+    from mode_diffusion_policy_tpu_torch.evaluation import \
+        evaluate_calvin as ec
+    from mode_diffusion_policy_tpu_torch.evaluation.agent_proxy import (
+        AgentProxyClient, CalvinAgentWrapper, start_server)
+    from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import \
+        LangEmbeddingCache
+    lang = ev.lang_cache.encoder
+
+    def create_agent():
+        policy = ec.PreprocPolicy(ev.agent, LangEmbeddingCache(lang),
+                                  sizes={c: TRAIN_IMG for c in CAMS})
+        return CalvinAgentWrapper(policy, DEFAULT_OBS_SPACE, DEFAULT_PROPRIO,
+                                  TRAIN_IMG)
+
+    rng = np.random.default_rng(23)
+
+    def raw_obs():
+        return {"rgb_obs": {
+            "rgb_static": rng.integers(0, 256, (STATIC_HW, STATIC_HW, 3),
+                                       dtype=np.uint8),
+            "rgb_gripper": rng.integers(0, 256, (GRIPPER_HW, GRIPPER_HW, 3),
+                                        dtype=np.uint8)},
+            "robot_obs": rng.standard_normal(15)}
+
+    texts = ("open the drawer", "push the sliding door to the right")
+    server = start_server(create_agent, "127.0.0.1", 0, background=True)
+    remote_ms, local_ms, equal, n = [], [], True, 0
+    try:
+        client = AgentProxyClient(
+            f"http://127.0.0.1:{server.server_address[1]}")
+        client.init()
+        local = create_agent()
+        for i in range(PROXY_STEPS):
+            obs, text = raw_obs(), texts[i * 2 // PROXY_STEPS]
+            t0 = time.perf_counter()
+            got = client.step(obs, text)
+            remote_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            want = local.step(obs, text)
+            local_ms.append((time.perf_counter() - t0) * 1e3)
+            equal &= bool(np.array_equal(got, want))
+            n += 1
+        try:
+            client._call("no_such_method")
+            raised = False
+        except RuntimeError:
+            raised = True
+        client.init()
+        local = create_agent()
+        for _ in range(3):
+            obs = raw_obs()
+            equal &= bool(np.array_equal(client.step(obs, texts[0]),
+                                         local.step(obs, texts[0])))
+            n += 1
+        shut = client.shutdown() == "shutdown"
+    finally:
+        server.shutdown()
+        server.server_close()
+    out = {"steps": n, "bit_equal": equal, "error_raised": raised,
+           "shutdown": shut,
+           "round_trip_ms_median": statistics.median(remote_ms),
+           "in_process_step_ms_median": statistics.median(local_ms),
+           "round_trip_ms_chunk_steps": remote_ms[::10],
+           "in_process_ms_chunk_steps": local_ms[::10]}
+    if not (equal and raised and shut):
+        raise SystemExit(f"phase 23c: the agent proxy failed: {out}")
+    return out
+
+
+def rollout_hook(trained, dev):
+    """build_calvin_rollout_callback({"fake_env": True, ...}) called for one
+    epoch on the trained agent (``trained``: the EMA weights and running
+    statistics that the parity run restored, in a training-config agent):
+    it must return the eval_lh metrics. One chain, one chunk per subtask:
+    the hook serves the plain path."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        MoDEAgent, MoDEAgentConfig)
+    from mode_diffusion_policy_tpu_torch.models.encoders.clip_text import \
+        LangClip
+    from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import \
+        LangEmbeddingCache
+    from mode_diffusion_policy_tpu_torch.training.state import \
+        encoder_batch_stats
+    from mode_diffusion_policy_tpu_torch.training_common import (
+        build_calvin_rollout_callback, parse_camera_pipelines)
+    agent = MoDEAgent(MoDEAgentConfig(dtype=torch.bfloat16, **TRAIN_MODEL),
+                      device=dev)
+    agent.load_state_dict(trained)
+    variables = {"params": dict(agent.named_parameters()),
+                 "batch_stats": encoder_batch_stats(agent)}
+    cb = build_calvin_rollout_callback(
+        {"fake_env": True, "fake_hw": TRAIN_IMG, "fake_steps_to_success": 10,
+         "num_sequences": 1, "ep_len": EVAL_EP_LEN},
+        LangEmbeddingCache(LangClip.initialize_random(0, device=dev)),
+        parse_camera_pipelines(TRAIN_TRANSFORMS))
+    t0 = time.perf_counter()
+    metrics = cb(agent, variables, 0)
+    wall = time.perf_counter() - t0
+    print(f"  rollout hook (plain path, 1 chain): {metrics} in "
+          f"{wall:.1f} s", flush=True)
+    if set(metrics) != EVAL_KEYS or metrics["eval_lh/avg_seq_len"] != 5.0:
+        raise SystemExit(f"phase 23d: rollout hook metrics {metrics}")
+    return {"metrics": metrics, "wall_s": wall}
+
+
+def eval_phase(smi, zero_launches, launches_of, root, chunk_b1, dev=None):
+    """Phase 23: the evaluation CLI under parity, reference and b1-latency
+    on phase 22's trained EMA weights, the agent proxy, the rollout hook."""
+    import gc
+
+    import torch
+    dev = dev or torch.device("cuda", 0)
+    out = {"card": smi, "sequences": EVAL_SEQUENCES,
+           "steps_to_success": EVAL_STEPS_TO_SUCCESS}
+    runs = {}
+    for ph, mode in (("23a", "parity"), ("23a", "reference"),
+                     ("23b", "b1-latency")):
+        t = time.perf_counter()
+        ev, rec = eval_run(root, mode, zero_launches, launches_of)
+        chunks, steps = len(rec["chunk_ms"]), len(rec["env_ms"])
+        counts = dict(rec["counts"])
+        acfg = ev.agent.cfg
+        want = {"parity": ("fused_layer_q8c",
+                           acfg.n_layers * acfg.num_sampling_steps),
+                "b1-latency": ("fused_dit_q8c",
+                               acfg.num_sampling_steps)}.get(mode)
+        launches = counts.pop(want[0]) if want else 0
+        cache = ev.lang_cache
+        instructions = {ev.evaluator.val_annotations[task][0]
+                        for _, chain in ev.evaluator.eval_sequences
+                        for task in chain}
+        r = {"chunks": chunks, "env_steps": steps, "launches": launches,
+             "launches_per_chunk": launches / max(chunks, 1),
+             "other_launches": counts, "ranking": rec["ranking"],
+             "env_steps_per_s": steps / rec["loop_s"][0],
+             "loop_s": rec["loop_s"][0], "run_s": rec["run_s"],
+             "chunk_ms_median": statistics.median(rec["chunk_ms"]),
+             "chunk_ms_first": rec["chunk_ms"][0],
+             "policy_step_ms_mean": statistics.fmean(rec["step_ms"]),
+             "env_host_ms_mean": statistics.fmean(rec["env_ms"]),
+             "env_host_ms_median": statistics.median(rec["env_ms"]),
+             "tower_calls": len(rec["tower_ms"]),
+             "tower_ms_median": statistics.median(rec["tower_ms"]),
+             "tower_ms_first": rec["tower_ms"][0],
+             "cache_encoder_calls": cache.encoder_calls,
+             "instructions": len(instructions)}
+        ok = (chunks == EVAL_SEQUENCES * 5 * 3
+              and steps == EVAL_SEQUENCES * 5 * EVAL_STEPS_TO_SUCCESS
+              and rec["ranking"]["avg_seq_len"] == 5.0
+              and not any(counts.values())
+              and launches == (want[1] * chunks if want else 0)
+              and cache.encoder_calls == cache.encoded_texts
+              == len(instructions) == len(rec["tower_ms"])
+              and all(np.isfinite(a).all() for a in rec["actions"]))
+        if want:
+            r["floor_b1"], r["kernel_vs_plain_b1"] = eval_floor(ev, mode,
+                                                                dev)
+        if mode == "parity":
+            # the restored weights (not the preset's folded encoders), for
+            # the rollout hook (23d)
+            trained = {k: v.clone() for k, v in ev.agent.state_dict().items()
+                       if k.split(".", 1)[0] not in ("folded", "q8")}
+            r["subtask"] = subtask_idle(ev)
+            t2 = time.perf_counter()
+            out["proxy"] = proxy_check(ev, dev)
+            phase("phase 23c: the agent proxy over localhost", t2)
+        runs[mode] = (r, np.stack(rec["actions"]))
+        print(f"  {mode}: {chunks} chunks, {steps} env steps, "
+              f"{r['env_steps_per_s']:.1f} env steps/s; {launches} "
+              f"{want[0] if want else 'kernel'} launches "
+              f"({r['launches_per_chunk']:.0f} per chunk), others {counts}; "
+              f"chunk in the loop {r['chunk_ms_median']:.2f} ms (median; "
+              f"phase 6's bare parity b=1 chunk {chunk_b1:.2f} ms); policy "
+              f"step {r['policy_step_ms_mean']:.3f} ms (mean); env + wrapper "
+              f"{r['env_host_ms_mean']:.3f} ms per step; CLIP tower "
+              f"{r['tower_calls']} calls for {r['instructions']} "
+              f"instructions, {r['tower_ms_median']:.2f} ms each (first "
+              f"{r['tower_ms_first']:.1f}); results {rec['ranking']}; run "
+              f"{r['run_s']:.1f} s ({smi})", flush=True)
+        if not ok:
+            raise SystemExit(f"phase {ph}: {mode} evaluation failed its "
+                             f"gates: {r}")
+        del ev
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(f"phase {ph}: evaluate_calvin --serving-mode {mode}", t)
+    ref_actions = runs["reference"][1]
+    for mode in ("parity", "b1-latency"):
+        r, actions = runs[mode]
+        r["action_mae_vs_reference"] = float(
+            np.abs(actions - ref_actions).mean())
+        r["tol"] = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * r["floor_b1"])
+        r["rankings_equal"] = r["ranking"] == runs["reference"][0]["ranking"]
+        print(f"  {mode} vs reference over {len(actions)} actions: MAE "
+              f"{r['action_mae_vs_reference']:.3e} (tol {r['tol']:.3e}, "
+              f"floor at b=1 {r['floor_b1']:.3e}, kernel-vs-plain at b=1 "
+              f"{r['kernel_vs_plain_b1']:.3e}); rankings equal "
+              f"{r['rankings_equal']}", flush=True)
+        if not (r["rankings_equal"]
+                and r["action_mae_vs_reference"] <= r["tol"]):
+            raise SystemExit(f"phase 23: {mode} disagrees with reference")
+    # the megakernel equals 12 chained layer-kernel launches bit for bit
+    # (phases 7-8), so the two kernel runs should act alike to the bit
+    out["b1_latency_equals_parity"] = bool(np.array_equal(
+        runs["parity"][1], runs["b1-latency"][1]))
+    print(f"  b1-latency's actions equal parity's bit for bit: "
+          f"{out['b1_latency_equals_parity']}", flush=True)
+    out.update({mode: runs[mode][0] for mode in runs})
+    p = out["parity"]["subtask"]
+    print(f"  parity, one subtask ({p['env_steps']} env steps, 3 chunks): "
+          f"{p['wall_ms']:.1f} ms, device busy {p['device_busy_ms']} ms, "
+          f"idle share {p['idle_share']} ({smi})", flush=True)
+    x = out["proxy"]
+    print(f"  agent proxy: {x['steps']} steps bit-equal {x['bit_equal']}; "
+          f"round trip {x['round_trip_ms_median']:.2f} ms median vs "
+          f"in-process step {x['in_process_step_ms_median']:.2f} ms "
+          f"({smi})", flush=True)
+    t = time.perf_counter()
+    out["rollout_hook"] = rollout_hook(trained, dev)
+    phase("phase 23d: the Trainer's rollout hook", t)
     return out
 
 
@@ -1903,7 +2313,7 @@ def main():
         want_launches = chunks * cfg.n_layers * cfg.num_sampling_steps
         for act in actions:
             if tuple(act.shape) != (B, cfg.action_dim) or \
-                    not bool(torch.isfinite(act).all()):
+                    not np.isfinite(act).all():
                 raise SystemExit(f"bad action {tuple(act.shape)} at b={B}")
         if launches != want_launches:
             raise SystemExit(f"b={B}: {launches} kernel launches, expected "
@@ -2057,7 +2467,7 @@ def main():
         want_launches = chunks * cfg.num_sampling_steps
         for act in actions:
             if tuple(act.shape) != (1, cfg.action_dim) or \
-                    not bool(torch.isfinite(act).all()):
+                    not np.isfinite(act).all():
                 raise SystemExit(f"{mode}: bad action {tuple(act.shape)}")
         if launches != want_launches or any(counts.values()):
             raise SystemExit(
@@ -2154,7 +2564,7 @@ def main():
     want_launches = cfg.n_layers * cfg.num_sampling_steps
     for act in actions:
         if tuple(act.shape) != (128, cfg.action_dim) or \
-                not bool(torch.isfinite(act).all()):
+                not np.isfinite(act).all():
             raise SystemExit(f"max-throughput: bad action {tuple(act.shape)}")
     if mt_launches != {**dict.fromkeys(mt_launches, 0),
                        "fused_attn_block_q8": want_launches,
@@ -2321,7 +2731,16 @@ def main():
     # the serving agents are freed first: the training state takes ~20 B per
     # parameter, and the f64 gradient check a float64 copy of the model
     del agent, policy, policies, dit, pdit, blk, a, deq, deq_layers
-    train = train_phase(smi, zero_launches, launches_of)
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train = train_phase(smi, zero_launches, launches_of, root)
+        # ---- phase 23: evaluation on the trained weights -------------------
+        evaluation = eval_phase(smi, zero_launches, launches_of, root,
+                                timing[1]["chunk_ms"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # ---- results -----------------------------------------------------------
     t128 = timing[128]
@@ -2342,6 +2761,12 @@ def main():
             k: timing[1][k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}},
         "chunk_ms": {"b128": t128["chunk_ms"], "b1": timing[1]["chunk_ms"]},
+        "eval": {k: evaluation["parity"][k] for k in (
+            "launches", "launches_per_chunk", "chunks",
+            "action_mae_vs_reference", "tol")},
+        "eval_is": "evaluate_calvin --serving-mode parity, b=1, "
+                   f"{EVAL_SEQUENCES} chains on the fake env, phase 22's "
+                   "trained EMA weights",
         "chunk_split_b128": split_b128,
         "action_mae": {"b128": results[128]["action_mae"],
                        "b1": results[1]["action_mae"]},
@@ -2406,6 +2831,12 @@ def main():
                           "library_ms")}},
         "chunk_ms_b1": chunk_b1,
         "chunk_split_b1": split,
+        "eval": {k: evaluation["b1-latency"][k] for k in (
+            "launches", "launches_per_chunk", "chunks",
+            "action_mae_vs_reference", "tol")},
+        "eval_is": "evaluate_calvin --serving-mode b1-latency, b=1, "
+                   f"{EVAL_SEQUENCES} chains on the fake env, phase 22's "
+                   "trained EMA weights",
         "action_mae": {"b1-latency": m1["action_mae"],
                        "b1-latency-max": m8["action_mae"]},
         "action_floor": {"b1-latency": m1["action_floor"],
@@ -2512,6 +2943,7 @@ def main():
     })
     phase("done", T0)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

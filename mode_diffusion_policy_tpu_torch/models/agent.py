@@ -603,8 +603,9 @@ def _serving_copy(agent: MoDEAgent) -> MoDEAgent:
 
 class RolloutPolicy:
     """Chunked inference for env stepping: ``step(obs, goal)`` returns one
-    action [B, action_dim] per call; the model runs once every
-    ``multistep`` calls and produces an action chunk.
+    action [B, action_dim] per call, a numpy array; the model runs once
+    every ``multistep`` calls and produces an action chunk
+    (``predict_chunk``, a tensor on the agent's device).
 
     The policy serves its own copy of the agent (``self.agent``), precast
     to the compute dtype; the caller's agent keeps its f32 parameters. It
@@ -665,9 +666,14 @@ class RolloutPolicy:
             extra_args=self.extra_args)
 
     def step(self, obs: Dict[str, Any], goal: Dict[str, Any],
-             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+             noise: Optional[torch.Tensor] = None) -> np.ndarray:
+        """One action [B, action_dim] as a host array, as the JAX policy
+        returns it: a chunk is copied to the host once, when it is made,
+        and the next ``multistep`` calls hand out its rows (the env
+        consumes numpy, and one copy per chunk is one device sync per
+        chunk, not one per env step)."""
         if self._counter % self.multistep == 0:
-            self._chunk = self.predict_chunk(obs, goal, noise)
+            self._chunk = self.predict_chunk(obs, goal, noise).cpu().numpy()
             self._counter = 0
         action = self._chunk[:, self._counter]
         self._counter += 1

@@ -1,5 +1,6 @@
 """Shared helpers of the training entry points (counterpart of
-``mode_diffusion_policy_tpu/training_common.py:1-129``).
+``mode_diffusion_policy_tpu/training_common.py``; the LIBERO rollout
+hook and the pretrained-weights loader come with later slices).
 
 The camera pipelines are parsed from the datamodule's transforms config
 (``conf/datamodule/transforms/*.yaml``) and run on the card inside the
@@ -126,3 +127,68 @@ def make_data_iters(datamodule, pipelines: Dict[str, Dict], device="cuda"):
             yield out
 
     return train_iter, val_iter
+
+
+def build_calvin_rollout_callback(rollout_cfg: Dict, lang_cache,
+                                  pipelines: Dict[str, Dict]):
+    """The Trainer's in-training long-horizon rollout hook
+    (``Trainer(rollout_callback=)``; the reference's RolloutLongHorizon
+    callback): the scripted fake env when ``rollout_cfg["fake_env"]`` is
+    set, the real calvin_env when it is importable, else None. Each call
+    serves an f32 copy of the given variables (the EMA weights and running
+    statistics, ``TrainState.eval_variables()``) in a new agent on the
+    training agent's device, through ``evaluate_calvin.PreprocPolicy``
+    with the eval pipelines' image sizes; the training agent is not
+    touched."""
+    from .data.calvin_dataset import DEFAULT_OBS_SPACE, DEFAULT_PROPRIO
+    from .evaluation.evaluate_calvin import PreprocPolicy
+    from .models.agent import MoDEAgent
+    from .rollout.env import CalvinEnvWrapper, FakeCalvinEnv
+    from .rollout.rollout_long_horizon import make_rollout_callback
+
+    val_annotations = rollout_cfg.get("val_annotations")
+    if not val_annotations:
+        from .evaluation.evaluate_calvin import load_val_annotations
+        val_annotations = load_val_annotations()
+
+    if rollout_cfg.get("fake_env"):
+        from .rollout.multistep_sequences import tasks as all_tasks
+        raw = FakeCalvinEnv(
+            hw=int(rollout_cfg.get("fake_hw", 24)),
+            solvable_tasks=set(all_tasks.keys()),
+            steps_to_success=int(rollout_cfg.get("fake_steps_to_success", 2)))
+        env = CalvinEnvWrapper(raw, DEFAULT_OBS_SPACE, DEFAULT_PROPRIO)
+        oracle = raw.make_oracle()
+    else:
+        try:
+            from pathlib import Path
+
+            from calvin_env.envs.play_table_env import get_env
+            from calvin_env.envs.tasks import Tasks
+
+            from .config.loader import require_yaml
+            env_raw = get_env(
+                Path(rollout_cfg["dataset_path"]) / "validation",
+                show_gui=False)
+            env = CalvinEnvWrapper(env_raw, DEFAULT_OBS_SPACE, DEFAULT_PROPRIO)
+            tasks_yaml = (Path(__file__).resolve().parents[1] / "conf"
+                          / "callbacks" / "rollout_lh" / "tasks"
+                          / "new_playtable_tasks.yaml")
+            with open(tasks_yaml) as f:
+                oracle = Tasks(require_yaml().safe_load(f)["tasks"])
+        except (ImportError, KeyError, TypeError) as e:
+            logger.info("in-training rollouts disabled (%s)", e)
+            return None
+
+    def make_policy(agent, variables):
+        serving = MoDEAgent(agent.cfg, device=agent.device)
+        serving.load_state_dict({n: t.float() for coll in ("params",
+                                                           "batch_stats")
+                                 for n, t in variables[coll].items()})
+        return PreprocPolicy(serving, lang_cache, sizes={
+            cam: pipelines[cam]["size"] for cam in CAMERAS})
+
+    return make_rollout_callback(
+        env, oracle, val_annotations, make_policy,
+        num_sequences=int(rollout_cfg.get("num_sequences", 1000)),
+        ep_len=int(rollout_cfg.get("ep_len", 360)))

@@ -163,3 +163,21 @@ def from_jax_train_state(state, cfg, *, device="cuda"):
                     rng=torch.Generator(device=dev).manual_seed(cfg.seed),
                     epoch=int(np.asarray(state.epoch)))
     return agent, ts
+
+
+def from_jax_clip_text(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPTextModel`` params (numpy leaves) -> the port's
+    ``models.encoders.clip_text.CLIPTextModel`` state dict: ``resblocks_{i}``
+    becomes ``resblocks.{i}``, a dense ``kernel`` [in, out] the
+    ``nn.Linear`` ``weight`` [out, in], a LayerNorm ``scale`` its
+    ``weight``."""
+    sd = {}
+    for k, v in _flatten(params).items():
+        k = re.sub(r"^resblocks_(\d+)\.", r"resblocks.\1.", k)
+        v = np.array(v, np.float32)
+        if k.endswith(".kernel"):
+            k, v = k[: -len("kernel")] + "weight", v.T
+        elif k.endswith(".scale"):
+            k = k[: -len("scale")] + "weight"
+        sd[k] = torch.from_numpy(np.ascontiguousarray(v))
+    return sd

@@ -48,13 +48,19 @@ def test_sources_import_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+# optional packages the card's machine may lack: every port module imports
+# without them (each is imported only where a branch needs it)
+OPTIONAL = ("yaml", "regex", "cv2", "wandb", "safetensors", "h5py",
+            "matplotlib")
+
+
 def test_port_imports_with_jax_blocked():
     """Import every port module, chip_smoke.py's module-level code and
-    bench_kernels_torch.py with jax and the JAX package made
-    unimportable."""
+    bench_kernels_torch.py with jax, the JAX package and the optional
+    packages made unimportable."""
     code = f"""
 import importlib, pkgutil, sys
-for name in {BANNED!r}:
+for name in {BANNED + OPTIONAL!r}:
     sys.modules[name] = None
 sys.path.insert(0, {str(ROOT)!r})
 import mode_diffusion_policy_tpu_torch as pkg
