@@ -68,9 +68,10 @@ kernels and a final status line. Every phase that fails exits non-zero; without 
 Imports nothing of JAX.
 
 Phase 22 trains: the flagship with the shipped CALVIN training settings
-(``TRAIN_MODEL``, ``TRAIN_OPT``, ``TRAIN_EMA``, ``TRAIN_TRANSFORMS``: the
-YAML values mapped onto the port's config as the JAX ``build_agent`` maps
-them) through ``Trainer.setup`` and ``Trainer.fit`` for one epoch of 8
+(``TRAIN_MODEL``, ``TRAIN_OPT``, ``TRAIN_EMA``, ``TRAIN_TRANSFORMS``,
+which ``check_train_settings`` holds to what the port's config builders
+read from ``conf/config_calvin.yaml``, but for the from-scratch router aux
+weights) through ``Trainer.setup`` and ``Trainer.fit`` for one epoch of 8
 batches at B=32 of synthetic CALVIN-sized uint8 frames, with one
 validation batch and a rollout hook, once with the bf16 training state
 (``bf16_full_state``, stochastic rounding) and once with the f32 master
@@ -99,6 +100,21 @@ recovery after a request that raises) and the Trainer's rollout hook
 per second, the chunk's ms inside the loop, the host ms per env step, the
 tower's ms, a subtask's device idle share and the proxy's round trip, as
 one ``eval`` JSON line before the ``kernels`` line.
+
+Phase 24 trains from disk through the ``training_calvin`` CLI: it writes a
+synthetic CALVIN store at CALVIN's sizes (16 training and 4 validation
+episodes of 64 frames, 200 x 200 static and 84 x 84 gripper frames),
+extracts its packed actions with ``data.preprocess``, times the CLI's
+datamodule at 0 and 4 workers with and without the shared-memory cache
+(the first 3 batches of 4 workers + cache equal to the inline ones, bit
+for bit), runs ``training_calvin.main`` on the shipped config with
+``batch_size=32``, 8 steps, 4 workers, the cache and the rollout hook on
+the fake env (2 chains), then again with 2 epochs (it resumes at step 8),
+and restores the run directory with ``evaluate_calvin`` under ``parity``
+(120 ``fused_layer_q8c`` launches per chunk). Finite losses, no port
+segment left under ``/dev/shm``; the CLI's ms per step beside phase 22's,
+the loader's ms per batch and a CLI step's device idle share, as one
+``cli`` JSON line.
 """
 from __future__ import annotations
 
@@ -106,9 +122,13 @@ import contextlib
 import functools
 import json
 import math
+import multiprocessing
+import os
 import re
+import signal
 import statistics
 import subprocess
+import sys
 import time
 import warnings
 
@@ -1299,15 +1319,16 @@ def fused_layer_int8_run(agent, results, routing, emb_all, steps, T, gen,
 # phase 22: training
 # ---------------------------------------------------------------------------
 
-# the shipped training settings mapped onto MoDEAgentConfig the way JAX
-# config/builders.build_agent maps them (no config loader in the port yet):
-# conf/model/mode_agent.yaml (widths, dropouts, goal drop, density, EDM),
-# conf/config_calvin.yaml:24-42 (precision bf16, bf16_full_state,
-# auto_layout), conf/callbacks/calvin.yaml:5-14 (EMA) and
+# the shipped training settings as the port's config builders read them
+# from conf/config_calvin.yaml (check_train_settings holds them to it):
+# conf/model/mode_agent.yaml (widths, dropouts, goal drop, density, EDM,
+# optimizer and schedule), conf/config_calvin.yaml:24-42 (precision bf16,
+# bf16_full_state, auto_layout), conf/callbacks/calvin.yaml:5-14 (EMA) and
 # conf/datamodule/transforms/calvin_transforms.yaml:3-22 (cameras). The
 # router aux weights are the from-scratch ones (the YAML's comment on
 # entropy_gamma: 0.01 when training from scratch, which random weights
 # are; router_z_delta 0.001, the JAX config's default and bench_train.py's)
+FROM_SCRATCH = {"entropy_gamma": 0.01, "router_z_delta": 0.001}
 TRAIN_MODEL = dict(latent_dim=1024, n_layers=12, n_heads=8, cond_dim=512,
                    resnet_type="50", num_experts=4, top_k=2,
                    attn_pdrop=0.3, mlp_pdrop=0.1, goal_drop=0.1,
@@ -1353,6 +1374,43 @@ GRAD_BF16_LOSS_REL = 2e-2
 GRAD_BF16_DIT_TOTAL_REL = 2 * 1.32e-1
 
 
+def check_train_settings():
+    """TRAIN_MODEL, TRAIN_OPT, TRAIN_EMA and TRAIN_TRANSFORMS against what
+    the port's builders make of the shipped ``conf/config_calvin.yaml``:
+    equal but for the from-scratch router aux weights (FROM_SCRATCH), and
+    the trainer's flags as phase 22 sets them. Returns the deviations
+    ({key: (used, config's)}); raises SystemExit on any other
+    difference."""
+    from mode_diffusion_policy_tpu_torch.config.builders import (
+        build_agent_config, build_ema_cfg, build_optimizer_kwargs)
+    from mode_diffusion_policy_tpu_torch.config.loader import load_config
+    from mode_diffusion_policy_tpu_torch.training_calvin import CONF_DIR
+    from mode_diffusion_policy_tpu_torch.training_common import \
+        parse_camera_pipelines
+    cfg = load_config(CONF_DIR, "config_calvin")
+    agent_cfg = build_agent_config(cfg["model"])
+    model = {k: (v, getattr(agent_cfg, k)) for k, v in TRAIN_MODEL.items()}
+    bad = {k: pair for k, pair in model.items()
+           if pair[0] != pair[1] and k not in FROM_SCRATCH}
+    bad.update({f"optimizer.{k}": (v, got) for k, v, got in (
+        (k, v, build_optimizer_kwargs(cfg["model"]).get(k))
+        for k, v in TRAIN_OPT.items()) if v != got})
+    ema = build_ema_cfg(**cfg["callbacks"]["ema"])
+    if ema != TRAIN_EMA:
+        bad["ema"] = (TRAIN_EMA, ema)
+    cams = parse_camera_pipelines(cfg["datamodule"]["transforms"])
+    if cams != parse_camera_pipelines(TRAIN_TRANSFORMS):
+        bad["transforms"] = (TRAIN_TRANSFORMS, cams)
+    trainer = cfg["trainer"]
+    if not (trainer["precision"] == "bf16" and trainer["bf16_full_state"]
+            and trainer["auto_layout"]):
+        bad["trainer"] = trainer
+    if bad or set(build_optimizer_kwargs(cfg["model"])) != set(TRAIN_OPT):
+        raise SystemExit(f"phase 22's settings differ from "
+                         f"conf/config_calvin.yaml: {bad}")
+    return {k: model[k] for k in FROM_SCRATCH}
+
+
 def train_batches(gen, n, B, dev):
     """Synthetic CALVIN-sized batches made on the card: uint8 static and
     gripper frames, 10 x 7 actions, a 512-wide language embedding."""
@@ -1396,13 +1454,19 @@ def device_busy_ms(fn):
             torch.cuda.synchronize()
             host = (time.perf_counter() - t0) * 1e3
         averages = prof.key_averages()
+    return busy_ms(averages), host
+
+
+def busy_ms(averages):
+    """The device time in a profiler's ``key_averages()``, in ms (None when
+    the trace holds none)."""
     busy = 0.0
     for ev in averages:
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
         busy += (us or 0.0) / 1e3
-    return busy or None, host
+    return busy or None
 
 
 def fit_run(bf16_state, log_dir, batches, val, dev):
@@ -1725,11 +1789,16 @@ def _train_phase(smi, zero_launches, launches_of, root, dev):
         print(f"  device memory held by the earlier phases: "
               f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)
+    deviations = check_train_settings()
+    print(f"  the training settings equal conf/config_calvin.yaml's as the "
+          f"port's builders read them, but for the from-scratch router aux "
+          f"weights (used, config's): {deviations}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(7)
     batches = train_batches(gen, N_BATCHES, TRAIN_B, dev)
     val = eval_batch(train_batches(gen, 1, TRAIN_B, dev)[0])
     out = {"card": smi, "batch": TRAIN_B, "steps": N_BATCHES,
            "model": {k: v for k, v in TRAIN_MODEL.items()},
+           "config_deviations": deviations,
            "optimizer": TRAIN_OPT, "ema": TRAIN_EMA}
     t = time.perf_counter()
     trainer, state, rec = fit_run(True, f"{root}/bf16", batches, val, dev)
@@ -2164,6 +2233,371 @@ def eval_phase(smi, zero_launches, launches_of, root, chunk_b1, dev=None):
     t = time.perf_counter()
     out["rollout_hook"] = rollout_hook(trained, dev)
     phase("phase 23d: the Trainer's rollout hook", t)
+    return out
+
+# ---------------------------------------------------------------------------
+# phase 24: the training_calvin CLI on an episode store on disk
+# ---------------------------------------------------------------------------
+
+# a synthetic CALVIN store in the layout of tests/calvin_fixture.py at
+# CALVIN's sizes: 200 x 200 static and 84 x 84 gripper frames (uint8),
+# robot_obs 15, scene_obs 24, rel_actions and actions 7, one 64-frame
+# language window per episode; 16 training episodes (~145 MB of npz) and 4
+# validation episodes of 64 frames
+CLI_EPISODES = {"training": 16, "validation": 4}
+CLI_EP_LEN = 64
+CLI_STEPS = 8
+CLI_PROFILED_STEP = 6     # of the resumed run: its interval is profiled
+LOADER_BATCHES = 16
+LOADER_CONFIGS = ((0, False), (0, True), (4, False), (4, True))
+CLI_INSTRUCTIONS = ("open the drawer", "close the drawer", "turn on the led",
+                    "turn off the led", "push the red block to the right",
+                    "lift the blue block from the table",
+                    "move the slider to the left",
+                    "rotate the pink block to the right")
+BATCH_KEYS = ("rgb_static", "rgb_gripper", "actions", "robot_obs", "idx")
+
+
+def write_store(store):
+    """Write the store (seeded numpy draws); return its npz bytes."""
+    import pathlib
+    r = np.random.default_rng(0)
+    nbytes = 0
+    for split, n_ep in CLI_EPISODES.items():
+        d = pathlib.Path(store) / split
+        (d / "lang_annotations").mkdir(parents=True)
+        indx = []
+        for ep in range(n_ep):
+            start = ep * CLI_EP_LEN
+            frames = {
+                "rgb_static": r.integers(0, 256, (CLI_EP_LEN, STATIC_HW,
+                                                  STATIC_HW, 3), np.uint8),
+                "rgb_gripper": r.integers(0, 256, (CLI_EP_LEN, GRIPPER_HW,
+                                                   GRIPPER_HW, 3), np.uint8),
+                "robot_obs": r.standard_normal((CLI_EP_LEN, 15)).astype(
+                    np.float32),
+                "scene_obs": r.standard_normal((CLI_EP_LEN, 24)).astype(
+                    np.float32),
+                "rel_actions": r.uniform(-1, 1, (CLI_EP_LEN, 7)).astype(
+                    np.float32),
+                "actions": r.uniform(-1, 1, (CLI_EP_LEN, 7)).astype(
+                    np.float32)}
+            for t in range(CLI_EP_LEN):
+                path = d / f"episode_{start + t:07d}.npz"
+                np.savez(path, **{k: v[t] for k, v in frames.items()})
+                nbytes += path.stat().st_size
+            indx.append((start, start + CLI_EP_LEN - 1))
+        np.save(d / "ep_start_end_ids.npy", np.asarray(indx))
+        lang = {"info": {"indx": indx}, "language": {
+            "emb": r.standard_normal((n_ep, 1, 384)).astype(np.float32),
+            "ann": [CLI_INSTRUCTIONS[i % len(CLI_INSTRUCTIONS)]
+                    for i in range(n_ep)]}}
+        np.save(d / "lang_annotations" / "auto_lang_ann.npy",
+                np.asarray(lang, dtype=object), allow_pickle=True)
+    return nbytes
+
+
+def cli_argv(store, log_dir, epochs):
+    """The CLI's argv: the shipped config with only these overrides."""
+    return [f"root_data_dir={store}", f"log_dir={log_dir}", "batch_size=32",
+            f"trainer.max_epochs={epochs}",
+            f"trainer.limit_train_batches={CLI_STEPS}",
+            "trainer.limit_val_batches=1", "num_workers=4",
+            "datamodule.use_shm_cache=true",
+            "callbacks.rollout_lh.fake_env=true",
+            "callbacks.rollout_lh.num_sequences=2",
+            "callbacks.rollout_lh.rollout_freq=1"]
+
+
+def loader_runs(store, lang_cache):
+    """The CLI's datamodule (``build_calvin_datamodule`` on the shipped
+    config: batch 32, the packed actions, the tower's cache on the card as
+    the embedder) at 0 and 4 workers, with and without the shm cache: the
+    setup's seconds, the first batch's ms, the host ms per batch after it
+    (median of LOADER_BATCHES; the consumer takes each batch at once, so
+    this is the loader's own rate), and the first 3 batches."""
+    import os
+    from mode_diffusion_policy_tpu_torch.config.builders import \
+        build_calvin_datamodule
+    from mode_diffusion_policy_tpu_torch.config.loader import load_config
+    from mode_diffusion_policy_tpu_torch.training_calvin import CONF_DIR
+    out = {}
+    for workers, shm in LOADER_CONFIGS:
+        cfg = load_config(CONF_DIR, "config_calvin", overrides=[
+            f"root_data_dir={store}", "batch_size=32",
+            f"num_workers={workers}",
+            f"datamodule.use_shm_cache={str(shm).lower()}"])
+        t0 = time.perf_counter()
+        dm = build_calvin_datamodule(
+            cfg["datamodule"], lang_embed=lang_cache,
+            shm_tag=f"smoke{os.getpid()}w{workers}").setup()
+        setup_s = time.perf_counter() - t0
+        try:
+            it = dm.train_batches(epoch=0)
+            t = time.perf_counter()
+            first = [next(it)]
+            first_ms = (time.perf_counter() - t) * 1e3
+            ms = []
+            for _ in range(LOADER_BATCHES):
+                t = time.perf_counter()
+                batch = next(it)
+                ms.append((time.perf_counter() - t) * 1e3)
+                if len(first) < 3:
+                    first.append(batch)
+            it.close()
+        finally:
+            dm.close()
+        out[(workers, shm)] = {
+            "setup_s": setup_s, "first_batch_ms": first_ms,
+            "batch_ms_median": statistics.median(ms),
+            "batch_ms_spread": [min(ms), max(ms)], "first3": first}
+    return out
+
+
+def same_batches(a, b):
+    """Equal batch lists, bit for bit (the language embedding on the card
+    compared there)."""
+    import torch
+    return len(a) == len(b) and all(
+        x["lang_text"] == y["lang_text"]
+        and torch.equal(x["lang_emb"], y["lang_emb"])
+        and all(x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+                for k in BATCH_KEYS)
+        for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def cli_probe():
+    """Wraps ``Trainer.setup`` so that each CLI run records its trainer,
+    the step it set up at (0, or the resumed step) and, per train step,
+    the loss, the step's host ms to a synchronize and the interval since
+    the previous step ended (the wait for the loader, the copy to the card
+    and the step). In a resumed run, the interval of its step
+    CLI_PROFILED_STEP runs under torch.profiler (device busy time). The
+    original is restored on exit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mode_diffusion_policy_tpu_torch.training import loop
+    setup = loop.Trainer.setup
+    runs = []
+
+    def probed(self, *a, **k):
+        state = setup(self, *a, **k)
+        rec = {"trainer": self, "start_step": state.step, "loss": [],
+               "step_ms": [], "interval_ms": []}
+        runs.append(rec)
+        step = self._train_step
+
+        def timed(st, batch):
+            t_in = time.perf_counter()
+            st, metrics = step(st, batch)
+            rec["loss"].append(float(metrics["train/total_loss"]))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rec["step_ms"].append((t - t_in) * 1e3)
+            if "t_end" in rec:
+                rec["interval_ms"].append((t - rec["t_end"]) * 1e3)
+            n = len(rec["loss"])
+            if self.resumed and n == CLI_PROFILED_STEP - 1:
+                rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    rec["prof"].start()
+                t = time.perf_counter()
+            elif "prof" in rec and n == CLI_PROFILED_STEP:
+                prof = rec.pop("prof")
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    prof.stop()
+                    rec["profiled_interval_ms"] = (t - rec["t_end"]) * 1e3
+                    rec["device_busy_ms"] = busy_ms(prof.key_averages())
+            rec["t_end"] = t
+            return st, metrics
+
+        self._train_step = timed
+        return state
+
+    loop.Trainer.setup = probed
+    try:
+        yield runs
+    finally:
+        loop.Trainer.setup = setup
+
+
+def cli_run(store, log_dir, epochs):
+    """``training_calvin.main`` on the store; returns its TrainingRun, the
+    probe's record and the run's seconds."""
+    from mode_diffusion_policy_tpu_torch import training_calvin
+    t0 = time.perf_counter()
+    with cli_probe() as runs:
+        run = training_calvin.main(cli_argv(store, log_dir, epochs))
+    rec = runs[-1]
+    rec["run_s"] = time.perf_counter() - t0
+    return run, rec
+
+
+def cli_phase(smi, zero_launches, launches_of, root, train_step_ms,
+              dev=None):
+    """Phase 24: the store, its extraction, the loader at 0 and 4 workers
+    with and without the shm cache, two runs of the CLI (fresh, then
+    resumed) and the run directory restored by ``evaluate_calvin``."""
+    import gc
+    import pathlib
+
+    import torch
+    with torch.enable_grad():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return _cli_phase(smi, zero_launches, launches_of,
+                          pathlib.Path(root), train_step_ms,
+                          dev or torch.device("cuda", 0))
+
+
+def _cli_phase(smi, zero_launches, launches_of, root, train_step_ms, dev):
+    import glob
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.data import preprocess
+    from mode_diffusion_policy_tpu_torch.data.shm_cache import SEGMENT_PREFIX
+    from mode_diffusion_policy_tpu_torch.evaluation import \
+        evaluate_calvin as ec
+    from mode_diffusion_policy_tpu_torch.models.encoders.clip_text import \
+        LangClip
+    from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import \
+        LangEmbeddingCache
+    t_phase = time.perf_counter()
+    store = root / "calvin"
+    out = {"card": smi, "episodes": CLI_EPISODES, "ep_len": CLI_EP_LEN,
+           "batch": TRAIN_B, "steps_per_run": CLI_STEPS}
+    t = time.perf_counter()
+    out["store_bytes"] = write_store(store)
+    out["store_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for split in CLI_EPISODES:
+        preprocess.main(["--in-root", str(store / split)])
+    out["extract_s"] = time.perf_counter() - t
+    phase("phase 24a: the episode store and its extraction", t_phase)
+
+    t = time.perf_counter()
+    lang_cache = LangEmbeddingCache(LangClip.initialize_random(0,
+                                                               device=dev))
+    loaders = loader_runs(store, lang_cache)
+    first3_equal = same_batches(loaders[(4, True)]["first3"],
+                                loaders[(0, False)]["first3"])
+    out["loader"] = {f"workers{w}_{'shm' if c else 'npz'}": {
+        k: v for k, v in r.items() if k != "first3"}
+        for (w, c), r in loaders.items()}
+    out["shm_cache_s"] = (loaders[(0, True)]["setup_s"]
+                          - loaders[(0, False)]["setup_s"])
+    out["first3_equal"] = first3_equal
+    del loaders, lang_cache
+    phase("phase 24b: the loader at 0 and 4 workers, with and without the "
+          "shm cache", t)
+
+    runs = {}
+    for name, epochs in (("fresh", 1), ("resumed", 2)):
+        t = time.perf_counter()
+        run, rec = cli_run(store, root / "cli_runs", epochs)
+        runs[name] = (run, rec)
+        phase(f"phase 24{'c' if name == 'fresh' else 'd'}: training_calvin "
+              f"{name} run", t)
+    run_dir = runs["fresh"][0].run_dir
+    fresh, resumed = runs["fresh"][1], runs["resumed"][1]
+    losses = fresh["loss"] + resumed["loss"]
+    busy = resumed.get("device_busy_ms")
+    out["runs"] = {name: {
+        "resumed": rec["trainer"].resumed, "start_step": run.start_step,
+        "end_step": run.state.step, "losses": rec["loss"],
+        "step_ms": rec["step_ms"], "interval_ms": rec["interval_ms"],
+        "run_s": rec["run_s"]} for name, (run, rec) in runs.items()}
+    out["cli_step_ms_median_3_8"] = statistics.median(fresh["interval_ms"][1:])
+    out["cli_step_alone_ms_median_3_8"] = statistics.median(
+        fresh["step_ms"][2:])
+    out["phase22_step_ms_median_3_8"] = train_step_ms
+    out["profiled_step"] = {
+        "step": CLI_PROFILED_STEP, "interval_ms":
+        resumed.get("profiled_interval_ms"), "device_busy_ms": busy,
+        "idle_share": None if busy is None else
+        1.0 - busy / resumed["profiled_interval_ms"]}
+    files_ok = ((run_dir / ".hydra" / "config.yaml").is_file()
+                and (run_dir / "saved_models" / str(2 * CLI_STEPS)
+                     / "state.pt").is_file())
+    del runs
+
+    t = time.perf_counter()
+    args = ec.parse_args([
+        "--checkpoint", str(run_dir), "--fake-env", "--num-sequences", "1",
+        "--ep-len", str(EVAL_EP_LEN), "--image-size", str(TRAIN_IMG),
+        "--bf16", "--serving-mode", "parity", "--num-videos", "0",
+        "--log-dir", str(root / "cli_eval")])
+    with eval_probe() as rec:
+        zero_launches()
+        ev = ec.evaluate(args)
+        torch.cuda.synchronize()
+        counts = launches_of()
+    chunks = len(rec["chunk_ms"])
+    per_chunk = ev.agent.cfg.n_layers * ev.agent.cfg.num_sampling_steps
+    layer = counts.pop("fused_layer_q8c")
+    out["evaluate"] = {"chunks": chunks, "fused_layer_q8c": layer,
+                       "per_chunk": layer / max(chunks, 1),
+                       "other_launches": counts,
+                       "avg_seq_len": ev.ranking["avg_seq_len"],
+                       "chunk_ms_median": statistics.median(rec["chunk_ms"])
+                       if chunks else None}
+    eval_ok = (chunks > 0 and layer == per_chunk * chunks == 120 * chunks
+               and not any(counts.values()))
+    del ev
+    phase("phase 24e: evaluate_calvin restores the run directory (parity)",
+          t)
+    leftover = sorted(glob.glob(f"/dev/shm/{SEGMENT_PREFIX}*"))
+    out["shm_leftover"] = leftover
+    out["phase_s"] = time.perf_counter() - t_phase
+    loader = out["loader"]
+    print(f"  store: {out['store_bytes'] / 1e6:.1f} MB of npz in "
+          f"{out['store_s']:.2f} s, extraction {out['extract_s']:.2f} s, shm "
+          f"cache {out['shm_cache_s']:.2f} s (setup with minus without)",
+          flush=True)
+    for key, r in loader.items():
+        print(f"  loader {key}: {r['batch_ms_median']:.2f} ms per batch of "
+              f"{TRAIN_B} (median of {LOADER_BATCHES}, "
+              f"{r['batch_ms_spread'][0]:.2f}-{r['batch_ms_spread'][1]:.2f});"
+              f" first batch {r['first_batch_ms']:.1f} ms; setup "
+              f"{r['setup_s']:.2f} s", flush=True)
+    print(f"  first 3 batches, 4 workers + shm cache == inline: "
+          f"{first3_equal}", flush=True)
+    for name, r in out["runs"].items():
+        print(f"  {name} run: resumed {r['resumed']}, steps {r['start_step']}"
+              f" -> {r['end_step']}, losses "
+              f"{[round(x, 4) for x in r['losses']]}, {r['run_s']:.1f} s",
+              flush=True)
+    p = out["profiled_step"]
+    print(f"  train step through the CLI: {out['cli_step_ms_median_3_8']:.1f}"
+          f" ms (median of steps 3-8, loader wait and copy included; the "
+          f"step alone {out['cli_step_alone_ms_median_3_8']:.1f} ms) vs "
+          f"phase 22's {train_step_ms:.1f} ms on batches already on the "
+          f"card; one profiled CLI step (resumed run, step "
+          f"{p['step']}): {p['interval_ms']} ms, device busy "
+          f"{p['device_busy_ms']} ms, idle share {p['idle_share']} ({smi})",
+          flush=True)
+    e = out["evaluate"]
+    print(f"  evaluate_calvin on the run directory: {e['chunks']} chunks, "
+          f"{e['fused_layer_q8c']} fused_layer_q8c launches "
+          f"({e['per_chunk']:.0f} per chunk), others {e['other_launches']}; "
+          f"shm segments left {leftover}; phase {out['phase_s']:.1f} s",
+          flush=True)
+    ok = (len(losses) == 2 * CLI_STEPS
+          and all(math.isfinite(x) for x in losses)
+          and first3_equal and files_ok and eval_ok
+          and not out["runs"]["fresh"]["resumed"]
+          and out["runs"]["fresh"]["start_step"] == 0
+          and out["runs"]["fresh"]["end_step"] == CLI_STEPS
+          and out["runs"]["resumed"]["resumed"]
+          and out["runs"]["resumed"]["start_step"] == CLI_STEPS
+          and out["runs"]["resumed"]["end_step"] == 2 * CLI_STEPS
+          and not leftover)
+    if not ok:
+        raise SystemExit(f"phase 24: the CLI failed its gates: "
+                         f"{json.dumps(out, default=str)[:2000]}")
     return out
 
 
@@ -2739,6 +3173,9 @@ def main():
         # ---- phase 23: evaluation on the trained weights -------------------
         evaluation = eval_phase(smi, zero_launches, launches_of, root,
                                 timing[1]["chunk_ms"])
+        # ---- phase 24: the training CLI on an episode store on disk ------
+        cli = cli_phase(smi, zero_launches, launches_of, root,
+                        train["bf16_full_state"]["step_ms_median_3_8"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2944,11 +3381,75 @@ def main():
     phase("done", T0)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"eval": evaluation}), flush=True)
+    print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
+    return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}
+
+
+def descendants():
+    """Pids of the live processes below this one, read from /proc
+    (zombies left out: they hold nothing and vanish with their parent)."""
+    kids = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if state != "Z":
+            kids.setdefault(int(ppid), []).append(int(d))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for pid in kids.get(todo.pop(), ()):
+            out.append(pid)
+            todo.append(pid)
+    return out
+
+
+def stop_children(timeout=10.0):
+    """Stop every process this script started that still runs, and wait
+    until none is left: the loader's fork server and multiprocessing's
+    resource tracker (which would otherwise outlive the script by a
+    moment), then anything else below this process, killed. Raises
+    SystemExit if a process survives ``timeout`` seconds."""
+    for p in multiprocessing.active_children():
+        p.terminate()
+        p.join(timeout=5)
+    try:
+        from mode_diffusion_policy_tpu_torch.data.datamodule import \
+            stop_helper_processes
+    except ImportError:
+        pass
+    else:
+        stop_helper_processes()
+    killed = descendants()
+    for pid in killed:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    deadline = time.monotonic() + timeout
+    while True:
+        for pid in killed:  # reap the ones that were this script's children
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, os.WNOHANG)
+        left = descendants()
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    if killed:
+        print(f"chip_smoke: killed {len(killed)} leftover processes at exit: "
+              f"{killed}", file=sys.stderr, flush=True)
+    if left:
+        raise SystemExit(f"chip_smoke: processes {left} outlived the script")
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        result = main()
+    finally:
+        stop_children()
+    print(json.dumps(result), flush=True)

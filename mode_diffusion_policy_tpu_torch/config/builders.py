@@ -4,8 +4,8 @@
 These are the functions the registry maps the reference ``_target_``
 strings onto, translating the hydra config surface
 (``conf/model/mode_agent.yaml`` etc.) into ``MoDEAgentConfig``, optimizer
-and EMA arguments. The datamodules come with the data slice (ROADMAP.md
-Queue 1): their builders raise.
+and EMA arguments, and the CALVIN datamodule. The LIBERO datamodule is
+not ported yet (ROADMAP.md Queue 1): its builder raises.
 """
 from __future__ import annotations
 
@@ -204,13 +204,9 @@ def build_agent_config(model_cfg: Dict[str, Any], *, dtype=None):
     )
 
 
-def build_agent(model_cfg: Dict[str, Any], *, dtype=None, device="cuda"):
-    """``conf/model/mode_agent.yaml`` -> (MoDEAgent on ``device``,
-    optimizer_kwargs, lang_cfg)."""
-    from ..models.agent import MoDEAgent
-
-    agent = MoDEAgent(build_agent_config(model_cfg, dtype=dtype),
-                      device=device)
+def build_optimizer_kwargs(model_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``conf/model/mode_agent.yaml``'s optimizer and LR schedule -> the
+    keyword arguments of ``training.optim.make_optimizer``."""
     opt = model_cfg.get("optimizer", {})
     lrs = model_cfg.get("lr_scheduler", {}).get("lr_scheduler", {})
     phase_ratio = lrs.get("phase_ratio", "(0.02, 0.08, 0.9)")
@@ -237,14 +233,48 @@ def build_agent(model_cfg: Dict[str, Any], *, dtype=None, device="cuda"):
             raise ValueError(f"optimizer.{key} must be float32 or bfloat16, "
                              f"got {v!r}")
         optimizer_kwargs[key] = torch.bfloat16
-    lang_cfg = model_cfg.get("language_goal", {})
-    return agent, optimizer_kwargs, lang_cfg
+    return optimizer_kwargs
 
 
-def build_calvin_datamodule(dm_cfg: Dict[str, Any], lang_embed=None):
-    raise NotImplementedError(
-        "the CALVIN datamodule is not ported yet: it comes with the data "
-        "slice (ROADMAP.md Queue 1)")
+def build_agent(model_cfg: Dict[str, Any], *, dtype=None, device="cuda"):
+    """``conf/model/mode_agent.yaml`` -> (MoDEAgent on ``device``,
+    optimizer_kwargs, lang_cfg)."""
+    from ..models.agent import MoDEAgent
+
+    agent = MoDEAgent(build_agent_config(model_cfg, dtype=dtype),
+                      device=device)
+    return (agent, build_optimizer_kwargs(model_cfg),
+            model_cfg.get("language_goal", {}))
+
+
+def build_calvin_datamodule(dm_cfg: Dict[str, Any], lang_embed=None,
+                            **kwargs):
+    """``conf/datamodule/calvin.yaml`` -> ``CalvinDataModule``, read as the
+    JAX builder reads it; ``kwargs`` (``shm_tag``) go to the datamodule
+    as they are."""
+    from ..data.datamodule import CalvinDataModule
+
+    lang_ds = dm_cfg.get("datasets", {}).get("lang_dataset", {})
+    return CalvinDataModule(
+        root_data_dir=dm_cfg["root_data_dir"],
+        batch_size=int(lang_ds.get("batch_size",
+                                   dm_cfg.get("batch_size", 32))),
+        act_seq_len=int(lang_ds.get("action_seq_len", 10)),
+        obs_seq_len=int(lang_ds.get("obs_seq_len", 1)),
+        lang_folder=lang_ds.get("lang_folder", "lang_annotations"),
+        use_extracted_rel_actions=bool(
+            lang_ds.get("use_extracted_rel_actions", False)),
+        use_shm_cache=bool(dm_cfg.get("use_shm_cache", False)),
+        num_workers=int(lang_ds.get("num_workers",
+                                    dm_cfg.get("num_workers", 0))),
+        lang_embed=lang_embed,
+        shuffle_val=bool(dm_cfg.get("shuffle_val", False)),
+        transforms=dm_cfg.get("transforms"),
+        dataset_kwargs={
+            "obs_space": dm_cfg.get("observation_space"),
+            "proprio_state": dm_cfg.get("proprioception_dims"),
+        },
+        **kwargs)
 
 
 def build_libero_datamodule(dm_cfg: Dict[str, Any], lang_embed=None):

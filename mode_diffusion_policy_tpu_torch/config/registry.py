@@ -2,8 +2,7 @@
 ``mode_diffusion_policy_tpu/config/registry.py``): hydra-style
 instantiate() with an alias table that maps the reference's target strings
 (``mode.models.mode_agent.MoDEAgent``, ...) onto the port's constructors,
-so the reference YAML configs work verbatim. A target whose module belongs
-to a later slice of the port raises, naming that slice.
+so the reference YAML configs work verbatim.
 """
 from __future__ import annotations
 
@@ -25,6 +24,10 @@ _ALIASES: Dict[str, str] = {
         "mode_diffusion_policy_tpu_torch.config.builders.build_calvin_datamodule",
     "mode.datasets.libero_data_module.LiberoDataModule":
         "mode_diffusion_policy_tpu_torch.config.builders.build_libero_datamodule",
+    "mode.datasets.disk_dataset.ExtendedDiskDataset":
+        "mode_diffusion_policy_tpu_torch.data.calvin_dataset.ExtendedDiskDataset",
+    "mode.datasets.disk_dataset.DiskDataset":
+        "mode_diffusion_policy_tpu_torch.data.calvin_dataset.DiskDataset",
     # rollout / wrappers
     "mode.rollout.rollout_long_horizon.RolloutLongHorizon":
         "mode_diffusion_policy_tpu_torch.rollout.rollout_long_horizon.LongHorizonEvaluator",
@@ -49,18 +52,7 @@ _ALIASES: Dict[str, str] = {
 }
 
 
-# reference targets whose port comes with a later slice (ROADMAP.md Queue 1)
-LATER_SLICES: Dict[str, str] = {
-    "mode.datasets.disk_dataset.ExtendedDiskDataset": "the data slice",
-    "mode.datasets.disk_dataset.DiskDataset": "the data slice",
-}
-
-
 def resolve_target(target: str) -> Any:
-    if target in LATER_SLICES:
-        raise NotImplementedError(
-            f"{target} is not ported yet: it comes with "
-            f"{LATER_SLICES[target]} (ROADMAP.md Queue 1)")
     target = _ALIASES.get(target, target)
     if target.startswith("__"):
         return target  # sentinel handled by pipeline builders

@@ -5,8 +5,7 @@ numpy only, copied).
 The FNV-hash-seeded scene reset (``get_env_state_for_initial_condition``)
 is reproduced bit for bit, including its blue-block placement branch that
 keys on the *red* block, because published CALVIN results depend on every
-evaluation run placing the blocks identically. ``LangEmbeddings`` (a
-dataset's precomputed goal embeddings) comes with the data slice.
+evaluation run placing the blocks identically.
 """
 from __future__ import annotations
 
@@ -163,3 +162,18 @@ def get_last_checkpoint(experiment_folder: Path):
     ckpts = get_all_checkpoints(experiment_folder)
     return ckpts[-1] if ckpts else None
 
+
+class LangEmbeddings:
+    """Lookup of precomputed language-goal embeddings from the dataset's
+    ``<lang_folder>/embeddings.npy`` (reference evaluation/utils.py:248-256):
+    maps an annotation string to its stored embedding for rollout goals
+    (numpy, f32, squeezed)."""
+
+    def __init__(self, val_dataset_path,
+                 lang_folder: str = "lang_annotations"):
+        path = Path(val_dataset_path) / lang_folder / "embeddings.npy"
+        self.lang_embeddings = np.load(path, allow_pickle=True).reshape(-1)[0]
+
+    def get_lang_goal(self, task: str):
+        return {"lang": np.asarray(self.lang_embeddings[task]["emb"],
+                                   np.float32).squeeze()}

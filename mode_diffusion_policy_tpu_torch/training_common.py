@@ -1,6 +1,6 @@
 """Shared helpers of the training entry points (counterpart of
-``mode_diffusion_policy_tpu/training_common.py``; the LIBERO rollout
-hook and the pretrained-weights loader come with later slices).
+``mode_diffusion_policy_tpu/training_common.py``; the LIBERO rollout hook
+comes with a later slice).
 
 The camera pipelines are parsed from the datamodule's transforms config
 (``conf/datamodule/transforms/*.yaml``) and run on the card inside the
@@ -127,6 +127,50 @@ def make_data_iters(datamodule, pipelines: Dict[str, Dict], device="cuda"):
             yield out
 
     return train_iter, val_iter
+
+
+@torch.no_grad()
+def load_pretrained_into_state(state, cfg: Dict, logger=logger):
+    """``start_from_pretrained``: the reference torch weights of
+    ``cfg['model']['ckpt_path']`` (``utils/checkpoint_convert.py``)
+    copied into a fresh train state, in place and in the state's dtype:
+    the DiT, and each FiLM-ResNet encoder the checkpoint holds (its
+    running statistics into ``batch_stats``); then the EMA weights become
+    a copy of the parameters, as in the reference
+    (``initialize_pretrained_weights``, utils/utils.py:31-42). Returns the
+    state."""
+    from .models.agent import ENCODERS
+    from .utils.checkpoint_convert import (convert_film_resnet,
+                                           convert_modedit, detect_layout,
+                                           load_torch_checkpoint,
+                                           normalize_state_dict)
+    ckpt_path = cfg.get("model", {}).get("ckpt_path")
+    sd = normalize_state_dict(load_torch_checkpoint(str(ckpt_path)))
+    n_layers, n_experts, prefix = detect_layout(sd)
+    converted = {f"inner_model.{k}": v for k, v in
+                 convert_modedit(sd, n_layers, n_experts, prefix).items()}
+    for enc in ENCODERS:
+        try:
+            conv = convert_film_resnet(
+                sd, depth=int(cfg["model"].get("resnet_type", "50")),
+                prefix=f"{enc}.")
+        except KeyError:
+            logger.warning("no %s weights in pretrained checkpoint", enc)
+            continue
+        converted.update({f"{enc}.{k}": v for k, v in conv.items()})
+    for name, value in converted.items():
+        dst = state.params.get(name, state.batch_stats.get(name))
+        if dst is None:
+            raise KeyError(f"pretrained {name} has no place in the state")
+        if dst.shape != value.shape:
+            raise ValueError(f"pretrained {name} is {tuple(value.shape)}, "
+                             f"the state's {tuple(dst.shape)}")
+        dst.copy_(value)
+    for name, ema in state.ema_params.items():
+        ema.copy_(state.params[name])
+    logger.info("initialized from pretrained %s (layers=%d, experts=%d)",
+                ckpt_path, n_layers, n_experts)
+    return state
 
 
 def build_calvin_rollout_callback(rollout_cfg: Dict, lang_cache,

@@ -14,9 +14,9 @@ so the hashes must be pyhash's bit for bit:
 - several arguments chain: each one's hash is the next one's seed.
 
 Only the FNV family is here: the evaluation path hashes one short string
-per chain. The JAX package's native extension (the other pyhash
-algorithms, and throughput for the data loaders) and the validation
-window sizing come with the data slice (ROADMAP.md Queue 1).
+per chain, and the CALVIN datasets one index per validation window
+(``get_validation_window_size``). The JAX package's native extension (the
+other pyhash algorithms) is not ported (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -83,3 +83,12 @@ class fnv1a_64(_Hasher):
             h = ((h ^ b) * 1099511628211) & _MASK64
         return h
 
+
+def get_validation_window_size(idx: int, min_window_size: int,
+                               max_window_size: int,
+                               hasher=None) -> int:
+    """Deterministic validation window size via FNV-1 32 of str(idx)
+    (reference base_dataset.py:24-37)."""
+    h = hasher or fnv1_32()
+    window_range = max_window_size - min_window_size + 1
+    return min_window_size + h(str(idx)) % window_range
