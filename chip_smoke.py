@@ -115,6 +115,23 @@ and restores the run directory with ``evaluate_calvin`` under ``parity``
 segment left under ``/dev/shm``; the CLI's ms per step beside phase 22's,
 the loader's ms per batch and a CLI step's device idle share, as one
 ``cli`` JSON line.
+
+Phase 25 runs the LIBERO slice: it writes LIBERO-10's ten task files
+(``<SCENE>_<instruction>_demo.hdf5``, 3 demos of 64 frames each at
+LIBERO's sizes: 128 x 128 agentview and eye-in-hand frames, 7 joint
+states, 2 gripper states, 7 actions); without ``h5py`` on the machine the
+same arrays go to ``.npy`` files read through the datasets'
+``demo_arrays`` seam, and it says so. It times the shipped config's
+datamodule at batch 128 without and with ``cache_all`` (the first 3
+batches equal bit for bit), runs ``training_libero.main`` on the shipped
+config at ``batch_size=128`` (the static camera at 224 px, the gripper at
+112; 8 steps, one profiled, the rollout hook on the fake env), restores
+that run with ``evaluate_libero`` on the fake env at 224 px under
+``parity``, ``reference`` and ``b1-latency`` (120 ``fused_layer_q8c`` / 0
+/ 10 ``fused_dit_q8c`` launches per chunk, actions within max(1e-3, 2 x
+the b=1 floor) of ``reference``'s), runs ``SingleTaskEvaluator`` on phase
+22's EMA weights under ``parity`` and ``determinism_check --fake-env``
+twice (equal hashes), and prints one ``libero`` JSON line.
 """
 from __future__ import annotations
 
@@ -1867,13 +1884,16 @@ def eval_argv(root, mode):
 
 
 @contextlib.contextmanager
-def eval_probe():
+def eval_probe(env_cls=None, loop=None):
     """Class-level wrappers that record one evaluation run: every action
-    the env wrapper receives (before its gripper binarization) and the host
-    ms of its step (fake env + wrapper), the ms of every policy step and
-    chunk (host clock to a synchronize; the chunk's copy to the host
-    synchronizes there anyway), of every CLIP tower call, and the rollout
-    loop's wall seconds. The originals are restored on exit."""
+    the env's ``step`` receives (``env_cls``, by default the CALVIN env
+    wrapper: before its gripper binarization) and the host ms of that step
+    (fake env + wrapper), the ms of every policy step and chunk (host
+    clock to a synchronize; the chunk's copy to the host synchronizes
+    there anyway), of every CLIP tower call, and the wall seconds of each
+    call of the rollout loop (``loop``: (class, method), by default
+    ``LongHorizonEvaluator.evaluate_policy``). The originals are restored
+    on exit."""
     import torch
     from mode_diffusion_policy_tpu_torch.evaluation import \
         evaluate_calvin as ec
@@ -1900,12 +1920,13 @@ def eval_probe():
             return out
         return wrapped
 
-    plan = [(CalvinEnvWrapper, "step", dict(key="env_ms", log_action=True)),
+    loop_cls, loop_fn = loop or (LongHorizonEvaluator, "evaluate_policy")
+    plan = [(env_cls or CalvinEnvWrapper, "step",
+             dict(key="env_ms", log_action=True)),
             (ec.PreprocPolicy, "step", dict(key="step_ms")),
             (RolloutPolicy, "predict_chunk", dict(key="chunk_ms", sync=True)),
             (LangClip, "__call__", dict(key="tower_ms", sync=True)),
-            (LongHorizonEvaluator, "evaluate_policy",
-             dict(key="loop_s", sync=True, scale=1.0))]
+            (loop_cls, loop_fn, dict(key="loop_s", sync=True, scale=1.0))]
     saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in plan]
     try:
         for cls, name, kw in plan:
@@ -1938,20 +1959,20 @@ def eval_run(root, mode, zero_launches, launches_of):
     return ev, rec
 
 
-def eval_floor(ev, mode, dev):
-    """At b=1 on the run's own weights and one of its observations: the
-    plain-f32-vs-plain-f64 action distance of the preset's DiT function
-    (``parity``: the layer; ``b1-latency``: the whole stack, products and
-    then also norms and softmax in f64), and the kernel-vs-plain one."""
+def eval_floor(policy, raw, mode, dev):
+    """At b=1 on the run's own weights (``policy``, an evaluation's
+    ``PreprocPolicy``) and one of its env's observations (``raw``: uint8
+    frames per camera): the plain-f32-vs-plain-f64 action distance of the
+    preset's DiT function (``parity``: the layer; ``b1-latency``: the whole
+    stack, products and then also norms and softmax in f64), and the
+    kernel-vs-plain one."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c,
         fused_layer_q8c_ref)
-    policy = ev.policy
-    raw = ev.env.get_obs()["rgb_obs"]
     obs = {c: preprocess_camera(torch.as_tensor(raw[c], device=dev),
-                                size=TRAIN_IMG) for c in CAMS}
+                                size=policy.sizes[c]) for c in CAMS}
     goal = {"lang_text": "open the drawer"}
     noise = torch.randn(1, 10, 7, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(5))
@@ -2168,8 +2189,8 @@ def eval_phase(smi, zero_launches, launches_of, root, chunk_b1, dev=None):
               == len(instructions) == len(rec["tower_ms"])
               and all(np.isfinite(a).all() for a in rec["actions"]))
         if want:
-            r["floor_b1"], r["kernel_vs_plain_b1"] = eval_floor(ev, mode,
-                                                                dev)
+            r["floor_b1"], r["kernel_vs_plain_b1"] = eval_floor(
+                ev.policy, ev.env.get_obs()["rgb_obs"], mode, dev)
         if mode == "parity":
             # the restored weights (not the preset's folded encoders), for
             # the rollout hook (23d)
@@ -2367,14 +2388,15 @@ def same_batches(a, b):
 
 
 @contextlib.contextmanager
-def cli_probe():
+def cli_probe(profile_fresh=False):
     """Wraps ``Trainer.setup`` so that each CLI run records its trainer,
     the step it set up at (0, or the resumed step) and, per train step,
     the loss, the step's host ms to a synchronize and the interval since
     the previous step ended (the wait for the loader, the copy to the card
-    and the step). In a resumed run, the interval of its step
-    CLI_PROFILED_STEP runs under torch.profiler (device busy time). The
-    original is restored on exit."""
+    and the step). In a resumed run (in every run with
+    ``profile_fresh``), the interval of its step CLI_PROFILED_STEP runs
+    under torch.profiler (device busy time). The original is restored on
+    exit."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from mode_diffusion_policy_tpu_torch.training import loop
@@ -2398,7 +2420,8 @@ def cli_probe():
             if "t_end" in rec:
                 rec["interval_ms"].append((t - rec["t_end"]) * 1e3)
             n = len(rec["loss"])
-            if self.resumed and n == CLI_PROFILED_STEP - 1:
+            if (self.resumed or profile_fresh) and \
+                    n == CLI_PROFILED_STEP - 1:
                 rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
                 with warnings.catch_warnings():
                     warnings.simplefilter("ignore")
@@ -2411,6 +2434,8 @@ def cli_probe():
                     prof.stop()
                     rec["profiled_interval_ms"] = (t - rec["t_end"]) * 1e3
                     rec["device_busy_ms"] = busy_ms(prof.key_averages())
+                # the next step's interval starts after the profiler's work
+                t = time.perf_counter()
             rec["t_end"] = t
             return st, metrics
 
@@ -2597,6 +2622,537 @@ def _cli_phase(smi, zero_launches, launches_of, root, train_step_ms, dev):
           and not leftover)
     if not ok:
         raise SystemExit(f"phase 24: the CLI failed its gates: "
+                         f"{json.dumps(out, default=str)[:2000]}")
+    return out
+
+# ---------------------------------------------------------------------------
+# phase 25: the LIBERO slice (the datamodule, training_libero,
+# evaluate_libero) and the single-task evaluator and determinism check
+# ---------------------------------------------------------------------------
+
+# LIBERO-10's ten task files, named in LIBERO's <SCENE>_<instruction>_demo
+# convention, at LIBERO's frame sizes (agentview_rgb and eye_in_hand_rgb
+# 128 x 128 x 3 uint8, 7 joint_states, 2 gripper_states, 7 actions), drawn
+# from LIBERO_SEED; the scale cut to 3 demos of 64 frames per task
+# (LIBERO ships 50 demos of a few hundred frames per task), ~190 MB
+LIBERO_TASKS = (
+    "LIVING_ROOM_SCENE2_put_both_the_alphabet_soup_and_the_tomato_sauce_in_"
+    "the_basket",
+    "LIVING_ROOM_SCENE2_put_both_the_cream_cheese_box_and_the_butter_in_the_"
+    "basket",
+    "KITCHEN_SCENE3_turn_on_the_stove_and_put_the_moka_pot_on_it",
+    "KITCHEN_SCENE4_put_the_black_bowl_in_the_bottom_drawer_of_the_cabinet_"
+    "and_close_it",
+    "LIVING_ROOM_SCENE5_put_the_white_mug_on_the_left_plate_and_put_the_"
+    "yellow_and_white_mug_on_the_right_plate",
+    "STUDY_SCENE1_pick_up_the_book_and_place_it_in_the_back_compartment_of_"
+    "the_caddy",
+    "LIVING_ROOM_SCENE6_put_the_white_mug_on_the_plate_and_put_the_chocolate_"
+    "pudding_to_the_right_of_the_plate",
+    "LIVING_ROOM_SCENE1_put_both_the_alphabet_soup_and_the_cream_cheese_box_"
+    "in_the_basket",
+    "KITCHEN_SCENE8_put_both_moka_pots_on_the_stove",
+    "KITCHEN_SCENE6_put_the_yellow_and_white_mug_in_the_microwave_and_close_"
+    "it")
+LIBERO_DEMOS, LIBERO_DEMO_LEN, LIBERO_HW, LIBERO_SEED = 3, 64, 128, 0
+LIBERO_B = 128            # conf/config_libero.yaml's batch_size
+LIBERO_LOADER_BATCHES = 8
+LIBERO_STEPS = 8
+# evaluate_libero on the fake env: 2 tasks x 4 rollouts at 224 px, each
+# solved after 5 warm-up and 25 policy steps (three chunks)
+LIBERO_EVAL_TASKS, LIBERO_EVAL_N = 2, 4
+LIBERO_STEPS_TO_SUCCESS, LIBERO_MAX_STEPS = 30, 60
+LIBERO_POLICY_STEPS = LIBERO_STEPS_TO_SUCCESS - 5
+# the single-task evaluator: 3 validation windows, 4 fake-solvable tasks
+# (each solved at its first step, so one chunk per rollout)
+SINGLE_TASKS = ("open_drawer", "turn_on_led", "move_slider_left",
+                "lift_red_block_table")
+SINGLE_SEQUENCES = 3
+
+
+def write_libero_store(store):
+    """The ten task files under ``<store>/libero_10``: hdf5 through h5py
+    when it is importable; without it, the same arrays as ``.npy`` files
+    (``<task>_demo/<demo>/<key>.npy``) whose memory maps go to the
+    datasets through ``task_arrays`` / ``demo_arrays``, as hdf5 datasets
+    are read: a window at a time. Returns (bytes written, the task arrays
+    or None)."""
+    import pathlib
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    r = np.random.default_rng(LIBERO_SEED)
+    d = pathlib.Path(store) / "libero_10"
+    d.mkdir(parents=True)
+    n, hw = LIBERO_DEMO_LEN, LIBERO_HW
+    nbytes, arrays = 0, (None if h5py else {})
+    for name in LIBERO_TASKS:
+        demos = {f"demo_{i}": {
+            "actions": r.uniform(-1, 1, (n, 7)).astype(np.float32),
+            "agentview_rgb": r.integers(0, 256, (n, hw, hw, 3), np.uint8),
+            "eye_in_hand_rgb": r.integers(0, 256, (n, hw, hw, 3), np.uint8),
+            "joint_states": r.standard_normal((n, 7)).astype(np.float32),
+            "gripper_states": r.standard_normal((n, 2)).astype(np.float32)}
+            for i in range(LIBERO_DEMOS)}
+        path = d / f"{name}_demo.hdf5"
+        if h5py:
+            with h5py.File(path, "w") as f:
+                for demo, keys in demos.items():
+                    g = f.create_group(f"data/{demo}")
+                    for k, v in keys.items():
+                        (g if k == "actions" else g.require_group("obs")
+                         ).create_dataset(k, data=v)
+            nbytes += path.stat().st_size
+            continue
+        task = arrays[str(path)] = {}
+        for demo, keys in demos.items():
+            dd = d / path.stem / demo
+            dd.mkdir(parents=True)
+            task[demo] = {}
+            for k, v in keys.items():
+                np.save(dd / f"{k}.npy", v)
+                nbytes += (dd / f"{k}.npy").stat().st_size
+                task[demo][k] = np.load(dd / f"{k}.npy", mmap_mode="r")
+    return nbytes, arrays
+
+
+@contextlib.contextmanager
+def libero_source(arrays):
+    """Without h5py (``arrays`` not None): every ``LiberoDataModule`` set
+    up inside reads the store's arrays (``task_arrays``) instead of
+    discovering task files. The original is restored on exit."""
+    from mode_diffusion_policy_tpu_torch.data import libero
+    setup = libero.LiberoDataModule.setup
+
+    def with_arrays(self):
+        self.task_arrays = arrays
+        return setup(self)
+
+    if arrays is not None:
+        libero.LiberoDataModule.setup = with_arrays
+    try:
+        yield
+    finally:
+        libero.LiberoDataModule.setup = setup
+
+
+def libero_loader(store, arrays, lang_cache):
+    """The CLI's datamodule (``build_libero_datamodule`` on the shipped
+    config at batch 128, the tower's cache on the card as the embedder)
+    without and with ``cache_all``: setup seconds, the first batch's ms,
+    the host ms per batch after it (median of LIBERO_LOADER_BATCHES) and
+    the first 3 batches."""
+    from mode_diffusion_policy_tpu_torch.config.builders import \
+        build_libero_datamodule
+    from mode_diffusion_policy_tpu_torch.config.loader import load_config
+    from mode_diffusion_policy_tpu_torch.training_calvin import CONF_DIR
+    cfg = load_config(CONF_DIR, "config_libero", overrides=[
+        f"root_data_dir={store}", f"batch_size={LIBERO_B}"])
+    out = {}
+    for cache_all in (False, True):
+        t0 = time.perf_counter()
+        with libero_source(arrays):
+            dm = build_libero_datamodule(cfg["datamodule"],
+                                         lang_embed=lang_cache,
+                                         cache_all=cache_all).setup()
+        setup_s = time.perf_counter() - t0
+        try:
+            it = dm.train_batches(epoch=0)
+            t = time.perf_counter()
+            first = [next(it)]
+            first_ms = (time.perf_counter() - t) * 1e3
+            ms = []
+            for _ in range(LIBERO_LOADER_BATCHES):
+                t = time.perf_counter()
+                batch = next(it)
+                ms.append((time.perf_counter() - t) * 1e3)
+                if len(first) < 3:
+                    first.append(batch)
+        finally:
+            dm.close()
+        out["cache_all" if cache_all else "lazy"] = {
+            "setup_s": setup_s, "first_batch_ms": first_ms,
+            "batch_ms_median": statistics.median(ms),
+            "batch_ms_spread": [min(ms), max(ms)], "first3": first,
+            "sequences": len(dm.full), "train_batches": len(dm._train_idx)
+            // LIBERO_B}
+    return out
+
+
+def libero_cli_argv(store, log_dir, batch):
+    """training_libero's argv: the shipped config with only these
+    overrides (the fake env's rollouts: 2 tasks, one rollout each, one
+    chunk)."""
+    return [f"root_data_dir={store}", f"log_dir={log_dir}",
+            f"batch_size={batch}", "device=cuda", "trainer.max_epochs=1",
+            f"trainer.limit_train_batches={LIBERO_STEPS}",
+            "trainer.limit_val_batches=1",
+            "callbacks.rollout_lh.fake_env=true",
+            f"callbacks.rollout_lh.fake_hw={LIBERO_HW}",
+            "callbacks.rollout_lh.fake_tasks=2",
+            "callbacks.rollout_lh.n_eval=1",
+            "callbacks.rollout_lh.fake_steps_to_success=15",
+            "callbacks.rollout_lh.max_steps=20",
+            "callbacks.rollout_lh.rollout_freq=1"]
+
+
+def libero_train(store, arrays, log_dir):
+    """``training_libero.main`` at the shipped batch of 128 (64 if 128 does
+    not fit, said so), with step CLI_PROFILED_STEP profiled; returns the
+    TrainingRun and the probe's record (with the run's seconds, its peak
+    device memory and the batch)."""
+    import gc
+
+    import torch
+    from mode_diffusion_policy_tpu_torch import training_libero
+    refused = None
+    for batch in (LIBERO_B, LIBERO_B // 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with libero_source(arrays), cli_probe(profile_fresh=True) as runs:
+                run = training_libero.main(
+                    libero_cli_argv(store, log_dir / f"b{batch}", batch))
+        except torch.cuda.OutOfMemoryError as e:
+            refused = f"B={batch}: {str(e).splitlines()[0]}"
+            print(f"  training_libero does not fit at {refused}",
+                  flush=True)
+            continue
+        rec = runs[-1]
+        rec.update(run_s=time.perf_counter() - t0, batch=batch,
+                   refused=refused, peak_gib=torch.cuda.max_memory_allocated()
+                   / 2 ** 30)
+        return run, rec
+    raise SystemExit("phase 25c: training_libero fits neither at B=128 nor "
+                     "at 64")
+
+
+def libero_eval_run(run_dir, root, mode, zero_launches, launches_of):
+    """``evaluate_libero`` (``evaluate(parse_args(argv))``) on the training
+    run's directory under ``mode``, on the fake env at 224 px, every
+    kernel's launches counted from 0 over the whole run."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.evaluation import \
+        evaluate_libero as el
+    from mode_diffusion_policy_tpu_torch.rollout.libero_rollout import (
+        FakeLiberoEnv, LiberoEvaluator)
+    args = el.parse_args([
+        "--checkpoint", str(run_dir), "--fake-env",
+        "--fake-tasks", str(LIBERO_EVAL_TASKS),
+        "--n-eval", str(LIBERO_EVAL_N),
+        "--fake-steps-to-success", str(LIBERO_STEPS_TO_SUCCESS),
+        "--max-steps", str(LIBERO_MAX_STEPS), "--img-size", str(TRAIN_IMG),
+        "--bf16", "--serving-mode", mode,
+        "--log-dir", str(root / f"libero_eval_{mode}")])
+    t0 = time.perf_counter()
+    with eval_probe(FakeLiberoEnv, (LiberoEvaluator, "evaluate_task")) as rec:
+        zero_launches()
+        ev = el.evaluate(args)
+        torch.cuda.synchronize()
+        counts = launches_of()
+    rec["run_s"] = time.perf_counter() - t0
+    with open(f"{args.log_dir}/results_libero.json") as f:
+        rec["results"] = json.load(f)
+    rec["counts"] = counts
+    return ev, rec
+
+
+def libero_eval(run_dir, root, zero_launches, launches_of, dev):
+    """Phase 25d: evaluate_libero under parity, reference and b1-latency:
+    launches per chunk, env steps per second, the chunk's ms in the loop,
+    seconds outside it; each kernel preset's actions within max(1e-3, 2 x
+    the b=1 floor) of reference's over every env step."""
+    import gc
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.rollout.libero_rollout import (
+        FakeLiberoEnv, translate_obs)
+    rollouts = LIBERO_EVAL_TASKS * LIBERO_EVAL_N
+    chunks_want = rollouts * -(-LIBERO_POLICY_STEPS // 10)
+    raw = translate_obs(FakeLiberoEnv(hw=TRAIN_IMG, seed=1).reset())
+    runs = {}
+    for mode in ("parity", "reference", "b1-latency"):
+        ev, rec = libero_eval_run(run_dir, root, mode, zero_launches,
+                                  launches_of)
+        counts = dict(rec["counts"])
+        acfg = ev.agent.cfg
+        want = {"parity": ("fused_layer_q8c",
+                           acfg.n_layers * acfg.num_sampling_steps),
+                "b1-latency": ("fused_dit_q8c",
+                               acfg.num_sampling_steps)}.get(mode)
+        launches = counts.pop(want[0]) if want else 0
+        chunks, steps = len(rec["chunk_ms"]), len(rec["step_ms"])
+        loop_s = sum(rec["loop_s"])
+        r = {"chunks": chunks, "policy_steps": steps,
+             "env_steps": len(rec["env_ms"]), "launches": launches,
+             "launches_per_chunk": launches / max(chunks, 1),
+             "other_launches": counts, "results": rec["results"],
+             "env_steps_per_s": steps / loop_s, "loop_s": loop_s,
+             "outside_loop_s": rec["run_s"] - loop_s, "run_s": rec["run_s"],
+             "chunk_ms_median": statistics.median(rec["chunk_ms"]),
+             "chunk_ms_first": rec["chunk_ms"][0],
+             "tower_calls": len(rec["tower_ms"]),
+             "cache_encoder_calls": ev.lang_cache.encoder_calls}
+        ok = (chunks == chunks_want
+              and steps == rollouts * LIBERO_POLICY_STEPS
+              and rec["results"]["eval/avg_success_rate"] == 1.0
+              and not any(counts.values())
+              and launches == (want[1] * chunks if want else 0)
+              and ev.lang_cache.encoder_calls == len(rec["tower_ms"])
+              == LIBERO_EVAL_TASKS
+              and all(np.isfinite(a).all() for a in rec["actions"]))
+        if want:
+            r["floor_b1"], r["kernel_vs_plain_b1"] = eval_floor(
+                ev.policy, raw["rgb_obs"], mode, dev)
+        runs[mode] = (r, np.stack(rec["actions"]))
+        print(f"  evaluate_libero {mode}: {chunks} chunks, {steps} policy "
+              f"steps, {r['env_steps_per_s']:.1f} env steps/s; {launches} "
+              f"{want[0] if want else 'kernel'} launches "
+              f"({r['launches_per_chunk']:.0f} per chunk), others {counts}; "
+              f"chunk in the loop {r['chunk_ms_median']:.2f} ms (median; "
+              f"first {r['chunk_ms_first']:.1f}); {loop_s:.2f} s in the loop"
+              f", {r['outside_loop_s']:.2f} s outside it; results "
+              f"{rec['results']}", flush=True)
+        if not ok:
+            raise SystemExit(f"phase 25d: evaluate_libero {mode} failed its "
+                             f"gates: {r}")
+        del ev
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = runs["reference"][1]
+    for mode in ("parity", "b1-latency"):
+        r, actions = runs[mode]
+        r["action_mae_vs_reference"] = float(np.abs(actions - ref).mean())
+        r["tol"] = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * r["floor_b1"])
+        print(f"  evaluate_libero {mode} vs reference over {len(actions)} "
+              f"env steps: MAE {r['action_mae_vs_reference']:.3e} (tol "
+              f"{r['tol']:.3e}, floor at b=1 {r['floor_b1']:.3e}, "
+              f"kernel-vs-plain at b=1 {r['kernel_vs_plain_b1']:.3e})",
+              flush=True)
+        if r["action_mae_vs_reference"] > r["tol"]:
+            raise SystemExit(f"phase 25d: {mode} disagrees with reference")
+    return {mode: r for mode, (r, _) in runs.items()}
+
+
+def single_task_and_determinism(root, dev, zero_launches, launches_of):
+    """Phase 25e: ``SingleTaskEvaluator`` over the fake CALVIN env on phase
+    22's trained EMA weights under parity (its task dict from the
+    windows' start and end states, one rollout per task and window), and
+    ``determinism_check --fake-env`` twice."""
+    import io
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.data.calvin_dataset import (
+        DEFAULT_OBS_SPACE, DEFAULT_PROPRIO)
+    from mode_diffusion_policy_tpu_torch.evaluation import \
+        determinism_check
+    from mode_diffusion_policy_tpu_torch.evaluation import \
+        evaluate_calvin as ec
+    from mode_diffusion_policy_tpu_torch.models.encoders.clip_text import \
+        LangClip
+    from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import \
+        LangEmbeddingCache
+    from mode_diffusion_policy_tpu_torch.rollout.env import (
+        CalvinEnvWrapper, FakeCalvinEnv)
+    from mode_diffusion_policy_tpu_torch.rollout.rollout_single_task import \
+        SingleTaskEvaluator
+    agent = ec.build_agent(ec.parse_args([
+        "--checkpoint", f"{root}/bf16", "--bf16", "--serving-mode",
+        "parity"]))
+    policy = ec.PreprocPolicy(
+        agent, LangEmbeddingCache(LangClip.initialize_random(0, device=dev)),
+        sizes={c: TRAIN_IMG for c in CAMS})
+    raw = FakeCalvinEnv(hw=STATIC_HW, solvable_tasks=set(SINGLE_TASKS),
+                        steps_to_success=0)
+    env = CalvinEnvWrapper(raw, DEFAULT_OBS_SPACE, DEFAULT_PROPRIO)
+    r = np.random.default_rng(LIBERO_SEED)
+    seqs = [{"state_info": {"robot_obs": r.standard_normal((8, 15)),
+                            "scene_obs": r.standard_normal((8, 24))}}
+            for _ in range(SINGLE_SEQUENCES)]
+    evaluator = SingleTaskEvaluator(env, raw.make_oracle(),
+                                    ec.load_val_annotations(),
+                                    ep_len=EVAL_EP_LEN)
+    with eval_probe(CalvinEnvWrapper, (SingleTaskEvaluator, "evaluate")) \
+            as rec:
+        zero_launches()
+        metrics = evaluator.evaluate(policy, seqs)
+        torch.cuda.synchronize()
+        counts = launches_of()
+    chunks = len(rec["chunk_ms"])
+    layer = counts.pop("fused_layer_q8c")
+    rollouts = len(SINGLE_TASKS) * SINGLE_SEQUENCES
+    out = {"task_dict": evaluator.task_to_sequences, "metrics": metrics,
+           "chunks": chunks, "fused_layer_q8c": layer,
+           "per_chunk": layer / max(chunks, 1), "other_launches": counts,
+           "loop_s": rec["loop_s"][0],
+           "chunk_ms_median": statistics.median(rec["chunk_ms"])}
+    hashes = []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            determinism_check.main(["--fake-env"])
+        hashes.append(buf.getvalue())
+    out["determinism_equal"] = hashes[0] == hashes[1]
+    out["determinism_lines"] = hashes[0].strip().splitlines()[-4:]
+    print(f"  SingleTaskEvaluator (parity, phase 22's EMA weights): task "
+          f"dict {evaluator.task_to_sequences}; metrics {metrics}; {chunks}"
+          f" chunks, {layer} fused_layer_q8c launches ({out['per_chunk']:.0f}"
+          f" per chunk), others {counts}", flush=True)
+    print(f"  determinism_check --fake-env twice: equal "
+          f"{out['determinism_equal']}; {out['determinism_lines'][-1]}",
+          flush=True)
+    per_chunk = agent.cfg.n_layers * agent.cfg.num_sampling_steps
+    ok = (chunks == rollouts and layer == per_chunk * chunks
+          and not any(counts.values())
+          and metrics.get("tasks/average_sr") == 1.0
+          and len(metrics) == len(SINGLE_TASKS) + 1
+          and out["determinism_equal"] and "hash(obs)" in hashes[0])
+    if not ok:
+        raise SystemExit(f"phase 25e: failed its gates: {out}")
+    return out
+
+
+def libero_phase(smi, zero_launches, launches_of, root, dev=None):
+    """Phase 25: the LIBERO store, its datamodule, ``training_libero`` at
+    the shipped batch, ``evaluate_libero`` on that run under three
+    presets, the single-task evaluator and the determinism check."""
+    import gc
+    import pathlib
+
+    import torch
+    with torch.enable_grad():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return _libero_phase(smi, zero_launches, launches_of,
+                             pathlib.Path(root),
+                             dev or torch.device("cuda", 0))
+
+
+def _libero_phase(smi, zero_launches, launches_of, root, dev):
+    import gc
+    import glob
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.data.shm_cache import SEGMENT_PREFIX
+    from mode_diffusion_policy_tpu_torch.evaluation.evaluate_calvin import \
+        find_train_config
+    from mode_diffusion_policy_tpu_torch.models.encoders.clip_text import \
+        LangClip
+    from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import \
+        LangEmbeddingCache
+    from mode_diffusion_policy_tpu_torch.training_common import \
+        parse_camera_pipelines
+    t_phase = t = time.perf_counter()
+    store = root / "libero"
+
+    out = {"card": smi, "tasks": len(LIBERO_TASKS), "demos": LIBERO_DEMOS,
+           "demo_len": LIBERO_DEMO_LEN, "hw": LIBERO_HW}
+    out["store_bytes"], arrays = write_libero_store(store)
+    out["store_s"] = time.perf_counter() - t
+    out["hdf5_reader"] = arrays is None
+    print(f"  LIBERO store: {len(LIBERO_TASKS)} tasks x {LIBERO_DEMOS} demos "
+          f"x {LIBERO_DEMO_LEN} frames at {LIBERO_HW} px (cut from LIBERO's "
+          f"50 demos per task), {out['store_bytes'] / 1e6:.1f} MB in "
+          f"{out['store_s']:.2f} s", flush=True)
+    if arrays is not None:
+        print("  the hdf5 reader was not exercised on this machine: h5py is "
+              "not importable here, so the store is .npy files read through "
+              "LiberoDataModule(task_arrays=) / LiberoSequenceDataset("
+              "demo_arrays=) (memory maps; the hdf5 read is held against "
+              "the JAX package on the CPU only)", flush=True)
+    phase("phase 25a: the LIBERO store", t_phase)
+
+    t = time.perf_counter()
+    lang_cache = LangEmbeddingCache(LangClip.initialize_random(0, device=dev))
+    loaders = libero_loader(store, arrays, lang_cache)
+    out["first3_equal"] = same_batches(loaders["lazy"]["first3"],
+                                       loaders["cache_all"]["first3"])
+    out["loader"] = {k: {kk: v for kk, v in r.items() if kk != "first3"}
+                     for k, r in loaders.items()}
+    del loaders, lang_cache
+    for key, r in out["loader"].items():
+        print(f"  LIBERO loader ({key}): {r['batch_ms_median']:.2f} ms per "
+              f"batch of {LIBERO_B} (median of {LIBERO_LOADER_BATCHES}, "
+              f"{r['batch_ms_spread'][0]:.2f}-{r['batch_ms_spread'][1]:.2f})"
+              f"; first batch {r['first_batch_ms']:.1f} ms; setup "
+              f"{r['setup_s']:.2f} s; {r['sequences']} sequences, "
+              f"{r['train_batches']} train batches ({smi})", flush=True)
+    print(f"  first 3 batches, cache_all == lazy (lang_emb on the card "
+          f"included): {out['first3_equal']}", flush=True)
+    phase("phase 25b: the LIBERO datamodule without and with cache_all", t)
+
+    t = time.perf_counter()
+    run, rec = libero_train(store, arrays, root / "libero_runs")
+    run_dir = run.run_dir
+    cams = {cam: p["size"] for cam, p in parse_camera_pipelines(
+        find_train_config(run_dir)["datamodule"]["transforms"]).items()
+        if cam in CAMS}
+    steps = [s for s in range(3, LIBERO_STEPS + 1) if s != CLI_PROFILED_STEP]
+    iv = dict(zip(range(2, LIBERO_STEPS + 1), rec["interval_ms"]))
+    alone = dict(zip(range(1, LIBERO_STEPS + 1), rec["step_ms"]))
+    busy = rec.get("device_busy_ms")
+    metrics = [json.loads(line) for line in open(run_dir / "metrics.jsonl")]
+    out["train"] = {
+        "batch": rec["batch"], "refused": rec["refused"],
+        "cameras": cams,
+        "losses": rec["loss"], "step_ms": rec["step_ms"],
+        "interval_ms": rec["interval_ms"], "run_s": rec["run_s"],
+        "step_ms_median_3_8": statistics.median(iv[s] for s in steps),
+        "step_alone_ms_median_3_8": statistics.median(alone[s]
+                                                      for s in steps),
+        "median_of_steps": steps, "peak_gib": rec["peak_gib"],
+        "profiled_step": {
+            "step": CLI_PROFILED_STEP,
+            "interval_ms": rec.get("profiled_interval_ms"),
+            "device_busy_ms": busy, "idle_share": None if busy is None else
+            1.0 - busy / rec["profiled_interval_ms"]},
+        "rollout_hook": {k: v for k, v in metrics[-1].items()
+                         if k.startswith("eval/")},
+        "resumed": rec["trainer"].resumed, "end_step": run.state.step}
+    tr = out["train"]
+    files_ok = ((run_dir / ".hydra" / "config.yaml").is_file()
+                and (run_dir / "saved_models" / str(LIBERO_STEPS)
+                     / "state.pt").is_file())
+    del run, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    p = tr["profiled_step"]
+    print(f"  training_libero at B={tr['batch']} (static "
+          f"{cams['rgb_static']} px, gripper {cams['rgb_gripper']} px): "
+          f"losses "
+          f"{[round(x, 4) for x in tr['losses']]}; "
+          f"{tr['step_ms_median_3_8']:.1f} ms per step (median of steps "
+          f"{steps}, loader and copy included; the step alone "
+          f"{tr['step_alone_ms_median_3_8']:.1f} ms); peak "
+          f"{tr['peak_gib']:.2f} GiB; profiled step {p['step']}: "
+          f"{p['interval_ms']} ms, device busy {p['device_busy_ms']} ms, "
+          f"idle share {p['idle_share']}; rollout hook "
+          f"{tr['rollout_hook']}; run {tr['run_s']:.1f} s ({smi})",
+          flush=True)
+    if not (len(tr["losses"]) == LIBERO_STEPS and files_ok
+            and all(math.isfinite(x) for x in tr["losses"])
+            and not tr["resumed"] and tr["end_step"] == LIBERO_STEPS
+            and "eval/avg_success_rate" in tr["rollout_hook"]):
+        raise SystemExit(f"phase 25c: training_libero failed its gates: "
+                         f"{json.dumps(tr, default=str)[:2000]}")
+    phase(f"phase 25c: training_libero at B={tr['batch']}", t)
+
+    t = time.perf_counter()
+    out["evaluate"] = libero_eval(run_dir, root, zero_launches, launches_of,
+                                  dev)
+    phase("phase 25d: evaluate_libero under parity, reference, b1-latency",
+          t)
+    t = time.perf_counter()
+    out["single_task"] = single_task_and_determinism(root, dev, zero_launches,
+                                                     launches_of)
+    phase("phase 25e: SingleTaskEvaluator (parity) and determinism_check", t)
+    out["shm_leftover"] = sorted(glob.glob(f"/dev/shm/{SEGMENT_PREFIX}*"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    if not out["first3_equal"] or out["shm_leftover"]:
+        raise SystemExit(f"phase 25: the loader failed its gates: "
                          f"{json.dumps(out, default=str)[:2000]}")
     return out
 
@@ -3176,6 +3732,8 @@ def main():
         # ---- phase 24: the training CLI on an episode store on disk ------
         cli = cli_phase(smi, zero_launches, launches_of, root,
                         train["bf16_full_state"]["step_ms_median_3_8"])
+        # ---- phase 25: LIBERO, the single-task evaluator ------------------
+        libero = libero_phase(smi, zero_launches, launches_of, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3204,6 +3762,9 @@ def main():
         "eval_is": "evaluate_calvin --serving-mode parity, b=1, "
                    f"{EVAL_SEQUENCES} chains on the fake env, phase 22's "
                    "trained EMA weights",
+        "libero_eval": {k: libero["evaluate"]["parity"][k] for k in (
+            "launches", "launches_per_chunk", "chunks",
+            "action_mae_vs_reference", "tol")},
         "chunk_split_b128": split_b128,
         "action_mae": {"b128": results[128]["action_mae"],
                        "b1": results[1]["action_mae"]},
@@ -3274,6 +3835,9 @@ def main():
         "eval_is": "evaluate_calvin --serving-mode b1-latency, b=1, "
                    f"{EVAL_SEQUENCES} chains on the fake env, phase 22's "
                    "trained EMA weights",
+        "libero_eval": {k: libero["evaluate"]["b1-latency"][k] for k in (
+            "launches", "launches_per_chunk", "chunks",
+            "action_mae_vs_reference", "tol")},
         "action_mae": {"b1-latency": m1["action_mae"],
                        "b1-latency-max": m8["action_mae"]},
         "action_floor": {"b1-latency": m1["action_floor"],
@@ -3382,6 +3946,7 @@ def main():
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"libero": libero}, default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,7 @@
 These are the functions the registry maps the reference ``_target_``
 strings onto, translating the hydra config surface
 (``conf/model/mode_agent.yaml`` etc.) into ``MoDEAgentConfig``, optimizer
-and EMA arguments, and the CALVIN datamodule. The LIBERO datamodule is
-not ported yet (ROADMAP.md Queue 1): its builder raises.
+and EMA arguments, and the CALVIN and LIBERO datamodules.
 """
 from __future__ import annotations
 
@@ -277,7 +276,17 @@ def build_calvin_datamodule(dm_cfg: Dict[str, Any], lang_embed=None,
         **kwargs)
 
 
-def build_libero_datamodule(dm_cfg: Dict[str, Any], lang_embed=None):
-    raise NotImplementedError(
-        "the LIBERO datamodule is not ported yet: it comes with the LIBERO "
-        "slice (ROADMAP.md Queue 1)")
+def build_libero_datamodule(dm_cfg: Dict[str, Any], lang_embed=None,
+                            **kwargs):
+    """``conf/datamodule/libero.yaml`` -> ``LiberoDataModule``, read as the
+    JAX builder reads it; ``kwargs`` (``cache_all``, ``task_arrays``) go
+    to the datamodule as they are."""
+    from ..data.libero import LiberoDataModule
+    return LiberoDataModule(
+        benchmark_name=dm_cfg.get("benchmark_name", "libero_10"),
+        root_data_dir=dm_cfg.get("root_data_dir"),
+        batch_size=int(dm_cfg.get("batch_size", 32)),
+        seq_len=int(dm_cfg.get("action_seq_len", dm_cfg.get("seq_len", 10))),
+        obs_seq_len=int(dm_cfg.get("obs_seq_len", 1)),
+        lang_embed=lang_embed,
+        **kwargs)

@@ -11,6 +11,9 @@ and the rollout hook, and crash forensics. Camera augmentation runs on the
 card inside the train step (``training_common.make_train_preprocess``):
 raw uint8 frames go to the card once.
 
+``train_with`` is the run itself, which ``training_libero.py`` shares
+with its own datamodule and rollout hook.
+
 The run directory is ``<log_dir>/<logger.name>``: ``saved_models/`` (the
 ``Trainer``'s checkpoints), ``metrics.jsonl`` and ``.hydra/config.yaml``
 (the resolved config), which ``evaluate_calvin --checkpoint`` restores.
@@ -39,7 +42,7 @@ import logging
 import sys
 import traceback
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -82,13 +85,30 @@ def _flag(v) -> bool:
 
 
 def train(cfg: Dict) -> TrainingRun:
-    from .config.builders import (build_agent, build_calvin_datamodule,
-                                  build_checkpoint_cfg, build_ema_cfg,
-                                  build_lang_clip)
+    from .config.builders import build_calvin_datamodule
+    from .training_common import build_calvin_rollout_callback
+
+    def rollout(rollout_cfg, lang_cache, pipelines):
+        rollout_cfg.setdefault("dataset_path", cfg.get("root_data_dir"))
+        return build_calvin_rollout_callback(rollout_cfg, lang_cache,
+                                             pipelines)
+
+    return train_with(cfg, build_datamodule=build_calvin_datamodule,
+                      build_rollout=rollout, default_name="mode_calvin")
+
+
+def train_with(cfg: Dict, *, build_datamodule: Callable,
+               build_rollout: Callable, default_name: str) -> TrainingRun:
+    """One training run of the resolved config ``cfg`` on its ``device``:
+    ``build_datamodule(cfg["datamodule"], lang_embed=)`` makes the
+    datamodule (set up here, closed at the end), ``build_rollout(
+    rollout_cfg, lang_cache, pipelines)`` the rollout hook or None, and the
+    run directory is ``<log_dir>/<logger.name or default_name>``."""
+    from .config.builders import (build_agent, build_checkpoint_cfg,
+                                  build_ema_cfg, build_lang_clip)
     from .models.encoders.lang_cache import LangEmbeddingCache
     from .training.loop import Trainer
-    from .training_common import (build_calvin_rollout_callback,
-                                  load_pretrained_into_state,
+    from .training_common import (load_pretrained_into_state,
                                   make_data_iters, make_train_preprocess,
                                   parse_camera_pipelines,
                                   persist_resolved_config)
@@ -109,22 +129,20 @@ def train(cfg: Dict) -> TrainingRun:
                            clip_checkpoint=cfg.get("clip_checkpoint"),
                            device=dev)
     lang_cache = LangEmbeddingCache(lang)
-    datamodule = build_calvin_datamodule(cfg["datamodule"],
-                                         lang_embed=lang_cache).setup()
+    datamodule = build_datamodule(cfg["datamodule"],
+                                  lang_embed=lang_cache).setup()
     try:
         pipelines = parse_camera_pipelines(
             cfg["datamodule"].get("transforms"))
-        # the in-training rollout: the real calvin_env when installed, the
+        # the in-training rollout: the real simulator when installed, the
         # fake env when callbacks.rollout_lh.fake_env=true, else none
         rollout_cfg = dict(callbacks_cfg.get("rollout_lh", {}))
-        rollout_cfg.setdefault("dataset_path", cfg.get("root_data_dir"))
-        rollout_callback = build_calvin_rollout_callback(
-            rollout_cfg, lang_cache, pipelines)
+        rollout_callback = build_rollout(rollout_cfg, lang_cache, pipelines)
 
         trainer = Trainer(
             agent,
             log_dir=str(Path(cfg.get("log_dir", "runs"))
-                        / cfg.get("logger", {}).get("name", "mode_calvin")),
+                        / cfg.get("logger", {}).get("name", default_name)),
             max_epochs=int(trainer_cfg.get("max_epochs", 20)),
             limit_train_batches=int(trainer_cfg.get("limit_train_batches",
                                                     1000)),
@@ -142,7 +160,7 @@ def train(cfg: Dict) -> TrainingRun:
                                                   False)),
             device=dev)
         # the resolved config in the run dir (the reference's .hydra
-        # layout): evaluate_calvin rebuilds the model from it
+        # layout): the evaluation CLIs rebuild the model from it
         run_dir = Path(trainer.logger.log_dir)
         persist_resolved_config(cfg, run_dir)
 

@@ -1,6 +1,5 @@
-"""Shared helpers of the training entry points (counterpart of
-``mode_diffusion_policy_tpu/training_common.py``; the LIBERO rollout hook
-comes with a later slice).
+"""Shared helpers of the training entry points, CALVIN and LIBERO
+(counterpart of ``mode_diffusion_policy_tpu/training_common.py``).
 
 The camera pipelines are parsed from the datamodule's transforms config
 (``conf/datamodule/transforms/*.yaml``) and run on the card inside the
@@ -173,6 +172,18 @@ def load_pretrained_into_state(state, cfg: Dict, logger=logger):
     return state
 
 
+def _serving_agent(agent, variables):
+    """A new agent on ``agent``'s device holding an f32 copy of
+    ``variables`` (``TrainState.eval_variables()``: the EMA weights and
+    running statistics); the training agent is not touched."""
+    from .models.agent import MoDEAgent
+    serving = MoDEAgent(agent.cfg, device=agent.device)
+    serving.load_state_dict({n: t.float() for coll in ("params",
+                                                       "batch_stats")
+                             for n, t in variables[coll].items()})
+    return serving
+
+
 def build_calvin_rollout_callback(rollout_cfg: Dict, lang_cache,
                                   pipelines: Dict[str, Dict]):
     """The Trainer's in-training long-horizon rollout hook
@@ -186,7 +197,6 @@ def build_calvin_rollout_callback(rollout_cfg: Dict, lang_cache,
     touched."""
     from .data.calvin_dataset import DEFAULT_OBS_SPACE, DEFAULT_PROPRIO
     from .evaluation.evaluate_calvin import PreprocPolicy
-    from .models.agent import MoDEAgent
     from .rollout.env import CalvinEnvWrapper, FakeCalvinEnv
     from .rollout.rollout_long_horizon import make_rollout_callback
 
@@ -225,14 +235,78 @@ def build_calvin_rollout_callback(rollout_cfg: Dict, lang_cache,
             return None
 
     def make_policy(agent, variables):
-        serving = MoDEAgent(agent.cfg, device=agent.device)
-        serving.load_state_dict({n: t.float() for coll in ("params",
-                                                           "batch_stats")
-                                 for n, t in variables[coll].items()})
-        return PreprocPolicy(serving, lang_cache, sizes={
-            cam: pipelines[cam]["size"] for cam in CAMERAS})
+        return PreprocPolicy(_serving_agent(agent, variables), lang_cache,
+                             sizes={cam: pipelines[cam]["size"]
+                                    for cam in CAMERAS})
 
     return make_rollout_callback(
         env, oracle, val_annotations, make_policy,
         num_sequences=int(rollout_cfg.get("num_sequences", 1000)),
         ep_len=int(rollout_cfg.get("ep_len", 360)))
+
+
+def build_libero_rollout_callback(rollout_cfg: Dict, lang_cache,
+                                  pipelines: Dict[str, Dict]):
+    """The Trainer's in-training LIBERO rollout hook (the reference's
+    RolloutLibero callback, ``conf/callbacks/libero.yaml`` rollout_lh):
+    scripted ``FakeLiberoEnv``s when ``rollout_cfg["fake_env"]`` is set,
+    the benchmark ``rollout_cfg["benchmark_name"]`` when the LIBERO package
+    is importable, else None. Each call creates the envs and closes them
+    after (no simulator state outlives an epoch), and serves an f32 copy
+    of the given variables in a new agent on the training agent's device
+    through ``evaluate_calvin.PreprocPolicy``, both cameras at
+    ``pipelines["rgb_static"]["size"]`` (as the JAX hook serves them)."""
+    from .evaluation.evaluate_calvin import PreprocPolicy
+    from .rollout.libero_rollout import (FakeLiberoEnv, LiberoEvaluator,
+                                         make_libero_env)
+
+    fake = bool(rollout_cfg.get("fake_env"))
+    if not fake:
+        try:
+            import libero.libero.benchmark  # noqa: F401
+        except ImportError as e:
+            logger.info("in-training LIBERO rollouts disabled (%s)", e)
+            return None
+
+    size = pipelines["rgb_static"]["size"]
+
+    def make_tasks():
+        if fake:
+            return [(f"fake task {i}",
+                     FakeLiberoEnv(
+                         hw=int(rollout_cfg.get("fake_hw", 24)),
+                         steps_to_success=int(
+                             rollout_cfg.get("fake_steps_to_success", 4))),
+                     None)
+                    for i in range(int(rollout_cfg.get("fake_tasks", 2)))]
+        import os
+        from libero.libero import get_libero_path
+        from libero.libero.benchmark import get_benchmark
+        bench = get_benchmark(rollout_cfg["benchmark_name"])()
+        bddl_base = get_libero_path("bddl_files")
+        tasks = []
+        for i in range(bench.n_tasks):
+            task = bench.get_task(i)
+            env = make_libero_env(
+                os.path.join(bddl_base, task.problem_folder, task.bddl_file),
+                size, size)
+            tasks.append((task.language, env, bench.get_task_init_states(i)))
+        return tasks
+
+    def callback(agent, variables, epoch):
+        policy = PreprocPolicy(_serving_agent(agent, variables), lang_cache,
+                               sizes={cam: size for cam in CAMERAS})
+        evaluator = LiberoEvaluator(
+            n_eval=int(rollout_cfg.get("n_eval", 20)),
+            max_steps=int(rollout_cfg.get("max_steps", 520)))
+        names, rates = [], []
+        for desc, env, init_states in make_tasks():
+            try:
+                rates.append(evaluator.evaluate_task(policy, env, desc,
+                                                     init_states))
+                names.append(desc)
+            finally:
+                env.close()
+        return evaluator.metrics(evaluator.gather_success_rates(rates), names)
+
+    return callback

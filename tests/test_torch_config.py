@@ -1,7 +1,7 @@
 """The port's config system against the JAX package's: hydra-style
 composition, interpolation and overrides over the root ``conf/``, the
 ``_target_`` registry, and the builders (``build_agent``'s config fields,
-its validation, and the raises of what later slices port)."""
+its validation, the CALVIN and LIBERO datamodules)."""
 import dataclasses
 import pathlib
 
@@ -81,8 +81,18 @@ def test_registry_maps_onto_the_port():
         CalvinDataModule
     dm = tb.build_calvin_datamodule({"root_data_dir": "/data/calvin"})
     assert isinstance(dm, CalvinDataModule) and dm.train_dataset is None
-    with pytest.raises(NotImplementedError, match="slice"):
-        tb.build_libero_datamodule({})
+    from mode_diffusion_policy_tpu_torch.data.libero import LiberoDataModule
+    cfg = tl.load_config(CONF, "config_libero", [])
+    dm = tb.build_libero_datamodule(cfg["datamodule"])
+    jdm = jb.build_libero_datamodule(cfg["datamodule"])
+    assert isinstance(dm, LiberoDataModule) and dm.train_dataset is None
+    assert (dm.benchmark_name, dm.root_data_dir, dm.batch_size, dm.seq_len,
+            dm.obs_seq_len) == ("libero_10", "/data/libero", 128, 10, 1)
+    for k in ("benchmark_name", "root_data_dir", "batch_size", "seq_len",
+              "obs_seq_len", "cache_all", "train_fraction", "seed"):
+        assert getattr(dm, k) == getattr(jdm, k), k
+    assert tr.resolve_target("mode.datasets.libero_data_module."
+                             "LiberoDataModule") is tb.build_libero_datamodule
 
 
 def _common_fields(tcfg, jcfg):

@@ -55,10 +55,10 @@ OPTIONAL = ("yaml", "regex", "cv2", "wandb", "safetensors", "h5py",
 
 
 def test_port_imports_with_jax_blocked():
-    """Import every port module (the data slice and ``training_calvin``
-    named), chip_smoke.py's module-level code and bench_kernels_torch.py
-    with jax, the JAX package and the optional packages (``yaml``,
-    ``h5py`` ...) made unimportable."""
+    """Import every port module (the data and LIBERO slices and both
+    training CLIs named), chip_smoke.py's module-level code and
+    bench_kernels_torch.py with jax, the JAX package and the optional
+    packages (``yaml``, ``h5py`` ...) made unimportable."""
     code = f"""
 import importlib, pkgutil, sys
 for name in {BANNED + OPTIONAL!r}:
@@ -68,11 +68,15 @@ import mode_diffusion_policy_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-# the data slice and the training CLI are among them, and the datasets'
-# statistics merge needs no PyYAML while a split has no statistics.yaml
+# the data and LIBERO slices and the training CLIs are among them (so the
+# LIBERO datasets import without h5py), and the datasets' statistics merge
+# needs no PyYAML while a split has no statistics.yaml
 new = set("mode_diffusion_policy_tpu_torch." + m for m in (
     "training_calvin", "data.calvin_dataset", "data.datamodule",
-    "data.episode_utils", "data.preprocess", "data.shm_cache"))
+    "data.episode_utils", "data.preprocess", "data.shm_cache",
+    "data.libero", "rollout.libero_rollout", "rollout.rollout_single_task",
+    "evaluation.evaluate_libero", "evaluation.determinism_check",
+    "training_libero", "training_common", "config.builders"))
 assert new <= set(names), new - set(names)
 from mode_diffusion_policy_tpu_torch.data.episode_utils import (
     load_dataset_statistics)
