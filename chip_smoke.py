@@ -67,6 +67,36 @@ kernel, the int8 attention's projections), and prints one JSON line for the
 kernels and a final status line. Every phase that fails exits non-zero; without CUDA nothing is run.
 Imports nothing of JAX.
 
+The variants phase (before phase 22) builds every model option away from
+the flagship through ``config.builders.build_agent`` from a
+``conf/model/mode_agent.yaml``-shaped dict at the flagship widths (12
+layers, D=1024, 8 heads of 128, hidden 4096, seeded random weights), one
+agent at a time, and serves each under its presets (``VARIANTS``): the goal
+embedding in the cond token with FiLM-ResNet-34 encoders
+(``goal_routing_r34``: ``parity``, ``b1-latency`` and ``max-throughput``
+at b=128, ``b1-latency`` and ``b1-latency-max`` at b=1; one cond row per
+sample in ``fused_layer_q8c``, ``fused_dit_q8c`` and
+``fused_attn_block_q8`` at b=128, where at b=1 the sample's one row is the
+shared-row launch), a
+shared expert with the scratch ResNet-18 (``shared_r18``: two train steps
+at B=8 on the plain path, then ``parity`` on the trained weights,
+``fused_attn_block`` and ``fused_top2_mlp_q8c`` without ln_2 fused), an
+identity expert with cross-attention (``identity_cross``:
+``fused_attn_block``, the MoE and cross-attention plain) and the plain
+paths (``plain_paths``: non-causal, a router over the tokens, no goal or
+noise token, proprio, ``init_style="normal"``: ``fused_top2_mlp_q8c``
+alone). Each cell's launches per chunk must equal the table's, and its
+chunk must meet the same agent's ``reference`` chunk and its own plain
+evaluation by the action-MAE rule (the floor against the plain evaluation
+is the f32-vs-f64 one, as in the other phases). On goal_routing_r34's
+weights it also holds ``fused_layer_q8c`` and ``fused_dit_q8c`` with one
+cond row per sample at b=128 against their plain versions
+(``cond_row_checks``: equal rows bit-equal to the shared row, the 12-layer
+megakernel launch too; the 12-layer launch with distinct rows layer by
+layer within the layer gates and equal to its layers chained; a per-token
+cond raises), and at b=1 their one-row launch, and times both kinds of
+cond; one ``variants`` JSON line.
+
 Phase 22 trains: the flagship with the shipped CALVIN training settings
 (``TRAIN_MODEL``, ``TRAIN_OPT``, ``TRAIN_EMA``, ``TRAIN_TRANSFORMS``,
 which ``check_train_settings`` holds to what the port's config builders
@@ -357,34 +387,10 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
             x = torch.randn(B, T, D, generator=gen, device=dev).to(
                 torch.bfloat16)
             c = emb_all[s][None]
-            full = fused_dit_q8c(x, c, st, idx_L, p_L, step=s, **kw)
-            torch.cuda.synchronize()
-            y = x
-            worst = 0.0
-            for l in range(L):
-                stl = {k: v[l:l + 1] for k, v in st.items()}
-                tabs = (idx_L[l:l + 1], p_L[l:l + 1])
-                yk = fused_dit_q8c(y, c, stl, *tabs, step=s, **kw)
-                yp = fused_dit_q8c_ref(y, c, stl, *tabs, step=s, **kw)
-                d = (yk.float() - yp.float()).abs()
-                mean_tol = LAYER_MEAN_REL * yp.float().abs().mean().item()
-                max_tol = LAYER_MAX_REL * yp.float().abs().max().item()
-                if not (bool(torch.isfinite(yk).all())
-                        and d.mean().item() <= mean_tol
-                        and d.max().item() <= max_tol):
-                    raise SystemExit(
-                        f"fused_dit_q8c {name} b={B} step={s} layer {l}: "
-                        f"max {d.max().item():.3e} (tol {max_tol:.3e}), mean "
-                        f"{d.mean().item():.3e} (tol {mean_tol:.3e})")
-                worst = max(worst, d.mean().item() / mean_tol,
-                            d.max().item() / max_tol)
-                out["max_abs_err"] = max(out["max_abs_err"], d.max().item())
-                y = yk
-            chained = (full.float() - y.float()).abs().max().item()
-            if chained != 0.0:
-                raise SystemExit(f"fused_dit_q8c {name} b={B} step={s}: the "
-                                 f"stack differs from its layers chained "
-                                 f"({chained:.3e})")
+            full, worst, err = check_stack_layers(
+                f"fused_dit_q8c {name} b={B} step={s}", st, x, c, idx_L, p_L,
+                s, kw)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
             # the stack == L chained per-layer kernel launches
             z = x
             for l in range(L):
@@ -463,6 +469,34 @@ def check_megakernel(dit, st, idx_L, p_L, emb_all, steps, T, gen,
     return out
 
 
+def check_stack_layers(label, st, x, c, idx_L, p_L, step, kw):
+    """One megakernel launch over the whole stack ``st``, and each layer (a
+    one-layer slice of the stack) against the plain layer on the kernel's
+    own input, by the layer gates; the whole launch must equal its layers
+    chained, bit for bit. Returns (the launch's output, the worst share of
+    the gates used, the largest max |diff|)."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_dit_q8c, fused_dit_q8c_ref)
+    full = fused_dit_q8c(x, c, st, idx_L, p_L, step=step, **kw)
+    torch.cuda.synchronize()
+    y, worst, max_err = x, 0.0, 0.0
+    for l in range(st["ln1"].shape[0]):
+        stl = {k: v[l:l + 1] for k, v in st.items()}
+        tabs = (idx_L[l:l + 1], p_L[l:l + 1])
+        yk = fused_dit_q8c(y, c, stl, *tabs, step=step, **kw)
+        err, share = layer_gate(f"{label} layer {l}", yk,
+                                fused_dit_q8c_ref(y, c, stl, *tabs,
+                                                  step=step, **kw))
+        worst, max_err = max(worst, share), max(max_err, err)
+        y = yk
+    chained = (full.float() - y.float()).abs().max().item()
+    if chained != 0.0:
+        raise SystemExit(f"{label}: the stack differs from its layers "
+                         f"chained ({chained:.3e})")
+    return full, worst, max_err
+
+
 def dit_split(fused_dit_q8c, dit_stage_names, x, c, st, idx_L, p_L, kw,
               int8_attn, wgs):
     """One megakernel step with its clock buffer: the device us of each
@@ -521,6 +555,53 @@ def layer_gate(name, got, want):
                          f"mean {d.mean().item():.3e} (tol {mean_tol:.3e})")
     return d.max().item(), max(d.mean().item() / mean_tol,
                                d.max().item() / max_tol)
+
+
+@contextlib.contextmanager
+def plain_impls(dit, **kw):
+    """Inside the ``with`` block every kernel function of ``dit`` is its
+    plain version, given those of the keyword arguments (``acc_dtype``,
+    ``red_dtype``, ``mlp_dtype``) that it takes; the kernels are put back
+    after it."""
+    import inspect
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block_q8_ref, fused_attn_block_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_dit_q8c_ref, fused_layer_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c_ref, fused_top2_mlp_ref)
+    refs = {"layer_impl": fused_layer_q8c_ref, "dit_impl": fused_dit_q8c_ref,
+            "attn_impl": fused_attn_block_q8_ref,
+            "attn_impl_bf16": fused_attn_block_ref,
+            "moe_impl": fused_top2_mlp_q8c_ref,
+            "moe_impl_bf16": fused_top2_mlp_ref}
+    old = {k: getattr(dit, k) for k in refs}
+    for k, fn in refs.items():
+        args = inspect.signature(fn).parameters
+        setattr(dit, k, functools.partial(
+            fn, **{a: v for a, v in kw.items() if a in args}))
+    try:
+        yield
+    finally:
+        for k, fn in old.items():
+            setattr(dit, k, fn)
+
+
+def plain_evals(dit, chunk, n=3):
+    """``chunk()`` on the plain versions (``plain_impls``) at the first
+    ``n`` of four precisions: f32; products in f64; products, norms' sums
+    and softmax in f64; and with the int8 MoE's float arithmetic around its
+    products in f64 too (``fused_top2_mlp_q8c_ref``'s ``mlp_dtype``). All
+    but the first are near-exact evaluations: their distance from the
+    first is a floor."""
+    import torch
+    f64 = torch.float64
+    out = []
+    for kw in ({}, {"acc_dtype": f64}, {"acc_dtype": f64, "red_dtype": f64},
+               {"acc_dtype": f64, "red_dtype": f64, "mlp_dtype": f64})[:n]:
+        with plain_impls(dit, **kw):
+            out.append(chunk())
+    return out
 
 
 def check_two_kernel(dit, routing, emb_all, steps, T, gen, cfg):
@@ -848,12 +929,6 @@ def sweep_run(policy, mode, sampler, steps, r, cfg, zero_launches,
     the f32-vs-f64 floors, with the same initial and sampler noise (the
     policy's generator re-seeded before each chunk), and the chunk ms."""
     import torch
-    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
-        fused_attn_block_q8_ref, fused_attn_block_ref)
-    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        fused_dit_q8c_ref, fused_layer_q8c_ref)
-    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
-        fused_top2_mlp_q8c_ref)
 
     ag = policy.agent
     ag.configure_(sampler_type=sampler, num_sampling_steps=steps)
@@ -896,27 +971,9 @@ def sweep_run(policy, mode, sampler, steps, r, cfg, zero_launches,
         chunk()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - c0) * 1e3)
-    impls = ("layer_impl", "dit_impl", "attn_impl", "attn_impl_bf16",
-             "moe_impl")
-    kernels = {k: getattr(dit, k) for k in impls}
-
-    def plain(acc=torch.float32, red=torch.float32):
-        kw = dict(acc_dtype=acc, red_dtype=red)
-        dit.layer_impl = functools.partial(fused_layer_q8c_ref, **kw)
-        dit.dit_impl = functools.partial(fused_dit_q8c_ref, **kw)
-        dit.attn_impl = functools.partial(fused_attn_block_q8_ref, **kw)
-        dit.attn_impl_bf16 = functools.partial(fused_attn_block_ref, **kw)
-        dit.moe_impl = functools.partial(fused_top2_mlp_q8c_ref,
-                                         red_dtype=red)
-        return chunk()
-
-    p = plain()
-    floors = [(p - plain(torch.float64)).abs().mean().item()]
-    if c.use_int8_attn or c.use_megakernel:
-        floors.append((p - plain(torch.float64, torch.float64))
-                      .abs().mean().item())
-    for k, fn in kernels.items():
-        setattr(dit, k, fn)
+    p, *exacts = plain_evals(
+        dit, chunk, 3 if c.use_int8_attn or c.use_megakernel else 2)
+    floors = [(p - e).abs().mean().item() for e in exacts]
     mae = (kern - p).abs().mean().item()
     tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * max(floors))
     row = dict(mode=mode, sampler=sampler, steps=steps,
@@ -1071,10 +1128,6 @@ def bf16_config_run(agent, results, cfg, zero_launches, launches_of):
     f32-vs-f64 floors, the chunk ms (median of 3) and its device split."""
     import torch
     from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
-    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
-        fused_attn_block, fused_attn_block_ref)
-    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
-        fused_top2_mlp, fused_top2_mlp_ref)
 
     agent.configure_(use_pallas_moe=True, use_pallas_attn=True,
                      use_int8_moe=False, use_fused_layer=True,
@@ -1104,15 +1157,8 @@ def bf16_config_run(agent, results, cfg, zero_launches, launches_of):
                 or not bool(torch.isfinite(kern).all()):
             raise SystemExit(f"bf16 configuration b={B}: bad chunk "
                              f"{tuple(kern.shape)}")
-        evals = {}
-        for key, kw in (("plain", {}),
-                        ("exact", {"acc_dtype": torch.float64}),
-                        ("exact_all", {"acc_dtype": torch.float64,
-                                       "red_dtype": torch.float64})):
-            dit.attn_impl_bf16 = functools.partial(fused_attn_block_ref, **kw)
-            dit.moe_impl_bf16 = functools.partial(fused_top2_mlp_ref, **kw)
-            evals[key] = chunk()
-        dit.attn_impl_bf16, dit.moe_impl_bf16 = fused_attn_block, fused_top2_mlp
+        evals = dict(zip(("plain", "exact", "exact_all"),
+                         plain_evals(dit, chunk)))
 
         def mae_of(a, b):
             return (a - b).abs().mean().item()
@@ -1256,14 +1302,8 @@ def fused_layer_int8_run(agent, results, routing, emb_all, steps, T, gen,
                 or not bool(torch.isfinite(kern).all()):
             raise SystemExit(f"fused layer, int8 projections, b={B}: bad "
                              f"chunk {tuple(kern.shape)}")
-        evals = {}
-        for key, kw in (("plain", {}),
-                        ("exact", {"acc_dtype": torch.float64}),
-                        ("exact_all", {"acc_dtype": torch.float64,
-                                       "red_dtype": torch.float64})):
-            dit.layer_impl = functools.partial(fused_layer_q8c_ref, **kw)
-            evals[key] = chunk()
-        dit.layer_impl = fused_layer_q8c
+        evals = dict(zip(("plain", "exact", "exact_all"),
+                         plain_evals(dit, chunk)))
 
         def mae_of(a, b):
             return (a - b).abs().mean().item()
@@ -1330,6 +1370,428 @@ def fused_layer_int8_run(agent, results, routing, emb_all, steps, T, gen,
               f"bound {bound:.4f} ms ({by}), plain {p_ms:.3f} ms, library "
               f"(library_attn then library_moe) {l_ms:.4f} ms", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the variants phase: every model option away from the flagship, served
+# through the kernels at the flagship widths
+# ---------------------------------------------------------------------------
+
+# (options of conf/model/mode_agent.yaml's inner_model or the model, the
+# presets served at their batch, and the launches of each kernel per
+# 10-step DDIM chunk; every other kernel launches 0 times). At b=1 the
+# goal-routing cond is one [1,1,D] row, which the whole-layer kernels take
+# as the shared row: b1-latency at b=128 serves the megakernel with one
+# cond row per sample.
+VARIANTS = {
+    "goal_routing_r34": (
+        {"use_goal_in_routing": True, "resnet_type": "34"},
+        (("parity", 128, {"fused_layer_q8c": 120}),
+         ("b1-latency", 1, {"fused_dit_q8c": 10}),
+         ("b1-latency", 128, {"fused_dit_q8c": 10}),
+         ("b1-latency-max", 1, {"fused_dit_q8c": 10}),
+         ("max-throughput", 128, {"fused_attn_block_q8": 120,
+                                  "fused_top2_mlp_q8c": 120}))),
+    "shared_r18": (
+        {"use_shared_expert": True, "num_experts": 5, "top_k": 3,
+         "resnet_type": "18"},
+        (("parity", 128, {"fused_attn_block": 120,
+                          "fused_top2_mlp_q8c": 120}),)),
+    "identity_cross": (
+        {"identity_expert": True, "use_cross_attention": True,
+         "noise_in_cross_attention": True},
+        (("parity", 128, {"fused_attn_block": 120}),)),
+    "plain_paths": (
+        {"causal": False, "cond_router": False, "router_normalize": False,
+         "goal_conditioned": False, "use_noise_token_as_input": False,
+         "use_proprio": True, "init_style": "normal"},
+        (("parity", 128, {"fused_top2_mlp_q8c": 120}),)),
+}
+VARIANT_TRAIN_B = 8
+# a cell's action MAEs are taken over at least this many samples: a b=1
+# cell serves this many single-sample chunks. On one sample the distance
+# between two valid evaluations is one draw of a few int8 rounding flips:
+# under b1-latency-max at b=1 it read from 1.3e-3 to 4.8e-3 across models
+# and samplers on an H100, too noisy a floor to gate a kernel by
+CELL_SAMPLES = 8
+
+
+def variant_model_cfg(opts):
+    """A conf/model/mode_agent.yaml-shaped dict at the flagship widths
+    with the variant's options (``resnet_type`` and ``use_proprio`` at the
+    model level, the rest in ``model.inner_model``)."""
+    model_level = ("resnet_type", "use_proprio")
+    return {"latent_dim": 1024, "cond_dim": 512, "seed": 42,
+            "entropy_gamma": 0.01, "router_z_delta": 0.001,
+            **{k: v for k, v in opts.items() if k in model_level},
+            "model": {"inner_model": {
+                "n_layers": 12, "n_heads": 8, "num_experts": 4, "top_k": 2,
+                **{k: v for k, v in opts.items() if k not in model_level}}}}
+
+
+def variant_cell(name, agent, mode, B, want, inputs, zero_launches,
+                 launches_of, calib=None):
+    """One cell: ``mode`` applied to ``agent``; each kernel the cell
+    launches held on block 0 to its plain version by the layer gates
+    (``cell_kernel_checks``); one chunk at batch ``B`` with its launches
+    counted (each kernel as ``want`` says, the others 0), against the same
+    agent's ``reference`` chunk and against the preset's plain evaluation
+    (its kernels' plain versions), each by the action-MAE rule max(1e-3,
+    2 x floor). Against the plain evaluation, as in every other phase, the
+    floor is the larger distance between the plain evaluation and two
+    near-exact ones (products in f64; products, norms and softmax in f64).
+    Against the reference it is the larger of that and the plain
+    evaluation's distance from the reference chunk: the preset's own
+    approximation of the reference (int8 experts; int8 projections and
+    encoders where it has them). Where ``B`` is below ``CELL_SAMPLES``
+    the MAEs are means over ``CELL_SAMPLES / B`` chunks at batch ``B``,
+    each on its own samples; launches and times are the first chunk's.
+    The chunk's ms (median of 3) beside."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
+    windows = [({k: v[i:i + B] for k, v in inputs[0].items()},
+                {"lang_emb": inputs[1][i:i + B]}, inputs[2][i:i + B])
+               for i in range(0, max(B, CELL_SAMPLES), B)]
+    policy = RolloutPolicy.with_serving_mode(agent, mode=mode, seed=0,
+                                             calib_batch=calib)
+    layer_err = cell_kernel_checks(f"{name} {mode}", policy.agent, B, want,
+                                   inputs[2].device)
+    zero_launches()
+    kerns = [policy.predict_chunk(*windows[0])]
+    torch.cuda.synchronize()
+    counts = launches_of()
+    dit = policy.agent.inner_model
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        policy.predict_chunk(*windows[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    kerns += [policy.predict_chunk(*w) for w in windows[1:]]
+    # the int8 MoE kernel's plain version has no float products to take to
+    # f64: where that kernel runs, its float arithmetic around the products
+    # is (mlp_dtype); alone, the norms' sums moved its served chunk by a
+    # quarter of what the kernel did (plain_paths on an H100)
+    n = 4 if "fused_top2_mlp_q8c" in want else 3
+    evals = [plain_evals(dit, lambda w=w: policy.predict_chunk(*w), n)
+             for w in windows]
+    del policy
+    ref_policy = RolloutPolicy.with_serving_mode(agent, mode="reference",
+                                                 seed=0)
+    refs = [ref_policy.predict_chunk(*w) for w in windows]
+    del ref_policy
+
+    def mae_of(a, b):
+        return statistics.fmean((x - y).abs().mean().item()
+                                for x, y in zip(a, b))
+
+    plains = [e[0] for e in evals]
+    exact_floor = max(mae_of(plains, [e[i] for e in evals])
+                      for i in range(1, n))
+    mae, mae_plain = mae_of(kerns, refs), mae_of(kerns, plains)
+    plain_ref = mae_of(plains, refs)
+    tol_plain = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * exact_floor)
+    # the preset's own approximation of the reference (int8 experts, and
+    # int8 projections and encoders where the preset has them): the plain
+    # evaluation's distance from the reference chunk
+    floor = max(exact_floor, plain_ref)
+    tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * floor)
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"  {name} {mode} b={B}: launches {launched}; action MAE over "
+          f"{len(windows) * B} samples vs "
+          f"reference {mae:.3e} (tol {tol:.3e}, floor {floor:.3e}), "
+          f"kernel-vs-plain {mae_plain:.3e} (tol {tol_plain:.3e}, "
+          f"plain-f32-vs-f64 floor {exact_floor:.3e}), "
+          f"plain-vs-reference {plain_ref:.3e}; chunk "
+          f"{statistics.median(ms):.2f} ms (median of 3: "
+          f"{', '.join(f'{m:.2f}' for m in ms)})", flush=True)
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if bad:
+        raise SystemExit(f"variants: {name} {mode} b={B} launched {bad}, "
+                         f"the table says {want}")
+    if not (all(bool(torch.isfinite(k).all()) for k in kerns)
+            and mae <= tol and mae_plain <= tol_plain):
+        raise SystemExit(f"variants: {name} {mode} b={B} disagrees with "
+                         "its reference chunk or its plain evaluation")
+    return {"launches": launched, "samples": len(windows) * B,
+            "layer_max_abs_err": layer_err,
+            "action_mae_vs_reference": mae,
+            "action_mae_vs_plain": mae_plain, "tol_vs_plain": tol_plain,
+            "plain_floor": exact_floor, "plain_vs_reference": plain_ref,
+            "action_floor": floor, "tol": tol, "chunk_ms": statistics.median(ms)}
+
+
+def cell_kernel_checks(label, agent, B, want, dev):
+    """Each per-layer kernel that a cell launches (``want``), once on block
+    0 of the served agent at batch ``B`` and step 0, on a random input and
+    the block's own cond (one row per sample under
+    ``use_goal_in_routing``), against its plain version by the layer
+    gates; the megakernel's layers are held in ``cond_row_checks``.
+    Returns the largest max |diff|."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block, fused_attn_block_q8, fused_attn_block_q8_ref,
+        fused_attn_block_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_layer_q8c, fused_layer_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    dit = agent.inner_model
+    cfg = dit.cfg
+    blk, a = dit.blocks[0], dit.blocks[0].attn
+    T, D = cfg.total_tokens, cfg.embed_dim
+    idx, probs = agent.precompute_routing()[0]
+    emb = dit.process_sigma_embeddings(torch.as_tensor(
+        agent.sigmas[:1], device=dev))
+    goal = dit.goal_emb(torch.randn(B, 1, cfg.goal_dim, generator=gen,
+                                    device=dev).to(cfg.dtype))
+    c = dit.cond_token(emb, goal)
+    x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+    attn_kw = dict(ln_eps=blk.ln_1.eps, qk_eps=a.q_norm.eps)
+    checks = {
+        "fused_layer_q8c": (fused_layer_q8c, fused_layer_q8c_ref, (
+            x, c, blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
+            a.k_norm.g, a.c_proj.kernel, blk.ln_2.g, blk.experts_q, idx,
+            probs), dict(step=0, qexp_t=blk.experts_qt, eps1=blk.ln_1.eps,
+                         eps_qk=a.q_norm.eps, eps2=blk.ln_2.eps)),
+        "fused_attn_block": (fused_attn_block, fused_attn_block_ref, (
+            x, c, blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
+            a.k_norm.g, a.c_proj.kernel), attn_kw),
+        "fused_attn_block_q8": (fused_attn_block_q8, fused_attn_block_q8_ref,
+                                (x, c, blk.ln_1.g, a.attn_q, a.q_norm.g,
+                                 a.k_norm.g),
+                                dict(attn_kw, qattn_t=a.attn_qt)),
+        # ln_2 fused but beside a shared expert, which takes the normed
+        # input as the residual seed
+        "fused_top2_mlp_q8c": (fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref, (
+            blk.ln_2(x) if cfg.use_shared_expert else x, idx, probs,
+            blk.experts_q), dict(
+                step=0, residual=True, qexp_t=blk.experts_qt,
+                ln_g=None if cfg.use_shared_expert else blk.ln_2.g,
+                ln_eps=blk.ln_2.eps))}
+    worst = 0.0
+    for name in want:
+        if name not in checks:
+            continue
+        kern, ref, args, kw = checks[name]
+        got = kern(*args, **kw)
+        torch.cuda.synchronize()
+        err, _ = layer_gate(f"{label} {name} b={B}", got, ref(*args, **kw))
+        worst = max(worst, err)
+    return worst
+
+
+def cond_row_checks(parity_dit, b1_stack, routing, emb_all, gen, T):
+    """The per-sample cond of fused_layer_q8c and fused_dit_q8c on a served
+    variant's weights. At b=128 (a cond row stride of D): equal rows give
+    the shared-row launch bit for bit; distinct rows stay within the layer
+    gates of the plain version; the megakernel's whole 12-layer launch with
+    distinct rows holds each of its layers to the plain layer on the
+    kernel's own input and equals them chained, bit for bit, and its
+    distance to the plain stack is printed beside the f32-vs-f64 plain
+    floor. At b=1 the sample's own row is one [1,1,D] row, which the
+    wrappers launch as the shared row (stride 0): that launch is held to
+    the plain version with the sample's own row. A per-token cond raises.
+    Each kernel's ms with one row per sample beside the shared row's."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c,
+        fused_layer_q8c_ref)
+    dit = parity_dit
+    blk, D = dit.blocks[0], dit.cfg.embed_dim
+    a = blk.attn
+    idx, probs = routing[0]
+    idx_L = torch.stack([i for i, _ in routing])
+    p_L = torch.stack([p for _, p in routing])
+    c = emb_all[0][None]
+    st = b1_stack
+    one = {k: v[:1] for k, v in st.items()}
+    eps = dict(eps1=blk.ln_1.eps, eps_qk=a.q_norm.eps, eps2=blk.ln_2.eps)
+    kw_layer = dict(step=0, qexp_t=blk.experts_qt, **eps)
+    kw_dit = dict(step=0, **eps)
+    out = {"fused_layer_q8c": {}, "fused_dit_q8c": {}}
+    worst = 0.0
+    for B in (128, 1):
+        x = torch.randn(B, T, D, generator=gen, device=c.device).to(
+            torch.bfloat16)
+        rows = per_sample_cond(dit, B, gen)
+        stride = 0 if rows.numel() == D else D
+        args = (x, blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
+                a.k_norm.g, a.c_proj.kernel, blk.ln_2.g, blk.experts_q, idx,
+                probs)
+        for name, kern, ref, kargs, kw in (
+                ("fused_layer_q8c", fused_layer_q8c, fused_layer_q8c_ref,
+                 args, kw_layer),
+                ("fused_dit_q8c", fused_dit_q8c, fused_dit_q8c_ref,
+                 (x, one, idx_L[:1], p_L[:1]), kw_dit)):
+            label = name if name == "fused_layer_q8c" else \
+                f"{name} (one layer)"
+            if stride:
+                err, share = check_cond_rows(label, kern, ref, kargs, c, rows,
+                                             kw)
+            else:
+                err, share = layer_gate(
+                    f"{label} b=1, the sample's own row",
+                    kern(x, rows, *kargs[1:], **kw),
+                    ref(x, rows, *kargs[1:], **kw))
+            worst = max(worst, err)
+            try:
+                kern(x, rows.expand(B, T, D).contiguous(), *kargs[1:], **kw)
+            except ValueError:
+                pass
+            else:
+                raise SystemExit(f"{name} took a per-token cond")
+            out[name][f"b{B}"] = {"c_stride": stride, "max_abs_err": err,
+                                  "gate_share": share}
+        if stride:
+            # the whole megakernel launch with one row per sample
+            full, share_L, err_L = check_stack_layers(
+                f"fused_dit_q8c b={B} per-sample cond", st, x, rows, idx_L,
+                p_L, 0, eps)
+            whole = fused_dit_q8c(x, c, st, idx_L, p_L, **kw_dit)
+            same = fused_dit_q8c(x, c.expand(B, 1, D).contiguous(), st,
+                                 idx_L, p_L, **kw_dit)
+            torch.cuda.synchronize()
+            if not torch.equal(whole, same):
+                raise SystemExit(f"fused_dit_q8c b={B}: equal cond rows "
+                                 "differ from the shared row over 12 layers")
+            plain = fused_dit_q8c_ref(x, rows, st, idx_L, p_L, **kw_dit)
+            exact = fused_dit_q8c_ref(x, rows, st, idx_L, p_L,
+                                      acc_dtype=torch.float64, **kw_dit)
+            vs_plain = (full.float() - plain.float()).abs().mean().item()
+            floor = (plain.float() - exact.float()).abs().mean().item()
+            worst = max(worst, err_L)
+            out["fused_dit_q8c"][f"b{B}"]["stack"] = {
+                "layers": st["ln1"].shape[0], "max_abs_err": err_L,
+                "gate_share": share_L, "vs_plain_mean": vs_plain,
+                "plain_f32_vs_f64_mean": floor}
+            print(f"  fused_dit_q8c b={B}, one cond row per sample: "
+                  f"{st['ln1'].shape[0]} layers each within the layer gates "
+                  f"(worst {share_L:.2f} of the gate), the launch == its "
+                  f"layers chained; stack vs plain stack mean {vs_plain:.3e}"
+                  f", plain f32 vs f64 mean {floor:.3e}", flush=True)
+        for name, launch, iters in (
+                ("fused_layer_q8c",
+                 lambda cc: fused_layer_q8c(x, cc, *args[1:], **kw_layer),
+                 20),
+                ("fused_dit_q8c",
+                 lambda cc: fused_dit_q8c(x, cc, st, idx_L, p_L, **kw_dit),
+                 10)):
+            row = out[name][f"b{B}"]
+            row["ms_shared"] = cuda_time_ms(lambda: launch(c), iters)
+            if stride:
+                row["ms_per_sample"] = cuda_time_ms(lambda: launch(rows),
+                                                    iters)
+    line = "; ".join(
+        f"{k} {b}: " + (f"{v['ms_per_sample']:.4f} ms per-sample cond vs "
+                        f"{v['ms_shared']:.4f} ms shared row"
+                        if v["c_stride"] else
+                        f"{v['ms_shared']:.4f} ms (one sample: its row is "
+                        "the shared-row launch)")
+        for k, rows_ in out.items() for b, v in rows_.items())
+    print(f"  per-sample cond: {line}", flush=True)
+    return out, worst
+
+
+def variant_inputs(gen, dev, B=128):
+    """b=128 preprocessed 224 px frames, a 512-wide goal and the initial
+    noise; a cell at b=1 takes the first sample."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
+    obs = {k: preprocess_camera(torch.randint(
+        0, 256, (B, 1, 224, 224, 3), generator=gen, device=dev,
+        dtype=torch.uint8)) for k in CAMS}
+    return (obs, torch.randn(B, 1, 512, generator=gen, device=dev),
+            torch.randn(B, 10, 7, generator=gen, device=dev))
+
+
+def variant_train(agent, dev):
+    """Two train steps of ``agent`` at B=8 on synthetic frames (the plain
+    path: no kernel), with autograd on; returns each step's metrics."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.training.loop import make_train_step
+    from mode_diffusion_policy_tpu_torch.training.optim import make_optimizer
+    from mode_diffusion_policy_tpu_torch.training.state import TrainState
+    gen = torch.Generator(device=dev).manual_seed(13)
+    batches = [eval_batch(b) for b in train_batches(gen, 2, VARIANT_TRAIN_B,
+                                                    dev)]
+    with torch.enable_grad():
+        opt, _ = make_optimizer(dict(agent.named_parameters()))
+        state = TrainState.create(agent, opt, gen)
+        step = make_train_step(agent, opt, device=dev)
+        out = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            out.append({k: float(v) for k, v in m.items()
+                        if k.startswith("train/")})
+            out[-1]["step_ms"] = (time.perf_counter() - t0) * 1e3
+    for m in out:
+        if not all(math.isfinite(v) for v in m.values()) or \
+                "train/load_balancing_loss" not in m:
+            raise SystemExit(f"variants: shared_r18 train step {m}")
+    print(f"  shared_r18: two train steps at B={VARIANT_TRAIN_B}: {out}",
+          flush=True)
+    del state, opt, step
+    return out
+
+
+def variants_phase(zero_launches, launches_of, dev):
+    """Each variant of ``VARIANTS`` built in turn through
+    ``config.builders.build_agent`` at the flagship widths (seeded random
+    weights) and served under its presets (``variant_cell``); the
+    per-sample cond of both whole-layer kernels on goal_routing_r34's
+    weights (``cond_row_checks``); two train steps of shared_r18 before
+    its parity chunk, which serves the trained weights. Each agent is
+    freed before the next is built."""
+    import gc
+    import torch
+    from mode_diffusion_policy_tpu_torch.config.builders import build_agent
+    gen = torch.Generator(device=dev).manual_seed(12)
+    inputs = variant_inputs(gen, dev)
+    calib = {**{k: v[:4] for k, v in inputs[0].items()},
+             "lang_emb": inputs[1][:4]}
+    res = {"cells": {}, "train": None, "cond_rows": None}
+    for name, (opts, cells) in VARIANTS.items():
+        t = time.perf_counter()
+        agent = build_agent(variant_model_cfg(opts), dtype=torch.bfloat16,
+                            device=dev)[0]
+        cfg = agent.cfg
+        print(f"  {name}: resnet_type {cfg.resnet_type}, obs_dim "
+              f"{cfg.obs_dim}, {cfg.dit_config().total_tokens} tokens, "
+              f"experts {cfg.num_experts} (routed "
+              f"{cfg.dit_config().num_routed_experts}, top "
+              f"{cfg.dit_config().router_top_k})", flush=True)
+        if name == "shared_r18":
+            res["train"] = variant_train(agent, dev)
+        policies = {}
+        for mode, B, want in cells:
+            res["cells"][f"{name}/{mode}/b{B}"] = variant_cell(
+                name, agent, mode, B, want, inputs, zero_launches,
+                launches_of, calib if mode == "max-throughput" else None)
+            if name == "goal_routing_r34" and mode in (
+                    "parity", "b1-latency") and mode not in policies:
+                from mode_diffusion_policy_tpu_torch.models.agent import \
+                    RolloutPolicy
+                policies[mode] = RolloutPolicy.with_serving_mode(
+                    agent, mode=mode, seed=0).agent
+        if policies:
+            pa = policies["parity"]
+            sched = torch.as_tensor(pa.sigmas[:-1], device=dev)
+            res["cond_rows"], res["cond_rows_max_err"] = cond_row_checks(
+                pa.inner_model, policies["b1-latency"].inner_model.stacked,
+                pa.precompute_routing(),
+                pa.inner_model.process_sigma_embeddings(sched), gen,
+                pa.inner_model.cfg.total_tokens)
+        del agent, policies
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(f"variants: {name}", t)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1742,8 +2204,6 @@ def serve_trained(state, dev, zero_launches, launches_of):
     from mode_diffusion_policy_tpu_torch.models.agent import (
         MoDEAgent, MoDEAgentConfig, RolloutPolicy)
     from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
-    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        fused_layer_q8c, fused_layer_q8c_ref)
     cfg = MoDEAgentConfig(dtype=torch.bfloat16, **TRAIN_MODEL)
     agent = MoDEAgent(cfg, device=dev)
     sd = {n: t.float() for n, t in state.ema_params.items()}
@@ -1762,13 +2222,9 @@ def serve_trained(state, dev, zero_launches, launches_of):
     kern = policy.predict_chunk(obs, goal, noise)
     torch.cuda.synchronize()
     counts = launches_of()
-    dit = policy.agent.inner_model
-    dit.layer_impl = fused_layer_q8c_ref
-    plain = policy.predict_chunk(obs, goal, noise)
-    dit.layer_impl = functools.partial(fused_layer_q8c_ref,
-                                       acc_dtype=torch.float64)
-    exact = policy.predict_chunk(obs, goal, noise)
-    dit.layer_impl = fused_layer_q8c
+    plain, exact = plain_evals(policy.agent.inner_model,
+                               lambda: policy.predict_chunk(obs, goal, noise),
+                               2)
     mae = (kern - plain).abs().mean().item()
     floor = (plain - exact).abs().mean().item()
     tol = max(CHUNK_MAE_TOL, CHUNK_FLOOR_FACTOR * floor)
@@ -1968,31 +2424,17 @@ def eval_floor(policy, raw, mode, dev):
     kernel-vs-plain one."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
-    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c,
-        fused_layer_q8c_ref)
     obs = {c: preprocess_camera(torch.as_tensor(raw[c], device=dev),
                                 size=policy.sizes[c]) for c in CAMS}
     goal = {"lang_text": "open the drawer"}
     noise = torch.randn(1, 10, 7, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(5))
-    dit = policy.agent.inner_model
-    attr, kern_fn, ref = (("layer_impl", fused_layer_q8c, fused_layer_q8c_ref)
-                          if mode == "parity" else
-                          ("dit_impl", fused_dit_q8c, fused_dit_q8c_ref))
     kern = policy.predict_chunk(obs, goal, noise)
-    setattr(dit, attr, ref)
-    plain = policy.predict_chunk(obs, goal, noise)
-    floors = []
-    variants = [dict(acc_dtype=torch.float64)]
-    if mode != "parity":
-        variants.append(dict(acc_dtype=torch.float64,
-                             red_dtype=torch.float64))
-    for kw in variants:
-        setattr(dit, attr, functools.partial(ref, **kw))
-        floors.append((plain - policy.predict_chunk(obs, goal, noise))
-                      .abs().mean().item())
-    setattr(dit, attr, kern_fn)
+    plain, *exacts = plain_evals(
+        policy.agent.inner_model,
+        lambda: policy.predict_chunk(obs, goal, noise),
+        2 if mode == "parity" else 3)
+    floors = [(plain - e).abs().mean().item() for e in exacts]
     return max(floors), (kern - plain).abs().mean().item()
 
 
@@ -3191,12 +3633,11 @@ def main():
         MoDEAgent, MoDEAgentConfig, RolloutPolicy)
     from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
-        fused_attn_block, fused_attn_block_q8, fused_attn_block_q8_ref)
+        fused_attn_block, fused_attn_block_q8)
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c, fused_layer_q8c_ref)
+        fused_dit_q8c, fused_layer_q8c, fused_layer_q8c_ref)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
-        fused_top2_mlp, fused_top2_mlp_q8, fused_top2_mlp_q8c,
-        fused_top2_mlp_q8c_ref)
+        fused_top2_mlp, fused_top2_mlp_q8, fused_top2_mlp_q8c)
     # every kernel's launch count; each served path is driven with all of
     # them set to 0 just before and read just after
     counters = (fused_attn_block_q8, fused_top2_mlp_q8c, fused_layer_q8c,
@@ -3314,12 +3755,8 @@ def main():
                             generator=rng, device=dev)
         kern = policy.predict_chunk(obs, goal, noise)
         again = policy.predict_chunk(obs, goal, noise)
-        dit.layer_impl = fused_layer_q8c_ref
-        plain = policy.predict_chunk(obs, goal, noise)
-        dit.layer_impl = functools.partial(fused_layer_q8c_ref,
-                                           acc_dtype=torch.float64)
-        exact = policy.predict_chunk(obs, goal, noise)
-        dit.layer_impl = fused_layer_q8c
+        plain, exact = plain_evals(
+            dit, lambda: policy.predict_chunk(obs, goal, noise), 2)
 
         def mae_of(a, b):
             return (a - b).abs().mean().item()
@@ -3465,16 +3902,9 @@ def main():
                 f"{want_launches}), other kernels {counts} (expected 0)")
         kern = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
         again = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
-        dit.dit_impl = fused_dit_q8c_ref
-        plain = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
-        dit.dit_impl = functools.partial(fused_dit_q8c_ref,
-                                         acc_dtype=torch.float64)
-        exact = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
-        dit.dit_impl = functools.partial(fused_dit_q8c_ref,
-                                         acc_dtype=torch.float64,
-                                         red_dtype=torch.float64)
-        exact_all = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
-        dit.dit_impl = fused_dit_q8c
+        plain, exact, exact_all = plain_evals(
+            dit, lambda: policy.predict_chunk(r["obs"], r["goal"],
+                                              r["noise"]))
 
         def mae_of(a, b):
             return (a - b).abs().mean().item()
@@ -3564,17 +3994,8 @@ def main():
                          f"and MoE, 0 layer and 0 megakernel")
     kern = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
     again = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
-    evals = {}
-    for key, (attn_kw, moe_kw) in (
-            ("plain", ({}, {})),
-            ("exact", ({"acc_dtype": torch.float64}, {})),
-            ("exact_all", ({"acc_dtype": torch.float64,
-                            "red_dtype": torch.float64},
-                           {"red_dtype": torch.float64}))):
-        dit.attn_impl = functools.partial(fused_attn_block_q8_ref, **attn_kw)
-        dit.moe_impl = functools.partial(fused_top2_mlp_q8c_ref, **moe_kw)
-        evals[key] = policy.predict_chunk(r["obs"], r["goal"], r["noise"])
-    dit.attn_impl, dit.moe_impl = fused_attn_block_q8, fused_top2_mlp_q8c
+    evals = dict(zip(("plain", "exact", "exact_all"), plain_evals(
+        dit, lambda: policy.predict_chunk(r["obs"], r["goal"], r["noise"]))))
 
     def mae_of(a, b):
         return (a - b).abs().mean().item()
@@ -3721,6 +4142,17 @@ def main():
     # the serving agents are freed first: the training state takes ~20 B per
     # parameter, and the f64 gradient check a float64 copy of the model
     del agent, policy, policies, dit, pdit, blk, a, deq, deq_layers
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the variants phase: every model option, served through the
+    # kernels at the flagship widths ------------------------------------
+    t = time.perf_counter()
+    variants = variants_phase(zero_launches, launches_of, dev)
+    phase("variants: goal_routing_r34 (parity, b1-latency, b1-latency-max, "
+          "max-throughput), shared_r18 (trained, parity), identity_cross, "
+          "plain_paths", t)
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -3766,6 +4198,7 @@ def main():
             "launches", "launches_per_chunk", "chunks",
             "action_mae_vs_reference", "tol")},
         "chunk_split_b128": split_b128,
+        "per_sample_cond": variants["cond_rows"]["fused_layer_q8c"],
         "action_mae": {"b128": results[128]["action_mae"],
                        "b1": results[1]["action_mae"]},
         "action_floor": {"b128": results[128]["action_floor"],
@@ -3829,6 +4262,7 @@ def main():
                           "library_ms")}},
         "chunk_ms_b1": chunk_b1,
         "chunk_split_b1": split,
+        "per_sample_cond": variants["cond_rows"]["fused_dit_q8c"],
         "eval": {k: evaluation["b1-latency"][k] for k in (
             "launches", "launches_per_chunk", "chunks",
             "action_mae_vs_reference", "tol")},
@@ -3947,6 +4381,7 @@ def main():
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"libero": libero}, default=str), flush=True)
+    print(json.dumps({"variants": variants}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,25 +85,6 @@ _KNOWN_INNER_KEYS = {
     "use_int8_attn", "use_fused_layer", "use_megakernel",
 }
 
-# options of the JAX config at the one value the port's model implements
-# (models/modedit.MoDeDiTConfig): another value raises, as the port's
-# MoDEAgent raises for a resnet_type other than "50" (ROADMAP.md Queue 1)
-_FIXED = {
-    ("model", "use_proprio"): False,
-    ("inner", "use_shared_expert"): False,
-    ("inner", "identity_expert"): False,
-    ("inner", "goal_conditioned"): True,
-    ("inner", "causal"): True,
-    ("inner", "cond_router"): True,
-    ("inner", "router_normalize"): True,
-    ("inner", "use_goal_in_routing"): False,
-    ("inner", "use_noise_token_as_input"): True,
-    ("inner", "use_cross_attention"): False,
-    ("inner", "noise_in_cross_attention"): False,
-    ("inner", "init_style"): "olmoe",
-}
-
-
 def _validate_inner_model(inner: Dict[str, Any]):
     """Raise on inner_model options that would otherwise be silently
     mis-instantiated."""
@@ -146,21 +127,12 @@ def _validated_norm(v):
 
 def build_agent_config(model_cfg: Dict[str, Any], *, dtype=None):
     """``conf/model/mode_agent.yaml`` -> ``MoDEAgentConfig``, with the JAX
-    builder's parsing and defaults."""
+    builder's parsing and defaults: every model option and
+    ``resnet_type`` pass through."""
     from ..models.agent import MoDEAgentConfig
 
     inner = model_cfg.get("model", {}).get("inner_model", {})
     _validate_inner_model(inner)
-    for (where, key), fixed in _FIXED.items():
-        src = model_cfg if where == "model" else inner
-        if key not in src:
-            continue
-        got = (str(src[key]).strip("'\"") if isinstance(fixed, str)
-               else _bool(src[key], fixed))
-        if got != fixed:
-            raise NotImplementedError(
-                f"{key}={src[key]!r} is not ported yet: the port's MoDeDiT "
-                f"implements {key}={fixed!r} only (ROADMAP.md Queue 1)")
     return MoDEAgentConfig(
         latent_dim=_num(model_cfg.get("latent_dim", 1024), 1024),
         multistep=_num(model_cfg.get("multistep", 10), 10),
@@ -180,15 +152,30 @@ def build_agent_config(model_cfg: Dict[str, Any], *, dtype=None):
         goal_seq_len=_num(inner.get("goal_seq_len", 1), 1),
         entropy_gamma=_num(model_cfg.get("entropy_gamma", 0.0), 0.0),
         router_z_delta=_num(model_cfg.get("router_z_delta", 0.0), 0.0),
+        # read as the JAX builder reads it (bool() of the raw value)
+        use_proprio=bool(model_cfg.get("use_proprio", False)),
         n_layers=_num(inner.get("n_layers", 12), 12),
         n_heads=_num(inner.get("n_heads", 8), 8),
         num_experts=_num(inner.get("num_experts", 4), 4),
         top_k=_num(inner.get("top_k", 2), 2),
+        use_shared_expert=_bool(inner.get("use_shared_expert"), False),
+        identity_expert=_bool(inner.get("identity_expert"), False),
+        goal_conditioned=_bool(inner.get("goal_conditioned"), True),
+        causal=_bool(inner.get("causal"), True),
         embed_pdrob=_num(inner.get("embed_pdrob", 0.0), 0.0),
         goal_drop=_num(inner.get("goal_drop", 0.1), 0.1),
         attn_pdrop=_num(inner.get("attn_pdrop", 0.3), 0.3),
         mlp_pdrop=_num(inner.get("mlp_pdrop", 0.1), 0.1),
+        cond_router=_bool(inner.get("cond_router"), True),
+        router_normalize=_bool(inner.get("router_normalize"), True),
+        use_goal_in_routing=_bool(inner.get("use_goal_in_routing"), False),
         use_argmax=_bool(inner.get("use_argmax"), False),
+        use_noise_token_as_input=_bool(
+            inner.get("use_noise_token_as_input"), True),
+        init_style=str(inner.get("init_style", "olmoe")).strip("'\""),
+        use_cross_attention=_bool(inner.get("use_cross_attention"), False),
+        noise_in_cross_attention=_bool(
+            inner.get("noise_in_cross_attention"), False),
         seed=_num(model_cfg.get("seed", 42), 42),
         dtype=dtype if dtype is not None else torch.float32,
         use_pallas_moe=_bool(inner.get("use_pallas_moe"), False),

@@ -95,7 +95,9 @@ struct DitMaps {
 };
 
 struct DitArgs {
-  // inputs: activation, shared f32 cond row, stacked vectors, routing
+  // inputs: activation, f32 cond rows (one shared row, or one per sample:
+  // c_stride 0 or D; every layer reads them from this buffer), stacked
+  // vectors, routing
   const bf16* x;
   const float* c;
   const float* ln1;       // [L, D]
@@ -128,7 +130,7 @@ struct DitArgs {
   bf16* tmp;              // [M, D]   ping-pong partner of out
   bf16* out;              // [M, D]
   unsigned long long* times;   // [marks, 2] (%globaltimer, clock), or null
-  int S, step, L, B, T, D, H, HH, TH, E;
+  int S, step, L, B, T, D, H, HH, TH, E, c_stride;
   int n_slots, ring_bytes, team_bytes;   // the shared-memory plan
   float eps1, eps_qk, eps2, rs_D, rs_hd, scale;
 };
@@ -289,11 +291,12 @@ __device__ __forceinline__ void dit_consumer(const DitArgs& a,
     const float* ln1 = a.ln1 + (size_t)l * D;
     for (int i = team; i < M; i += teams) {
       if constexpr (Q8)
-        ln1_quant_row(la.src, a.c, 1, 0, ln1, static_cast<int8_t*>(a.h),
-                      a.hs, D, a.rs_D, a.eps1, i, scratch, tm);
+        ln1_quant_row(la.src, a.c, a.T, a.c_stride, ln1,
+                      static_cast<int8_t*>(a.h), a.hs, D, a.rs_D, a.eps1, i,
+                      scratch, tm);
       else
-        ln1_row(la.src, a.c, 1, 0, ln1, static_cast<bf16*>(a.h), D, a.rs_D,
-                a.eps1, i, scratch, tm);
+        ln1_row(la.src, a.c, a.T, a.c_stride, ln1, static_cast<bf16*>(a.h),
+                D, a.rs_D, a.eps1, i, scratch, tm);
       tm.sync();
     }
     end_stage(false, true);
@@ -384,7 +387,8 @@ enum Ptr {
   kXm, kXq, kSx, kAct, kAq, kSa, kPart, kTmp, kOut, kNumPtr
 };
 enum Int {
-  iS, iStep, iL, iB, iT, iD, iH, iHH, iTH, iE, iInt8Attn, iTile, kNumInt
+  iS, iStep, iL, iB, iT, iD, iH, iHH, iTH, iE, iInt8Attn, iTile, iCStride,
+  kNumInt
 };
 enum Flt { fEps1, fEpsQk, fEps2, fRsD, fRsHd, fScale, kNumFlt };
 
@@ -480,6 +484,9 @@ extern "C" int fused_dit_q8c_launch(const unsigned long long* p, int n_p,
   a.times = static_cast<unsigned long long*>(times);
   a.S = n[iS]; a.step = n[iStep]; a.L = n[iL]; a.B = n[iB]; a.T = n[iT];
   a.D = n[iD]; a.H = n[iH]; a.HH = n[iHH]; a.TH = n[iTH]; a.E = n[iE];
+  a.c_stride = n[iCStride];
+  if (a.c_stride != 0 && a.c_stride != a.D)
+    return (int)cudaErrorInvalidValue;
   a.eps1 = f[fEps1]; a.eps_qk = f[fEpsQk]; a.eps2 = f[fEps2];
   a.rs_D = f[fRsD]; a.rs_hd = f[fRsHd]; a.scale = f[fScale];
   const bool q8 = n[iInt8Attn] != 0;

@@ -80,7 +80,8 @@ using namespace mdp;
 
 // The int8 experts as the K-major copy w1_t [E, 2H, D], w2_t [E, D, H]
 // with their scales w1_s [E, 2H], w2_s [E, D] and f32 b1 [E, 2H]; c the f32
-// cond row [D]. qkv_tm, qkv_tn, out_tm, out_tn: the (rows, columns) of the
+// cond rows, c_stride 0 for one row [D] shared by every sample, D for one
+// row per sample [B, D] (the JAX kernel's c of [B, 1, D]). qkv_tm, qkv_tn, out_tm, out_tn: the (rows, columns) of the
 // two projections' tiles (64 or 128 each). tile:
 // 128 (128 x 128 MoE output tiles, the down stage summing in registers) or
 // 64 (64 x 64, the down stage writing part [2 H / TH, M, D] f32 for the
@@ -96,13 +97,13 @@ extern "C" int fused_layer_q8c_launch(
     int step, void* h, void* qkv, void* o,
     void* xmid, void* xm, void* xq, void* sx, void* act, void* aq, void* sa,
     void* part, void* out, int B, int T, int D, int H, int HH, int TH, int E,
-    float eps1, float eps_qk, float eps2, float rs_D, float rs_hd,
-    float scale, int qkv_tm, int qkv_tn, int out_tm, int out_tn, int tile,
-    int ctas, void* stream) {
+    int c_stride, float eps1, float eps_qk, float eps2, float rs_D,
+    float rs_hd, float scale, int qkv_tm, int qkv_tn, int out_tm, int out_tn,
+    int tile, int ctas, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T;
   const int tiles[4] = {qkv_tm, qkv_tn, out_tm, out_tn};
-  if (const int e = attn_bf16_stages(x, c, 0, ln1_g, wqkv, bqkv, q_g, k_g,
+  if (const int e = attn_bf16_stages(x, c, c_stride, ln1_g, wqkv, bqkv, q_g, k_g,
                                      wout, h, qkv, o, xmid, B, T, D, H, eps1,
                                      eps_qk, rs_D, rs_hd, scale, tiles, ctas,
                                      st))
@@ -120,7 +121,8 @@ extern "C" int fused_layer_q8c_launch(
 // then ln2_quant and the MoE stages as above. The projections read the
 // K-major int8 copy wqkv_t [3D, D], wout_t [D, D] with their column scales
 // wqkv_s [3D], wout_s [D]; qkv_tiles and out_tiles are the (rows, columns)
-// of their output tiles (64 or 128 each); the other arguments are those of
+// of their output tiles (64 or 128 each); c holds the cond rows in bf16
+// (c_stride as above); the other arguments are those of
 // fused_layer_q8c_launch. The result equals fused_attn_block_q8 followed by
 // fused_top2_mlp_q8c (ln_2, residual) bit for bit: the same stages.
 extern "C" int fused_layer_q8c_q8_launch(
@@ -131,15 +133,15 @@ extern "C" int fused_layer_q8c_q8_launch(
     const void* w2_s, const void* idx, const void* probs, int step, void* hq,
     void* hs, void* qkv, void* o, void* oq, void* os, void* xmid, void* xm,
     void* xq, void* sx, void* act, void* aq, void* sa, void* part, void* out,
-    int B, int T, int D, int H, int HH, int TH, int E, float eps1,
-    float eps_qk, float eps2, float rs_D, float rs_hd, float scale,
-    int qkv_tm, int qkv_tn, int out_tm, int out_tn, int tile, int ctas,
-    void* stream) {
+    int B, int T, int D, int H, int HH, int TH, int E, int c_stride,
+    float eps1, float eps_qk, float eps2, float rs_D, float rs_hd,
+    float scale, int qkv_tm, int qkv_tn, int out_tm, int out_tn, int tile,
+    int ctas, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T;
   const int tiles[4] = {qkv_tm, qkv_tn, out_tm, out_tn};
   if (const int e = attn_q8_stages(
-          x, c, 0, ln1_g, wqkv_t, wqkv_s, bqkv, q_g, k_g, wout_t, wout_s, hq,
+          x, c, c_stride, ln1_g, wqkv_t, wqkv_s, bqkv, q_g, k_g, wout_t, wout_s, hq,
           hs, qkv, o, oq, os, xmid, B, T, D, H, eps1, eps_qk, rs_D, rs_hd,
           scale, tiles, ctas, st))
     return e;

@@ -140,20 +140,24 @@ def restore_trained(agent, ckpt: Path, use_ema: bool = True):
 
 def load_converted(agent, ckpt: Path):
     """Load a published reference torch checkpoint (safetensors dir,
-    ``.ckpt`` or ``.pt``) into ``agent`` through the converters."""
+    ``.ckpt`` or ``.pt``) into ``agent`` through the converters: the DiT
+    with whatever options its keys hold, the encoders as the config's
+    ``resnet_type`` builds them (``checkpoint_convert.encoder_kwargs``)."""
     from ..models.agent import ENCODERS
     from ..utils.checkpoint_convert import (convert_film_resnet,
                                             convert_modedit, detect_layout,
+                                            encoder_kwargs,
                                             load_torch_checkpoint,
                                             normalize_state_dict)
+    from ..utils.weights import load_dit_state_
     sd = normalize_state_dict(load_torch_checkpoint(str(ckpt)))
     n_layers, n_experts, prefix = detect_layout(sd)
-    agent.inner_model.load_state_dict(
-        convert_modedit(sd, n_layers, n_experts, prefix))
+    load_dit_state_(agent.inner_model,
+                    convert_modedit(sd, n_layers, n_experts, prefix))
     for enc in ENCODERS:
         try:
-            conv = convert_film_resnet(sd, depth=int(agent.cfg.resnet_type),
-                                       prefix=f"{enc}.")
+            conv = convert_film_resnet(
+                sd, prefix=f"{enc}.", **encoder_kwargs(agent.cfg.resnet_type))
         except KeyError:
             logger.warning("no %s weights in checkpoint", enc)
             continue

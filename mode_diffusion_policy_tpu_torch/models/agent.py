@@ -9,7 +9,8 @@ The precast keeps the f32 weights as masters beside their casts, so that
 every quantization reads the f32 values, as the JAX package's does.
 
 Served paths (``RolloutPolicy`` under a serving preset): camera frames ->
-2x BN-folded FiLM-ResNet-50 (int8 convs under ``max-throughput``) ->
+2x BN-folded FiLM-ResNet-50 (or -34, or the scratch ResNet-18 by
+``resnet_type``; int8 convs under ``max-throughput``) ->
 per-sigma top-2 routing tables -> hoisted chunk invariants (static tokens,
 sigma tokens, EDM scalings) -> the configured sampler (``sampler_type``,
 ``num_sampling_steps`` on the ``noise_scheduler`` ladder from
@@ -33,8 +34,14 @@ The policy precasts its own copy of the agent (``RolloutPolicy``): the
 caller's parameters stay f32 and untouched, as the JAX policy's "training
 state is untouched".
 
+Every model option of the JAX config is served the way the JAX agent
+serves it: the kernels that a variant's block can take run, the rest stays
+on the plain path (``MoDeDiTConfig.fused_attn``, ``fused_layer``,
+``megakernel``); with ``use_goal_in_routing`` every kernel takes one cond
+row per sample.
+
 Training (``training_loss``, ``validation_denoise``; driven by
-``training.loop``): camera frames through both raw FiLM-ResNet-50 encoders
+``training.loop``): camera frames through both raw encoders
 in train mode (batch statistics, their running-statistics update returned,
 the activations rematerialized in the backward pass with
 ``encoder_remat``), the DiT in train mode, the EDM loss on sigmas from the
@@ -60,9 +67,10 @@ from .edm.densities import make_sample_density
 from .edm.precond import denoiser_forward, denoiser_loss, edm_scalings
 from .edm.samplers import sample_loop
 from .edm.schedules import get_noise_schedule
-from .encoders.resnet import (FiLMResNetPolicy, batch_stats_updates,
+from .encoders.resnet import (ResNetEncoderWithFiLM, batch_stats_updates,
                               calibration_stats, fold_resnet_params,
-                              infer_q8_skip, quantize_resnet_params)
+                              infer_q8_skip, make_encoder,
+                              quantize_resnet_params)
 from .modedit import (MoDeDiT, MoDeDiTConfig, load_balancing_loss,
                       router_z_loss)
 
@@ -84,22 +92,36 @@ class MoDEAgentConfig:
     noise_scheduler: str = "exponential"
     sigma_sample_density_type: str = "loglogistic"
     cond_dim: int = 512
-    resnet_type: str = "50"
+    resnet_type: str = "50"        # "34"/"50": FiLMResNetPolicy; else the
+                                   # scratch ResNetEncoderWithFiLM
     act_window_size: int = 10
     action_dim: int = 7
     obs_seq_len: int = 1
     goal_seq_len: int = 1
     entropy_gamma: float = 0.0     # weight of load_balancing_loss
     router_z_delta: float = 0.001  # weight of router_z_loss
+    use_proprio: bool = False
     n_layers: int = 12
     n_heads: int = 8
     num_experts: int = 4
     top_k: int = 2
+    use_shared_expert: bool = False
+    identity_expert: bool = False
+    # inner_model passthrough (conf/model/mode_agent.yaml)
+    goal_conditioned: bool = True
+    causal: bool = True
     embed_pdrob: float = 0.0
     goal_drop: float = 0.1
     attn_pdrop: float = 0.3
     mlp_pdrop: float = 0.1
+    cond_router: bool = True
+    router_normalize: bool = True
+    use_goal_in_routing: bool = False
     use_argmax: bool = False
+    use_noise_token_as_input: bool = True
+    init_style: str = "olmoe"
+    use_cross_attention: bool = False
+    noise_in_cross_attention: bool = False
     seed: int = 42
     dtype: Any = torch.float32
     use_pallas_moe: bool = False
@@ -117,7 +139,9 @@ class MoDEAgentConfig:
 
     @property
     def obs_dim(self) -> int:
-        return 2048                  # FiLM-ResNet-50 feature dim
+        """The camera encoders' feature width: 2048 for ResNet-50, 512
+        otherwise."""
+        return 2048 if self.resnet_type == "50" else 512
 
     def dit_config(self) -> MoDeDiTConfig:
         return MoDeDiTConfig(
@@ -126,10 +150,21 @@ class MoDEAgentConfig:
             n_layers=self.n_layers, n_heads=self.n_heads,
             goal_seq_len=self.goal_seq_len, obs_seq_len=self.obs_seq_len,
             action_seq_len=self.act_window_size,
-            num_experts=self.num_experts, top_k=self.top_k, dtype=self.dtype,
+            use_proprio=self.use_proprio, num_experts=self.num_experts,
+            top_k=self.top_k, use_shared_expert=self.use_shared_expert,
+            identity_expert=self.identity_expert,
+            goal_conditioned=self.goal_conditioned, causal=self.causal,
             embed_pdrob=self.embed_pdrob, goal_drop=self.goal_drop,
             attn_pdrop=self.attn_pdrop, mlp_pdrop=self.mlp_pdrop,
-            use_argmax=self.use_argmax, use_grouped_moe=self.use_grouped_moe,
+            cond_router=self.cond_router,
+            router_normalize=self.router_normalize,
+            use_goal_in_routing=self.use_goal_in_routing,
+            use_argmax=self.use_argmax,
+            use_noise_token_as_input=self.use_noise_token_as_input,
+            init_style=self.init_style,
+            use_cross_attention=self.use_cross_attention,
+            noise_in_cross_attention=self.noise_in_cross_attention,
+            dtype=self.dtype, use_grouped_moe=self.use_grouped_moe,
             use_int8_moe=self.use_int8_moe,
             use_pallas_moe=self.use_pallas_moe,
             use_pallas_attn=self.use_pallas_attn,
@@ -172,23 +207,18 @@ def _clip_candidates(calib, headroom: float = 1.0):
 
 
 class MoDEAgent(nn.Module):
-    """The DiT denoiser plus two FiLM-ResNet-50 camera encoders, with
+    """The DiT denoiser plus two camera encoders (FiLM-ResNet-50 or -34,
+    or the scratch ResNet-18 with per-block FiLM, by ``resnet_type``), with
     seeded random weights (``utils/weights.from_jax_params`` loads a JAX
     parameter tree instead)."""
 
     def __init__(self, cfg: MoDEAgentConfig, *, device="cuda"):
         super().__init__()
-        if cfg.resnet_type != "50":
-            raise NotImplementedError(
-                f"resnet_type {cfg.resnet_type!r} is not ported yet; only "
-                "the FiLM-ResNet-50 encoders are (ROADMAP.md Queue 1)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.inner_model = MoDeDiT(cfg.dit_config(), self.device)
         for name in ENCODERS:
-            self.add_module(name, FiLMResNetPolicy(
-                cfg.cond_dim, 50, cfg.dtype, device=self.device,
-                norm=cfg.encoder_norm))
+            self.add_module(name, self._encoder(norm=cfg.encoder_norm))
         self.folded = None   # nn.ModuleDict of BN-folded encoders, once built
         self.q8 = None       # nn.ModuleDict of int8 encoders, once built
         self.q8_clips = {}   # the calibrated clip label of each int8 encoder
@@ -208,10 +238,16 @@ class MoDEAgent(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.inner_model.init_weights_(gen)
         for name in ENCODERS:
-            for p in getattr(self, name).parameters():
+            enc = getattr(self, name)
+            scratch = isinstance(enc, ResNetEncoderWithFiLM)
+            for p in enc.parameters():
                 if p.ndim == 4:    # conv OIHW: lecun normal
                     fan_in = p.shape[1] * p.shape[2] * p.shape[3]
                     p.normal_(0.0, fan_in ** -0.5, generator=gen)
+                elif p.ndim == 2 and scratch:
+                    # the scratch encoder's FiLM and head denses: lecun
+                    # normal (the policy encoders' FiLM starts at zero)
+                    p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
 
     def configure_(self, **fields):
         """Replace config fields in place: the kernel flags
@@ -246,18 +282,19 @@ class MoDEAgent(nn.Module):
             return self
         folded = {}
         for name in ENCODERS:
-            mod = FiLMResNetPolicy(self.cfg.cond_dim, 50, self.cfg.dtype,
-                                   folded=True, device=self.device)
+            mod = self._encoder(folded=True)
             mod.load_state_dict(fold_resnet_params(
                 getattr(self, name).state_dict()))
             folded[name] = mod
         self.folded = nn.ModuleDict(folded)
         return self
 
-    def _encoder(self, folded=False, q8=False, q8_skip=()):
-        return FiLMResNetPolicy(self.cfg.cond_dim, 50, self.cfg.dtype,
-                                folded=folded, q8=q8, q8_skip=q8_skip,
-                                device=self.device)
+    def _encoder(self, folded=False, q8=False, q8_skip=(), norm="batch"):
+        """A camera encoder of the config's ``resnet_type``."""
+        return make_encoder(self.cfg.resnet_type, self.cfg.cond_dim,
+                            self.cfg.dtype, folded=folded, q8=q8,
+                            q8_skip=tuple(q8_skip), device=self.device,
+                            norm=norm)
 
     def set_q8_encoders_(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]):
         """Install int8 encoders from ``quantize_resnet_params`` state dicts

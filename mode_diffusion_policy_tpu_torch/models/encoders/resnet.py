@@ -1,7 +1,9 @@
-"""FiLM-conditioned ResNet-50 camera encoder (counterpart of
-``mode_diffusion_policy_tpu/models/encoders/resnet.py``: ``FiLMResNetPolicy``
-with bottleneck blocks, the inference BatchNorm fold and the space-to-depth
-stem).
+"""FiLM-conditioned ResNet camera encoders (counterpart of
+``mode_diffusion_policy_tpu/models/encoders/resnet.py``):
+``FiLMResNetPolicy`` at depths 18, 34 (basic blocks) and 50 (bottleneck
+blocks) with stage-level FiLM, the scratch ResNet-18
+``ResNetEncoderWithFiLM`` with per-block FiLM (``FilmModule``) and a
+projection head, the inference BatchNorm fold and the space-to-depth stem.
 
 Public functions take the JAX package's NHWC images; convolutions run
 NCHW through ``torch.nn.functional.conv2d`` (the JAX package leaves them to
@@ -33,9 +35,9 @@ import torch.nn.functional as F
 
 from ...ops.primitives import DenseP, at_least_f32
 
-STAGE_SIZES = {50: (3, 4, 6, 3)}
+STAGE_SIZES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 STAGE_WIDTHS = (64, 128, 256, 512)
-EXPANSION = 4
+EXPANSION = 4           # bottleneck blocks (depth 50); basic blocks: 1
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9      # flax's convention: new = 0.9 * old + 0.1 * batch
 
@@ -270,21 +272,22 @@ def batch_stats_updates(module: nn.Module, prefix: str = ""):
             m.sink = None
 
 
-class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (stride here, torchvision v1.5 style) -> 1x1 (x4), with a
-    1x1 projection shortcut when the shape changes. ``folded`` blocks carry
-    conv biases in place of their BatchNorms."""
+def expansion(depth: int) -> int:
+    return EXPANSION if depth == 50 else 1
 
-    def __init__(self, cin, planes, stride=1, has_downsample=False,
-                 dtype=torch.float32, folded=False, q8=False, device=None,
-                 norm="batch"):
-        super().__init__()
+
+def out_dim(depth: int) -> int:
+    """Features of a ``FiLMResNetPolicy`` of this depth: 2048 or 512."""
+    return STAGE_WIDTHS[-1] * expansion(depth)
+
+
+class _Block(nn.Module):
+    """The convs of a residual block, each followed by its norm unless
+    ``folded`` (then the conv carries a bias); ``specs`` are (name, in,
+    out, kernel, stride), the shortcut's named "downsample"."""
+
+    def _add_convs(self, specs, dtype, folded, q8, device, norm):
         self.folded = folded
-        self.has_downsample = has_downsample
-        specs = [("1", cin, planes, 1, 1), ("2", planes, planes, 3, stride),
-                 ("3", planes, planes * EXPANSION, 1, 1)]
-        if has_downsample:
-            specs.append(("downsample", cin, planes * EXPANSION, 1, stride))
         for name, ci, co, k, s in specs:
             conv = f"conv{name}" if name != "downsample" else "downsample_conv"
             bn = f"bn{name}" if name != "downsample" else "downsample_bn"
@@ -300,17 +303,66 @@ class Bottleneck(nn.Module):
         x = getattr(self, conv)(x)
         return x if self.folded else getattr(self, bn)(x, train)
 
-    def forward(self, x, train: bool = False):
+    def _shortcut(self, x, train):
+        return (self._cbn(x, "downsample_conv", "downsample_bn", train)
+                if self.has_downsample else x)
+
+
+def _film(x, film):
+    """Per-block FiLM ``gamma * x + beta`` on NCHW ``x``."""
+    if film is None:
+        return x
+    gamma, beta = film
+    return gamma[:, :, None, None] * x + beta[:, :, None, None]
+
+
+class BasicBlock(_Block):
+    """3x3 (stride here) -> 3x3, with a 1x1 projection shortcut when the
+    shape changes, and an optional per-block FiLM after the second norm
+    (the scratch ResNet-18)."""
+
+    def __init__(self, cin, planes, stride=1, has_downsample=False,
+                 dtype=torch.float32, folded=False, q8=False, device=None,
+                 norm="batch"):
+        super().__init__()
+        self.has_downsample = has_downsample
+        specs = [("1", cin, planes, 3, stride), ("2", planes, planes, 3, 1)]
+        if has_downsample:
+            specs.append(("downsample", cin, planes, 1, stride))
+        self._add_convs(specs, dtype, folded, q8, device, norm)
+
+    def forward(self, x, train: bool = False, film=None):
+        out = F.relu(self._cbn(x, "conv1", "bn1", train))
+        out = _film(self._cbn(out, "conv2", "bn2", train), film)
+        return F.relu(out + self._shortcut(x, train))
+
+
+class Bottleneck(_Block):
+    """1x1 -> 3x3 (stride here, torchvision v1.5 style) -> 1x1 (x4), with a
+    1x1 projection shortcut when the shape changes. ``folded`` blocks carry
+    conv biases in place of their BatchNorms."""
+
+    def __init__(self, cin, planes, stride=1, has_downsample=False,
+                 dtype=torch.float32, folded=False, q8=False, device=None,
+                 norm="batch"):
+        super().__init__()
+        self.has_downsample = has_downsample
+        specs = [("1", cin, planes, 1, 1), ("2", planes, planes, 3, stride),
+                 ("3", planes, planes * EXPANSION, 1, 1)]
+        if has_downsample:
+            specs.append(("downsample", cin, planes * EXPANSION, 1, stride))
+        self._add_convs(specs, dtype, folded, q8, device, norm)
+
+    def forward(self, x, train: bool = False, film=None):
         out = F.relu(self._cbn(x, "conv1", "bn1", train))
         out = F.relu(self._cbn(out, "conv2", "bn2", train))
-        out = self._cbn(out, "conv3", "bn3", train)
-        identity = (self._cbn(x, "downsample_conv", "downsample_bn", train)
-                    if self.has_downsample else x)
-        return F.relu(out + identity)
+        out = _film(self._cbn(out, "conv3", "bn3", train), film)
+        return F.relu(out + self._shortcut(x, train))
 
 
 class ResNetBackbone(nn.Module):
-    """Headless ResNet-50 trunk with stage-level FiLM; NCHW in and out.
+    """Headless ResNet-18/34 (basic blocks) or -50 (bottleneck) trunk; NCHW
+    in and out.
 
     ``q8`` (folded trunks only): False, True (int8 convs with dynamic
     activation scales) or "static" (calibrated scales); ``q8_skip`` names
@@ -323,8 +375,8 @@ class ResNetBackbone(nn.Module):
                  norm="batch"):
         super().__init__()
         if depth not in STAGE_SIZES:
-            raise NotImplementedError(
-                f"ResNet-{depth} is not ported yet (ROADMAP.md Queue 1)")
+            raise ValueError(f"no ResNet-{depth}: depths "
+                             f"{sorted(STAGE_SIZES)}")
         if q8 and not folded:
             raise ValueError("int8 convs (q8) run on the folded trunk only")
         self.folded = folded
@@ -338,41 +390,51 @@ class ResNetBackbone(nn.Module):
         else:
             self.conv1 = Conv2d(3, 64, 7, 2, dtype=dtype, device=device)
             self.bn1 = make_norm(norm, 64, dtype, device)
+        block, exp = ((Bottleneck, EXPANSION) if depth == 50
+                      else (BasicBlock, 1))
         self.stages = []
         cin = 64
         for s, (n, width) in enumerate(zip(STAGE_SIZES[depth], STAGE_WIDTHS)):
             names = []
             for b in range(n):
                 stride = 2 if (s > 0 and b == 0) else 1
-                has_ds = b == 0 and (stride != 1 or cin != width * EXPANSION)
+                has_ds = b == 0 and (stride != 1 or cin != width * exp)
                 name = f"layer{s + 1}_{b}"
                 q8_b = False if f"layer{s + 1}" in q8_skip else q8
-                self.add_module(name, Bottleneck(cin, width, stride, has_ds,
-                                                 dtype, folded, q8_b, device,
-                                                 norm))
+                self.add_module(name, block(cin, width, stride, has_ds,
+                                            dtype, folded, q8_b, device,
+                                            norm))
                 names.append(name)
-                cin = width * EXPANSION
+                cin = width * exp
             self.stages.append(names)
 
-    def forward(self, x_nhwc, stage_films, train: bool = False):
+    def forward(self, x_nhwc, stage_films=None, train: bool = False,
+                block_films=None):
+        """``stage_films``: per stage (gamma, beta) applied after it as
+        ``(1 + gamma) x + beta``; ``block_films``: per stage a list of per
+        block (gamma, beta), applied inside each block."""
         if self.folded:
             x = space_to_depth_2x2(x_nhwc).permute(0, 3, 1, 2)
             x = self.conv1(x)
         else:
             x = self.bn1(self.conv1(x_nhwc.permute(0, 3, 1, 2)), train)
         x = F.max_pool2d(F.relu(x), 3, 2, 1)
-        for names, (gamma, beta) in zip(self.stages, stage_films):
-            for name in names:
-                x = getattr(self, name)(x, train)
-            x = (1.0 + gamma[:, :, None, None]) * x + beta[:, :, None, None]
+        for s, names in enumerate(self.stages):
+            for b, name in enumerate(names):
+                film = None if block_films is None else block_films[s][b]
+                x = getattr(self, name)(x, train, film)
+            if stage_films is not None:
+                gamma, beta = stage_films[s]
+                x = (1.0 + gamma[:, :, None, None]) * x \
+                    + beta[:, :, None, None]
         return x
 
 
 class FiLMResNetPolicy(nn.Module):
     """Backbone + zero-init stage FiLM ``(1+gamma)*x + beta`` + global
     average pool: images [B,H,W,3] (NHWC), condition [B,cond] or
-    [B,1,cond] -> [B, 2048]. ``train=True`` normalizes on batch
-    statistics (see ``BatchNorm``)."""
+    [B,1,cond] -> [B, 2048] (depth 50) or [B, 512] (18, 34).
+    ``train=True`` normalizes on batch statistics (see ``BatchNorm``)."""
 
     def __init__(self, condition_dim, depth=50, dtype=torch.float32,
                  folded=False, q8=False, q8_skip: Tuple[str, ...] = (),
@@ -380,7 +442,7 @@ class FiLMResNetPolicy(nn.Module):
         super().__init__()
         self.dtype = dtype
         for s, width in enumerate(STAGE_WIDTHS):
-            ch = width * EXPANSION
+            ch = width * expansion(depth)
             for part in ("gamma", "beta"):
                 d = DenseP(condition_dim, ch, dtype=dtype, device=device)
                 nn.init.zeros_(d.kernel)
@@ -399,6 +461,70 @@ class FiLMResNetPolicy(nn.Module):
         return x.mean(dim=(2, 3))
 
 
+class FilmModule(nn.Module):
+    """SiLU -> Dense(4 * hidden) (``fc``): the (gamma, beta) pairs of a
+    stage's two blocks."""
+
+    def __init__(self, condition_dim, hidden, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.fc = DenseP(condition_dim, 4 * hidden, dtype=dtype,
+                         device=device)
+
+    def forward(self, c):
+        first, second = self.fc(F.silu(c)).chunk(2, dim=-1)
+        return [tuple(first.chunk(2, dim=-1)), tuple(second.chunk(2, dim=-1))]
+
+
+class ResNetEncoderWithFiLM(nn.Module):
+    """The scratch ResNet-18 with per-block FiLM (``film_module{1..4}``)
+    and a projection head ``fc``: images [B,H,W,3] or [B,T,H,W,3],
+    condition [B,cond] or [B,1,cond] (or None: no FiLM) -> [B, latent_dim]
+    (or [B,T,latent_dim])."""
+
+    def __init__(self, condition_dim, latent_dim=512, dtype=torch.float32,
+                 folded=False, q8=False, q8_skip: Tuple[str, ...] = (),
+                 device=None, norm="batch"):
+        super().__init__()
+        self.dtype = dtype
+        self.latent_dim = latent_dim
+        for s, width in enumerate(STAGE_WIDTHS):
+            self.add_module(f"film_module{s + 1}", FilmModule(
+                condition_dim, width, dtype, device))
+        self.resnet = ResNetBackbone(18, dtype, folded, q8, tuple(q8_skip),
+                                     device, norm)
+        self.fc = DenseP(STAGE_WIDTHS[-1], latent_dim, dtype=dtype,
+                         device=device)
+
+    def forward(self, x, condition=None, train: bool = False):
+        series = x.ndim == 5
+        if series:
+            B, T = x.shape[:2]
+            x = x.reshape((B * T,) + tuple(x.shape[2:]))
+            if condition is not None:
+                condition = torch.cat([condition] * T, dim=0)
+        films = None
+        if condition is not None:
+            if condition.ndim == 3:
+                condition = condition[:, 0, :]
+            condition = condition.to(self.dtype)
+            films = [getattr(self, f"film_module{s + 1}")(condition)
+                     for s in range(len(STAGE_WIDTHS))]
+        x = self.resnet(x.to(self.dtype), None, train, films)
+        x = self.fc(x.mean(dim=(2, 3)))
+        return x.reshape(B, T, self.latent_dim) if series else x
+
+
+def make_encoder(resnet_type: str, condition_dim, dtype=torch.float32,
+                 **kw) -> nn.Module:
+    """The agent's camera encoder for ``resnet_type`` (JAX ``MoDEAgent``):
+    ``FiLMResNetPolicy`` at depth 34 or 50, the scratch
+    ``ResNetEncoderWithFiLM`` (latent 512) otherwise."""
+    if str(resnet_type) in ("34", "50"):
+        return FiLMResNetPolicy(condition_dim, int(resnet_type), dtype, **kw)
+    return ResNetEncoderWithFiLM(condition_dim, 512, dtype, **kw)
+
+
 def _fold_conv_bn(weight, sd, bn, eps=BN_EPS):
     s = sd[f"{bn}.scale"] / torch.sqrt(sd[f"{bn}.var"] + eps)
     return (weight * s[:, None, None, None],
@@ -408,9 +534,10 @@ def _fold_conv_bn(weight, sd, bn, eps=BN_EPS):
 def fold_resnet_params(state_dict: Dict[str, torch.Tensor], eps=BN_EPS
                        ) -> Dict[str, torch.Tensor]:
     """Fold every conv+BatchNorm pair of an unfolded ``FiLMResNetPolicy``
-    state dict into conv weight+bias and rewrite the stem for the
-    space-to-depth input; returns the state dict of the ``folded=True``
-    module. FiLM denses pass through."""
+    or ``ResNetEncoderWithFiLM`` state dict into conv weight+bias and
+    rewrite the stem for the space-to-depth input; returns the state dict
+    of the ``folded=True`` module. FiLM denses and the head pass
+    through."""
     sd = {k: v.float() for k, v in state_dict.items()}
     out = {}
     for key, val in sd.items():

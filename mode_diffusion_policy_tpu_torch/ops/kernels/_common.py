@@ -115,9 +115,12 @@ def _check_moe_widths(D, TH):
         raise ValueError(f"block_hidden {TH} must be a multiple of 128")
 
 
-def _check_widths(T, D, H, hd, TH, c):
-    _check_attn_widths(T, D, H, hd, c)
+def _check_widths(T, D, H, hd, TH, c, B=None):
+    """The whole-layer kernels' widths (``_check_attn_widths`` and
+    ``_check_moe_widths``); returns the cond row's stride per sample."""
+    stride = _check_attn_widths(T, D, H, hd, c, B)
     _check_moe_widths(D, TH)
+    return stride
 
 
 def _tables(top2_idx, top2_probs, step, lead=()):

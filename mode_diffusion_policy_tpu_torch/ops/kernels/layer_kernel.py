@@ -139,7 +139,8 @@ def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
     """Plain PyTorch version of the DiT megakernel: ``fused_layer_q8c_ref``
     chained over the L layers of ``stacked`` (``MoDeDiT.stack_layers``), x
     carried in its own dtype between layers. top2_idx/probs are [L,S,2]
-    tables with a ``step`` row selector, or [L,2] single rows. int8
+    tables with a ``step`` row selector, or [L,2] single rows; c is
+    [1,1,D], [B,1,D] or [B,T,D], every layer's cond. int8
     attention projections when ``stacked`` has "sqkv". Where the stack
     holds its K-major int8 copies (``DIT_KMAJOR``, ``DIT_KMAJOR_ATTN``) the
     int8 products read them, as the CUDA kernel does, with the same
@@ -157,15 +158,16 @@ def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
 
 
 # the two launchers of csrc/fused_layer_q8c.cu: bf16 projections, int8
-# projections (whose tile plan comes before the MoE's)
+# projections (whose tile plan comes before the MoE's); the ints after the
+# scratch pointers are B, T, D, H, HH, TH, E and the cond row's stride
 _LAUNCH_ARGTYPES = {
     "fused_layer_q8c_launch": (
         [ctypes.c_void_p] * 16 + [ctypes.c_int] + [ctypes.c_void_p] * 12
-        + [ctypes.c_int] * 7 + [ctypes.c_float] * 6 + [ctypes.c_int] * 6
+        + [ctypes.c_int] * 8 + [ctypes.c_float] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_void_p]),
     "fused_layer_q8c_q8_launch": (
         [ctypes.c_void_p] * 18 + [ctypes.c_int] + [ctypes.c_void_p] * 15
-        + [ctypes.c_int] * 7 + [ctypes.c_float] * 6 + [ctypes.c_int] * 6
+        + [ctypes.c_int] * 8 + [ctypes.c_float] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_void_p]),
 }
 
@@ -188,11 +190,12 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     """One full NoiseBlockMoE inference layer.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 activations,
-    bf16 projections or int8 ones (``qattn``), a shared [1,1,D] cond row,
-    T <= 16, hd a multiple of 32), which needs ``qexp_t``, the K-major copy
-    of the int8 experts, and with ``qattn`` also ``qattn_t``, that of the
-    int8 projections. CPU tensors: the plain version
-    ``fused_layer_q8c_ref``. Returns x.dtype [B,T,D]."""
+    bf16 projections or int8 ones (``qattn``), one shared [1,1,D] cond row
+    or one per sample [B,1,D] (a per-token [B,T,D] cond raises), T <= 16,
+    hd a multiple of 32), which needs ``qexp_t``, the K-major copy of the
+    int8 experts, and with ``qattn`` also ``qattn_t``, that of the int8
+    projections. CPU tensors: the plain version ``fused_layer_q8c_ref``,
+    which also takes a per-token cond. Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_layer_q8c_ref(
             x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, qexp, top2_idx,
@@ -214,7 +217,7 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     E, _, H2 = qexp.w1_q.shape
     HH = H2 // 2
     TH = _hidden_block(HH, block_hidden)
-    _check_widths(T, D, H, hd, TH, c)
+    c_stride = _check_widths(T, D, H, hd, TH, c, B)
     bf = torch.bfloat16
     _check(x, "x", bf, (B, T, D), dev)
     if qattn is None:
@@ -226,11 +229,12 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     else:
         check_kmajor_attn(qattn, qattn_t, D, dev)
         bqkv = qattn.bqkv
-    # the cond row rounded to x.dtype: in f32 for the bf16-projection
-    # stages, as it is (bf16) for the int8 ones
-    c = c.reshape(D).to(x.dtype)
+    # the cond rows rounded to x.dtype: in f32 for the bf16-projection
+    # stages, as they are (bf16) for the int8 ones
+    n_c = B if c_stride else 1
+    c = c.reshape(n_c * D).to(x.dtype)
     c = (c.float() if qattn is None else c).contiguous()
-    _check(c, "c", torch.float32 if qattn is None else bf, (D,), dev)
+    _check(c, "c", torch.float32 if qattn is None else bf, (n_c * D,), dev)
     ln1_g = ln1_g.float().contiguous()
     ln2_g = ln2_g.float().contiguous()
     q_g = q_g.float().contiguous()
@@ -273,8 +277,8 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     scratch.append(out.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher(entry)(*p, s, *scratch, B, T, D, H, HH, TH, E, eps1,
-                               eps_qk, eps2, D ** -0.5, hd ** -0.5,
+        err = _launcher(entry)(*p, s, *scratch, B, T, D, H, HH, TH, E,
+                               c_stride, eps1, eps_qk, eps2, D ** -0.5, hd ** -0.5,
                                float(1.0 / math.sqrt(hd)), *tail, plan.tile,
                                plan.ctas, stream)
     if err != 0:
@@ -340,7 +344,7 @@ DIT_PTRS = ("x", "c", "ln1", "wqkv", "sqkv", "bqkv", "q_g", "k_g", "wout",
             "probs", "h", "hs", "qkv", "o", "oq", "os", "xmid", "xm", "xq",
             "sx", "act", "aq", "sa", "part", "tmp", "out")
 DIT_INTS = ("S", "step", "L", "B", "T", "D", "H", "HH", "TH", "E",
-            "int8_attn", "tile")
+            "int8_attn", "tile", "c_stride")
 DIT_FLOATS = ("eps1", "eps_qk", "eps2", "rs_D", "rs_hd", "scale")
 # the launcher's info: grid, CTAs per SM, dynamic and static shared memory
 # per CTA (bytes), ring stages, consumer warpgroups, registers per thread,
@@ -390,7 +394,9 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
     single rows.
 
     CUDA tensors: ONE cooperative launch of the hand-written megakernel
-    (bf16 activations, a shared [1,1,D] cond row, T <= 16), which needs the
+    (bf16 activations, one shared [1,1,D] cond row or one per sample
+    [B,1,D], read by every layer; a per-token [B,T,D] cond raises; T <=
+    16), which needs the
     K-major copies; a device without cooperative launch, a grid that does
     not fit or a tensor map that cannot be made raises. ``times``: None, or
     a CUDA int64 tensor [1 + L * len(dit_stage_names(...)), 2] that the
@@ -417,7 +423,7 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
     E, _, H2 = stacked["w1_q"].shape[1:]
     HH = H2 // 2
     TH = _hidden_block(HH, block_hidden)
-    _check_widths(T, D, H, hd, TH, c)
+    c_stride = _check_widths(T, D, H, hd, TH, c, B)
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     _check(x, "x", bf, (B, T, D), dev)
     want = {"ln1": (f32, (L, D)), "bqkv": (f32, (L, 3 * D)),
@@ -432,7 +438,8 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
         want.update(wqkv=(bf, (L, D, 3 * D)), wout=(bf, (L, D, D)))
     for k, (dt, shape) in want.items():
         _check(stacked[k], k, dt, shape, dev)
-    c = c.reshape(D).to(x.dtype).float().contiguous()
+    c = c.reshape((B if c_stride else 1) * D).to(x.dtype).float() \
+        .contiguous()
     idx, probs, S, s = _tables(top2_idx, top2_probs, step, lead=(L,))
     _check(idx, "top2_idx", torch.int32, (L, S, 2), dev)
     _check(probs, "top2_probs", f32, (L, S, 2), dev)
@@ -453,7 +460,7 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
     ptrs.update(zip(DIT_PTRS[DIT_PTRS.index("h"):DIT_PTRS.index("out")],
                     scratch))
     ints = dict(S=S, step=s, L=L, B=B, T=T, D=D, H=H, HH=HH, TH=TH, E=E,
-                int8_attn=int(int8_attn), tile=tile)
+                int8_attn=int(int8_attn), tile=tile, c_stride=c_stride)
     flts = dict(eps1=eps1, eps_qk=eps_qk, eps2=eps2, rs_D=D ** -0.5,
                 rs_hd=hd ** -0.5, scale=float(1.0 / math.sqrt(hd)))
     p = (ctypes.c_uint64 * len(DIT_PTRS))(*(ptrs.get(k) or 0

@@ -137,12 +137,16 @@ def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
                            residual: bool = False, ln_g=None,
                            ln_eps: float = 1e-6,
                            red_dtype: torch.dtype = torch.float32,
-                           qexp_t: ExpertsKMajor = None) -> torch.Tensor:
+                           qexp_t: ExpertsKMajor = None,
+                           mlp_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
     """Plain PyTorch version (any device, any float dtype). x [B,T,D];
     top2_idx/probs [S,2] tables with a ``step`` row selector, or single [2]
     rows; ``qexp`` the int8 experts. ``red_dtype`` is the accumulation type
-    of the prenorm's sum of squares (float32 as in the kernel, or float64
-    for a near-exact evaluation). With ``qexp_t`` (``kmajor_experts(qexp)``)
+    of the prenorm's sum of squares and ``mlp_dtype`` the type of the float
+    arithmetic around the int8 products (dequantization, bias, SiLU, the
+    gate-weighted sum): float32 as in the kernel, or float64 for
+    near-exact evaluations. With ``qexp_t`` (``kmajor_experts(qexp)``)
     the products read the int8 weights from that K-major copy, as the
     CUDA kernels do, with the same result. Returns x.dtype [B,T,D]."""
     B, T, D = x.shape
@@ -152,8 +156,9 @@ def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
     xm = x.reshape(B * T, D).float()
     if ln_g is not None:
         xm = _rmsnorm_rows(xm, ln_g, ln_eps, red_dtype).to(dt).float()
-    acc = xm if residual else torch.zeros_like(xm)
+    acc = (xm if residual else torch.zeros_like(xm)).to(mlp_dtype)
     xq, sx = quant_rows(xm)
+    sx = sx.to(mlp_dtype)
     idx, probs = _routing_row(top2_idx, top2_probs, step)
     for slot in range(2):
         e = idx[slot].to(qexp.w1_q.device)
@@ -161,16 +166,19 @@ def fused_top2_mlp_q8c_ref(x, top2_idx, top2_probs, qexp: QuantizedExperts,
             w1, w2 = qexp.w1_q[e], qexp.w2_q[e]
         else:
             w1, w2 = qexp_t.w1_t[e].T, qexp_t.w2_t[e].T
-        s1, b1, s2 = (qexp.w1_s[e].float(), qexp.b1[e].float(),
-                      qexp.w2_s[e].float())
-        p = probs[slot].to(x.device)
+        s1, b1, s2 = (qexp.w1_s[e].to(mlp_dtype),
+                      qexp.b1[e].to(mlp_dtype), qexp.w2_s[e].to(mlp_dtype))
+        p = probs[slot].to(x.device, mlp_dtype)
         for kb in range(HH // TH):
             vc = slice(kb * TH, (kb + 1) * TH)
             gc = slice(HH + kb * TH, HH + (kb + 1) * TH)
-            value = dot_i8(xq, w1[:, vc]).float() * (sx * s1[vc][None]) + b1[vc]
-            gate = dot_i8(xq, w1[:, gc]).float() * (sx * s1[gc][None]) + b1[gc]
+            value = (dot_i8(xq, w1[:, vc]).to(mlp_dtype)
+                     * (sx * s1[vc][None]) + b1[vc])
+            gate = (dot_i8(xq, w1[:, gc]).to(mlp_dtype)
+                    * (sx * s1[gc][None]) + b1[gc])
             aq, sa = quant_rows(value * F.silu(gate))
-            contrib = dot_i8(aq, w2[vc]).float() * (sa * s2[None])
+            contrib = dot_i8(aq, w2[vc]).to(mlp_dtype) * (sa.to(mlp_dtype)
+                                                          * s2[None])
             acc = acc + p * contrib
     return acc.to(dt).reshape(B, T, D)
 

@@ -33,42 +33,70 @@ routes inline) runs each layer's attention sub-block as one kernel launch,
 ``ops/kernels/attn_kernel.fused_attn_block`` (bf16 projections: ``parity``,
 ``b1-latency``) or ``fused_attn_block_q8`` (``max-throughput``,
 ``b1-latency-max``), with one cond row per sample.
+
+Each preset's flags are derived from the agent's config exactly as the JAX
+function derives them (``preset_flags``): the MoE kernels where the router
+picks two routed experts, the attention kernels where the head dim is a
+multiple of 128, the whole-layer kernel (and the megakernel) only without
+an identity or shared expert and without cross-attention. A model outside
+a kernel's shapes keeps that part on the plain path, with the JAX
+function's warnings.
 """
 from __future__ import annotations
 
 import logging
+
+from .models.agent import MoDEAgentConfig
 
 logger = logging.getLogger(__name__)
 
 SERVING_MODES = ("reference", "parity", "max-throughput", "b1-latency",
                  "b1-latency-max", "auto")
 
-# presets with no port yet: {mode: what they need} (none left)
-UNPORTED_MODES = {}
+# the flags `reference` sets: every kernel off
+REFERENCE_FLAGS = dict(use_int8_moe=False, use_pallas_moe=False,
+                       use_pallas_attn=False, use_fused_layer=False,
+                       use_int8_attn=False, use_megakernel=False)
 
-# config flags of each preset, the JAX package's flag map: use_pallas_moe
-# and use_int8_moe on for the four kernel presets (the int8 MoE takes
-# precedence, so the bf16 MoE kernel runs on none of them), and
-# use_pallas_attn, where the attention sub-block outside the fused layer
-# (the samplers' off-schedule evaluations, the two-kernel layer) is one
-# kernel launch; `reference` turns every flag off
-PRESET_FLAGS = {
-    "reference": dict(use_int8_moe=False, use_pallas_moe=False,
-                      use_pallas_attn=False, use_fused_layer=False,
-                      use_int8_attn=False, use_megakernel=False),
-    "parity": dict(use_int8_moe=True, use_pallas_moe=True,
-                   use_pallas_attn=True, use_fused_layer=True,
-                   use_int8_attn=False, use_megakernel=False),
-    "max-throughput": dict(use_int8_moe=True, use_pallas_moe=True,
-                           use_pallas_attn=True, use_fused_layer=False,
-                           use_int8_attn=True, use_megakernel=False),
-    "b1-latency": dict(use_int8_moe=True, use_pallas_moe=True,
-                       use_pallas_attn=True, use_fused_layer=True,
-                       use_int8_attn=False, use_megakernel=True),
-    "b1-latency-max": dict(use_int8_moe=True, use_pallas_moe=True,
-                           use_pallas_attn=True, use_fused_layer=True,
-                           use_int8_attn=True, use_megakernel=True),
-}
+
+def preset_flags(cfg, mode: str, warn: bool = False) -> dict:
+    """The kernel flags of serving preset ``mode`` for the agent config
+    ``cfg`` (``models.agent.MoDEAgentConfig``), as JAX
+    ``serving.apply_serving_mode`` computes them; with ``warn``, its two
+    warnings for a model outside the kernels' shapes."""
+    if mode == "reference":
+        return dict(REFERENCE_FLAGS)
+    head_dim = cfg.latent_dim // cfg.n_heads
+    fusable_attn = head_dim % 128 == 0
+    routed_k = cfg.top_k - (1 if cfg.use_shared_expert else 0)
+    top2 = routed_k == 2
+    fused_layer = (top2 and fusable_attn and not cfg.identity_expert
+                   and not cfg.use_shared_expert
+                   and not cfg.use_cross_attention)
+    flags = dict(use_pallas_moe=top2, use_int8_moe=top2,
+                 use_pallas_attn=fusable_attn)
+    if mode in ("b1-latency", "b1-latency-max"):
+        flags.update(use_int8_attn=mode == "b1-latency-max" and fusable_attn,
+                     use_fused_layer=fused_layer, use_megakernel=fused_layer)
+    else:
+        flags.update(use_int8_attn=mode == "max-throughput" and fusable_attn,
+                     use_fused_layer=fused_layer and mode != "max-throughput",
+                     use_megakernel=False)
+    if warn and not top2:
+        logger.warning("serving mode %s: routed top-k=%d outside the fused "
+                       "top-2 kernel: MoE stays on the plain gather path",
+                       mode, routed_k)
+    if warn and not fusable_attn and not mode.startswith("b1-latency"):
+        logger.warning("serving mode %s: head_dim=%d not a multiple of 128: "
+                       "attention stays on the plain path", mode, head_dim)
+    return flags
+
+
+# each preset's flags at the flagship config (MoDEAgentConfig's defaults:
+# head dim 128, top-2 of 4 experts, no shared or identity expert, no
+# cross-attention), where every kernel takes the model
+PRESET_FLAGS = {mode: preset_flags(MoDEAgentConfig(), mode)
+                for mode in SERVING_MODES if mode != "auto"}
 
 
 def resolve_serving_mode(mode: str, device_type: str = "cuda") -> str:
@@ -90,20 +118,10 @@ def apply_serving_mode(agent, mode: str, *, calib_batch=None):
     ``calib_batch`` (a dict with 'rgb_static'/'rgb_gripper' [B,T,H,W,3],
     preprocessed, and 'lang_emb') calibrates the int8 encoders' static
     activation scales for ``max-throughput``; without it they use dynamic
-    per-call scales."""
+    per-call scales. The flags come from ``preset_flags``: a model that a
+    kernel cannot take keeps that part on the plain path."""
     mode = resolve_serving_mode(mode, agent.device.type)
-    if mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"serving mode {mode!r} needs {UNPORTED_MODES[mode]}, not ported "
-            "to CUDA yet (ROADMAP.md Queue 2)")
-    cfg = agent.cfg
-    if mode != "reference" and ((cfg.latent_dim // cfg.n_heads) % 128
-                                or cfg.top_k != 2):
-        raise NotImplementedError(
-            f"{mode} serving outside the fused kernels' shapes (head dim a "
-            "multiple of 128, top-2 routing) needs the attention and MoE "
-            "kernels, not ported yet (ROADMAP.md Queue 2)")
-    agent.configure_(**PRESET_FLAGS[mode])
+    agent.configure_(**preset_flags(agent.cfg, mode, warn=True))
     agent.q8 = None
     if mode == "reference":
         agent.folded = None        # the plain encoders, as the JAX preset

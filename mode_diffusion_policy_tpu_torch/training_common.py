@@ -141,6 +141,7 @@ def load_pretrained_into_state(state, cfg: Dict, logger=logger):
     from .models.agent import ENCODERS
     from .utils.checkpoint_convert import (convert_film_resnet,
                                            convert_modedit, detect_layout,
+                                           encoder_kwargs,
                                            load_torch_checkpoint,
                                            normalize_state_dict)
     ckpt_path = cfg.get("model", {}).get("ckpt_path")
@@ -151,8 +152,8 @@ def load_pretrained_into_state(state, cfg: Dict, logger=logger):
     for enc in ENCODERS:
         try:
             conv = convert_film_resnet(
-                sd, depth=int(cfg["model"].get("resnet_type", "50")),
-                prefix=f"{enc}.")
+                sd, prefix=f"{enc}.", **encoder_kwargs(
+                    cfg["model"].get("resnet_type", "50")))
         except KeyError:
             logger.warning("no %s weights in pretrained checkpoint", enc)
             continue

@@ -9,10 +9,12 @@ parameter names, which are the JAX tree's (``models/modedit.py``,
 expert axis, the per-head q/k/v projections fused into one qkv kernel; conv
 weights stay OIHW. Every converted tensor is f32 on the CPU.
 
-The reference options that the port's model does not implement (a shared
-expert, block cross-attention, the proprio embedding; the scratch
-``ResNetEncoderWithFiLM`` encoders) raise where their keys appear.
-``safetensors`` is imported only for a ``.safetensors`` file or directory.
+Every reference option converts: a shared expert (``shared_mlp``), block
+cross-attention (``cross_att`` and ``ln_3``), the proprio embedding
+(``state_embed``), an identity expert (no weights: ``num_experts`` counts
+the experts with weights), and the scratch ``ResNetEncoderWithFiLM``
+encoders (``style="scratch"``) beside the ``FiLMResNet{18,34,50}Policy``
+ones. ``safetensors`` is imported only for a ``.safetensors`` file or directory.
 """
 from __future__ import annotations
 
@@ -59,12 +61,6 @@ def normalize_state_dict(state_dict: Mapping[str, Any]
     return out
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"the checkpoint holds {what}, which the port's MoDeDiT does not "
-        "implement yet (ROADMAP.md Queue 1)")
-
-
 def convert_modedit(state_dict: Mapping[str, Any], n_layers: int,
                     num_experts: int, prefix: str = "model.inner_model.",
                     ) -> Dict[str, torch.Tensor]:
@@ -80,8 +76,6 @@ def convert_modedit(state_dict: Mapping[str, Any], n_layers: int,
     """
     sd = state_dict
     p = prefix
-    if f"{p}state_embed.weight" in sd:
-        _not_ported("a proprio state embedding (use_proprio)")
     out: Dict[str, torch.Tensor] = {}
 
     def dense(src: str, dst: str, bias: bool = True):
@@ -94,6 +88,8 @@ def convert_modedit(state_dict: Mapping[str, Any], n_layers: int,
     dense(f"{p}tok_emb", "tok_emb", bias=False)
     dense(f"{p}goal_emb", "goal_emb", bias=False)
     dense(f"{p}action_emb", "action_emb", bias=False)
+    if f"{p}state_embed.weight" in sd:
+        dense(f"{p}state_embed", "state_embed", bias=False)
     out["pos_emb"] = _f32(sd[f"{p}pos_emb"])
     out["ln.g"] = _f32(sd[f"{p}ln.g"])
     dense(f"{p}out", "out")
@@ -106,11 +102,9 @@ def convert_modedit(state_dict: Mapping[str, Any], n_layers: int,
 def convert_block(sd: Mapping[str, Any], b: str,
                   num_experts: int) -> Dict[str, torch.Tensor]:
     """One reference NoiseBlockMoE's weights (key prefix ``b``) as the
-    port's block state dict; ``num_experts`` counts the MLP experts."""
-    if b + "cross_att.query.weight" in sd:
-        _not_ported("block cross-attention (use_cross_attention)")
-    if b + "shared_mlp.mlp.0.project.weight" in sd:
-        _not_ported("a shared expert (use_shared_expert)")
+    port's block state dict; ``num_experts`` counts the MLP experts (not
+    the shared or an identity expert, which are outside the
+    ``expert_{e}`` keys)."""
 
     def T(key):
         return _f32(sd[b + key]).T.contiguous()
@@ -140,6 +134,26 @@ def convert_block(sd: Mapping[str, Any], b: str,
         [_f32(sd[b + f"experts.expert_{i}.mlp.0.project.bias"]) for i in e])
     blk["experts_w2"] = torch.stack(
         [T(f"experts.expert_{i}.mlp.2.weight") for i in e])
+    if b + "cross_att.query.weight" in sd:
+        # block cross-attention: its own q kernel, k and v fused over the
+        # context
+        blk.update({
+            "cross_att.wq.kernel": T("cross_att.query.weight"),
+            "cross_att.wq.bias": _f32(sd[b + "cross_att.query.bias"]),
+            "cross_att.wkv.kernel": torch.cat(
+                [T(f"cross_att.{n}.weight") for n in ("key", "value")],
+                dim=1),
+            "cross_att.wkv.bias": torch.cat(
+                [_f32(sd[b + f"cross_att.{n}.bias"])
+                 for n in ("key", "value")]),
+            "cross_att.c_proj.kernel": T("cross_att.c_proj.weight"),
+            "cross_att.q_norm.g": _f32(sd[b + "cross_att.q_norm.g"]),
+            "cross_att.k_norm.g": _f32(sd[b + "cross_att.k_norm.g"]),
+            "ln_3.g": _f32(sd[b + "ln_3.g"])})
+    if b + "shared_mlp.mlp.0.project.weight" in sd:
+        blk["shared_w1"] = T("shared_mlp.mlp.0.project.weight")
+        blk["shared_b1"] = _f32(sd[b + "shared_mlp.mlp.0.project.bias"])
+        blk["shared_w2"] = T("shared_mlp.mlp.2.weight")
     return blk
 
 
@@ -232,30 +246,46 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 # FiLM-ResNet encoders
 # ---------------------------------------------------------------------------
 
+def encoder_kwargs(resnet_type) -> Dict[str, Any]:
+    """``convert_film_resnet``'s depth and style for the agent's
+    ``resnet_type``: the policy encoder at depth 34 or 50, else the scratch
+    ResNet-18 (``encoders.resnet.make_encoder`` picks the port's
+    encoder the same way)."""
+    if str(resnet_type) in ("34", "50"):
+        return {"depth": int(resnet_type), "style": "policy"}
+    return {"depth": 18, "style": "scratch"}
+
+
 def convert_film_resnet(state_dict: Mapping[str, Any], depth: int,
                         prefix: str = "", style: str = "policy"
                         ) -> Dict[str, torch.Tensor]:
-    """The reference ``FiLMResNet{18,34,50}Policy`` weights (a timm
-    backbone under ``{prefix}resnet.`` and ``{prefix}film{1..4}``) as the
-    state dict of the port's unfolded ``FiLMResNetPolicy``: BatchNorm
-    ``weight``/``bias``/``running_mean``/``running_var`` as
-    ``scale``/``bias``/``mean``/``var``, FiLM Linears as [in, out]
-    kernels, convs OIHW as they are. ``style="scratch"``
-    (``ResNetEncoderWithFiLM``) has no port yet and raises."""
-    if style != "policy":
-        raise NotImplementedError(
-            f"style={style!r}: the port has the FiLMResNetPolicy encoders "
-            "only (ROADMAP.md Queue 1)")
+    """The reference camera encoder's weights as the state dict of the
+    port's unfolded encoder. ``style="policy"``: a
+    ``FiLMResNet{18,34,50}Policy`` (a timm backbone under
+    ``{prefix}resnet.``, ``{prefix}film{1..4}``) as ``FiLMResNetPolicy``;
+    ``style="scratch"``: a ``ResNetEncoderWithFiLM`` (the backbone at
+    ``{prefix}``, ``{prefix}film_module{1..4}.modulation.1`` and the head
+    ``{prefix}fc``) as the port's ``ResNetEncoderWithFiLM``. BatchNorm
+    ``weight``/``bias``/``running_mean``/``running_var`` become
+    ``scale``/``bias``/``mean``/``var``, Linears [in, out] kernels, convs
+    stay OIHW."""
+    if style not in ("policy", "scratch"):
+        raise ValueError(f"style must be 'policy' or 'scratch', got "
+                         f"{style!r}")
     sd = state_dict
     out: Dict[str, torch.Tensor] = {}
     stage_sizes = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}[depth]
     n_convs = 3 if depth == 50 else 2
-    bb = f"{prefix}resnet."
+    bb = f"{prefix}resnet." if style == "policy" else prefix
 
     def bn(src: str, dst: str):
         for a, b in (("weight", "scale"), ("bias", "bias"),
                      ("running_mean", "mean"), ("running_var", "var")):
             out[f"{dst}.{b}"] = _f32(sd[f"{src}.{a}"])
+
+    def dense(src: str, dst: str):
+        out[f"{dst}.kernel"] = _f32(sd[f"{src}.weight"]).T.contiguous()
+        out[f"{dst}.bias"] = _f32(sd[f"{src}.bias"])
 
     out["resnet.conv1.weight"] = _f32(sd[f"{bb}conv1.weight"])
     bn(f"{bb}bn1", "resnet.bn1")
@@ -270,10 +300,14 @@ def convert_film_resnet(state_dict: Mapping[str, Any], depth: int,
                 out[f"{dst}downsample_conv.weight"] = _f32(
                     sd[f"{src}downsample.0.weight"])
                 bn(f"{src}downsample.1", f"{dst}downsample_bn")
-    for s in range(1, 5):
-        for part in ("gamma", "beta"):
-            out[f"film{s}_{part}.kernel"] = _f32(
-                sd[f"{prefix}film{s}.{part}.weight"]).T.contiguous()
-            out[f"film{s}_{part}.bias"] = _f32(
-                sd[f"{prefix}film{s}.{part}.bias"])
+    if style == "policy":
+        for s in range(1, 5):
+            for part in ("gamma", "beta"):
+                dense(f"{prefix}film{s}.{part}", f"film{s}_{part}")
+    else:
+        for s in range(1, 5):
+            dense(f"{prefix}film_module{s}.modulation.1",
+                  f"film_module{s}.fc")
+        if f"{prefix}fc.weight" in sd:
+            dense(f"{prefix}fc", "fc")
     return out

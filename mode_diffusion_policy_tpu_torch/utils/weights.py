@@ -7,7 +7,13 @@ stacked experts), so the mapping is by path: ``blocks_{i}`` becomes
 Encoder BatchNorm statistics come from the ``batch_stats`` collection.
 ``from_jax_train_state`` carries a whole JAX ``TrainState`` (parameters,
 statistics, ``FusedAdamWEmaState`` moments, EMA, step, epoch) into the
-port's. Leaves are numpy arrays (``jax.tree.map(np.asarray, ...)``; bf16
+port's. Every model variant's leaves cross by the same rules: the shared
+expert (``shared_w1``/``shared_b1``/``shared_w2``), the cross-attention
+(``ln_3``, ``cross_att`` with its ``wq`` and ``wkv``), the proprio
+embedding ``state_embed``, the scratch encoder's ``film_module{s}.fc`` and
+``fc``, and the ResNet-18/34 trunks with their ``batch_stats``. A JAX tree
+made by ``init`` has no ``state_embed`` (the JAX forward never calls it, so
+flax never creates it): the port's own stays then, as it was drawn. Leaves are numpy arrays (``jax.tree.map(np.asarray, ...)``; bf16
 leaves as ml_dtypes bfloat16); this module imports no JAX.
 """
 from __future__ import annotations
@@ -37,10 +43,32 @@ def dit_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             for k, v in _flatten(params).items()}
 
 
+# leaves of the port that a JAX tree may lack (see the module docstring)
+OPTIONAL_LEAVES = ("state_embed.kernel",)
+
+
+def load_dit_state_(dit, sd: Mapping[str, torch.Tensor]):
+    """``dit.load_state_dict(sd)``, where only the ``OPTIONAL_LEAVES`` may
+    be missing from ``sd``."""
+    missing, unexpected = dit.load_state_dict(sd, strict=False)
+    bad = [k for k in missing if k not in OPTIONAL_LEAVES]
+    if bad or unexpected:
+        raise RuntimeError(f"the weights do not fit the port's MoDeDiT: "
+                           f"missing {bad}, unexpected {unexpected}")
+    return dit
+
+
+def load_dit_(dit, params: Mapping):
+    """Load JAX ``MoDeDiT`` params into the port's ``dit``
+    (``load_dit_state_``)."""
+    return load_dit_state_(dit, dit_state_dict(params))
+
+
 def resnet_state_dict(params: Mapping, batch_stats: Mapping
                       ) -> Dict[str, torch.Tensor]:
-    """JAX ``FiLMResNetPolicy`` params + batch_stats -> the unfolded
-    ``models.encoders.resnet.FiLMResNetPolicy`` state dict."""
+    """JAX encoder params + batch_stats (``FiLMResNetPolicy`` at any depth,
+    or ``ResNetEncoderWithFiLM``) -> the unfolded port encoder's state
+    dict."""
     sd = {}
     for k, v in {**_flatten(params), **_flatten(batch_stats)}.items():
         v = np.array(v, np.float32)
@@ -88,8 +116,7 @@ def from_jax_params(variables: Mapping, cfg, *, device="cuda"):
     from ..models.agent import ENCODERS, MoDEAgent
 
     agent = MoDEAgent(cfg, device=device)
-    agent.inner_model.load_state_dict(
-        dit_state_dict(variables["params"]["inner_model"]))
+    load_dit_(agent.inner_model, variables["params"]["inner_model"])
     for name in ENCODERS:
         getattr(agent, name).load_state_dict(resnet_state_dict(
             variables["params"][name], variables["batch_stats"][name]))
@@ -143,23 +170,32 @@ def from_jax_train_state(state, cfg, *, device="cuda"):
     dev = agent.device
     params = port_tree(state.params)
     named = dict(agent.named_parameters())
+    # a leaf the JAX tree lacks (OPTIONAL_LEAVES) keeps the port's value,
+    # zero moments and itself as its EMA
+    own = {n: p.detach().clone() for n, p in named.items()
+           if n not in params}
     with torch.no_grad():
         for n, p in named.items():
-            p.data = params[n].to(dev)
+            p.data = params.get(n, own.get(n)).to(dev)
     layout = FlatLayout(named, decay_mask(named))
     flat_params = layout.flatten_params_(named)
     opt = state.opt_state
 
-    def flat(tree):
+    def flat(tree, fill):
         t = port_tree(tree)
+        # in the dtype of the tree's other DiT kernels
+        dt = t["inner_model.sigma_linear.kernel"].dtype
+        t.update({n: fill(v.to(dt)) for n, v in own.items()})
         return layout.new(dev, lambda g: t[g.names[0]].dtype,
                           init={n: v.to(dev) for n, v in t.items()})
 
     ts = TrainState(step=int(np.asarray(state.step)), params=flat_params,
                     batch_stats=encoder_batch_stats(agent),
-                    opt_state=FusedAdamWEmaState(int(np.asarray(opt.count)),
-                                                 flat(opt.mu), flat(opt.nu)),
-                    ema_params=flat(state.ema_params),
+                    opt_state=FusedAdamWEmaState(
+                        int(np.asarray(opt.count)),
+                        flat(opt.mu, torch.zeros_like),
+                        flat(opt.nu, torch.zeros_like)),
+                    ema_params=flat(state.ema_params, lambda v: v),
                     rng=torch.Generator(device=dev).manual_seed(cfg.seed),
                     epoch=int(np.asarray(state.epoch)))
     return agent, ts

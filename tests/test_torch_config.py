@@ -155,22 +155,35 @@ def test_build_agent_validation_matches_jax():
     with pytest.raises(ValueError, match="mu_dtype"):
         tb.build_agent({**base, "optimizer": {"mu_dtype": "fp8"}},
                        device="cpu")
-    # the JAX options the port's model does not implement raise, naming
-    # the option; their default values pass
+    # every JAX option builds, each alone, with the JAX builder's config
+    # field by field (the port used to raise for these)
     for key, value in (("use_shared_expert", True), ("identity_expert", True),
                        ("use_cross_attention", "true"),
                        ("use_goal_in_routing", True), ("causal", False),
-                       ("init_style", "'normal'")):
+                       ("init_style", "'normal'"), ("cond_router", "False"),
+                       ("router_normalize", False),
+                       ("goal_conditioned", False),
+                       ("use_noise_token_as_input", "false"),
+                       ("noise_in_cross_attention", True)):
         cfg = {**base, "model": {"inner_model": {
             **base["model"]["inner_model"], key: value}}}
-        with pytest.raises(NotImplementedError, match=key):
-            tb.build_agent_config(cfg)
-    with pytest.raises(NotImplementedError, match="use_proprio"):
-        tb.build_agent_config({**base, "use_proprio": True})
-    with pytest.raises(NotImplementedError, match="resnet_type"):
-        tb.build_agent({**base, "resnet_type": "18"}, device="cpu")
+        _same_config(tb.build_agent_config(cfg), jb.build_agent(cfg)[0].cfg)
+    for cfg in ({**base, "use_proprio": True},
+                {**base, "resnet_type": "18"}, {**base, "resnet_type": "34"}):
+        _same_config(tb.build_agent_config(cfg), jb.build_agent(cfg)[0].cfg)
+    agent = tb.build_agent({**base, "resnet_type": "18"}, device="cpu")[0]
+    assert agent.cfg.obs_dim == 512
+    assert type(agent.static_resnet).__name__ == "ResNetEncoderWithFiLM"
     shipped = tl.load_config(CONF, "config_calvin")["model"]
     assert tb.build_agent_config(shipped).n_layers == 12
+
+
+def _same_config(got, want):
+    """The port's MoDEAgentConfig equals the JAX one on every field they
+    share (the dtype aside: torch's and JAX's)."""
+    for f in dataclasses.fields(got):
+        if f.name != "dtype":
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 
 def test_ema_and_checkpoint_builders_match():

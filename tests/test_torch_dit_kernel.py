@@ -170,6 +170,48 @@ def test_plain_dit_matches_jax_megakernel(int8_attn, step, HH, block_hidden):
 
 @pytest.mark.parametrize("int8_attn", [False, True],
                          ids=["bf16-attn", "int8-attn"])
+def test_plain_dit_per_sample_cond_matches_jax_megakernel(int8_attn):
+    """One cond row per sample [B,1,D] (``use_goal_in_routing``), read by
+    every layer, at HH=256: the JAX megakernel equals the JAX layer kernel
+    chained; the plain stack equals its layers chained, and each plain
+    layer, on the JAX layer's input, is within the flip-aware gate of the
+    JAX layer (over a whole stack one int8 flip in an early layer carries
+    into every later one, so the gate holds layer by layer, as
+    chip_smoke.py holds the CUDA megakernel)."""
+    x, _, layers = _layers(HH=256, seed=7)
+    c = np.random.default_rng(8).standard_normal(
+        (x.shape[0], 1, x.shape[2])).astype(np.float32) * 0.2
+    kw = dict(step=jnp.int32(2), block_samples=4, block_hidden=128,
+              interpret=True)
+    jst = _stack(layers, int8_attn, "jax")
+    mega = np.asarray(jax_dit(jnp.asarray(x), jnp.asarray(c), jst,
+                              jnp.asarray(IDX), jnp.asarray(PROBS), **kw))
+    tst = _stack(layers, int8_attn, "torch")
+    h, ht = jnp.asarray(x), torch.from_numpy(x)
+    tc = torch.from_numpy(c)
+    for l in range(L):
+        one = {k: v[l:l + 1] for k, v in jst.items()}
+        h_in = np.asarray(h)
+        h = jax_dit(h, jnp.asarray(c), one, jnp.asarray(IDX[l:l + 1]),
+                    jnp.asarray(PROBS[l:l + 1]), **kw)
+        tone = {k: v[l:l + 1] for k, v in tst.items()}
+        got = fused_dit_q8c_ref(torch.from_numpy(h_in), tc, tone,
+                                torch.from_numpy(IDX[l:l + 1]),
+                                torch.from_numpy(PROBS[l:l + 1]), step=2,
+                                block_hidden=128)
+        _close(got.numpy(), np.asarray(h))
+        ht = fused_dit_q8c_ref(ht, tc, tone, torch.from_numpy(IDX[l:l + 1]),
+                               torch.from_numpy(PROBS[l:l + 1]), step=2,
+                               block_hidden=128)
+    np.testing.assert_array_equal(mega, np.asarray(h))
+    whole = fused_dit_q8c_ref(torch.from_numpy(x), tc, tst,
+                              torch.from_numpy(IDX), torch.from_numpy(PROBS),
+                              step=2, block_hidden=128)
+    torch.testing.assert_close(whole, ht, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("int8_attn", [False, True],
+                         ids=["bf16-attn", "int8-attn"])
 def test_port_stack_quantizes_like_jax(int8_attn):
     _, _, layers = _layers(seed=4)
     want = _stack(layers, int8_attn, "jax")

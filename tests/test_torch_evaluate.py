@@ -252,7 +252,8 @@ def test_converters_match_jax(ref_sd):
 def test_checkpoint_files_and_unported_options(ref_sd, tmp_path):
     """A Lightning ``.ckpt`` with EMA callback state, a raw ``.pt``, and a
     safetensors directory load as JAX's loaders load them; the published
-    key remaps apply; options the port lacks raise."""
+    key remaps apply; the proprio embedding converts as JAX's, and an
+    option's incomplete keys raise in both converters."""
     sd = {k: v for k, v in list(ref_sd.items())[:40]}
     sd["img_encoder_image_wrist.x.running_mean"] = torch.ones(3)
     ema = [v + 1 for k, v in sd.items()
@@ -286,15 +287,24 @@ def test_checkpoint_files_and_unported_options(ref_sd, tmp_path):
             np.testing.assert_array_equal(got[k].numpy(), want[k])
     with pytest.raises(FileNotFoundError):
         tconv.load_torch_checkpoint(str(tmp_path))
+    # the options the port used to refuse convert as JAX's converter does
+    # (whole option sets: tests/test_torch_variants.py); an option whose
+    # keys are incomplete raises KeyError in both converters
     b = "model.inner_model.blocks.0."
-    for extra, what in ((b + "cross_att.query.weight", "cross-attention"),
-                        (b + "shared_mlp.mlp.0.project.weight",
-                         "shared expert"),
-                        ("model.inner_model.state_embed.weight", "proprio")):
-        with pytest.raises(NotImplementedError, match=what):
-            tconv.convert_modedit({**ref_sd, extra: torch.zeros(1)}, 1, 4)
-    with pytest.raises(NotImplementedError, match="scratch"):
-        tconv.convert_film_resnet(ref_sd, 50, style="scratch")
+    for extra in (b + "cross_att.query.weight",
+                  b + "shared_mlp.mlp.0.project.weight"):
+        for conv in (tconv.convert_modedit, jconv.convert_modedit):
+            with pytest.raises(KeyError):
+                conv({**ref_sd, extra: torch.zeros(1)}, 1, 4)
+    D = ref_sd["model.inner_model.sigma_linear.weight"].shape[0]
+    proprio = {**ref_sd, "model.inner_model.state_embed.weight":
+               torch.randn(D, 8, generator=torch.Generator().manual_seed(0))}
+    got = tconv.convert_modedit(proprio, 1, 4)
+    want = dit_state_dict(jconv.convert_modedit(proprio, 1, 4))
+    assert torch.equal(got["state_embed.kernel"], want["state_embed.kernel"])
+    for conv in (tconv.convert_film_resnet, jconv.convert_film_resnet):
+        with pytest.raises(KeyError):
+            conv(ref_sd, 18, style="scratch")
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
     fused_layer_q8c)
 from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
                                                      SERVING_MODES,
-                                                     UNPORTED_MODES,
+                                                     preset_flags,
                                                      resolve_serving_mode)
 from mode_diffusion_policy_tpu_torch.training.loop import (Trainer,
                                                            make_train_step)
@@ -152,7 +152,9 @@ def test_serving_mode_names():
     assert set(PRESET_FLAGS) | {"auto"} == set(SERVING_MODES)
     assert set(PRESET_FLAGS) == {"reference", "parity", "max-throughput",
                                  "b1-latency", "b1-latency-max"}
-    assert not UNPORTED_MODES
+    # every preset is ported: the flags at the flagship config
+    assert all(PRESET_FLAGS[m] == preset_flags(MoDEAgentConfig(), m)
+               for m in PRESET_FLAGS)
     assert resolve_serving_mode("auto", "cuda") == "parity"
     assert resolve_serving_mode("auto", "cpu") == "reference"
     with pytest.raises(ValueError, match="unknown serving mode"):

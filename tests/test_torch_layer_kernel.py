@@ -86,6 +86,29 @@ def test_plain_layer_single_row_and_per_sample_cond():
            _jax(a, IDX[1], PROBS[1], None, 1024))
 
 
+@pytest.mark.parametrize("step", [0, 2])
+def test_plain_layer_per_sample_cond_matches_jax_kernel(step):
+    """A [B,1,D] cond (one row per sample, as ``use_goal_in_routing``
+    makes it) with [S,2] tables at HH=256: the plain layer against the JAX
+    kernel, whose ``c`` takes the same rows."""
+    a = _inputs(B=4, HH=256, seed=20 + step, c_rows=4)
+    _close(_torch(a, IDX, PROBS, step, 128), _jax(a, IDX, PROBS, step, 128))
+
+
+def test_cuda_widths_take_a_cond_row_per_sample():
+    """The CUDA wrappers' check: one shared row (stride 0) or one per
+    sample [B,1,D] (stride D) for the whole-layer kernels; a per-token
+    [B,T,D] cond and a row count other than B raise."""
+    from mode_diffusion_policy_tpu_torch.ops.kernels._common import \
+        _check_widths
+    B, T, D = 3, 14, 256
+    assert _check_widths(T, D, 2, 128, 256, torch.zeros(1, 1, D), B) == 0
+    assert _check_widths(T, D, 2, 128, 256, torch.zeros(B, 1, D), B) == D
+    for bad in ((B, T, D), (B + 1, 1, D)):
+        with pytest.raises(ValueError, match="per sample"):
+            _check_widths(T, D, 2, 128, 256, torch.zeros(bad), B)
+
+
 def test_block_hidden_changes_the_act_scales():
     """act is re-quantized per block_hidden columns: 128 and 1024 give
     different results, so the argument is live (not ignored)."""

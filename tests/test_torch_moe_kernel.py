@@ -116,6 +116,19 @@ def test_f64_prenorm_is_a_near_copy():
     assert d.mean() <= 1e-4 and d.max() <= 5e-3
 
 
+def test_f64_mlp_is_a_near_copy():
+    """mlp_dtype=float64 (chip_smoke.py's near-exact evaluation of the MoE's
+    float arithmetic) moves only roundings: at float32 it is the plain
+    version bit for bit, at float64 a near copy."""
+    a = _inputs(12)
+    out32 = _port(a, True, True, True)
+    torch.testing.assert_close(
+        _port(a, True, True, True, mlp_dtype=torch.float32), out32, rtol=0,
+        atol=0)
+    d = (_port(a, True, True, True, mlp_dtype=torch.float64) - out32).abs()
+    assert d.mean() <= 1e-4 and d.max() <= 5e-3
+
+
 def test_cpu_wrapper_runs_plain_version_without_counting():
     a = _inputs(11)
     before = fused_top2_mlp_q8c.launches
