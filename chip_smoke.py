@@ -3599,6 +3599,439 @@ def _libero_phase(smi, zero_launches, launches_of, root, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the remaining modules (log_likelihood, the CLIP visual towers,
+# VLMEmbeddingCache, export, verify_checkpoint's rungs, the native hashers,
+# auto_annotate) at full width on the card
+# ---------------------------------------------------------------------------
+
+# the flagship denoiser under log_likelihood: f32 under ``reference`` (plain
+# modules) and the same weights in float64; B=4 samples of the chunk shape
+LL_MODEL = dict(latent_dim=1024, n_layers=12, n_heads=8, cond_dim=512,
+                resnet_type="50", num_experts=4, top_k=2)
+LL_B = 4
+# the gate on the relative f32-vs-f64 gap of the log-likelihood: ten times
+# the 1.958e-4 measured on the CPU at embed 64, 2 layers
+# (tests/test_torch_loglik.py), the factor for the width (D 64 -> 1024:
+# sums 16x longer, rounding ~4x) and the depth (2 -> 12 layers, ~2.4x)
+LL_GAP_TOL = 10 * 1.958e-4
+# the CLIP towers: ViT-B/32 and RN50 in the published layouts, B=8 on the
+# card against the CPU in f32 (TF32 off) on the first 2 samples; the gate
+# is relative to the output's largest magnitude: two f32 evaluations that
+# sum in other orders over 12 layers or 16 bottlenecks
+CLIP_TOWERS = {
+    "ViT-B/32": ("vit", dict(input_resolution=224, patch_size=32, width=768,
+                             layers=12, heads=12, output_dim=512)),
+    "RN50": ("resnet", dict(layers=(3, 4, 6, 3), output_dim=1024, heads=32,
+                            input_resolution=224, width=64)),
+}
+CLIP_B, CLIP_REL_TOL = 8, 1e-4
+# verify_checkpoint's rungs: B=2 (the CLI's default batch) at 224 px
+VCK_B, VCK_IMG = 2, 224
+
+
+def loglik_check(dev):
+    """26a: the flagship denoiser's log-likelihood in f32 and float64 (same
+    weights, embedding, goal, samples and Rademacher draw), and the refusal
+    of a ``parity`` denoiser (its off-schedule evaluations launch
+    ``fused_attn_block``) under the JVP."""
+    import dataclasses
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        MoDEAgent, MoDEAgentConfig, RolloutPolicy)
+    from mode_diffusion_policy_tpu_torch.models.edm import log_likelihood
+    cfg = MoDEAgentConfig(**LL_MODEL)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    agent = MoDEAgent(cfg, device=dev).eval()
+    emb = torch.randn(LL_B, 2, cfg.obs_dim, generator=gen, device=dev)
+    goal = torch.randn(LL_B, 1, cfg.cond_dim, generator=gen, device=dev)
+    x = torch.randn(LL_B, cfg.act_window_size, cfg.action_dim,
+                    generator=gen, device=dev)
+    v = torch.randint(0, 2, x.shape, generator=gen, device=dev).float() * 2 - 1
+    out = {"B": LL_B, "sigma": [cfg.sigma_min, cfg.sigma_max],
+           "tol_rel": LL_GAP_TOL}
+    runs = {}
+    for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        ag = agent
+        if dt == torch.float64:
+            ag = MoDEAgent(dataclasses.replace(cfg, dtype=dt), device=dev)
+            ag.load_state_dict(agent.state_dict())
+            ag = ag.double().eval()
+        den = ag.make_denoiser({"state_images": emb.to(dt)}, goal.to(dt))
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ll = log_likelihood(den, x.to(dt), cfg.sigma_min, cfg.sigma_max,
+                            v=v, stats=stats)
+        torch.cuda.synchronize()
+        runs[name] = ll.double().cpu()
+        out[name] = {"ll": ll.tolist(), "s": time.perf_counter() - t0,
+                     **stats}
+        del ag, den
+    gap = float(((runs["f32"] - runs["f64"]).abs()
+                 / runs["f64"].abs()).max())
+    out["gap_rel"] = gap
+    print(f"  log_likelihood, flagship denoiser (reference), B={LL_B}: f32 "
+          f"{out['f32']['ll']} ({out['f32']['evaluations']} evaluations, "
+          f"{out['f32']['accepted']} accepted / {out['f32']['rejected']} "
+          f"rejected steps, {out['f32']['s']:.2f} s); f64 {out['f64']['ll']} "
+          f"({out['f64']['evaluations']} evaluations, "
+          f"{out['f64']['accepted']} accepted, {out['f64']['s']:.2f} s); "
+          f"relative gap {gap:.3e} (tol {LL_GAP_TOL:.3e})", flush=True)
+    ok = gap <= LL_GAP_TOL and all(
+        bool(torch.isfinite(r).all()) for r in runs.values())
+    # a served preset's denoiser reaches a kernel under the JVP: refused
+    policy = RolloutPolicy.with_serving_mode(
+        MoDEAgent(dataclasses.replace(cfg, dtype=torch.bfloat16),
+                  device=dev), mode="parity")
+    den = policy.agent.make_denoiser({"state_images": emb}, goal)
+    try:
+        log_likelihood(den, x, cfg.sigma_min, cfg.sigma_max, v=v)
+        out["parity_refused"] = "no error"
+    except RuntimeError as e:
+        out["parity_refused"] = str(e).split(";")[0]
+    refused = "the CUDA kernel has no derivative" in out["parity_refused"]
+    print(f"  log_likelihood on a parity denoiser: {out['parity_refused']}",
+          flush=True)
+    del policy, den, agent
+    if not (ok and refused):
+        raise SystemExit(f"phase 26a: log_likelihood failed its gates: {out}")
+    return out
+
+
+def clip_check(dev):
+    """26b: ViT-B/32 and RN50 from random OpenAI-layout state dicts through
+    ``infer_visual_config`` and ``convert_clip_visual``: B=8 on the card,
+    the first 2 samples on the CPU in f32; and ``VLMEmbeddingCache`` over
+    card tensors equal to the same cache over CPU tensors."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.encoders import clip_visual
+    from mode_diffusion_policy_tpu_torch.models.encoders.clip_text import \
+        LangClip
+    from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import \
+        VLMEmbeddingCache
+    from mode_diffusion_policy_tpu_torch.models.encoders.tokenizer import \
+        tokenize
+    out = {"tf32": bool(torch.backends.cuda.matmul.allow_tf32
+                        or torch.backends.cudnn.allow_tf32),
+           "B": CLIP_B, "tol_rel": CLIP_REL_TOL}
+    ok = True
+    for label, (kind, dims) in CLIP_TOWERS.items():
+        cfg_cls = (clip_visual.CLIPViTConfig if kind == "vit"
+                   else clip_visual.ModifiedResNetConfig)
+        sd = clip_visual.random_visual_state_dict(kind, cfg_cls(**dims),
+                                                  seed=0, device=dev)
+        k2, cfg, port_sd = clip_visual.convert_clip_visual(sd)
+        assert k2 == kind and cfg == cfg_cls(**dims), (k2, cfg)
+        gpu = clip_visual.build_visual(kind, cfg, port_sd, device=dev)
+        cpu = clip_visual.build_visual(kind, cfg, port_sd, device="cpu")
+        gen = torch.Generator(device=dev).manual_seed(3)
+        res = cfg.input_resolution
+        img = torch.randn(CLIP_B, res, res, 3, generator=gen, device=dev)
+        feats = clip_visual.encode_image(gpu, img)
+        want = clip_visual.encode_image(cpu, img[:2].cpu())
+        err = float((feats[:2].cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        ms = cuda_time_ms(lambda: clip_visual.encode_image(gpu, img), 10)
+        out[label] = {"shape": list(feats.shape), "max_abs_err": err,
+                      "max_abs_out": scale, "ms": ms}
+        ok &= bool(torch.isfinite(feats).all()) and \
+            err <= CLIP_REL_TOL * scale
+        print(f"  {label}: encode_image {tuple(feats.shape)} at B={CLIP_B} "
+              f"{ms:.3f} ms; card vs CPU (f32, TF32 {'on' if out['tf32'] else 'off'}) "
+              f"max abs {err:.3e} of max |out| {scale:.3e} (tol "
+              f"{CLIP_REL_TOL:g} relative)", flush=True)
+        del gpu, cpu, sd
+    # per-token embeddings of varying length: the token embedding rows of
+    # a text tower, on its device
+    texts = ["open the drawer", "push the red block to the left",
+             "go", "open the drawer", "turn on the led light"]
+    caches = {}
+    towers = {"cpu": LangClip.initialize_random(0, device="cpu")}
+    towers[dev.type] = LangClip.from_state_dict(
+        towers["cpu"].model.state_dict(), towers["cpu"].cfg, device=dev)
+    for d in (dev, torch.device("cpu")):
+        lang = towers[d.type]
+
+        def per_token(batch, lang=lang):
+            ids = torch.from_numpy(tokenize(batch).astype("int64"))
+            return [lang.model.token_embedding[row[:int(row.argmax()) + 1]
+                                               .to(lang.device)]
+                    for row in ids]
+        cache = VLMEmbeddingCache(per_token, max_length=12, device=d)
+        caches[d.type] = (cache(texts), cache)
+    (ge, gm), gcache = caches["cuda"] if "cuda" in caches else caches[dev.type]
+    (ce, cm), _ = caches["cpu"]
+    same = (ge.device.type == dev.type and torch.equal(ge.cpu(), ce)
+            and torch.equal(gm.cpu(), cm) and gcache.encoder_calls == 1
+            and gcache.encoded_texts == 4)
+    out["vlm_cache"] = {"shape": list(ge.shape), "tokens": gm.sum(1).tolist(),
+                        "device": str(ge.device),
+                        "encoder_calls": gcache.encoder_calls,
+                        "card_equals_cpu": same}
+    print(f"  VLMEmbeddingCache over card tensors: {tuple(ge.shape)} on "
+          f"{ge.device}, tokens {gm.sum(1).tolist()}, "
+          f"{gcache.encoder_calls} encoder call for "
+          f"{gcache.encoded_texts} distinct texts, equal to the CPU cache: "
+          f"{same}", flush=True)
+    if not (ok and same):
+        raise SystemExit(f"phase 26b: the CLIP towers failed their gates: "
+                         f"{out}")
+    return out
+
+
+def export_check(run_dir, root, zero_launches, launches_of, dev):
+    """26c: the export CLI on a run directory, the safetensors back through
+    ``load_torch_checkpoint`` + ``convert_modedit`` into a new agent (its
+    encoders from the run), served by ``parity`` at b=128 against the same
+    run restored directly: bit-equal actions with the same noise, 120
+    ``fused_layer_q8c`` launches. Returns the exported flat state dict."""
+    from pathlib import Path
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.evaluation.evaluate_calvin import \
+        restore_trained
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        MoDEAgent, MoDEAgentConfig, RolloutPolicy)
+    from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
+    from mode_diffusion_policy_tpu_torch.utils import export
+    from mode_diffusion_policy_tpu_torch.utils.checkpoint_convert import (
+        convert_modedit, detect_layout, load_torch_checkpoint)
+    from mode_diffusion_policy_tpu_torch.utils.weights import load_dit_state_
+    out_dir = f"{root}/export"
+    t0 = time.perf_counter()
+    export.main(["--run-dir", run_dir, "--out-dir", out_dir])
+    export_s = time.perf_counter() - t0
+    flat = load_torch_checkpoint(out_dir)
+    n_layers, n_experts, prefix = detect_layout(flat)
+    cfg = MoDEAgentConfig(dtype=torch.bfloat16, **TRAIN_MODEL)
+    direct = MoDEAgent(cfg, device=dev)
+    step = restore_trained(direct, Path(run_dir))
+    via = MoDEAgent(cfg, device=dev)
+    via.load_state_dict({k: v for k, v in direct.state_dict().items()
+                         if not k.startswith("inner_model.")}, strict=False)
+    load_dit_state_(via.inner_model, convert_modedit(flat, n_layers,
+                                                     n_experts, prefix))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B = 128
+    obs = {k: preprocess_camera(torch.randint(
+        0, 256, (B, 1, hw, hw, 3), generator=gen, device=dev,
+        dtype=torch.uint8), size=TRAIN_IMG)
+        for k, hw in (("rgb_static", STATIC_HW), ("rgb_gripper", GRIPPER_HW))}
+    goal = {"lang_emb": torch.randn(B, 1, 512, generator=gen, device=dev)}
+    noise = torch.randn(B, 10, 7, generator=gen, device=dev)
+    chunks, counts = {}, {}
+    for name, ag in (("direct", direct), ("exported", via)):
+        policy = RolloutPolicy.with_serving_mode(ag, mode="parity", seed=0)
+        zero_launches()
+        chunks[name] = policy.predict_chunk(obs, goal, noise)
+        torch.cuda.synchronize()
+        counts[name] = launches_of()
+        del policy
+    equal = torch.equal(chunks["direct"], chunks["exported"])
+    launches = counts["exported"].pop("fused_layer_q8c")
+    out = {"step": step, "tensors": len(flat), "layers": n_layers,
+           "experts": n_experts, "export_s": export_s,
+           "bytes": sum(t.numel() * t.element_size() for t in flat.values()),
+           "dtypes": sorted({str(t.dtype) for t in flat.values()}),
+           "bit_equal": equal, "fused_layer_q8c_launches": launches,
+           "other_launches": counts["exported"]}
+    print(f"  export CLI on the bf16 run (step {step}): {len(flat)} tensors "
+          f"({out['bytes'] / 1e6:.1f} MB, {out['dtypes']}) in {export_s:.2f} "
+          f"s; parity b={B} on the exported DiT: {launches} fused_layer_q8c "
+          f"launches (others {counts['exported']}), actions bit-equal to "
+          f"the run served directly: {equal}", flush=True)
+    del direct, via
+    if not (equal and launches == 120
+            and not any(counts["exported"].values())):
+        raise SystemExit(f"phase 26c: the export round trip failed: {out}")
+    return out, flat
+
+
+def verify_check(flat, dev):
+    """26d: verify_checkpoint's rungs that need no reference repo, at full
+    width: a random timm-layout FiLM-ResNet-50 pair and the exported DiT
+    (reference layout); the encoder rung in f32 and with int8 encoders, the
+    routing-precompute rung in f32 and under ``parity``."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.utils import verify_checkpoint as vck
+    from mode_diffusion_policy_tpu_torch.utils.checkpoint_convert import \
+        detect_layout
+    from mode_diffusion_policy_tpu_torch.utils.torch_oracles import \
+        TorchFiLMResNetPolicy
+    sd = dict(flat)
+    n_layers, n_experts, prefix = detect_layout(sd)
+    shape = vck.infer_dit_shape(sd, prefix)
+    g = torch.Generator().manual_seed(12)
+    torch.manual_seed(12)
+    for enc in vck.ENCODERS:
+        tenc = TorchFiLMResNetPolicy(shape["goal_dim"], depth=50)
+        with torch.no_grad():
+            for m in tenc.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.normal_(0, 0.5, generator=g)
+                    m.running_var.uniform_(0.5, 1.5, generator=g)
+        sd.update({f"{enc}.{k}": v for k, v in tenc.state_dict().items()})
+    depth = vck.infer_resnet_depth(sd)
+    agent = vck.build_agent(sd, n_layers, n_experts, prefix, shape, depth,
+                            device=dev)
+    gen = torch.Generator().manual_seed(13)
+    goal = torch.randn(VCK_B, 1, shape["goal_dim"], generator=gen)
+    images = {enc: torch.randn(VCK_B, 3, VCK_IMG, VCK_IMG, generator=gen)
+              * 0.3 for enc in vck.ENCODERS}
+    report = vck.Report(vck.GATE_DEFAULT)
+    t0 = time.perf_counter()
+    with vck.no_tf32():
+        feats = vck.check_encoders(report, sd, depth, goal, images, dev,
+                                   agent=agent)
+        emb = {"state_images": torch.stack([feats[e] for e in vck.ENCODERS],
+                                           1)}
+        noise = torch.randn(VCK_B, shape["action_seq_len"],
+                            shape["action_dim"], generator=gen).to(dev)
+        vck.check_routing(report, agent, emb, goal.to(dev), noise)
+    # a report-only row's gate is infinite: null in the JSON line
+    rows = [dict(r, gate=r["gate"] if math.isfinite(r["gate"]) else None)
+            for r in report.rows]
+    out = {"shape": shape, "depth": depth, "B": VCK_B, "img": VCK_IMG,
+           "rows": rows, "pass": report.ok,
+           "s": time.perf_counter() - t0}
+    del agent
+    if not report.ok:
+        raise SystemExit(f"phase 26d: verify_checkpoint's rungs failed: "
+                         f"{out}")
+    return out
+
+
+def hash_check():
+    """26e: the C hashers built with ``cc`` here, against the 4800 golden
+    vectors."""
+    import gzip
+    from pathlib import Path
+
+    from mode_diffusion_policy_tpu_torch.utils import hashing
+    t0 = time.perf_counter()
+    lib = hashing.build_native()
+    build_s = time.perf_counter() - t0
+    hashing.load_native()
+    pool = bytes((i * 131 + 7) & 0xFF for i in range(1200))
+    n = ok = 0
+    algos = set()
+    path = Path(__file__).resolve().parent / "tests" / "data" / \
+        "hash_vectors.jsonl.gz"
+    with gzip.open(path, "rt") as f:
+        for line in f:
+            rec = json.loads(line)
+            algo, (slo, shi) = rec["algo"], rec["seed"]
+            want = sum(w << (64 * i) for i, w in enumerate(rec["val"]))
+            h = getattr(hashing, algo)()
+            data = pool[:rec["len"]]
+            got = h(data) if "fingerprint" in algo else \
+                h(data, seed=slo | (shi << 64))
+            n += 1
+            ok += got == want
+            algos.add(algo)
+    out = {"library": lib.name, "build_s": build_s, "vectors": n,
+           "matched": ok, "algorithms": len(algos)}
+    print(f"  native hashers: {lib.name} built in {build_s:.2f} s; golden "
+          f"vectors matched {ok} / {n} over {len(algos)} algorithms",
+          flush=True)
+    if not (n == ok == 4800):
+        raise SystemExit(f"phase 26e: hash vectors failed: {out}")
+    return out
+
+
+def annotate_check(dev):
+    """26f: ``auto_annotate`` over the fake CALVIN env with the card's
+    ``LangClip`` (random weights) on a handful of windows."""
+    import numpy as np
+    import torch
+    from mode_diffusion_policy_tpu_torch.data.calvin_dataset import (
+        DEFAULT_OBS_SPACE, DEFAULT_PROPRIO)
+    from mode_diffusion_policy_tpu_torch.models.encoders.clip_text import \
+        LangClip
+    from mode_diffusion_policy_tpu_torch.rollout.env import (
+        CalvinEnvWrapper, FakeCalvinEnv)
+    from mode_diffusion_policy_tpu_torch.utils.lang_annotators import \
+        auto_annotate
+
+    class Oracle:
+        def get_task_info_for_set(self, start, cur, task_set):
+            done = set()
+            if cur["scene_obs"][1] > start["scene_obs"][1] + 0.1:
+                done.add("open_drawer")
+            if cur["scene_obs"][5] > start["scene_obs"][5]:
+                done.add("turn_on_led")
+            return done & task_set
+
+    annotations = {"open_drawer": ["open the drawer", "pull the drawer open"],
+                   "turn_on_led": ["turn on the led", "switch on the light"]}
+    windows = []
+    for i, (idx, delta) in enumerate([(1, 0.22), (5, 1.0), (3, 0.01),
+                                      (1, 0.3), (5, 2.0), (2, 0.5),
+                                      (1, 0.15), (5, 0.5)]):
+        scene = np.zeros((8, 24))
+        scene[-1, idx] = delta
+        windows.append({"state_info": {"robot_obs": np.zeros((8, 15)),
+                                       "scene_obs": scene},
+                        "indx": (8 * i, 8 * i + 8)})
+    lang = LangClip.initialize_random(0, device=dev)
+    env = CalvinEnvWrapper(FakeCalvinEnv(hw=200), DEFAULT_OBS_SPACE,
+                           DEFAULT_PROPRIO)
+    t0 = time.perf_counter()
+    res = auto_annotate(windows, env, Oracle(), annotations,
+                        lang_encoder=lang)
+    s = time.perf_counter() - t0
+    emb = res["language"]["emb"]
+    same = np.array_equal(emb, lang(res["language"]["ann"]).cpu().numpy())
+    out = {"windows": len(windows), "labelled": len(res["language"]["ann"]),
+           "tasks": res["language"]["task"], "emb_shape": list(emb.shape),
+           "emb_equals_tower": same, "s": s}
+    print(f"  auto_annotate on the fake env with the card's LangClip: "
+          f"{out['labelled']} of {len(windows)} windows labelled "
+          f"{out['tasks']}, embeddings {tuple(emb.shape)} equal to the "
+          f"tower's: {same} ({s:.2f} s)", flush=True)
+    if not (out["labelled"] == 6 and same and emb.shape == (6, 1, 512)):
+        raise SystemExit(f"phase 26f: auto_annotate failed: {out}")
+    return out
+
+
+def modules_phase(zero_launches, launches_of, run_dir, root, dev=None):
+    """Phase 26: log_likelihood, the CLIP visual towers and the VLM cache,
+    the export round trip on ``run_dir`` (phase 22's bf16 run),
+    verify_checkpoint's rungs, the native hashers, auto_annotate."""
+    import gc
+
+    import torch
+    dev = dev or torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    t_phase = t = time.perf_counter()
+    out["loglik"] = loglik_check(dev)
+    phase("phase 26a: log_likelihood (f32, float64; parity refused)", t)
+    t = time.perf_counter()
+    out["clip"] = clip_check(dev)
+    phase("phase 26b: the CLIP visual towers, VLMEmbeddingCache", t)
+    t = time.perf_counter()
+    out["export"], flat = export_check(run_dir, root, zero_launches,
+                                       launches_of, dev)
+    phase("phase 26c: export round trip served by parity", t)
+    t = time.perf_counter()
+    out["verify"] = verify_check(flat, dev)
+    phase("phase 26d: verify_checkpoint's rungs", t)
+    t = time.perf_counter()
+    out["hash"] = hash_check()
+    phase("phase 26e: the native hashers", t)
+    t = time.perf_counter()
+    out["annotate"] = annotate_check(dev)
+    phase("phase 26f: auto_annotate", t)
+    out["phase_s"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -4166,6 +4599,9 @@ def main():
                         train["bf16_full_state"]["step_ms_median_3_8"])
         # ---- phase 25: LIBERO, the single-task evaluator ------------------
         libero = libero_phase(smi, zero_launches, launches_of, root)
+        # ---- phase 26: the remaining modules ------------------------------
+        modules = modules_phase(zero_launches, launches_of, f"{root}/bf16",
+                                root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4382,6 +4818,7 @@ def main():
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"libero": libero}, default=str), flush=True)
     print(json.dumps({"variants": variants}), flush=True)
+    print(json.dumps({"modules": modules}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

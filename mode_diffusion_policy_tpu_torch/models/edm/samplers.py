@@ -22,9 +22,13 @@ Every name of the JAX dispatch table, with the JAX package's design:
 - The BrownianTree noise of ``dpmpp_sde`` is i.i.d. Gaussian increments, the
   JAX package's documented deviation.
 
-``log_likelihood`` (the probability-flow ODE with a Hutchinson divergence)
-is not ported: it needs a JVP through the denoiser, and no kernel of the
-port has a derivative (ROADMAP.md Queue 1).
+``log_likelihood`` integrates the probability-flow ODE with a Hutchinson
+divergence, as the JAX function does: the JVP through the denoiser is
+exact forward mode (``torch.func.jvp``), and the integrator ``odeint`` is
+the adaptive Dormand-Prince method of ``jax.experimental.ode.odeint``,
+written out step for step. No CUDA kernel has a derivative, so it runs on
+the plain path (the ``reference`` serving preset); a kernel wrapper reached
+under the JVP raises (``ops/kernels/_common.no_autodiff``).
 """
 from __future__ import annotations
 
@@ -533,6 +537,209 @@ def sample_dpm_adaptive(denoiser, x, sigmas, noise=None, *, sigma_min=None,
             x = x_high
             s = t
     return x
+
+
+# ---------------------------------------------------------------------------
+# Log-likelihood: the probability-flow ODE through the adaptive Dormand-Prince
+# integrator of jax.experimental.ode (gc_sampling.py:468-492)
+# ---------------------------------------------------------------------------
+
+# the Dopri5 tableau (jax/experimental/ode.py runge_kutta_step), and the
+# midpoint weights of its dense output (interp_fit_dopri)
+_DOPRI_ALPHA = [1 / 5, 3 / 10, 4 / 5, 8 / 9, 1., 1., 0]
+_DOPRI_BETA = [
+    [1 / 5, 0, 0, 0, 0, 0, 0], [3 / 40, 9 / 40, 0, 0, 0, 0, 0],
+    [44 / 45, -56 / 15, 32 / 9, 0, 0, 0, 0],
+    [19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729, 0, 0, 0],
+    [9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656, 0, 0],
+    [35 / 384, 0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0]]
+_DOPRI_C_SOL = [35 / 384, 0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0]
+_DOPRI_C_ERR = [35 / 384 - 1951 / 21600, 0, 500 / 1113 - 22642 / 50085,
+                125 / 192 - 451 / 720, -2187 / 6784 - -12231 / 42400,
+                11 / 84 - 649 / 6300, -1. / 60.]
+_DOPRI_C_MID = [6025192743 / 30085553152 / 2, 0, 51252292925 / 65400821598 / 2,
+                -2691868925 / 45128329728 / 2,
+                187940372067 / 1594534317056 / 2,
+                -1776094331 / 19743644256 / 2, 11237099 / 235043384 / 2]
+
+
+def _norm(a):
+    """jnp.linalg.norm of a vector: the root of its sum of squares."""
+    return torch.sqrt((a * a).sum())
+
+
+def _initial_step_size(fun, t0, y0, order, rtol, atol, f0):
+    """Hairer, Norsett and Wanner's starting step (ode.py:78)."""
+    scale = atol + y0.abs() * rtol
+    d0 = _norm(y0 / scale)
+    d1 = _norm(f0 / scale)
+    small = bool((d0 < 1e-5) | (d1 < 1e-5))
+    h0 = torch.full_like(d0, 1e-6) if small else 0.01 * d0 / d1
+    y1 = y0 + h0 * f0
+    f1 = fun(y1, t0 + h0)
+    d2 = _norm((f1 - f0) / scale) / h0
+    if bool((d1 <= 1e-15) & (d2 <= 1e-15)):
+        h1 = torch.clamp_min(h0 * 1e-3, 1e-6)
+    else:
+        h1 = (0.01 / torch.maximum(d1, d2)) ** (1. / (order + 1.))
+    return torch.minimum(100. * h0, h1)
+
+
+def _runge_kutta_step(func, y0, f0, t0, dt, tab):
+    """One Dopri5 step (ode.py:100): the solution, the last stage's slope,
+    the error estimate and the seven stages."""
+    alpha, beta, c_sol, c_err = tab
+    k = torch.zeros((7, f0.shape[0]), dtype=f0.dtype, device=f0.device)
+    k[0] = f0
+    for i in range(1, 7):
+        ti = t0 + dt * alpha[i - 1]
+        yi = y0 + dt * (beta[i - 1] @ k)
+        k[i] = func(yi, ti)
+    y1 = dt * (c_sol @ k) + y0
+    return y1, k[-1], dt * (c_err @ k), k
+
+
+def _mean_error_ratio(error_estimate, rtol, atol, y0, y1):
+    err_tol = atol + rtol * torch.maximum(y0.abs(), y1.abs())
+    return torch.sqrt(torch.mean((error_estimate / err_tol) ** 2))
+
+
+def _optimal_step_size(last_step, mean_error_ratio, safety=0.9,
+                       ifactor=10.0, dfactor=0.2, order=5.0):
+    """ode.py:143, in the ratio's dtype as JAX computes it."""
+    r = mean_error_ratio
+    dfactor = torch.where(r < 1, torch.ones_like(r), torch.full_like(r,
+                                                                     dfactor))
+    factor = torch.clamp_max(torch.maximum(r ** (-1.0 / order) * safety,
+                                           dfactor), ifactor)
+    return torch.where(r == 0, last_step * ifactor, last_step * factor)
+
+
+def _interp_fit_dopri(y0, y1, k, dt, c_mid):
+    """The dense output's quartic over the step (ode.py:60,69): its
+    coefficients [5, n], highest power first."""
+    y_mid = y0 + dt * (c_mid @ k)
+    dy0, dy1 = k[0], k[-1]
+    a = -2. * dt * dy0 + 2. * dt * dy1 - 8. * y0 - 8. * y1 + 16. * y_mid
+    b = 5. * dt * dy0 - 3. * dt * dy1 + 18. * y0 + 14. * y1 - 32. * y_mid
+    c = -4. * dt * dy0 + dt * dy1 - 11. * y0 - 5. * y1 + 16. * y_mid
+    return torch.stack([a, b, c, dt * dy0, y0])
+
+
+def odeint(func: Callable, y0: torch.Tensor, ts, *, rtol: float = 1.4e-8,
+           atol: float = 1.4e-8, mxstep: float = math.inf,
+           hmax: float = math.inf, stats: Optional[dict] = None
+           ) -> torch.Tensor:
+    """``jax.experimental.ode.odeint``'s adaptive Dormand-Prince integrator,
+    step for step: ``func(y, t)`` over a flat state ``y0`` [n] from
+    ``ts[0]`` through each later time of ``ts`` (increasing). A step is
+    accepted when its mean error ratio is at most 1, and the next step size
+    follows from that ratio (safety 0.9, growth at most 10x, shrink at most
+    5x); the value at each output time is the accepted step's dense-output
+    quartic. The times are 0-d tensors in y0's dtype (f32 for an f32
+    state, as JAX's f32 ``ts``). Returns [len(ts), n]. ``stats``, when given, is
+    filled with the counts of ``func`` evaluations and of accepted and
+    rejected steps. The loop runs on the host: each step reads its error
+    ratio (one device sync per step)."""
+    dt_ = y0.dtype
+    dev = y0.device
+
+    def tensor(v):
+        return torch.as_tensor(v, dtype=dt_, device=dev)
+
+    tab = tuple(tensor(v) for v in (_DOPRI_ALPHA, _DOPRI_BETA, _DOPRI_C_SOL,
+                                    _DOPRI_C_ERR))
+    c_mid = tensor(_DOPRI_C_MID)
+    ts = [tensor(t) for t in (ts.tolist() if hasattr(ts, "tolist") else ts)]
+    counts = {"evaluations": 0, "accepted": 0, "rejected": 0}
+
+    def fun(y, t):
+        counts["evaluations"] += 1
+        return func(y, t)
+
+    y = y0
+    f = fun(y0, ts[0])
+    dt = torch.clamp(_initial_step_size(fun, ts[0], y0, 4, rtol, atol, f),
+                     min=0., max=hmax)
+    t = last_t = ts[0]
+    interp = torch.stack([y0] * 5)
+    out = [y0]
+    for target in ts[1:]:
+        i = 0
+        while bool(t < target) and i < mxstep and bool(dt > 0):
+            next_y, next_f, next_err, k = _runge_kutta_step(fun, y, f, t, dt,
+                                                            tab)
+            ratio = _mean_error_ratio(next_err, rtol, atol, y, next_y)
+            new_dt = torch.clamp(_optimal_step_size(dt, ratio), min=0.,
+                                 max=hmax)
+            if bool(ratio <= 1.):
+                interp = _interp_fit_dopri(y, next_y, k, dt, c_mid)
+                y, f, last_t, t = next_y, next_f, t, t + dt
+                counts["accepted"] += 1
+            else:
+                counts["rejected"] += 1
+            dt = new_dt
+            i += 1
+        rel = (target - last_t) / (t - last_t)
+        val = torch.zeros_like(y)
+        for coeff in interp:                   # jnp.polyval: Horner from 0
+            val = val * rel + coeff
+        out.append(val)
+    if stats is not None:
+        stats.update(counts)
+    return torch.stack(out)
+
+
+@torch.no_grad()
+def log_likelihood(denoiser: Callable, x: torch.Tensor, sigma_min: float,
+                   sigma_max: float,
+                   generator: Optional[torch.Generator] = None, *,
+                   v: Optional[torch.Tensor] = None, atol: float = 1e-4,
+                   rtol: float = 1e-4, stats: Optional[dict] = None
+                   ) -> torch.Tensor:
+    """Log-likelihood [B] of the samples ``x`` [B, ...] under the
+    probability-flow ODE ``dx/dsigma = (x - D(x, sigma)) / sigma``,
+    integrated from ``sigma_min`` to ``sigma_max`` with the change of
+    log-density given by Hutchinson's estimate of the divergence,
+    ``sum(v * J v)`` per sample, for one Rademacher draw ``v`` (+-1 like
+    x), plus the log-density of the end point under Normal(0,
+    sigma_max) (gc_sampling.py:468-492). The denoiser is called with step
+    index -1 (off the schedule); its JVP is exact forward mode
+    (``torch.func.jvp``), so the denoiser must be differentiable: the
+    ``reference`` preset's plain modules are, the CUDA kernels are not and
+    raise. ``v`` is drawn from ``generator`` unless given (the JAX function
+    draws it from its key; a test passes JAX's draw). ``stats``: see
+    ``odeint``. Runs under ``torch.no_grad``: the forward-mode JVP needs no
+    reverse graph, which would otherwise chain through every step."""
+    B = x.shape[0]
+    n = x.numel()
+    if v is None:
+        v = torch.randint(0, 2, x.shape, generator=generator,
+                          device=x.device).to(x.dtype) * 2 - 1
+    v = v.to(device=x.device, dtype=x.dtype)
+
+    def ode_fn(state, sigma):
+        xt = state[:n].reshape(x.shape)
+        s_vec = sigma.to(x.dtype).reshape(1).expand(B)
+
+        def f(xx):
+            return (xx - denoiser(xx, s_vec, -1)) / sigma
+
+        d, jvp_v = torch.func.jvp(f, (xt,), (v,))
+        d_ll = (v * jvp_v).reshape(B, -1).sum(dim=1)
+        return torch.cat([d.reshape(-1), d_ll.reshape(-1)])
+
+    init = torch.cat([x.reshape(-1), torch.zeros(B, dtype=x.dtype,
+                                                 device=x.device)])
+    ts = np.asarray([sigma_min, sigma_max], np.float32)
+    sol = odeint(ode_fn, init, ts, atol=atol, rtol=rtol, stats=stats)[-1]
+    latent, delta_ll = sol[:n].reshape(x.shape), sol[n:]
+    # jax.scipy.stats.norm.logpdf(latent, 0, sigma_max)
+    scale = torch.as_tensor(float(f32(sigma_max)), dtype=x.dtype,
+                            device=x.device)
+    log_normalizer = torch.log(2 * math.pi * scale * scale)
+    ll_prior = (log_normalizer + latent * latent / (scale * scale)) / -2
+    return ll_prior.reshape(B, -1).sum(dim=1) + delta_ll
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,15 @@ def quick_gelu(x):
 
 
 class CLIPAttention(nn.Module):
-    """Causal multi-head self-attention with one fused input projection
-    (OpenAI's ``nn.MultiheadAttention`` weights: ``in_proj``,
-    ``out_proj``)."""
+    """Multi-head self-attention with one fused input projection (OpenAI's
+    ``nn.MultiheadAttention`` weights: ``in_proj``, ``out_proj``): causal
+    in the text tower, unmasked in the vision towers."""
 
-    def __init__(self, width: int, heads: int, dtype, device=None):
+    def __init__(self, width: int, heads: int, dtype, device=None,
+                 causal: bool = True):
         super().__init__()
         self.heads = heads
+        self.causal = causal
         self.in_proj = nn.Linear(width, 3 * width, dtype=dtype, device=device)
         self.out_proj = nn.Linear(width, width, dtype=dtype, device=device)
 
@@ -62,18 +64,20 @@ class CLIPAttention(nn.Module):
         q, k, v = (t.reshape(B, T, self.heads, hd).transpose(1, 2)
                    for t in (q, k, v))
         logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(hd)
-        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-        logits = logits.masked_fill(~mask, float("-inf"))
+        if self.causal:
+            mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+            logits = logits.masked_fill(~mask, float("-inf"))
         attn = logits.softmax(dim=-1).to(x.dtype)
         y = (attn @ v).transpose(1, 2).reshape(B, T, C)
         return self.out_proj(y)
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, dtype, device=None):
+    def __init__(self, width: int, heads: int, dtype, device=None,
+                 causal: bool = True):
         super().__init__()
         self.ln_1 = nn.LayerNorm(width, eps=1e-5, dtype=dtype, device=device)
-        self.attn = CLIPAttention(width, heads, dtype, device)
+        self.attn = CLIPAttention(width, heads, dtype, device, causal)
         self.ln_2 = nn.LayerNorm(width, eps=1e-5, dtype=dtype, device=device)
         self.c_fc = nn.Linear(width, 4 * width, dtype=dtype, device=device)
         self.c_proj = nn.Linear(4 * width, width, dtype=dtype, device=device)

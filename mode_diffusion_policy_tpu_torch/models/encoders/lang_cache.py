@@ -7,15 +7,16 @@ numpy arrays on the host): a hit costs no copy to the card, and the values
 are the same. The saved file is the JAX cache's format (a pickled dict of
 numpy arrays), so either package reads the other's.
 
-``VLMEmbeddingCache`` (per-token embeddings with padding masks) has no
-caller on the ported paths yet (ROADMAP.md Queue 1).
+``VLMEmbeddingCache`` keeps per-token embeddings of varying length, for
+encoders that return one [L_i, D] row block per text, and hands a batch
+out zero-padded with its attention mask.
 """
 from __future__ import annotations
 
 import pickle
 import threading
 from collections import OrderedDict
-from typing import Callable, List
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,21 +44,26 @@ class LangEmbeddingCache:
     def get_goal_instruction_embeddings(self, texts) -> torch.Tensor:
         """[B, 1, D] embeddings for a batch of instructions, encoding only
         the texts not already cached (each distinct text once)."""
+        return torch.stack(self._lookup(texts))
+
+    def _lookup(self, texts) -> List[torch.Tensor]:
+        """The cached value of each text (a str is one text), encoding the
+        misses once each, in one encoder call."""
         if isinstance(texts, str):
             texts = [texts]
         texts = list(texts)
         with self._lock:
             misses = [t for t in dict.fromkeys(texts) if t not in self._buf]
         if misses:
-            encoded = torch.as_tensor(self.encoder(misses), device=self.device)
+            encoded = [torch.as_tensor(e, device=self.device)
+                       for e in self.encoder(misses)]
             with self._lock:
                 self.encoder_calls += 1
                 self.encoded_texts += len(misses)
                 for t, e in zip(misses, encoded):
                     self._put(t, e)
         with self._lock:
-            out = [self._get(t) for t in texts]
-        return torch.stack(out)
+            return [self._get(t) for t in texts]
 
     __call__ = get_goal_instruction_embeddings
 
@@ -87,3 +93,44 @@ class LangEmbeddingCache:
             for k, v in data.items():
                 self._put(k, torch.as_tensor(np.asarray(v),
                                              device=self.device))
+
+
+class VLMEmbeddingCache(LangEmbeddingCache):
+    """Per-token embeddings of varying length, with padding and attention
+    masks (the reference ``VLMEmbeddingBuffer``): for encoders that return
+    one [L_i, D] embedding per text (``encoder(texts) -> sequence of
+    [L_i, D]``) rather than one pooled vector. A batch comes out padded to
+    ``max_length`` tokens (longer ones cut), on the cache's device."""
+
+    def __init__(self, encoder, buffer_size: int = 10000,
+                 max_length: int = 77, pad_token_id: int = 0, device=None):
+        super().__init__(encoder, buffer_size, device)
+        self.max_length = max_length
+        self.pad_token_id = pad_token_id
+
+    @staticmethod
+    def pad_sequences(sequences: Sequence[torch.Tensor],
+                      max_len: Optional[int] = None):
+        """Zero-pad [L_i, D] tensors to a common length (the longest, or
+        ``max_len``, cutting longer ones): (padded [N, L, D] in the first
+        one's dtype and device, attention mask [N, L] f32, 1 on tokens)."""
+        sequences = [torch.as_tensor(s) for s in sequences]
+        if max_len is None:
+            max_len = max(s.shape[0] for s in sequences)
+        first = sequences[0]
+        padded = torch.zeros((len(sequences), max_len, first.shape[-1]),
+                             dtype=first.dtype, device=first.device)
+        mask = torch.zeros((len(sequences), max_len), dtype=torch.float32,
+                           device=first.device)
+        for i, s in enumerate(sequences):
+            L = min(s.shape[0], max_len)
+            padded[i, :L] = s[:L]
+            mask[i, :L] = 1.0
+        return padded, mask
+
+    def get_goal_instruction_embeddings(self, texts):
+        """[N, max_length, D] padded embeddings and the [N, max_length]
+        mask, encoding only the texts not already cached."""
+        return self.pad_sequences(self._lookup(texts), self.max_length)
+
+    __call__ = get_goal_instruction_embeddings

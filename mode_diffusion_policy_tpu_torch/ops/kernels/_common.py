@@ -1,11 +1,14 @@
 """Pieces shared by the kernel modules' plain versions and wrappers: the
 RMS norms, the causal attention of one layer, routing-table selection, the
-wrappers' argument checks and their scratch memory."""
+wrappers' argument checks (the autodiff guard among them) and their scratch
+memory."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+from torch.autograd import forward_ad
 
 
 def _rmsnorm_rows(x32, g, eps, acc=torch.float32):
@@ -75,6 +78,53 @@ def _hidden_block(HH, block_hidden):
         raise ValueError(f"hidden size {HH} is not a multiple of "
                          f"block_hidden {TH}")
     return TH
+
+
+def _tensors(args):
+    """The tensors among ``args``, looking one level into tuples (the int8
+    weight bundles are named tuples) and dicts (the megakernel's stack)."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, (tuple, list)):
+            yield from (t for t in a if isinstance(t, torch.Tensor))
+        elif isinstance(a, dict):
+            yield from (t for t in a.values() if isinstance(t, torch.Tensor))
+
+
+def autodiff_reason(*args) -> Optional[str]:
+    """Why a kernel launch over ``args`` would lose a derivative, or None.
+
+    The CUDA kernels are launched through ``ctypes`` on raw pointers and
+    have no derivative: a tangent or a graph through their inputs would be
+    dropped without a word. So a launch is refused inside a ``torch.func``
+    transform (``jvp``, ``grad``, ``vmap``...), for a forward-mode dual
+    tensor (``torch.autograd.forward_ad``), and for an input that requires
+    grad while grad mode is on. Serving runs under ``torch.no_grad`` with
+    plain tensors, where each test costs one flag read."""
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        return "inside a torch.func transform (jvp, grad, vmap, ...)"
+    duals = forward_ad._current_level >= 0
+    grads = torch.is_grad_enabled()
+    if not (duals or grads):
+        return None
+    for t in _tensors(args):
+        if duals and forward_ad.unpack_dual(t).tangent is not None:
+            return "an input is a forward-mode AD dual tensor"
+        if grads and t.requires_grad:
+            return "an input requires grad while grad mode is on"
+    return None
+
+
+def no_autodiff(name, *args):
+    """Raise where ``autodiff_reason`` finds one: the kernel of ``name`` has
+    no derivative. Its plain version (CPU tensors) is differentiable."""
+    reason = autodiff_reason(*args)
+    if reason is not None:
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no derivative, and {reason}; run "
+            "this path under torch.no_grad() on plain tensors, or use the "
+            "'reference' serving preset, whose plain modules differentiate")
 
 
 def _check(t, name, dtype, shape, device):

@@ -49,7 +49,7 @@ import torch
 
 from ..quant import AttnKMajor, QuantizedAttn
 from ._common import (_attend, _check, _check_attn_widths, _cond_rows,
-                      _rmsnorm_rows, _scratch)
+                      _rmsnorm_rows, _scratch, no_autodiff)
 from .moe_kernel import WIDE_TILE_ROWS, launch_error, sm_count
 from .quant_math import dot_i8, quant_rows
 
@@ -230,6 +230,7 @@ def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
     if x.device.type == "cpu":
         return fused_attn_block_ref(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout,
                                     ln_eps=ln_eps, qk_eps=qk_eps)
+    no_autodiff("fused_attn_block", x, c, ln_g, wqkv, bqkv, q_g, k_g, wout)
     B, T, D, H, hd, c, c_stride, ln_g, q_g, k_g = _prepare(
         "fused_attn_block", x, c, ln_g, q_g, k_g)
     dev, bf = x.device, torch.bfloat16
@@ -298,6 +299,7 @@ def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
         return fused_attn_block_q8_ref(x, c, ln_g, qattn, q_g, k_g,
                                        ln_eps=ln_eps, qk_eps=qk_eps,
                                        qattn_t=qattn_t)
+    no_autodiff("fused_attn_block_q8", x, c, ln_g, qattn, q_g, k_g, qattn_t)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attn_block_q8 runs on CUDA or CPU, not "
                          f"{x.device}")

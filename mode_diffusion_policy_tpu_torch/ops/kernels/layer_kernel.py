@@ -57,7 +57,8 @@ from typing import NamedTuple
 import torch
 
 from ..quant import AttnKMajor, ExpertsKMajor, QuantizedAttn, QuantizedExperts
-from ._common import _check, _check_widths, _hidden_block, _scratch, _tables
+from ._common import (_check, _check_widths, _hidden_block, _scratch,
+                      _tables, no_autodiff)
 from .attn_kernel import (ProjTilePlan, attn_q8_scratch, check_kmajor_attn,
                           fused_attn_block_q8_ref, fused_attn_block_ref,
                           need_kmajor_attn, proj_launch_args, proj_tile_plan)
@@ -202,6 +203,8 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
             top2_probs, step=step, qattn=qattn, qexp_t=qexp_t,
             qattn_t=qattn_t, block_hidden=block_hidden, eps1=eps1,
             eps_qk=eps_qk, eps2=eps2)
+    no_autodiff("fused_layer_q8c", x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout,
+                ln2_g, qexp, top2_idx, top2_probs, qattn, qexp_t, qattn_t)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_q8c runs on CUDA or CPU, not {x.device}")
     need_kmajor_experts("fused_layer_q8c", qexp_t)
@@ -408,6 +411,7 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
         return fused_dit_q8c_ref(
             x, c, stacked, top2_idx, top2_probs, step=step,
             block_hidden=block_hidden, eps1=eps1, eps_qk=eps_qk, eps2=eps2)
+    no_autodiff("fused_dit_q8c", x, c, stacked, top2_idx, top2_probs)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dit_q8c runs on CUDA or CPU, not {x.device}")
     need_kmajor_stack(stacked)

@@ -53,7 +53,7 @@ import torch.nn.functional as F
 
 from ..quant import ExpertsKMajor, QuantizedExperts
 from ._common import (_check, _check_moe_widths, _hidden_block, _scratch,
-                      _rmsnorm_rows, _routing_row, _tables)
+                      _rmsnorm_rows, _routing_row, _tables, no_autodiff)
 from .quant_math import dot_i8, quant_rows
 
 
@@ -306,6 +306,8 @@ def fused_top2_mlp_q8c(x, top2_idx, top2_probs, qexp: QuantizedExperts, *,
             x, top2_idx, top2_probs, qexp, step=step,
             block_hidden=block_hidden, residual=residual, ln_g=ln_g,
             ln_eps=ln_eps, qexp_t=qexp_t)
+    no_autodiff("fused_top2_mlp_q8c", x, top2_idx, top2_probs, qexp, ln_g,
+                qexp_t)
     if x.device.type != "cuda":
         raise ValueError(f"fused_top2_mlp_q8c runs on CUDA or CPU, not "
                          f"{x.device}")
@@ -439,6 +441,7 @@ def fused_top2_mlp(x, top2_idx, top2_probs, w1, b1, w2, *, step=None,
             x, top2_idx, top2_probs, w1, b1, w2, step=step,
             block_hidden=block_hidden, residual=residual, ln_g=ln_g,
             ln_eps=ln_eps)
+    no_autodiff("fused_top2_mlp", x, top2_idx, top2_probs, w1, b1, w2, ln_g)
     if x.device.type != "cuda":
         raise ValueError(f"fused_top2_mlp runs on CUDA or CPU, not {x.device}")
     bf = torch.bfloat16
@@ -466,6 +469,7 @@ def fused_top2_mlp_q8(x, top2_idx, top2_probs, qexp: QuantizedExperts, *,
             x, top2_idx, top2_probs, qexp, step=step,
             block_hidden=block_hidden, residual=residual, ln_g=ln_g,
             ln_eps=ln_eps)
+    no_autodiff("fused_top2_mlp_q8", x, top2_idx, top2_probs, qexp, ln_g)
     if x.device.type != "cuda":
         raise ValueError(f"fused_top2_mlp_q8 runs on CUDA or CPU, not "
                          f"{x.device}")

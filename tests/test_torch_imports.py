@@ -55,8 +55,8 @@ OPTIONAL = ("yaml", "regex", "cv2", "wandb", "safetensors", "h5py",
 
 
 def test_port_imports_with_jax_blocked():
-    """Import every port module (the data and LIBERO slices and both
-    training CLIs named), chip_smoke.py's module-level code and
+    """Import every port module (the data and LIBERO slices, both
+    training CLIs and the auxiliary modules named), chip_smoke.py's module-level code and
     bench_kernels_torch.py with jax, the JAX package and the optional
     packages (``yaml``, ``h5py`` ...) made unimportable."""
     code = f"""
@@ -76,7 +76,10 @@ new = set("mode_diffusion_policy_tpu_torch." + m for m in (
     "data.episode_utils", "data.preprocess", "data.shm_cache",
     "data.libero", "rollout.libero_rollout", "rollout.rollout_single_task",
     "evaluation.evaluate_libero", "evaluation.determinism_check",
-    "training_libero", "training_common", "config.builders"))
+    "training_libero", "training_common", "config.builders",
+    "models.encoders.clip_visual", "models.encoders.lang_cache",
+    "utils.export", "utils.torch_oracles", "utils.verify_checkpoint",
+    "utils.lang_annotators", "utils.hashing"))
 assert new <= set(names), new - set(names)
 from mode_diffusion_policy_tpu_torch.data.episode_utils import (
     load_dataset_statistics)
@@ -96,6 +99,12 @@ assert attn_kernel.fused_attn_block.launches == 0
 assert moe_kernel.fused_top2_mlp_q8c.launches == 0
 assert moe_kernel.fused_top2_mlp.launches == 0
 assert moe_kernel.fused_top2_mlp_q8.launches == 0
+# nor the C hashers: they are built at the first construction of one
+from mode_diffusion_policy_tpu_torch.utils import hashing
+assert hashing._native is None
+from mode_diffusion_policy_tpu_torch.models.edm import log_likelihood
+from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import (
+    VLMEmbeddingCache)
 print(len(names), "modules")
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
