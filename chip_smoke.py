@@ -94,8 +94,30 @@ cond row per sample at b=128 against their plain versions
 (``cond_row_checks``: equal rows bit-equal to the shared row, the 12-layer
 megakernel launch too; the 12-layer launch with distinct rows layer by
 layer within the layer gates and equal to its layers chained; a per-token
-cond raises), and at b=1 their one-row launch, and times both kinds of
+cond whose rows are equal within each sample gives the per-sample launch
+bit for bit), and at b=1 their one-row launch, and times both kinds of
 cond; one ``variants`` JSON line.
+
+The long-token phase (after the variants phase) builds the shipped
+CALVIN config with the override ``act_seq_len=16`` through the port's
+loader and builders (12 layers, D=1024, 2 FiLM-ResNet-50s, seeded random
+weights; T=20 tokens per sample) and serves it under ``parity`` (b=128,
+b=1), ``max-throughput`` (b=128), ``b1-latency`` and ``b1-latency-max``
+(b=1) and the bf16 kernel configuration (b=128), each cell by the
+variants phase's rule with the launches of T=14; holds each of the five
+attention-bearing launchers (``fused_layer_q8c`` with bf16 and int8
+projections, ``fused_dit_q8c`` with both stacks, ``fused_attn_block``,
+``fused_attn_block_q8``) to its plain version at T = 17, 20, 64 and 160,
+b=128 and b=1, with a shared, a per-sample and a per-token cond (the
+layer gates; a per-token cond of rows equal within each sample is the
+per-sample launch, bit for bit) and times each beside its bound, plain
+version and library yardstick; checks at T=20 with a per-token cond that
+``fused_attn_block`` then ``fused_top2_mlp_q8c`` equals ``fused_layer_q8c``
+on all 12 layers and the megakernel its layers chained and 12 chained
+``fused_layer_q8c`` launches, bit for bit; and runs one chain of
+``LongHorizonEvaluator`` on the fake env under ``auto`` with 16 actions a
+chunk. One ``long_tokens`` JSON line; the five kernels' entries in the
+``kernels`` line gain a ``long_tokens`` record.
 
 Phase 22 trains: the flagship with the shipped CALVIN training settings
 (``TRAIN_MODEL``, ``TRAIN_OPT``, ``TRAIN_EMA``, ``TRAIN_TRANSFORMS``,
@@ -118,7 +140,7 @@ without ``encoder_remat``, printed as one ``train`` JSON line before the
 
 Phase 23 evaluates phase 22's trained EMA weights (its bf16 run directory,
 kept until then) through the ``evaluate_calvin`` CLI
-(``evaluate(parse_args(argv))``: ``--checkpoint`` on the run, 8 chains on
+(``evaluate(parse_args(argv))``: ``--checkpoint`` on the run, 2 chains on
 the fake env at 224 px, 25 env steps per subtask) under ``parity``,
 ``reference`` and ``b1-latency``: equal results, 120 ``fused_layer_q8c``
 / 0 / 10 ``fused_dit_q8c`` launches per chunk, every logged action (before
@@ -780,6 +802,22 @@ def per_sample_cond(dit, B, gen):
     return dit.process_sigma_embeddings(sigma)
 
 
+def check_token_rows(name, kern, args, kw):
+    """A per-token cond [B,T,D] whose rows are equal within each sample
+    gives the launch with one row per sample (``args[1]``, [B,1,D]; at
+    b=1 the shared-row launch), bit for bit."""
+    import torch
+    x, rows = args[:2]
+    one = kern(*args, **kw)
+    tok = kern(x, rows.expand(*x.shape).contiguous(), *args[2:], **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(one, tok):
+        raise SystemExit(
+            f"{name} b={x.shape[0]} x {x.shape[1]}: a per-token cond of "
+            "rows equal within each sample differs from the per-sample "
+            f"launch ({(one.float() - tok.float()).abs().max().item():.3e})")
+
+
 def check_cond_rows(name, kern, ref, args, c, c_rows, kw):
     """A per-sample cond whose rows all equal the shared row gives the
     shared-row launch bit for bit; one with distinct rows stays within the
@@ -1117,24 +1155,33 @@ def check_moe_bf16(dit, routing, steps, T, gen, cfg):
     return err
 
 
-def bf16_config_run(agent, results, cfg, zero_launches, launches_of):
-    """The bf16 kernel configuration at full width: ``agent`` reconfigured
-    with the JAX bench's BENCH_INT8=0 flag set (use_pallas_moe,
-    use_pallas_attn; use_fused_layer set and inert without int8 experts),
-    no preset (the raw encoders, no int8 weights), served by
-    RolloutPolicy(agent). One 10-step DDIM chunk at b=128 and at b=1 with
-    the launch counters on (120 fused_attn_block, 120 fused_top2_mlp,
-    nothing else), the action MAE against the plain versions and the
-    f32-vs-f64 floors, the chunk ms (median of 3) and its device split."""
-    import torch
-    from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
+# the bf16 kernel configuration's name where a preset's would stand
+BF16_CONFIG = "bf16-config"
 
+
+def bf16_config_policy(agent):
+    """``agent`` reconfigured with the JAX bench's BENCH_INT8=0 flag set
+    (use_pallas_moe, use_pallas_attn; use_fused_layer set and inert without
+    int8 experts), no preset (the raw encoders, no int8 weights), and its
+    RolloutPolicy."""
+    from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
     agent.configure_(use_pallas_moe=True, use_pallas_attn=True,
                      use_int8_moe=False, use_fused_layer=True,
                      use_int8_attn=False, use_megakernel=False)
     agent.folded = agent.q8 = None
     agent.quantize_for_inference()
-    policy = RolloutPolicy(agent, seed=0)
+    return RolloutPolicy(agent, seed=0)
+
+
+def bf16_config_run(agent, results, cfg, zero_launches, launches_of):
+    """The bf16 kernel configuration at full width (``bf16_config_policy``).
+    One 10-step DDIM chunk at b=128 and at b=1 with
+    the launch counters on (120 fused_attn_block, 120 fused_top2_mlp,
+    nothing else), the action MAE against the plain versions and the
+    f32-vs-f64 floors, the chunk ms (median of 3) and its device split."""
+    import torch
+
+    policy = bf16_config_policy(agent)
     dit = policy.agent.inner_model
     L, S = cfg.n_layers, cfg.num_sampling_steps
     out = {}
@@ -1430,8 +1477,9 @@ def variant_model_cfg(opts):
 
 
 def variant_cell(name, agent, mode, B, want, inputs, zero_launches,
-                 launches_of, calib=None):
-    """One cell: ``mode`` applied to ``agent``; each kernel the cell
+                 launches_of, calib=None, policy=None):
+    """One cell: ``mode`` applied to ``agent`` (``BF16_CONFIG``: the bf16
+    kernel configuration, ``bf16_config_policy``); each kernel the cell
     launches held on block 0 to its plain version by the layer gates
     (``cell_kernel_checks``); one chunk at batch ``B`` with its launches
     counted (each kernel as ``want`` says, the others 0), against the same
@@ -1446,14 +1494,17 @@ def variant_cell(name, agent, mode, B, want, inputs, zero_launches,
     encoders where it has them). Where ``B`` is below ``CELL_SAMPLES``
     the MAEs are means over ``CELL_SAMPLES / B`` chunks at batch ``B``,
     each on its own samples; launches and times are the first chunk's.
-    The chunk's ms (median of 3) beside."""
+    The chunk's ms (median of 3) beside. ``policy``: the preset's policy
+    on ``agent``, where the caller has made it already."""
     import torch
     from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
     windows = [({k: v[i:i + B] for k, v in inputs[0].items()},
                 {"lang_emb": inputs[1][i:i + B]}, inputs[2][i:i + B])
                for i in range(0, max(B, CELL_SAMPLES), B)]
-    policy = RolloutPolicy.with_serving_mode(agent, mode=mode, seed=0,
-                                             calib_batch=calib)
+    if policy is None:
+        policy = (bf16_config_policy(agent) if mode == BF16_CONFIG else
+                  RolloutPolicy.with_serving_mode(agent, mode=mode, seed=0,
+                                                  calib_batch=calib))
     layer_err = cell_kernel_checks(f"{name} {mode}", policy.agent, B, want,
                                    inputs[2].device)
     zero_launches()
@@ -1536,7 +1587,8 @@ def cell_kernel_checks(label, agent, B, want, dev):
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_layer_q8c, fused_layer_q8c_ref)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
-        fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
+        fused_top2_mlp, fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref,
+        fused_top2_mlp_ref)
     gen = torch.Generator(device=dev).manual_seed(21)
     dit = agent.inner_model
     cfg = dit.cfg
@@ -1570,7 +1622,11 @@ def cell_kernel_checks(label, agent, B, want, dev):
             blk.experts_q), dict(
                 step=0, residual=True, qexp_t=blk.experts_qt,
                 ln_g=None if cfg.use_shared_expert else blk.ln_2.g,
-                ln_eps=blk.ln_2.eps))}
+                ln_eps=blk.ln_2.eps)),
+        "fused_top2_mlp": (fused_top2_mlp, fused_top2_mlp_ref, (
+            x, idx, probs, blk.experts_w1, blk.experts_b1, blk.experts_w2),
+            dict(step=0, residual=True, ln_g=blk.ln_2.g,
+                 ln_eps=blk.ln_2.eps))}
     worst = 0.0
     for name in want:
         if name not in checks:
@@ -1585,16 +1641,18 @@ def cell_kernel_checks(label, agent, B, want, dev):
 
 def cond_row_checks(parity_dit, b1_stack, routing, emb_all, gen, T):
     """The per-sample cond of fused_layer_q8c and fused_dit_q8c on a served
-    variant's weights. At b=128 (a cond row stride of D): equal rows give
+    variant's weights. At b=128 (B cond rows): equal rows give
     the shared-row launch bit for bit; distinct rows stay within the layer
     gates of the plain version; the megakernel's whole 12-layer launch with
     distinct rows holds each of its layers to the plain layer on the
     kernel's own input and equals them chained, bit for bit, and its
     distance to the plain stack is printed beside the f32-vs-f64 plain
     floor. At b=1 the sample's own row is one [1,1,D] row, which the
-    wrappers launch as the shared row (stride 0): that launch is held to
-    the plain version with the sample's own row. A per-token cond raises.
-    Each kernel's ms with one row per sample beside the shared row's."""
+    wrappers launch as the shared row (1 cond row): that launch is held to
+    the plain version with the sample's own row. A per-token cond whose
+    rows are equal within each sample gives the per-sample launch bit for
+    bit. Each kernel's ms with one row per sample beside the shared
+    row's."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c,
@@ -1617,7 +1675,7 @@ def cond_row_checks(parity_dit, b1_stack, routing, emb_all, gen, T):
         x = torch.randn(B, T, D, generator=gen, device=c.device).to(
             torch.bfloat16)
         rows = per_sample_cond(dit, B, gen)
-        stride = 0 if rows.numel() == D else D
+        stride = rows.numel() != D
         args = (x, blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
                 a.k_norm.g, a.c_proj.kernel, blk.ln_2.g, blk.experts_q, idx,
                 probs)
@@ -1637,13 +1695,8 @@ def cond_row_checks(parity_dit, b1_stack, routing, emb_all, gen, T):
                     kern(x, rows, *kargs[1:], **kw),
                     ref(x, rows, *kargs[1:], **kw))
             worst = max(worst, err)
-            try:
-                kern(x, rows.expand(B, T, D).contiguous(), *kargs[1:], **kw)
-            except ValueError:
-                pass
-            else:
-                raise SystemExit(f"{name} took a per-token cond")
-            out[name][f"b{B}"] = {"c_stride": stride, "max_abs_err": err,
+            check_token_rows(label, kern, (x, rows, *kargs[1:]), kw)
+            out[name][f"b{B}"] = {"c_rows": rows.shape[0], "max_abs_err": err,
                                   "gate_share": share}
         if stride:
             # the whole megakernel launch with one row per sample
@@ -1687,7 +1740,7 @@ def cond_row_checks(parity_dit, b1_stack, routing, emb_all, gen, T):
     line = "; ".join(
         f"{k} {b}: " + (f"{v['ms_per_sample']:.4f} ms per-sample cond vs "
                         f"{v['ms_shared']:.4f} ms shared row"
-                        if v["c_stride"] else
+                        if v["c_rows"] > 1 else
                         f"{v['ms_shared']:.4f} ms (one sample: its row is "
                         "the shared-row launch)")
         for k, rows_ in out.items() for b, v in rows_.items())
@@ -1695,16 +1748,16 @@ def cond_row_checks(parity_dit, b1_stack, routing, emb_all, gen, T):
     return out, worst
 
 
-def variant_inputs(gen, dev, B=128):
+def variant_inputs(gen, dev, B=128, actions=10):
     """b=128 preprocessed 224 px frames, a 512-wide goal and the initial
-    noise; a cell at b=1 takes the first sample."""
+    noise of ``actions`` actions; a cell at b=1 takes the first sample."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.image import preprocess_camera
     obs = {k: preprocess_camera(torch.randint(
         0, 256, (B, 1, 224, 224, 3), generator=gen, device=dev,
         dtype=torch.uint8)) for k in CAMS}
     return (obs, torch.randn(B, 1, 512, generator=gen, device=dev),
-            torch.randn(B, 10, 7, generator=gen, device=dev))
+            torch.randn(B, actions, 7, generator=gen, device=dev))
 
 
 def variant_train(agent, dev):
@@ -1791,6 +1844,434 @@ def variants_phase(zero_launches, launches_of, dev):
         gc.collect()
         torch.cuda.empty_cache()
         phase(f"variants: {name}", t)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the long-token phase: more than 16 tokens per sample
+# ---------------------------------------------------------------------------
+
+# the token counts of the launchers' checks: just past 16, the shipped
+# config with act_seq_len=16 (T=20), and two long samples whose keys
+# stream through the attention stage's shared memory in blocks
+LONG_T = (17, 20, 64, 160)
+LONG_ACTIONS = 16
+# the served cells of the act_seq_len=16 agent: the preset (or the bf16
+# kernel configuration), the batch, and the launches of each kernel per
+# 10-step DDIM chunk, those of the same cell at T=14
+LONG_CELLS = (
+    ("parity", 128, {"fused_layer_q8c": 120}),
+    ("parity", 1, {"fused_layer_q8c": 120}),
+    ("max-throughput", 128, {"fused_attn_block_q8": 120,
+                             "fused_top2_mlp_q8c": 120}),
+    ("b1-latency", 1, {"fused_dit_q8c": 10}),
+    ("b1-latency-max", 1, {"fused_dit_q8c": 10}),
+    (BF16_CONFIG, 128, {"fused_attn_block": 120, "fused_top2_mlp": 120}))
+
+
+def long_agent(dev):
+    """The shipped CALVIN config with the override act_seq_len=16 through
+    the port's loader and builders, as training_calvin and evaluate_calvin
+    build it: 12 layers, D=1024, 2 FiLM-ResNet-50s, seeded random weights,
+    T=20 tokens per sample."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.config.builders import build_agent
+    from mode_diffusion_policy_tpu_torch.config.loader import load_config
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "conf"), "config_calvin", [f"act_seq_len={LONG_ACTIONS}"])
+    agent = build_agent(cfg["model"], dtype=torch.bfloat16, device=dev)[0]
+    T = agent.cfg.dit_config().total_tokens
+    if (agent.cfg.act_window_size, agent.cfg.multistep, T) != (
+            LONG_ACTIONS, LONG_ACTIONS, 20):
+        raise SystemExit(f"long tokens: act_seq_len={LONG_ACTIONS} built "
+                         f"window {agent.cfg.act_window_size}, multistep "
+                         f"{agent.cfg.multistep}, {T} tokens")
+    return agent
+
+
+def long_launchers(policies, dev):
+    """The five attention-bearing launchers on the act_seq_len=16 agent's
+    served weights (layer 0; the megakernel with bf16 and with int8
+    projections, on one-layer slices of its stacks for the checks and the
+    whole 12-layer stacks for the times): name -> dict(kern, ref: the
+    kernel and its plain version; args, kw: their arguments after (x, c);
+    cost: (bf16 flops, int8 ops, bytes) of the timed call at (B, T); and
+    over (x, c) the timed call, its plain version and the library
+    yardstick)."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block, fused_attn_block_q8, fused_attn_block_q8_ref,
+        fused_attn_block_ref)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c,
+        fused_layer_q8c_ref)
+    from mode_diffusion_policy_tpu_torch.ops.quant import dequantize_experts
+    pa = policies["parity"].agent
+    pd, md = pa.inner_model, policies["max-throughput"].agent.inner_model
+    cfg = pd.cfg
+    D, H, HH, L = cfg.embed_dim, cfg.n_heads, 4 * cfg.embed_dim, cfg.n_layers
+    routing = pa.precompute_routing()
+    idx, probs = routing[0]
+    idx_L = torch.stack([i for i, _ in routing])
+    p_L = torch.stack([p for _, p in routing])
+    e, p = idx[0].tolist(), probs[0].tolist()
+    blk, a = pd.blocks[0], pd.blocks[0].attn
+    mblk, ma = md.blocks[0], md.blocks[0].attn
+    eps = dict(eps1=blk.ln_1.eps, eps_qk=a.q_norm.eps, eps2=blk.ln_2.eps)
+    attn_kw = dict(ln_eps=blk.ln_1.eps, qk_eps=a.q_norm.eps)
+    bf = torch.bfloat16
+    # the library yardsticks' experts, dequantized to bf16 ahead of time
+    deq = {}
+    for l, b in enumerate(pd.blocks):
+        w1, b1, w2 = dequantize_experts(b.experts_q)
+        deq[l] = {k: (w1[k].to(bf), b1[k].to(bf), w2[k].to(bf))
+                  for k in idx_L[l, 0].tolist()}
+        del w1, b1, w2
+
+    def lib_layer(l, b, x, c):
+        at = b.attn
+        return library_layer(x, c, b.ln_1.g, at.wqkv.kernel.to(bf),
+                             at.wqkv.bias.to(bf), at.q_norm.g, at.k_norm.g,
+                             at.c_proj.kernel.to(bf), b.ln_2.g, deq[l],
+                             idx_L[l, 0].tolist(), p_L[l, 0].tolist())
+
+    def lib_stack(x, c):
+        for l, b in enumerate(pd.blocks):
+            x = lib_layer(l, b, x, c)
+        return x
+
+    layer_args = (blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
+                  a.k_norm.g, a.c_proj.kernel, blk.ln_2.g, blk.experts_q,
+                  idx, probs)
+    q8_args = (mblk.ln_1.g, None, None, ma.q_norm.g, ma.k_norm.g, None,
+               mblk.ln_2.g, mblk.experts_q, idx, probs)
+    attn_args = (blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
+                 a.k_norm.g, a.c_proj.kernel)
+
+    def layer(kern, ref, args, kw, cost, lib):
+        return dict(kern=kern, ref=ref, args=args, kw=kw, cost=cost, lib=lib,
+                    time=lambda x, c: kern(x, c, *args, **kw),
+                    plain=lambda x, c: ref(x, c, *args, **kw))
+
+    out = {
+        "fused_layer_q8c": layer(
+            fused_layer_q8c, fused_layer_q8c_ref, layer_args,
+            dict(step=0, qexp_t=blk.experts_qt, **eps),
+            lambda B, T: layer_cost(B, T, D, H, HH),
+            lambda x, c: lib_layer(0, blk, x, c)),
+        "fused_layer_q8c_qattn": layer(
+            fused_layer_q8c, fused_layer_q8c_ref, q8_args,
+            dict(step=0, qexp_t=mblk.experts_qt, qattn=ma.attn_q,
+                 qattn_t=ma.attn_qt, **eps),
+            lambda B, T: layer_q8_cost(B, T, D, H, HH),
+            lambda x, c: library_moe(
+                library_attn(x, c, mblk.ln_1.g, ma.attn_q, ma.q_norm.g,
+                             ma.k_norm.g), mblk.ln_2.g, mblk.experts_q, e, p,
+                min(1024, HH))),
+        "fused_attn_block": layer(
+            fused_attn_block, fused_attn_block_ref, attn_args, attn_kw,
+            lambda B, T: attn_bf16_cost(B, T, D, H),
+            lambda x, c: library_attn_bf16(
+                x, c, blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias.to(bf),
+                a.q_norm.g, a.k_norm.g, a.c_proj.kernel)),
+        "fused_attn_block_q8": layer(
+            fused_attn_block_q8, fused_attn_block_q8_ref,
+            (mblk.ln_1.g, ma.attn_q, ma.q_norm.g, ma.k_norm.g),
+            dict(attn_kw, qattn_t=ma.attn_qt),
+            lambda B, T: attn_cost(B, T, D, H),
+            lambda x, c: library_attn(x, c, mblk.ln_1.g, ma.attn_q,
+                                      ma.q_norm.g, ma.k_norm.g)),
+    }
+    for name, mode in (("fused_dit_q8c", "b1-latency"),
+                       ("fused_dit_q8c_int8", "b1-latency-max")):
+        st = policies[mode].agent.inner_model.stacked
+        int8 = "sqkv" in st
+        out[name] = dict(
+            kern=fused_dit_q8c, ref=fused_dit_q8c_ref,
+            args=({k: v[:1] for k, v in st.items()}, idx_L[:1], p_L[:1]),
+            kw=dict(step=0, **eps),
+            cost=lambda B, T, int8=int8: dit_cost(B, T, D, H, HH, L, int8),
+            lib=lib_stack,
+            time=lambda x, c, st=st: fused_dit_q8c(x, c, st, idx_L, p_L,
+                                                   step=0, **eps),
+            plain=lambda x, c, st=st: fused_dit_q8c_ref(x, c, st, idx_L, p_L,
+                                                        step=0, **eps))
+    return out
+
+
+def long_conds(agent, B, T, gen):
+    """The three cond shapes at B samples of T tokens: the sigma token of
+    the schedule's first step as the shared [1,1,D] row, one sigma token
+    per sample [B,1,D], one per token [B,T,D] (the sigma tokens of random
+    sigmas in the schedule's range)."""
+    import torch
+    dit = agent.inner_model
+    first = torch.as_tensor(agent.sigmas[:1], device=gen.device)
+    D = dit.cfg.embed_dim
+    return {"shared": dit.process_sigma_embeddings(first)[0][None],
+            "per-sample": per_sample_cond(dit, B, gen),
+            "per-token": per_sample_cond(dit, B * T, gen).reshape(B, T, D)}
+
+
+def long_kernel_checks(policies, dev):
+    """Each of the five attention-bearing launchers (``long_launchers``)
+    against its plain version at T in LONG_T, b=128 and b=1, with a shared,
+    a per-sample and a per-token cond, by the layer gates of phases 3, 12,
+    15 and 21 (the megakernel on one-layer launches of both stacks, as
+    phases 7 and 9 hold its layers); a per-token cond whose rows are equal
+    within each sample gives the per-sample launch bit for bit. Then, at
+    each T and b with the shared row (the served cond), the kernel's ms
+    beside its bound (this call's bytes and operations), its plain
+    version's and the library yardstick's ms, and the kernel's ms with a
+    per-token cond; the megakernel's times are of its whole 12-layer
+    launch, with its attention key block. Returns name -> "b{B}_T{T}" ->
+    record."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        DIT_INFO, fused_dit_q8c)
+    launchers = long_launchers(policies, dev)
+    pa = policies["parity"].agent
+    D = pa.inner_model.cfg.embed_dim
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {name: {} for name in launchers}
+    for T in LONG_T:
+        for B in (128, 1):
+            x = torch.randn(B, T, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            conds = long_conds(pa, B, T, gen)
+            line = []
+            for name, k in launchers.items():
+                kern, ref, args, kw = k["kern"], k["ref"], k["args"], k["kw"]
+                errs, shares = [], []
+                for cname, c in conds.items():
+                    got = kern(x, c, *args, **kw)
+                    torch.cuda.synchronize()
+                    err, share = layer_gate(
+                        f"{name} b={B} x {T} tokens, {cname} cond", got,
+                        ref(x, c, *args, **kw))
+                    errs.append(err)
+                    shares.append(share)
+                check_token_rows(f"{name} (T={T})", kern,
+                                 (x, conds["per-sample"], *args), kw)
+                c, big = conds["shared"], B * T > 4096
+                ms = cuda_time_ms(lambda: k["time"](x, c), 5 if big else 20)
+                ms_tok = cuda_time_ms(
+                    lambda: k["time"](x, conds["per-token"]),
+                    5 if big else 20)
+                p_ms = cuda_time_ms(lambda: k["plain"](x, c), 2)
+                l_ms = cuda_time_ms(lambda: k["lib"](x, c), 2 if big else 5)
+                bf16, int8, nbytes = k["cost"](B, T)
+                # the per-token cond's rows, read once (the cost counts the
+                # shared row's)
+                bound, by = bound_of(bf16, int8, nbytes)
+                bound_tok, _ = bound_of(bf16, int8, nbytes + 4 * B * T * D)
+                rec = dict(T=T, B=B, max_abs_err=max(errs),
+                           gate_share=max(shares), ms=ms,
+                           ms_per_token_cond=ms_tok, plain_ms=p_ms,
+                           library_ms=l_ms, bound_ms=bound, bound_by=by,
+                           bound_ms_per_token_cond=bound_tok,
+                           gflop_bf16=bf16 / 1e9, gop_int8=int8 / 1e9,
+                           mbytes=nbytes / 1e6)
+                if kern is fused_dit_q8c:
+                    rec["info"] = dict(zip(DIT_INFO, fused_dit_q8c.last_grid))
+                out[name][f"b{B}_T{T}"] = rec
+                line.append(f"{name} {ms:.4f} ms (bound {bound:.4f} {by}; "
+                            f"per-token cond {ms_tok:.4f}; plain {p_ms:.3f},"
+                            f" library {l_ms:.4f}; gate {max(shares):.2f})")
+            print(f"  b={B} x {T} tokens, shared / per-sample / per-token "
+                  "cond within the layer gates, per-token cond of equal "
+                  "rows == per-sample launch: " + "; ".join(line),
+                  flush=True)
+    return out
+
+
+def long_identities(policies, dev):
+    """At T=20 on the act_seq_len=16 agent, with one cond row per token:
+    fused_attn_block then fused_top2_mlp_q8c equals one fused_layer_q8c
+    launch on every layer (chained), and the whole megakernel launch
+    equals its one-layer launches chained (each layer within the layer
+    gates of its plain layer) and the layers' fused_layer_q8c launches
+    chained, bit for bit, at b=128 and b=1."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
+        fused_layer_q8c)
+    from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
+        fused_top2_mlp_q8c)
+    pa = policies["parity"].agent
+    dit = pa.inner_model
+    st = policies["b1-latency"].agent.inner_model.stacked
+    routing = pa.precompute_routing()
+    idx_L = torch.stack([i for i, _ in routing])
+    p_L = torch.stack([p for _, p in routing])
+    D, T = dit.cfg.embed_dim, dit.cfg.total_tokens
+    gen = torch.Generator(device=dev).manual_seed(32)
+    blk0 = dit.blocks[0]
+    eps = dict(eps1=blk0.ln_1.eps, eps_qk=blk0.attn.q_norm.eps,
+               eps2=blk0.ln_2.eps)
+    out = {}
+    for B in (128, 1):
+        x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+        c = long_conds(pa, B, T, gen)["per-token"]
+        y = z = x
+        for l, blk in enumerate(dit.blocks):
+            idx, probs = routing[l]
+            a = blk.attn
+            w = (blk.ln_1.g, a.wqkv.kernel, a.wqkv.bias, a.q_norm.g,
+                 a.k_norm.g, a.c_proj.kernel)
+            two = fused_top2_mlp_q8c(
+                fused_attn_block(y, c, *w, ln_eps=blk.ln_1.eps,
+                                 qk_eps=a.q_norm.eps),
+                idx, probs, blk.experts_q, step=0, residual=True,
+                ln_g=blk.ln_2.g, ln_eps=blk.ln_2.eps, qexp_t=blk.experts_qt)
+            one = fused_layer_q8c(y, c, *w, blk.ln_2.g, blk.experts_q, idx,
+                                  probs, step=0, qexp_t=blk.experts_qt, **eps)
+            if not torch.equal(two, one):
+                raise SystemExit(
+                    f"T={T} b={B} layer {l}: fused_attn_block -> "
+                    f"fused_top2_mlp_q8c differs from fused_layer_q8c "
+                    f"({(two.float() - one.float()).abs().max().item():.3e})")
+            y = two
+            z = fused_layer_q8c(z, c, st["ln1"][l], st["wqkv"][l],
+                                st["bqkv"][l], st["q_g"][l], st["k_g"][l],
+                                st["wout"][l], st["ln2"][l],
+                                dit.blocks[l].experts_q, idx_L[l], p_L[l],
+                                step=0, qexp_t=dit.blocks[l].experts_qt,
+                                **eps)
+        L = len(dit.blocks)
+        full, share, err = check_stack_layers(
+            f"fused_dit_q8c T={T} b={B} per-token cond", st, x, c, idx_L,
+            p_L, 0, eps)
+        if not torch.equal(full, z):
+            raise SystemExit(f"fused_dit_q8c T={T} b={B}: differs from {L} "
+                             "chained fused_layer_q8c launches")
+        out[f"b{B}"] = dict(dit_layers_gate_share=share,
+                            dit_layers_max_abs_err=err)
+        print(f"  T={T} b={B}, per-token cond: fused_attn_block -> "
+              f"fused_top2_mlp_q8c == fused_layer_q8c on all {L} layers "
+              f"(chained); the {L}-layer megakernel == its layers chained "
+              f"(each within the layer gates, worst {share:.2f}) == {L} "
+              "chained fused_layer_q8c, bit for bit", flush=True)
+    return out
+
+
+def long_chain(agent, zero_launches, launches_of, dev):
+    """One five-task chain of LongHorizonEvaluator on FakeCalvinEnv (224
+    px, the subtask solved after EVAL_STEPS_TO_SUCCESS steps) under the
+    `auto` preset (parity on CUDA), through evaluate_calvin's
+    PreprocPolicy with the CLIP tower's cache, as evaluate_calvin.evaluate
+    runs it: 16 actions a chunk, 120 fused_layer_q8c launches per chunk,
+    nothing else, finite actions of 16 rows, the chain solved."""
+    import argparse
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.config.builders import \
+        build_lang_clip
+    from mode_diffusion_policy_tpu_torch.data.calvin_dataset import (
+        DEFAULT_OBS_SPACE, DEFAULT_PROPRIO)
+    from mode_diffusion_policy_tpu_torch.evaluation.evaluate_calvin import (
+        CAMERAS, PreprocPolicy, build_env, load_val_annotations)
+    from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import \
+        LangEmbeddingCache
+    from mode_diffusion_policy_tpu_torch.rollout.rollout_long_horizon import \
+        LongHorizonEvaluator
+    from mode_diffusion_policy_tpu_torch.serving import (
+        apply_serving_mode, resolve_serving_mode)
+    mode = resolve_serving_mode("auto", dev.type)
+    apply_serving_mode(agent, mode)
+    env, oracle = build_env(argparse.Namespace(
+        fake_env=True, image_size=TRAIN_IMG,
+        fake_steps_to_success=EVAL_STEPS_TO_SUCCESS),
+        DEFAULT_OBS_SPACE, DEFAULT_PROPRIO)
+    policy = PreprocPolicy(agent, LangEmbeddingCache(build_lang_clip(
+        device=dev)), sizes={cam: TRAIN_IMG for cam in CAMERAS})
+    ev = LongHorizonEvaluator(env, oracle, load_val_annotations(),
+                              num_sequences=1, ep_len=EVAL_EP_LEN)
+    chunks = []
+    predict = policy.predict_chunk
+
+    def counted(*a, **k):
+        out = predict(*a, **k)
+        chunks.append((*out.shape, bool(torch.isfinite(out).all())))
+        return out
+
+    policy.predict_chunk = counted
+    zero_launches()
+    t0 = time.perf_counter()
+    results = ev.evaluate_policy(policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches_of()
+    launches = counts.pop("fused_layer_q8c")
+    per_chunk = agent.cfg.n_layers * agent.cfg.num_sampling_steps
+    ok = (mode == "parity" and results == [5] and chunks
+          and set(chunks) == {(1, LONG_ACTIONS, agent.cfg.action_dim, True)}
+          and policy.multistep == LONG_ACTIONS
+          and launches == per_chunk * len(chunks)
+          and not any(counts.values()))
+    row = {"mode": mode, "chains": 1, "result": results, "chunks":
+           len(chunks), "launches": launches,
+           "launches_per_chunk": launches / max(len(chunks), 1),
+           "other_launches": counts, "wall_s": wall}
+    print(f"  LongHorizonEvaluator, 1 chain on FakeCalvinEnv, auto -> "
+          f"{mode}, {LONG_ACTIONS} actions a chunk: {row}", flush=True)
+    if not ok:
+        raise SystemExit(f"long tokens: the evaluation chain failed: {row}")
+    return row
+
+
+def long_tokens_phase(zero_launches, launches_of, dev):
+    """More than 16 tokens per sample: the act_seq_len=16 agent
+    (``long_agent``, T=20) served in every cell of LONG_CELLS by the
+    variants phase's rule (``variant_cell``: launches per chunk as at T=14,
+    action MAE against the same agent's reference chunk and against the
+    plain evaluation within max(1e-3, 2 x floor)); the five attention-
+    bearing launchers at T in LONG_T with all three cond shapes
+    (``long_kernel_checks``); the T=20 identities (``long_identities``);
+    one long-horizon chain under auto (``long_chain``)."""
+    import gc
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import RolloutPolicy
+    t = time.perf_counter()
+    agent = long_agent(dev)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    inputs = variant_inputs(gen, dev, actions=LONG_ACTIONS)
+    calib = {**{k: v[:4] for k, v in inputs[0].items()},
+             "lang_emb": inputs[1][:4]}
+    res = {"tokens": agent.cfg.dit_config().total_tokens, "cells": {}}
+    policies = {mode: RolloutPolicy.with_serving_mode(
+        agent, mode=mode, seed=0,
+        calib_batch=calib if mode == "max-throughput" else None)
+        for mode in ("parity", "max-throughput", "b1-latency",
+                     "b1-latency-max")}
+    for mode, B, want in LONG_CELLS[:-1]:
+        res["cells"][f"{mode}/b{B}"] = variant_cell(
+            "act_seq_len=16", agent, mode, B, want, inputs, zero_launches,
+            launches_of, policy=policies[mode])
+    phase("long tokens: the act_seq_len=16 agent served by parity, "
+          "max-throughput, b1-latency, b1-latency-max", t)
+    t = time.perf_counter()
+    res["kernels"] = long_kernel_checks(policies, dev)
+    phase("long tokens: the five launchers at T = "
+          f"{', '.join(map(str, LONG_T))}, b=128 and b=1, three cond shapes",
+          t)
+    t = time.perf_counter()
+    res["identities"] = long_identities(policies, dev)
+    del policies
+    gc.collect()
+    torch.cuda.empty_cache()
+    mode, B, want = LONG_CELLS[-1]
+    res["cells"][f"{mode}/b{B}"] = variant_cell(
+        "act_seq_len=16", agent, mode, B, want, inputs, zero_launches,
+        launches_of)
+    res["chain"] = long_chain(agent, zero_launches, launches_of, dev)
+    del agent
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("long tokens: T=20 identities, the bf16 kernel configuration, "
+          "one auto chain", t)
     return res
 
 
@@ -2344,9 +2825,10 @@ def _train_phase(smi, zero_launches, launches_of, root, dev):
 # Trainer's rollout hook) on phase 22's trained EMA weights
 # ---------------------------------------------------------------------------
 
-# 8 five-task chains on the fake env at 224 px, every task solvable after
-# 25 env steps (three chunks per subtask), 360 steps allowed per subtask
-EVAL_SEQUENCES, EVAL_STEPS_TO_SUCCESS, EVAL_EP_LEN = 8, 25, 360
+# 2 five-task chains on the fake env at 224 px (8 until the long-token
+# phase needed their time), every task solvable after 25 env steps (three
+# chunks per subtask), 360 steps allowed per subtask
+EVAL_SEQUENCES, EVAL_STEPS_TO_SUCCESS, EVAL_EP_LEN = 2, 25, 360
 PROXY_STEPS = 30
 EVAL_KEYS = {"eval_lh/avg_seq_len"} | {f"eval_lh/sr_chain_{i}"
                                        for i in range(1, 6)}
@@ -2735,7 +3217,7 @@ CLI_EPISODES = {"training": 16, "validation": 4}
 CLI_EP_LEN = 64
 CLI_STEPS = 8
 CLI_PROFILED_STEP = 6     # of the resumed run: its interval is profiled
-LOADER_BATCHES = 16
+LOADER_BATCHES = 8
 LOADER_CONFIGS = ((0, False), (0, True), (4, False), (4, True))
 CLI_INSTRUCTIONS = ("open the drawer", "close the drawer", "turn on the led",
                     "turn off the led", "push the red block to the right",
@@ -3124,9 +3606,9 @@ LIBERO_DEMOS, LIBERO_DEMO_LEN, LIBERO_HW, LIBERO_SEED = 3, 64, 128, 0
 LIBERO_B = 128            # conf/config_libero.yaml's batch_size
 LIBERO_LOADER_BATCHES = 8
 LIBERO_STEPS = 8
-# evaluate_libero on the fake env: 2 tasks x 4 rollouts at 224 px, each
+# evaluate_libero on the fake env: 2 tasks x 2 rollouts at 224 px, each
 # solved after 5 warm-up and 25 policy steps (three chunks)
-LIBERO_EVAL_TASKS, LIBERO_EVAL_N = 2, 4
+LIBERO_EVAL_TASKS, LIBERO_EVAL_N = 2, 2
 LIBERO_STEPS_TO_SUCCESS, LIBERO_MAX_STEPS = 30, 60
 LIBERO_POLICY_STEPS = LIBERO_STEPS_TO_SUCCESS - 5
 # the single-task evaluator: 3 validation windows, 4 fake-solvable tasks
@@ -5390,6 +5872,11 @@ def main():
     phase("variants: goal_routing_r34 (parity, b1-latency, b1-latency-max, "
           "max-throughput), shared_r18 (trained, parity), identity_cross, "
           "plain_paths", t)
+
+    # ---- the long-token phase: more than 16 tokens per sample ------------
+    t = time.perf_counter()
+    long_tokens = long_tokens_phase(zero_launches, launches_of, dev)
+    phase("long tokens: more than 16 tokens per sample", t)
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -5621,12 +6108,31 @@ def main():
         "bench_layer": bench_layer,
         "bench_proj": bench_proj,
     })
+    # the long-token phase's launchers at T in LONG_T and served cells at
+    # T=20, on the entries of the five attention-bearing kernels
+    for k in kernels:
+        names, cells = {
+            "fused_layer_q8c": (("fused_layer_q8c", "fused_layer_q8c_qattn"),
+                                ("parity/b128", "parity/b1")),
+            "fused_dit_q8c": (("fused_dit_q8c", "fused_dit_q8c_int8"),
+                              ("b1-latency/b1", "b1-latency-max/b1")),
+            "fused_attn_block_q8": (("fused_attn_block_q8",),
+                                    ("max-throughput/b128",)),
+            "fused_attn_block": (("fused_attn_block",),
+                                 (f"{BF16_CONFIG}/b128",)),
+        }.get(k["name"], ((), ()))
+        if names:
+            k["long_tokens"] = {
+                "tokens": LONG_T, "cell_tokens": long_tokens["tokens"],
+                "launchers": {n: long_tokens["kernels"][n] for n in names},
+                "cells": {n: long_tokens["cells"][n] for n in cells}}
     phase("done", T0)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"libero": libero}, default=str), flush=True)
     print(json.dumps({"variants": variants}), flush=True)
+    print(json.dumps({"long_tokens": long_tokens}), flush=True)
     print(json.dumps({"modules": modules}), flush=True)
     print(json.dumps({"dp": dp}, default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

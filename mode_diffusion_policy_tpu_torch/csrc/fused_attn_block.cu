@@ -18,7 +18,7 @@
 //   1 ln1_kernel          per row: h = bf16(rmsnorm(x)*g1 + c)
 //   2 qkv_wg_kernel       qkv = h @ wqkv + b   (wgmma bf16 fed by TMA)
 //   3 attn_kernel         one CTA per (query rows, head, sample): QK-RMSNorm,
-//                         causal softmax over T <= 16 tokens, P V, o in bf16
+//                         causal softmax over any T tokens, P V, o in bf16
 //   4 cproj_wg_kernel     out = bf16(x + o @ wout)   (wgmma bf16)
 // The projections run on the wgmma stage Proj (wgmma_stages.cuh): persistent
 // CTAs of one TMA producer warpgroup and one or two wgmma consumer
@@ -47,8 +47,8 @@
 
 using namespace mdp;
 
-// c: f32 cond rows; c_stride: 0 for one cond row shared by every sample, D
-// for one row per sample. qkv_tm, qkv_tn, out_tm, out_tn: the (rows,
+// c: c_rows f32 cond rows: one shared by every token (1), one per sample
+// (B) or one per token (B T). qkv_tm, qkv_tn, out_tm, out_tn: the (rows,
 // columns) of the two projections' tiles (64 or 128 each); ctas: the most
 // CTAs a projection runs at once. Returns a CUDA error code, or
 // wg::kErrNoEncode / kErrEncode when a TMA tensor map cannot be made;
@@ -57,11 +57,11 @@ extern "C" int fused_attn_block_launch(
     const void* x, const void* c, const void* ln1_g, const void* wqkv,
     const void* bqkv, const void* q_g, const void* k_g, const void* wout,
     void* h, void* qkv, void* o, void* out, int B, int T, int D, int H,
-    int c_stride, float eps1, float eps_qk, float rs_D, float rs_hd,
+    int c_rows, float eps1, float eps_qk, float rs_D, float rs_hd,
     float scale, int qkv_tm, int qkv_tn, int out_tm, int out_tn, int ctas,
     void* stream) {
   const int tiles[4] = {qkv_tm, qkv_tn, out_tm, out_tn};
-  return attn_bf16_stages(x, c, c_stride, ln1_g, wqkv, bqkv, q_g, k_g, wout,
+  return attn_bf16_stages(x, c, c_rows, ln1_g, wqkv, bqkv, q_g, k_g, wout,
                           h, qkv, o, out, B, T, D, H, eps1, eps_qk, rs_D,
                           rs_hd, scale, tiles, ctas,
                           static_cast<cudaStream_t>(stream));

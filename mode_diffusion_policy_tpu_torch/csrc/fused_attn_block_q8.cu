@@ -6,7 +6,8 @@
 // serving path:
 //
 //   hq, hs = q(rmsnorm(x) * g1 + c)                  (f32, no bf16 cast)
-//            c one row shared by every sample, or one row per sample
+//            c one row shared by every token, one per sample or one
+//            per token
 //   qkv    = dot_i8(hq, wqkv_q) * (hs * sqkv) + bqkv
 //   o      = attn(qk_norm(q), qk_norm(k), v)         (causal per sample)
 //   out    = bf16(x + dot_i8(q(o), wout_q) * (os * sout))
@@ -18,7 +19,7 @@
 //   1 ln1_quant_kernel  per row: f32 h = rmsnorm(x)*g1 + c, int8 row + scale
 //   2 qkv_wg_kernel     qkv = (hq wqkv) * (hs * sqkv) + bqkv  (wgmma s8)
 //   3 attn_kernel       one CTA per (query rows, head, sample): QK-RMSNorm,
-//                       causal softmax over T <= 16 tokens, P V, o in f32
+//                       causal softmax over any T tokens, P V, o in f32
 //   4 quant_f32_kernel  per row: int8 row + scale of o
 //   5 cproj_wg_kernel   out = bf16(x + (oq wout) * (os * sout))  (wgmma s8)
 // The row and attention stages are the megakernel's (fused_dit_q8c.cu) on
@@ -50,9 +51,9 @@
 
 using namespace mdp;
 
-// c: the cond rows in bf16; c_stride: 0 for one row shared by every
-// sample, D for one row per sample. tiles: rows and columns of the QKV tiles, then of the c_proj
-// tiles (64 or 128 each); ctas: the most CTAs a projection runs at once.
+// c: c_rows cond rows in bf16: one shared by every token (1), one per
+// sample (B) or one per token (B T). tiles: rows and columns of the QKV
+// tiles, then of the c_proj tiles (64 or 128 each); ctas: the most CTAs a projection runs at once.
 // Returns a CUDA error code, or wg::kErrNoEncode / kErrEncode when a TMA
 // tensor map cannot be made; nothing runs unless it is 0.
 extern "C" int fused_attn_block_q8_launch(
@@ -60,11 +61,11 @@ extern "C" int fused_attn_block_q8_launch(
     const void* wqkv_s, const void* bqkv, const void* q_g, const void* k_g,
     const void* wout_t, const void* wout_s, void* hq, void* hs, void* qkv,
     void* o, void* oq, void* os, void* out, int B, int T, int D, int H,
-    int c_stride, float eps1, float eps_qk, float rs_D, float rs_hd,
+    int c_rows, float eps1, float eps_qk, float rs_D, float rs_hd,
     float scale, int qkv_tm, int qkv_tn, int out_tm, int out_tn, int ctas,
     void* stream) {
   const int tiles[4] = {qkv_tm, qkv_tn, out_tm, out_tn};
-  return attn_q8_stages(x, c, c_stride, ln1_g, wqkv_t, wqkv_s, bqkv, q_g, k_g,
+  return attn_q8_stages(x, c, c_rows, ln1_g, wqkv_t, wqkv_s, bqkv, q_g, k_g,
                         wout_t, wout_s, hq, hs, qkv, o, oq, os, out, B, T, D,
                         H, eps1, eps_qk, rs_D, rs_hd, scale, tiles, ctas,
                         static_cast<cudaStream_t>(stream));

@@ -95,9 +95,9 @@ struct DitMaps {
 };
 
 struct DitArgs {
-  // inputs: activation, f32 cond rows (one shared row, or one per sample:
-  // c_stride 0 or D; every layer reads them from this buffer), stacked
-  // vectors, routing
+  // inputs: activation, f32 cond rows (one shared row, one per sample or
+  // one per token: row r's at c + (r / c_div) * c_stride, CondMap; every
+  // layer reads them from this buffer), stacked vectors, routing
   const bf16* x;
   const float* c;
   const float* ln1;       // [L, D]
@@ -130,8 +130,10 @@ struct DitArgs {
   bf16* tmp;              // [M, D]   ping-pong partner of out
   bf16* out;              // [M, D]
   unsigned long long* times;   // [marks, 2] (%globaltimer, clock), or null
-  int S, step, L, B, T, D, H, HH, TH, E, c_stride;
-  int n_slots, ring_bytes, team_bytes;   // the shared-memory plan
+  int S, step, L, B, T, D, H, HH, TH, E, c_div, c_stride;
+  // the shared-memory plan: ring stages, ring bytes, each team's bytes
+  // for the row and attention stages, the attention's key rows per block
+  int n_slots, ring_bytes, team_bytes, attn_kb;
   float eps1, eps_qk, eps2, rs_D, rs_hd, scale;
 };
 
@@ -291,12 +293,12 @@ __device__ __forceinline__ void dit_consumer(const DitArgs& a,
     const float* ln1 = a.ln1 + (size_t)l * D;
     for (int i = team; i < M; i += teams) {
       if constexpr (Q8)
-        ln1_quant_row(la.src, a.c, a.T, a.c_stride, ln1,
+        ln1_quant_row(la.src, a.c, a.c_div, a.c_stride, ln1,
                       static_cast<int8_t*>(a.h), a.hs, D, a.rs_D, a.eps1, i,
                       scratch, tm);
       else
-        ln1_row(la.src, a.c, a.T, a.c_stride, ln1, static_cast<bf16*>(a.h),
-                D, a.rs_D, a.eps1, i, scratch, tm);
+        ln1_row(la.src, a.c, a.c_div, a.c_stride, ln1,
+                static_cast<bf16*>(a.h), D, a.rs_D, a.eps1, i, scratch, tm);
       tm.sync();
     }
     end_stage(false, true);
@@ -306,7 +308,7 @@ __device__ __forceinline__ void dit_consumer(const DitArgs& a,
       attn_item(a.qkv, a.q_g + (size_t)l * hd, a.k_g + (size_t)l * hd,
                 Q8 ? nullptr : static_cast<bf16*>(a.o),
                 Q8 ? static_cast<float*>(a.o) : nullptr, a.B, a.T, D, a.H,
-                hd, a.rs_hd, a.eps_qk, a.scale, i, scratch, tm);
+                hd, a.rs_hd, a.eps_qk, a.scale, a.attn_kb, i, scratch, tm);
       tm.sync();
     }
     end_stage(false, true);
@@ -387,7 +389,7 @@ enum Ptr {
   kXm, kXq, kSx, kAct, kAq, kSa, kPart, kTmp, kOut, kNumPtr
 };
 enum Int {
-  iS, iStep, iL, iB, iT, iD, iH, iHH, iTH, iE, iInt8Attn, iTile, iCStride,
+  iS, iStep, iL, iB, iT, iD, iH, iHH, iTH, iE, iInt8Attn, iTile, iCRows,
   kNumInt
 };
 enum Flt { fEps1, fEpsQk, fEps2, fRsD, fRsHd, fScale, kNumFlt };
@@ -398,11 +400,16 @@ template <int WG, bool Q8>
 int launch(const DitMaps& m, DitArgs a, int* info, cudaStream_t st) {
   using O = Ops<WG, Q8>;
   const auto kernel = fused_dit_kernel<WG, Q8>;
-  // the row stages' shared memory per team, lent by the ring
-  a.team_bytes =
-      (cmax(smem_row(a.D), smem_attn(a.T, a.D / a.H)) + 1023) / 1024 * 1024;
   const int cols = WG * O::kCols * 4, route = 16 * a.L;
   const int avail = kMaxSmem - 1024 - cols - 16 * wg::kMaxStages - route;
+  // the row and attention stages' shared memory per team, lent by the
+  // ring: a team's share of it at most, where a long sample streams its
+  // keys in blocks (attn_kb)
+  const int hd = a.D / a.H, rows = attn_rows(a.B, a.H, a.T);
+  a.attn_kb = attn_kb(a.T, hd, rows, avail / WG / 1024 * 1024);
+  if (a.attn_kb < 1) return (int)cudaErrorInvalidValue;
+  a.team_bytes = (cmax(smem_row(a.D), smem_attn(a.T, hd, rows, a.attn_kb)) +
+                  1023) / 1024 * 1024;
   a.n_slots = std::min(wg::kMaxStages, avail / O::kSlot);
   a.ring_bytes = std::max(a.n_slots * O::kSlot, WG * a.team_bytes);
   if (a.n_slots < 2 || a.ring_bytes > avail)
@@ -436,6 +443,7 @@ int launch(const DitMaps& m, DitArgs a, int* info, cudaStream_t st) {
   info[5] = WG;
   info[6] = fa.numRegs;
   info[7] = (int)fa.localSizeBytes;
+  info[8] = a.attn_kb;
   void* args[] = {const_cast<DitMaps*>(&m), &a};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                   dim3(grid), dim3(128 * (WG + 1)), args,
@@ -447,13 +455,14 @@ int launch(const DitMaps& m, DitArgs a, int* info, cudaStream_t st) {
 }  // namespace
 
 // p: kNumPtr device addresses (the Ptr slots; the unused ones of a
-// projection kind may be 0), n: kNumInt ints, f: kNumFlt floats, each
-// count checked; info (host memory, 8 ints) receives the grid size, the
-// CTAs per SM, the dynamic and the static shared memory per CTA, the ring
-// stages, the consumer warpgroups, the registers per thread and the local
-// (spill) bytes per thread; times: null, or device memory for 2 x (1 +
-// L x barriers per layer) u64 (%globaltimer ns and SM clock after each
-// barrier). The int8 weights are the K-major stacked copies (w1_t [L, E,
+// projection kind may be 0), n: kNumInt ints (n[iCRows]: the count of cond
+// rows, 1, B or B T), f: kNumFlt floats, each count checked; info (host
+// memory, 9 ints) receives the grid size, the CTAs per SM, the dynamic and
+// the static shared memory per CTA, the ring stages, the consumer
+// warpgroups, the registers per thread, the local (spill) bytes per thread
+// and the attention's key rows per block (T: one pass); times: null, or
+// device memory for 2 x (1 + L x barriers per layer) u64 (%globaltimer ns
+// and SM clock after each barrier). The int8 weights are the K-major stacked copies (w1_t [L, E,
 // 2HH, D], w2_t [L, E, D, HH] and, with int8 projections, wqkv_t [L, 3D,
 // D], wout_t [L, D, D]); bf16 projections are read as stored ([L, D, 3D],
 // [L, D, D]). n[iTile]: 128 (128 x 128 tiles) or 64. Returns a CUDA error
@@ -484,9 +493,11 @@ extern "C" int fused_dit_q8c_launch(const unsigned long long* p, int n_p,
   a.times = static_cast<unsigned long long*>(times);
   a.S = n[iS]; a.step = n[iStep]; a.L = n[iL]; a.B = n[iB]; a.T = n[iT];
   a.D = n[iD]; a.H = n[iH]; a.HH = n[iHH]; a.TH = n[iTH]; a.E = n[iE];
-  a.c_stride = n[iCStride];
-  if (a.c_stride != 0 && a.c_stride != a.D)
+  CondMap cm;
+  if (!cond_map(n[iCRows], a.B, a.T, a.D, &cm))
     return (int)cudaErrorInvalidValue;
+  a.c_div = cm.div;
+  a.c_stride = cm.stride;
   a.eps1 = f[fEps1]; a.eps_qk = f[fEpsQk]; a.eps2 = f[fEps2];
   a.rs_D = f[fRsD]; a.rs_hd = f[fRsHd]; a.scale = f[fScale];
   const bool q8 = n[iInt8Attn] != 0;

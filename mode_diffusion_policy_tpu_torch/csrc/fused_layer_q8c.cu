@@ -19,7 +19,7 @@
 //   1 ln1_kernel          per row: h = bf16(rmsnorm(x)*g1 + c)
 //   2 qkv_wg_kernel       qkv = h @ wqkv + b       (wgmma bf16, f32 accum)
 //   3 attn_kernel         one CTA per (query rows, head, sample): QK-RMSNorm,
-//                         causal softmax over T <= 16 tokens, P V (f32 FMA)
+//                         causal softmax over any T tokens, P V (f32 FMA)
 //   4 cproj_wg_kernel     x_mid = bf16(x + o @ wout) (wgmma bf16, f32 accum)
 //   5 ln2_quant_kernel    xm = bf16(rmsnorm(x_mid)*g2); int8 rows of xm
 //   6 moe_up_wg_kernel    value/gate = xq @ W1_e (wgmma s8, s32 accum), act
@@ -79,10 +79,11 @@
 using namespace mdp;
 
 // The int8 experts as the K-major copy w1_t [E, 2H, D], w2_t [E, D, H]
-// with their scales w1_s [E, 2H], w2_s [E, D] and f32 b1 [E, 2H]; c the f32
-// cond rows, c_stride 0 for one row [D] shared by every sample, D for one
-// row per sample [B, D] (the JAX kernel's c of [B, 1, D]). qkv_tm, qkv_tn, out_tm, out_tn: the (rows, columns) of the
-// two projections' tiles (64 or 128 each). tile:
+// with their scales w1_s [E, 2H], w2_s [E, D] and f32 b1 [E, 2H]; c the
+// c_rows f32 cond rows: one [D] shared by every token (1), one per sample
+// (B: the JAX kernel's c of [B, 1, D]) or one per token (B T: [B, T, D]).
+// qkv_tm, qkv_tn, out_tm, out_tn: the (rows, columns) of the two
+// projections' tiles (64 or 128 each). tile:
 // 128 (128 x 128 MoE output tiles, the down stage summing in registers) or
 // 64 (64 x 64, the down stage writing part [2 H / TH, M, D] f32 for the
 // ordered-sum stage; part is unused for 128); ctas: the most CTAs an MoE
@@ -97,13 +98,13 @@ extern "C" int fused_layer_q8c_launch(
     int step, void* h, void* qkv, void* o,
     void* xmid, void* xm, void* xq, void* sx, void* act, void* aq, void* sa,
     void* part, void* out, int B, int T, int D, int H, int HH, int TH, int E,
-    int c_stride, float eps1, float eps_qk, float eps2, float rs_D,
+    int c_rows, float eps1, float eps_qk, float eps2, float rs_D,
     float rs_hd, float scale, int qkv_tm, int qkv_tn, int out_tm, int out_tn,
     int tile, int ctas, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T;
   const int tiles[4] = {qkv_tm, qkv_tn, out_tm, out_tn};
-  if (const int e = attn_bf16_stages(x, c, c_stride, ln1_g, wqkv, bqkv, q_g, k_g,
+  if (const int e = attn_bf16_stages(x, c, c_rows, ln1_g, wqkv, bqkv, q_g, k_g,
                                      wout, h, qkv, o, xmid, B, T, D, H, eps1,
                                      eps_qk, rs_D, rs_hd, scale, tiles, ctas,
                                      st))
@@ -122,7 +123,7 @@ extern "C" int fused_layer_q8c_launch(
 // K-major int8 copy wqkv_t [3D, D], wout_t [D, D] with their column scales
 // wqkv_s [3D], wout_s [D]; qkv_tiles and out_tiles are the (rows, columns)
 // of their output tiles (64 or 128 each); c holds the cond rows in bf16
-// (c_stride as above); the other arguments are those of
+// (c_rows as above); the other arguments are those of
 // fused_layer_q8c_launch. The result equals fused_attn_block_q8 followed by
 // fused_top2_mlp_q8c (ln_2, residual) bit for bit: the same stages.
 extern "C" int fused_layer_q8c_q8_launch(
@@ -133,7 +134,7 @@ extern "C" int fused_layer_q8c_q8_launch(
     const void* w2_s, const void* idx, const void* probs, int step, void* hq,
     void* hs, void* qkv, void* o, void* oq, void* os, void* xmid, void* xm,
     void* xq, void* sx, void* act, void* aq, void* sa, void* part, void* out,
-    int B, int T, int D, int H, int HH, int TH, int E, int c_stride,
+    int B, int T, int D, int H, int HH, int TH, int E, int c_rows,
     float eps1, float eps_qk, float eps2, float rs_D, float rs_hd,
     float scale, int qkv_tm, int qkv_tn, int out_tm, int out_tn, int tile,
     int ctas, void* stream) {
@@ -141,7 +142,7 @@ extern "C" int fused_layer_q8c_q8_launch(
   const int M = B * T;
   const int tiles[4] = {qkv_tm, qkv_tn, out_tm, out_tn};
   if (const int e = attn_q8_stages(
-          x, c, c_stride, ln1_g, wqkv_t, wqkv_s, bqkv, q_g, k_g, wout_t, wout_s, hq,
+          x, c, c_rows, ln1_g, wqkv_t, wqkv_s, bqkv, q_g, k_g, wout_t, wout_s, hq,
           hs, qkv, o, oq, os, xmid, B, T, D, H, eps1, eps_qk, rs_D, rs_hd,
           scale, tiles, ctas, st))
     return e;

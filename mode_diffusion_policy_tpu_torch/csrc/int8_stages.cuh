@@ -47,25 +47,26 @@ namespace {
 
 using namespace mdp;
 
-// c: f32 cond rows (x's dtype widened), c_stride 0 for one row shared by
-// every sample, D for one row per sample
+// c: f32 cond rows (x's dtype widened), row r's at c + (r / c_div) *
+// c_stride (layer_stages.cuh CondMap)
 __global__ void __launch_bounds__(kThreads)
-ln1_kernel(const bf16* x, const float* c, int T, int c_stride, const float* g,
-           bf16* h, int D, float rs_D, float eps) {
+ln1_kernel(const bf16* x, const float* c, int c_div, int c_stride,
+           const float* g, bf16* h, int D, float rs_D, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ln1_row(x, c, T, c_stride, g, h, D, rs_D, eps, blockIdx.x, smem);
+  ln1_row(x, c, c_div, c_stride, g, h, D, rs_D, eps, blockIdx.x, smem);
 }
 
 // c: the cond rows in bf16, x's dtype, as the JAX kernel takes them (the
 // caller converts nothing on the served path, where they are bf16 already);
-// the row's cond is widened into shared memory after the row stage's own
+// the row's cond (as in ln1_kernel) is widened into shared memory after
+// the row stage's own
 __global__ void __launch_bounds__(kThreads)
-ln1_quant_kernel(const bf16* x, const bf16* c, int T, int c_stride,
+ln1_quant_kernel(const bf16* x, const bf16* c, int c_div, int c_stride,
                  const float* g, int8_t* hq, float* hs, int D, float rs_D,
                  float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* cond = reinterpret_cast<float*>(smem + smem_row(D));
-  const bf16* cr = c + (size_t)(blockIdx.x / T) * c_stride;
+  const bf16* cr = c + (size_t)(blockIdx.x / c_div) * c_stride;
   for (int d = threadIdx.x; d < D; d += blockDim.x)
     cond[d] = __bfloat162float(cr[d]);
   __syncthreads();
@@ -91,19 +92,19 @@ cproj_wg_kernel(const __grid_constant__ CUtensorMap ta,
 }
 
 // O = float: o stays f32 for the re-quantization (int8 projections);
-// O = bf16: o rounded to bf16 (bf16 projections)
+// O = bf16: o rounded to bf16 (bf16 projections); kb key rows per block
 template <typename O>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const float* qkv, const float* qg, const float* kg, O* o, int B,
             int T, int D, int H, int hd, float rs_hd, float eps_qk,
-            float scale) {
+            float scale, int kb) {
   extern __shared__ __align__(128) unsigned char smem[];
   if constexpr (std::is_same<O, float>::value)
     attn_item(qkv, qg, kg, nullptr, o, B, T, D, H, hd, rs_hd, eps_qk, scale,
-              blockIdx.x, smem);
+              kb, blockIdx.x, smem);
   else
     attn_item(qkv, qg, kg, o, nullptr, B, T, D, H, hd, rs_hd, eps_qk, scale,
-              blockIdx.x, smem);
+              kb, blockIdx.x, smem);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -163,6 +164,30 @@ cudaError_t set_smem(K kernel, int bytes) {
   return wg::grant_smem(reinterpret_cast<const void*>(kernel), bytes);
 }
 
+// The attention kernel's shared memory per CTA at most: the default
+// grant, so that several CTAs share an SM; a sample whose q, k and v rows
+// do not fit streams its keys in blocks (attn_kb).
+constexpr int kAttnSmem = 48 * 1024;
+
+// The attention stage's launch plan: the cond rows' map from their count
+// c_rows (1, B or B T), the key rows per block and the CTA's shared
+// memory; cudaErrorInvalidValue for another count or a sample too long
+// for one key row per block.
+struct AttnPlan {
+  CondMap cond;
+  int kb, smem;
+};
+
+inline cudaError_t attn_plan(int c_rows, int B, int T, int D, int H,
+                             AttnPlan* p) {
+  const int hd = D / H, rows = attn_rows(B, H, T);
+  if (!cond_map(c_rows, B, T, D, &p->cond)) return cudaErrorInvalidValue;
+  p->kb = attn_kb(T, hd, rows, kAttnSmem);
+  if (p->kb < 1) return cudaErrorInvalidValue;
+  p->smem = smem_attn(T, hd, rows, p->kb);
+  return cudaSuccess;
+}
+
 template <int WG, int BN, int EPI, int KIND>
 int run_proj(const CUtensorMap& ma, const CUtensorMap& mw,
              const wg::ProjArgs& a, int ctas, cudaStream_t st) {
@@ -206,31 +231,30 @@ int proj_stage(const void* a, const void* sa, const void* w, const void* sb,
 }
 
 // Stages 1-5: the attention sub-block with int8 projections, out = x +
-// attn(...) (the layer's x_mid). c: bf16 cond rows; c_stride: 0 for one
-// row shared by every sample, D for one row per sample. tiles: the (rows,
-// columns) of the QKV tiles, then of the c_proj tiles.
+// attn(...) (the layer's x_mid). c: c_rows bf16 cond rows, one shared by
+// every token (1), one per sample (B) or one per token (B T). tiles: the
+// (rows, columns) of the QKV tiles, then of the c_proj tiles.
 inline int attn_q8_stages(
-    const void* x, const void* c, int c_stride, const void* ln1_g,
+    const void* x, const void* c, int c_rows, const void* ln1_g,
     const void* wqkv_t, const void* wqkv_s, const void* bqkv, const void* q_g,
     const void* k_g, const void* wout_t, const void* wout_s, void* hq,
     void* hs, void* qkv, void* o, void* oq, void* os, void* out, int B,
     int T, int D, int H, float eps1, float eps_qk, float rs_D, float rs_hd,
     float scale, const int (&tiles)[4], int ctas, cudaStream_t st) {
   const int M = B * T, hd = D / H;
-  const int attn_smem = smem_attn(T, hd);
-  // long attention rows need more than the default 48 KB of dynamic
-  // shared memory
-  if (const cudaError_t e = set_smem(attn_kernel<float>, attn_smem))
+  AttnPlan ap;
+  if (const cudaError_t e = attn_plan(c_rows, B, T, D, H, &ap)) return (int)e;
+  if (const cudaError_t e = set_smem(attn_kernel<float>, ap.smem))
     return (int)e;
   ln1_quant_kernel<<<M, kThreads, smem_row(D) + 4 * D, st>>>(
-      (const bf16*)x, (const bf16*)c, T, c_stride, (const float*)ln1_g,
-      (int8_t*)hq, (float*)hs, D, rs_D, eps1);
+      (const bf16*)x, (const bf16*)c, ap.cond.div, ap.cond.stride,
+      (const float*)ln1_g, (int8_t*)hq, (float*)hs, D, rs_D, eps1);
   if (const int e = proj_stage<0>(hq, hs, wqkv_t, wqkv_s, bqkv, nullptr, qkv,
                                   M, 3 * D, D, tiles[0], tiles[1], ctas, st))
     return e;
-  attn_kernel<float><<<attn_items(B, H, T), kThreads, attn_smem, st>>>(
+  attn_kernel<float><<<attn_items(B, H, T), kThreads, ap.smem, st>>>(
       (const float*)qkv, (const float*)q_g, (const float*)k_g, (float*)o, B,
-      T, D, H, hd, rs_hd, eps_qk, scale);
+      T, D, H, hd, rs_hd, eps_qk, scale, ap.kb);
   quant_f32_kernel<<<M, kThreads, smem_row(D), st>>>(
       (const float*)o, (int8_t*)oq, (float*)os, D);
   return proj_stage<1>(oq, os, wout_t, wout_s, nullptr, x, out, M, D, D,
@@ -239,30 +263,30 @@ inline int attn_q8_stages(
 
 // The attention sub-block with bf16 projections, out = x + attn(...) (the
 // layer's x_mid): ln1, the QKV projection on wgmma bf16, attention with o
-// rounded to bf16, c_proj on wgmma bf16 added to x. c: f32 cond rows;
-// c_stride: 0 for one row shared by every sample, D for one row per
-// sample. tiles: the (rows, columns) of the QKV tiles, then of the c_proj
-// tiles.
+// rounded to bf16, c_proj on wgmma bf16 added to x. c: c_rows f32 cond
+// rows (as in attn_q8_stages). tiles: the (rows, columns) of the QKV
+// tiles, then of the c_proj tiles.
 inline int attn_bf16_stages(
-    const void* x, const void* c, int c_stride, const void* ln1_g,
+    const void* x, const void* c, int c_rows, const void* ln1_g,
     const void* wqkv, const void* bqkv, const void* q_g, const void* k_g,
     const void* wout, void* h, void* qkv, void* o, void* out, int B, int T,
     int D, int H, float eps1, float eps_qk, float rs_D, float rs_hd,
     float scale, const int (&tiles)[4], int ctas, cudaStream_t st) {
   const int M = B * T, hd = D / H;
-  const int attn_smem = smem_attn(T, hd);
-  if (const cudaError_t e = set_smem(attn_kernel<bf16>, attn_smem))
+  AttnPlan ap;
+  if (const cudaError_t e = attn_plan(c_rows, B, T, D, H, &ap)) return (int)e;
+  if (const cudaError_t e = set_smem(attn_kernel<bf16>, ap.smem))
     return (int)e;
   ln1_kernel<<<M, kThreads, smem_row(D), st>>>(
-      (const bf16*)x, (const float*)c, T, c_stride, (const float*)ln1_g,
-      (bf16*)h, D, rs_D, eps1);
+      (const bf16*)x, (const float*)c, ap.cond.div, ap.cond.stride,
+      (const float*)ln1_g, (bf16*)h, D, rs_D, eps1);
   if (const int e = proj_stage<0, wg::kBf16>(
           h, nullptr, wqkv, nullptr, bqkv, nullptr, qkv, M, 3 * D, D,
           tiles[0], tiles[1], ctas, st))
     return e;
-  attn_kernel<bf16><<<attn_items(B, H, T), kThreads, attn_smem, st>>>(
+  attn_kernel<bf16><<<attn_items(B, H, T), kThreads, ap.smem, st>>>(
       (const float*)qkv, (const float*)q_g, (const float*)k_g, (bf16*)o, B,
-      T, D, H, hd, rs_hd, eps_qk, scale);
+      T, D, H, hd, rs_hd, eps_qk, scale, ap.kb);
   return proj_stage<1, wg::kBf16>(o, nullptr, wout, nullptr, nullptr, x, out,
                                   M, D, D, tiles[2], tiles[3], ctas, st);
 }

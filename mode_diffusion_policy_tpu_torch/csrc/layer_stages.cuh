@@ -36,7 +36,6 @@ namespace mdp {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 128;  // threads of a Team: 4 warps
-constexpr int kMaxT = 16;      // tokens per sample held by the attention stage
 
 // The kThreads threads that compute one work item: a whole CTA of
 // kThreads (bar 0, __syncthreads' barrier) or one consumer warpgroup of
@@ -58,9 +57,11 @@ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 constexpr int kSmemRed = 32 * 4;
 // the row stages stage one row of D floats after the 32-float reduction
 __host__ __device__ inline int smem_row(int D) { return kSmemRed + D * 4; }
-// q, k, v rows of one (head, sample) plus the reductions and probabilities
-__host__ __device__ inline int smem_attn(int T, int hd) {
-  return 3 * T * hd * 4 + 2 * kMaxT * 4 + kMaxT * kMaxT * 4;
+// The attention stage (attn_item): `rows` query rows of hd floats, a block
+// of kb key rows and kb value rows, their inverse norms, and the f32 score
+// row of each query row over the sample's T tokens
+__host__ __device__ inline int smem_attn(int T, int hd, int rows, int kb) {
+  return 4 * (rows * hd + 2 * kb * hd + rows + kb + rows * T);
 }
 
 // ---- helpers ----------------------------------------------------------------
@@ -197,17 +198,35 @@ __device__ __forceinline__ void vec_regs(const float* p, int d0, int D,
   }
 }
 
+// ---- the cond rows of x's rows --------------------------------------------
+// c holds c_rows rows of D: one row shared by every token (c_rows == 1),
+// one per sample (c_rows == B: x's row r reads row r / T) or one per token
+// (c_rows == B T: row r). The row stages read c + (r / div) * stride.
+struct CondMap {
+  int div, stride;
+};
+
+// false where c_rows is none of 1, B and B T
+__host__ __device__ inline bool cond_map(int c_rows, int B, int T, int D,
+                                         CondMap* m) {
+  if (c_rows == B * T) *m = CondMap{1, D};
+  else if (c_rows == B) *m = CondMap{T, D};
+  else if (c_rows == 1) *m = CondMap{1, 0};
+  else return false;
+  return true;
+}
+
 // ---- ln1: h = bf16(rmsnorm(x) * g1 + c), one row -----------------------
-// The cond row of x's row `row` is c + (row / T) * c_stride: c_stride == 0
-// for one row shared by every sample, D for one row per sample.
+// The cond row of x's row `row` is c + (row / c_div) * c_stride (CondMap).
 __device__ __forceinline__ void ln1_row(const bf16* x, const float* c,
-                                        int T, int c_stride, const float* g,
-                                        bf16* h, int D, float rs_D, float eps,
+                                        int c_div, int c_stride,
+                                        const float* g, bf16* h, int D,
+                                        float rs_D, float eps,
                                         int row, unsigned char* smem,
                                         const Team& tm = cta_team()) {
   float* red = reinterpret_cast<float*>(smem);
   float* buf = red + 32;
-  c += (size_t)(row / T) * c_stride;
+  c += (size_t)(row / c_div) * c_stride;
   float ss = row_to_smem(x + (size_t)row * D, buf, D, tm);
   ss = block_sum(ss, red, tm);
   const float den = fmaxf(__fmul_rn(sqrtf(ss), rs_D), eps);
@@ -229,7 +248,7 @@ __device__ __forceinline__ void ln1_row(const bf16* x, const float* c,
 // ---- ln1, int8 projections: hq, hs = quant_rows(rmsnorm(x) * g1 + c) in
 // f32 (no bf16 cast of h), one row; the cond row as in ln1_row -----------
 __device__ __forceinline__ void ln1_quant_row(const bf16* x, const float* c,
-                                              int T, int c_stride,
+                                              int c_div, int c_stride,
                                               const float* g, int8_t* hq,
                                               float* hs, int D, float rs_D,
                                               float eps, int row,
@@ -237,7 +256,7 @@ __device__ __forceinline__ void ln1_quant_row(const bf16* x, const float* c,
                                               const Team& tm = cta_team()) {
   float* red = reinterpret_cast<float*>(smem);
   float* buf = red + 32;
-  c += (size_t)(row / T) * c_stride;
+  c += (size_t)(row / c_div) * c_stride;
   float ss = row_to_smem(x + (size_t)row * D, buf, D, tm);
   ss = block_sum(ss, red, tm);
   const float den = fmaxf(__fmul_rn(sqrtf(ss), rs_D), eps);
@@ -256,23 +275,102 @@ __device__ __forceinline__ void ln1_quant_row(const bf16* x, const float* c,
 }
 
 // ---- attention, one (query-row block, head, sample) item ----------------
-// QK-RMSNorm per head, causal softmax over T <= 16 tokens, P V; f32 FMA.
-// An item takes query rows [i0, i1) of one (head, sample) and the key and
-// value rows 0 .. i1-1 they attend to; every row's norm, scores, softmax
-// and P V are computed the same way whatever the block, so the block size
-// (attn_rows) does not change the result.
+// QK-RMSNorm per head, causal softmax over any number T of tokens per
+// sample, P V; f32 FMA. An item takes query rows [i0, i1) of one (head,
+// sample) and the key and value rows 0 .. i1-1 they attend to, in blocks
+// of kb rows through shared memory. Where kb >= i1 (a short sample) q, k
+// and v come in at once and each step runs once. Else two passes run over
+// the key blocks: (1) each block's scores into the [rows, T] score tile,
+// then the f32 softmax over each whole causal row; (2) each block's P V
+// into f32 sums that wait in the q buffer. No running rescale: q and k are
+// normed in f32 and rounded to bf16, the scores are f32 times the scale,
+// the probabilities are rounded to bf16 and P V sums in f32, the JAX
+// kernel's cast chain (attn_kernel.py _kernel). Every score is one warp's
+// lane-strided dot product, every softmax row one thread's sums in key
+// order, and every output element one thread's sum over j = 0 .. i in
+// order, whatever the item's rows or kb: so neither the query block
+// (attn_rows) nor the key block (attn_kb) changes the result.
 // item -> (blk, h, b) = (item % n_blk, (item / n_blk) % H, item / (n_blk H)).
 // o_f32 != nullptr (int8 projections): o stays f32 for the per-row
 // re-quantization; else o is rounded to bf16 into o_bf16.
+constexpr int kAttnRows = 16;   // query rows of an item at most
+
 __host__ __device__ inline int attn_rows(int B, int H, int T) {
   // one query row per item while the (head, sample) pairs alone would
-  // leave most SMs idle (b=1: 8 pairs, 112 rows); whole samples otherwise
-  return B * H < 128 ? 1 : T;
+  // leave most SMs idle (b=1: 8 pairs, 112 rows); blocks of up to
+  // kAttnRows query rows of a sample otherwise
+  return B * H < 128 ? 1 : (T < kAttnRows ? T : kAttnRows);
 }
 
 __host__ __device__ inline int attn_items(int B, int H, int T) {
   const int rows = attn_rows(B, H, T);
   return B * H * ((T + rows - 1) / rows);
+}
+
+// The key rows per block that fit `budget` bytes of an item's shared
+// memory (smem_attn): all T where they fit (one pass), else the most that
+// fit; 0 where none does.
+__host__ __device__ inline int attn_kb(int T, int hd, int rows, int budget) {
+  if (smem_attn(T, hd, rows, T) <= budget) return T;
+  const int kb = (budget / 4 - rows * hd - rows - rows * T) / (2 * hd + 1);
+  return kb > 0 ? kb : 0;
+}
+
+// Rows [r0, r1) of one head of one sample's qkv rows (src: the head's
+// first column in the sample's first row) into shared memory, kRowLoads
+// elements of each in flight per thread: the q rows at or after q0 into
+// qs at row r - q0 (where qs != nullptr), the k rows into ks and the v
+// rows, rounded to bf16, into vs at row r - r0 (each where non-null).
+__device__ __forceinline__ void attn_load(const float* src, int D, int hd,
+                                          int r0, int r1, int q0, float* qs,
+                                          float* ks, float* vs,
+                                          const Team& tm) {
+  const int n = (r1 - r0) * hd, D3 = 3 * D;
+  for (int e0 = tm.tid; e0 < n; e0 += kRowLoads * kThreads) {
+    float q[kRowLoads], k[kRowLoads], v[kRowLoads];
+#pragma unroll
+    for (int u = 0; u < kRowLoads; ++u) {
+      const int e = e0 + u * kThreads, t = r0 + e / hd;
+      const float* r = src + (size_t)t * D3 + e % hd;
+      const bool in = e < n;
+      q[u] = qs && in && t >= q0 ? ldf(r) : 0.f;
+      k[u] = ks && in ? ldf(r + D) : 0.f;
+      v[u] = vs && in ? ldf(r + 2 * D) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowLoads; ++u) {
+      const int e = e0 + u * kThreads, t = r0 + e / hd;
+      if (e >= n) continue;
+      if (qs && t >= q0) qs[(t - q0) * hd + e % hd] = q[u];
+      if (ks) ks[e] = k[u];
+      if (vs) vs[e] = __bfloat162float(__float2bfloat16_rn(v[u]));
+    }
+  }
+}
+
+// 1 / max(|a_r| / sqrt(hd), eps) of rows [0, n) of a [n, hd] into inv, one
+// warp per row
+__device__ __forceinline__ void head_inv_norms(const float* a, int n, int hd,
+                                               float rs_hd, float eps,
+                                               float* inv, const Team& tm) {
+  const int lane = tm.tid & 31, nw = kThreads >> 5;
+  for (int r = tm.tid >> 5; r < n; r += nw) {
+    float s = 0.f;
+    for (int d = lane; d < hd; d += 32) s += a[r * hd + d] * a[r * hd + d];
+    s = warp_sum(s);
+    if (lane == 0)
+      inv[r] = __fdiv_rn(1.0f, fmaxf(__fmul_rn(sqrtf(s), rs_hd), eps));
+  }
+}
+
+// a_r * inv_r * g rounded to bf16, in place, rows [0, n) of a [n, hd]
+__device__ __forceinline__ void head_norm_rows(float* a, int n, int hd,
+                                               const float* inv,
+                                               const float* __restrict__ g,
+                                               const Team& tm) {
+  for (int e = tm.tid; e < n * hd; e += kThreads)
+    a[e] = __bfloat162float(__float2bfloat16_rn(
+        __fmul_rn(__fmul_rn(a[e], inv[e / hd]), g[e % hd])));
 }
 
 __device__ __forceinline__ void attn_item(const float* qkv,
@@ -281,84 +379,65 @@ __device__ __forceinline__ void attn_item(const float* qkv,
                                           bf16* o_bf16, float* o_f32, int B,
                                           int T, int D, int H, int hd,
                                           float rs_hd, float eps_qk,
-                                          float scale, int item,
+                                          float scale, int kb, int item,
                                           unsigned char* smem,
                                           const Team& tm = cta_team()) {
-  float* qs = reinterpret_cast<float*>(smem);   // [i1 - i0, hd]
-  float* ks = qs + T * hd;                      // [i1, hd]
-  float* vs = ks + T * hd;                      // [i1, hd]
-  float* inv_q = vs + T * hd;                   // [kMaxT]
-  float* inv_k = inv_q + kMaxT;                 // [kMaxT]
-  float* pr = inv_k + kMaxT;                    // [kMaxT, kMaxT]
-
   const int rows = attn_rows(B, H, T), n_blk = (T + rows - 1) / rows;
+  float* qs = reinterpret_cast<float*>(smem);   // [rows, hd]: q, then P V
+  float* ks = qs + rows * hd;                   // [kb, hd]
+  float* vs = ks + kb * hd;                     // [kb, hd]
+  float* inv_q = vs + kb * hd;                  // [rows]
+  float* inv_k = inv_q + rows;                  // [kb]
+  float* pr = inv_k + kb;                       // [rows, T]
+
   const int blk = item % n_blk, h = (item / n_blk) % H, b = item / (n_blk * H);
   const int i0 = blk * rows, i1 = min(T, i0 + rows), nq = i1 - i0;
   const int tid = tm.tid, lane = tid & 31, warp = tid >> 5;
   const int nw = kThreads >> 5;
   const size_t row0 = (size_t)b * T;
-  const int D3 = 3 * D;
+  const float* src = qkv + row0 * 3 * D + h * hd;
+  // every key row of the item in one block: q, k and v come in together
+  const bool one = i1 <= kb;
 
-  // q, k and v rows into shared memory, kRowLoads elements of each in
-  // flight per thread
-  for (int e0 = tid; e0 < i1 * hd; e0 += kRowLoads * kThreads) {
-    float q[kRowLoads], k[kRowLoads], v[kRowLoads];
-#pragma unroll
-    for (int u = 0; u < kRowLoads; ++u) {
-      const int e = e0 + u * kThreads, t = e / hd;
-      const float* r = qkv + (row0 + t) * D3 + h * hd + e % hd;
-      const bool in = e < i1 * hd;
-      q[u] = in && t >= i0 ? ldf(r) : 0.f;
-      k[u] = in ? ldf(r + D) : 0.f;
-      v[u] = in ? ldf(r + 2 * D) : 0.f;
+  attn_load(src, D, hd, one ? 0 : i0, i1, i0, qs, one ? ks : nullptr,
+            one ? vs : nullptr, tm);
+  tm.sync();
+  head_inv_norms(qs, nq, hd, rs_hd, eps_qk, inv_q, tm);
+  if (one) head_inv_norms(ks, i1, hd, rs_hd, eps_qk, inv_k, tm);
+  tm.sync();
+  head_norm_rows(qs, nq, hd, inv_q, qg, tm);
+  if (one) head_norm_rows(ks, i1, hd, inv_k, kg, tm);
+  tm.sync();
+  // pass 1: the causal scores, block by block; warp w takes the block's
+  // pairs (i, j <= i) round-robin
+  for (int j0 = 0; j0 < i1; j0 += kb) {
+    const int j1 = min(i1, j0 + kb);
+    if (!one) {
+      attn_load(src, D, hd, j0, j1, 0, nullptr, ks, nullptr, tm);
+      tm.sync();
+      head_inv_norms(ks, j1 - j0, hd, rs_hd, eps_qk, inv_k, tm);
+      tm.sync();
+      head_norm_rows(ks, j1 - j0, hd, inv_k, kg, tm);
+      tm.sync();
     }
-#pragma unroll
-    for (int u = 0; u < kRowLoads; ++u) {
-      const int e = e0 + u * kThreads;
-      if (e >= i1 * hd) continue;
-      if (e / hd >= i0) qs[e - i0 * hd] = q[u];
-      ks[e] = k[u];
-      vs[e] = __bfloat162float(__float2bfloat16_rn(v[u]));
+    int p = 0;
+    for (int i = i0; i < i1; ++i) {
+      for (int j = j0; j < min(j1, i + 1); ++j, ++p) {
+        if (p % nw != warp) continue;
+        float s = 0.f;
+        for (int e = lane; e < hd; e += 32)
+          s += qs[(i - i0) * hd + e] * ks[(j - j0) * hd + e];
+        s = warp_sum(s);
+        if (lane == 0) pr[(i - i0) * T + j] = __fmul_rn(s, scale);
+      }
     }
+    tm.sync();
   }
-  tm.sync();
-  // per-row sums of squares of q and k within this head: warp w takes rows
-  // w, w + nw, ... of q, then of k
-  for (int rr = warp; rr < nq + i1; rr += nw) {
-    const float* a = rr < nq ? qs + rr * hd : ks + (rr - nq) * hd;
-    float s = 0.f;
-    for (int d = lane; d < hd; d += 32) s += a[d] * a[d];
-    s = warp_sum(s);
-    if (lane == 0) {
-      const float inv = __fdiv_rn(1.0f, fmaxf(__fmul_rn(sqrtf(s), rs_hd), eps_qk));
-      if (rr < nq) inv_q[rr] = inv; else inv_k[rr - nq] = inv;
-    }
-  }
-  tm.sync();
-  for (int e = tid; e < nq * hd; e += kThreads)
-    qs[e] = __bfloat162float(__float2bfloat16_rn(
-        __fmul_rn(__fmul_rn(qs[e], inv_q[e / hd]), qg[e % hd])));
-  for (int e = tid; e < i1 * hd; e += kThreads)
-    ks[e] = __bfloat162float(__float2bfloat16_rn(
-        __fmul_rn(__fmul_rn(ks[e], inv_k[e / hd]), kg[e % hd])));
-  tm.sync();
-  // causal scores: warp w takes pairs (i, j <= i) round-robin
-  int p = 0;
-  for (int i = i0; i < i1; ++i) {
-    for (int j = 0; j <= i; ++j, ++p) {
-      if (p % nw != warp) continue;
-      float s = 0.f;
-      for (int e = lane; e < hd; e += 32)
-        s += qs[(i - i0) * hd + e] * ks[j * hd + e];
-      s = warp_sum(s);
-      if (lane == 0) pr[(i - i0) * kMaxT + j] = __fmul_rn(s, scale);
-    }
-  }
-  tm.sync();
-  // f32 softmax per row, probabilities rounded to bf16
-  if (tid < nq) {
-    const int i = i0 + tid;
-    float* row = pr + tid * kMaxT;
+  // the f32 softmax over each whole causal row, probabilities rounded to
+  // bf16
+  for (int il = tid; il < nq; il += kThreads) {
+    const int i = i0 + il;
+    float* row = pr + il * T;
     float m = row[0];
     for (int j = 1; j <= i; ++j) m = fmaxf(m, row[j]);
     float den = 0.f;
@@ -371,13 +450,30 @@ __device__ __forceinline__ void attn_item(const float* qkv,
       row[j] = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(row[j], den)));
   }
   tm.sync();
-  for (int e = tid; e < nq * hd; e += kThreads) {
-    const int il = e / hd, i = i0 + il, d = e % hd;
-    float acc = 0.f;
-    for (int j = 0; j <= i; ++j) acc += pr[il * kMaxT + j] * vs[j * hd + d];
-    const size_t at = (row0 + i) * D + h * hd + d;
-    if (o_f32) o_f32[at] = acc;
-    else o_bf16[at] = __float2bfloat16_rn(acc);
+  // pass 2: P V, block by block; a row's sums wait in qs until the block
+  // that holds its last key (j = i) writes them out
+  for (int j0 = 0; j0 < i1; j0 += kb) {
+    const int j1 = min(i1, j0 + kb);
+    if (!one) {
+      attn_load(src, D, hd, j0, j1, 0, nullptr, nullptr, vs, tm);
+      tm.sync();
+    }
+    for (int e = tid; e < nq * hd; e += kThreads) {
+      const int il = e / hd, i = i0 + il, d = e % hd;
+      if (j0 > i) continue;
+      const int je = min(j1, i + 1);
+      float acc = j0 ? qs[e] : 0.f;
+      for (int j = j0; j < je; ++j)
+        acc += pr[il * T + j] * vs[(j - j0) * hd + d];
+      if (je <= i) {
+        qs[e] = acc;
+        continue;
+      }
+      const size_t at = (row0 + i) * D + h * hd + d;
+      if (o_f32) o_f32[at] = acc;
+      else o_bf16[at] = __float2bfloat16_rn(acc);
+    }
+    if (!one) tm.sync();
   }
 }
 

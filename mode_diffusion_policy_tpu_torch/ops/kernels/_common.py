@@ -139,23 +139,27 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_attn_widths(T, D, H, hd, c, B=None):
-    """Check the widths the CUDA kernels take and return the cond row's
-    stride per sample: 0 for one shared [1,1,D] row, D for one row per
-    sample [B,1,D] (taken only where ``B`` is given). A per-token [B,T,D]
-    cond raises: no path of the system passes one."""
-    if not (1 <= T <= 16):
-        raise ValueError(f"the CUDA kernel takes 1..16 tokens per sample, got {T}")
+def _check_attn_widths(T, D, H, hd, c, B):
+    """Check the widths the CUDA kernels take and return the count of cond
+    rows: 1 for one shared [1,1,D] row, B for one row per sample [B,1,D],
+    B*T for one per token [B,T,D]. Any T >= 1 is taken; a launcher refuses
+    a sample whose attention item does not fit its shared memory with one
+    key row per block (about 600 tokens at D=1024, 8 heads)."""
+    if T < 1:
+        raise ValueError(f"the CUDA kernel takes 1 or more tokens, got {T}")
     if D % 128 or D > 4096 or H * hd != D or hd % 32 or hd > 512:
         raise ValueError(f"unsupported widths D={D}, head_dim={hd}")
     if c.numel() == D:
-        return 0
-    if B is not None and tuple(c.shape) == (B, 1, D):
-        return D
+        return 1
+    shape = tuple(c.shape)
+    if shape == (B, 1, D):
+        return B
+    if shape == (B, T, D):
+        return B * T
     raise ValueError(
-        "the CUDA kernel takes one shared [1,1,D] cond row"
-        + ("" if B is None else " or one per sample [B,1,D]")
-        + f"; got c of shape {tuple(c.shape)}")
+        "the CUDA kernel takes one shared [1,1,D] cond row, one per sample "
+        f"[B,1,D] or one per token [B,T,D] (B={B}, T={T}, D={D}); got c of "
+        f"shape {shape}")
 
 
 def _check_moe_widths(D, TH):
@@ -165,12 +169,12 @@ def _check_moe_widths(D, TH):
         raise ValueError(f"block_hidden {TH} must be a multiple of 128")
 
 
-def _check_widths(T, D, H, hd, TH, c, B=None):
+def _check_widths(T, D, H, hd, TH, c, B):
     """The whole-layer kernels' widths (``_check_attn_widths`` and
-    ``_check_moe_widths``); returns the cond row's stride per sample."""
-    stride = _check_attn_widths(T, D, H, hd, c, B)
+    ``_check_moe_widths``); returns the count of cond rows."""
+    c_rows = _check_attn_widths(T, D, H, hd, c, B)
     _check_moe_widths(D, TH)
-    return stride
+    return c_rows
 
 
 def _tables(top2_idx, top2_probs, step, lead=()):

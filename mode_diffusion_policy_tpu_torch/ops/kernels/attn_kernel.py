@@ -26,9 +26,10 @@ x.dtype as the JAX kernels take it.
 
 ``fused_attn_block`` and ``fused_attn_block_q8`` launch
 ``csrc/fused_attn_block.cu`` and ``csrc/fused_attn_block_q8.cu`` for CUDA
-tensors (and raise on what they cannot take: a per-token cond among
-others) and run the plain versions, ``fused_attn_block_ref`` and
-``fused_attn_block_q8_ref``, only for CPU tensors. Their ``.launches``
+tensors, with any of the three cond shapes and any number of tokens per
+sample (raising on what they cannot take), and run the plain versions,
+``fused_attn_block_ref`` and ``fused_attn_block_q8_ref``, only for CPU
+tensors. Their ``.launches``
 count kernel launches. Both kernels' projections run on wgmma tiles over
 persistent CTAs (``csrc/wgmma_stages.cuh`` Proj), and the wrappers choose
 the tiles by token count (``proj_tile_plan``), the plan of the whole-layer
@@ -183,9 +184,9 @@ def _launcher(name):
 
 def _prepare(name, x, c, ln_g, q_g, k_g, c_dtype=torch.float32):
     """Device and shape checks shared by both wrappers. Returns (B, T, D,
-    H, hd, the cond rows [1 or B, D] rounded to x.dtype, in ``c_dtype``
-    (f32, or x.dtype itself for the int8 kernel), their stride per sample,
-    ln_g, q_g, k_g as contiguous f32)."""
+    H, hd, the cond rows [1, B or B*T, D] rounded to x.dtype, in ``c_dtype``
+    (f32, or x.dtype itself for the int8 kernel), their count, ln_g, q_g,
+    k_g as contiguous f32)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU, not {x.device}")
     if x.ndim != 3:
@@ -193,15 +194,15 @@ def _prepare(name, x, c, ln_g, q_g, k_g, c_dtype=torch.float32):
     B, T, D = x.shape
     hd = q_g.shape[-1]
     H = D // hd
-    c_stride = _check_attn_widths(T, D, H, hd, c, B)
+    c_rows = _check_attn_widths(T, D, H, hd, c, B)
     _check(x, "x", torch.bfloat16, (B, T, D), x.device)
     c = c.reshape(-1, D).to(x.dtype).to(c_dtype).contiguous()
-    _check(c, "c", c_dtype, (B if c_stride else 1, D), x.device)
+    _check(c, "c", c_dtype, (c_rows, D), x.device)
     f32 = [t.float().contiguous() for t in (ln_g, q_g, k_g)]
     for t, n, shape in ((f32[0], "ln_g", (D,)), (f32[1], "q_g", (hd,)),
                         (f32[2], "k_g", (hd,))):
         _check(t, n, torch.float32, shape, x.device)
-    return (B, T, D, H, hd, c, c_stride, *f32)
+    return (B, T, D, H, hd, c, c_rows, *f32)
 
 
 def _launch(name, ptrs, ints, x, ln_eps, qk_eps, D, hd, tail=()):
@@ -220,9 +221,10 @@ def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
     """``x + attn(ln_1(x) + c)`` with bf16 QKV and c_proj.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 x, a shared
-    [1,1,D] cond row or one per sample [B,1,D], T <= 16 tokens per sample,
-    head dim a multiple of 32); a per-token cond raises. ``tiles`` (QKV
-    rows, columns, c_proj rows, columns; 64 or 128 each) overrides the
+    [1,1,D] cond row, one per sample [B,1,D] or one per token [B,T,D], any
+    T tokens per sample up to the attention stage's shared memory, head dim
+    a multiple of 32). ``tiles`` (QKV rows, columns, c_proj rows, columns;
+    64 or 128 each) overrides the
     projections' tile plan (``proj_launch_args``): the default plan is the
     one under which the kernel equals ``fused_layer_q8c``'s attention
     bit for bit. CPU tensors: the plain version ``fused_attn_block_ref``.
@@ -231,7 +233,7 @@ def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
         return fused_attn_block_ref(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout,
                                     ln_eps=ln_eps, qk_eps=qk_eps)
     no_autodiff("fused_attn_block", x, c, ln_g, wqkv, bqkv, q_g, k_g, wout)
-    B, T, D, H, hd, c, c_stride, ln_g, q_g, k_g = _prepare(
+    B, T, D, H, hd, c, c_rows, ln_g, q_g, k_g = _prepare(
         "fused_attn_block", x, c, ln_g, q_g, k_g)
     dev, bf = x.device, torch.bfloat16
     wqkv, wout = wqkv.to(bf), wout.to(bf)
@@ -247,7 +249,7 @@ def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
     keep, scratch = _scratch(dev, 2 * M * D, 4 * M * 3 * D, 2 * M * D)
     ptrs = [t.data_ptr() for t in (x, c, ln_g, wqkv, bqkv, q_g, k_g, wout)]
     _launch("fused_attn_block", ptrs + scratch + [out.data_ptr()],
-            (B, T, D, H, c_stride), x, ln_eps, qk_eps, D, hd, plan)
+            (B, T, D, H, c_rows), x, ln_eps, qk_eps, D, hd, plan)
     fused_attn_block.launches += 1
     return out
 
@@ -289,9 +291,10 @@ def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
     """``x + attn(ln_1(x) + c)`` with int8 QKV and c_proj.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 x, a shared
-    [1,1,D] cond row or one per sample [B,1,D], T <= 16 tokens per sample,
-    head dim a multiple of 32), which needs ``qattn_t``, the K-major copy
-    of the int8 projections; a per-token cond raises. ``tiles`` (QKV rows,
+    [1,1,D] cond row, one per sample [B,1,D] or one per token [B,T,D], any
+    T tokens per sample up to the attention stage's shared memory, head dim
+    a multiple of 32), which needs ``qattn_t``, the K-major copy of the int8
+    projections. ``tiles`` (QKV rows,
     columns, c_proj rows, columns; 64 or 128 each) overrides the
     projections' tile plan (``proj_launch_args``). CPU tensors: the plain
     version ``fused_attn_block_q8_ref``. Returns x.dtype [B,T,D]."""
@@ -304,7 +307,7 @@ def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
         raise ValueError(f"fused_attn_block_q8 runs on CUDA or CPU, not "
                          f"{x.device}")
     need_kmajor_attn("fused_attn_block_q8", qattn_t)
-    B, T, D, H, hd, c, c_stride, ln_g, q_g, k_g = _prepare(
+    B, T, D, H, hd, c, c_rows, ln_g, q_g, k_g = _prepare(
         "fused_attn_block_q8", x, c, ln_g, q_g, k_g, c_dtype=x.dtype)
     dev = x.device
     check_kmajor_attn(qattn, qattn_t, D, dev)
@@ -317,7 +320,7 @@ def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
                                    qattn.bqkv, q_g, k_g, qattn_t.wout_t,
                                    qattn.wout_s)]
     _launch("fused_attn_block_q8", ptrs + scratch + [out.data_ptr()],
-            (B, T, D, H, c_stride), x, ln_eps, qk_eps, D, hd, plan)
+            (B, T, D, H, c_rows), x, ln_eps, qk_eps, D, hd, plan)
     fused_attn_block_q8.launches += 1
     return out
 

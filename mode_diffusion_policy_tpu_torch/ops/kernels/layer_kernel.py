@@ -160,7 +160,7 @@ def fused_dit_q8c_ref(x, c, stacked, top2_idx, top2_probs, *, step=None,
 
 # the two launchers of csrc/fused_layer_q8c.cu: bf16 projections, int8
 # projections (whose tile plan comes before the MoE's); the ints after the
-# scratch pointers are B, T, D, H, HH, TH, E and the cond row's stride
+# scratch pointers are B, T, D, H, HH, TH, E and the count of cond rows
 _LAUNCH_ARGTYPES = {
     "fused_layer_q8c_launch": (
         [ctypes.c_void_p] * 16 + [ctypes.c_int] + [ctypes.c_void_p] * 12
@@ -191,12 +191,12 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     """One full NoiseBlockMoE inference layer.
 
     CUDA tensors: one launch of the hand-written kernel (bf16 activations,
-    bf16 projections or int8 ones (``qattn``), one shared [1,1,D] cond row
-    or one per sample [B,1,D] (a per-token [B,T,D] cond raises), T <= 16,
-    hd a multiple of 32), which needs ``qexp_t``, the K-major copy of the
-    int8 experts, and with ``qattn`` also ``qattn_t``, that of the int8
-    projections. CPU tensors: the plain version ``fused_layer_q8c_ref``,
-    which also takes a per-token cond. Returns x.dtype [B,T,D]."""
+    bf16 projections or int8 ones (``qattn``), one shared [1,1,D] cond row,
+    one per sample [B,1,D] or one per token [B,T,D], any T up to the
+    attention stage's shared memory, hd a multiple of 32), which needs
+    ``qexp_t``, the K-major copy of the int8 experts, and with ``qattn``
+    also ``qattn_t``, that of the int8 projections. CPU tensors: the plain
+    version ``fused_layer_q8c_ref``. Returns x.dtype [B,T,D]."""
     if x.device.type == "cpu":
         return fused_layer_q8c_ref(
             x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g, qexp, top2_idx,
@@ -220,7 +220,7 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     E, _, H2 = qexp.w1_q.shape
     HH = H2 // 2
     TH = _hidden_block(HH, block_hidden)
-    c_stride = _check_widths(T, D, H, hd, TH, c, B)
+    c_rows = _check_widths(T, D, H, hd, TH, c, B)
     bf = torch.bfloat16
     _check(x, "x", bf, (B, T, D), dev)
     if qattn is None:
@@ -234,10 +234,10 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
         bqkv = qattn.bqkv
     # the cond rows rounded to x.dtype: in f32 for the bf16-projection
     # stages, as they are (bf16) for the int8 ones
-    n_c = B if c_stride else 1
-    c = c.reshape(n_c * D).to(x.dtype)
+    c = c.reshape(c_rows * D).to(x.dtype)
     c = (c.float() if qattn is None else c).contiguous()
-    _check(c, "c", torch.float32 if qattn is None else bf, (n_c * D,), dev)
+    _check(c, "c", torch.float32 if qattn is None else bf, (c_rows * D,),
+           dev)
     ln1_g = ln1_g.float().contiguous()
     ln2_g = ln2_g.float().contiguous()
     q_g = q_g.float().contiguous()
@@ -281,7 +281,7 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher(entry)(*p, s, *scratch, B, T, D, H, HH, TH, E,
-                               c_stride, eps1, eps_qk, eps2, D ** -0.5, hd ** -0.5,
+                               c_rows, eps1, eps_qk, eps2, D ** -0.5, hd ** -0.5,
                                float(1.0 / math.sqrt(hd)), *tail, plan.tile,
                                plan.ctas, stream)
     if err != 0:
@@ -347,13 +347,15 @@ DIT_PTRS = ("x", "c", "ln1", "wqkv", "sqkv", "bqkv", "q_g", "k_g", "wout",
             "probs", "h", "hs", "qkv", "o", "oq", "os", "xmid", "xm", "xq",
             "sx", "act", "aq", "sa", "part", "tmp", "out")
 DIT_INTS = ("S", "step", "L", "B", "T", "D", "H", "HH", "TH", "E",
-            "int8_attn", "tile", "c_stride")
+            "int8_attn", "tile", "c_rows")
 DIT_FLOATS = ("eps1", "eps_qk", "eps2", "rs_D", "rs_hd", "scale")
 # the launcher's info: grid, CTAs per SM, dynamic and static shared memory
 # per CTA (bytes), ring stages, consumer warpgroups, registers per thread,
-# local memory bytes per thread (stack frame and spills)
+# local memory bytes per thread (stack frame and spills), the attention's
+# key rows per block (T where a sample's keys fit at once)
 DIT_INFO = ("grid", "ctas_per_sm", "dynamic_smem", "static_smem",
-            "ring_stages", "consumer_warpgroups", "registers", "local_bytes")
+            "ring_stages", "consumer_warpgroups", "registers", "local_bytes",
+            "attn_key_block")
 
 
 # fused_dit_q8c_launch: the three arrays with their lengths, info, times,
@@ -397,10 +399,9 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
     single rows.
 
     CUDA tensors: ONE cooperative launch of the hand-written megakernel
-    (bf16 activations, one shared [1,1,D] cond row or one per sample
-    [B,1,D], read by every layer; a per-token [B,T,D] cond raises; T <=
-    16), which needs the
-    K-major copies; a device without cooperative launch, a grid that does
+    (bf16 activations, one shared [1,1,D] cond row, one per sample [B,1,D]
+    or one per token [B,T,D], read by every layer; any T whose attention
+    item fits a team's shared memory), which needs the K-major copies; a device without cooperative launch, a grid that does
     not fit or a tensor map that cannot be made raises. ``times``: None, or
     a CUDA int64 tensor [1 + L * len(dit_stage_names(...)), 2] that the
     kernel fills with %globaltimer (ns) and the clock of CTA 0 after every
@@ -427,7 +428,7 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
     E, _, H2 = stacked["w1_q"].shape[1:]
     HH = H2 // 2
     TH = _hidden_block(HH, block_hidden)
-    c_stride = _check_widths(T, D, H, hd, TH, c, B)
+    c_rows = _check_widths(T, D, H, hd, TH, c, B)
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     _check(x, "x", bf, (B, T, D), dev)
     want = {"ln1": (f32, (L, D)), "bqkv": (f32, (L, 3 * D)),
@@ -442,8 +443,7 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
         want.update(wqkv=(bf, (L, D, 3 * D)), wout=(bf, (L, D, D)))
     for k, (dt, shape) in want.items():
         _check(stacked[k], k, dt, shape, dev)
-    c = c.reshape((B if c_stride else 1) * D).to(x.dtype).float() \
-        .contiguous()
+    c = c.reshape(c_rows * D).to(x.dtype).float().contiguous()
     idx, probs, S, s = _tables(top2_idx, top2_probs, step, lead=(L,))
     _check(idx, "top2_idx", torch.int32, (L, S, 2), dev)
     _check(probs, "top2_probs", f32, (L, S, 2), dev)
@@ -464,7 +464,7 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
     ptrs.update(zip(DIT_PTRS[DIT_PTRS.index("h"):DIT_PTRS.index("out")],
                     scratch))
     ints = dict(S=S, step=s, L=L, B=B, T=T, D=D, H=H, HH=HH, TH=TH, E=E,
-                int8_attn=int(int8_attn), tile=tile, c_stride=c_stride)
+                int8_attn=int(int8_attn), tile=tile, c_rows=c_rows)
     flts = dict(eps1=eps1, eps_qk=eps_qk, eps2=eps2, rs_D=D ** -0.5,
                 rs_hd=hd ** -0.5, scale=float(1.0 / math.sqrt(hd)))
     p = (ctypes.c_uint64 * len(DIT_PTRS))(*(ptrs.get(k) or 0

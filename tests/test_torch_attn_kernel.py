@@ -149,21 +149,21 @@ def test_cpu_bf16_wrapper_runs_plain_version_without_counting():
 
 @pytest.mark.parametrize("c_shape", list(C_SHAPES))
 def test_cuda_width_check_takes_shared_and_per_sample_cond(c_shape):
-    """The CUDA wrappers' cond: a shared row (stride 0) or one row per
-    sample (stride D); a per-token cond raises, and the whole-layer and
-    megakernel launchers take only the shared row."""
+    """The CUDA wrappers' cond: a shared row (1 cond row), one row per
+    sample (B rows) or one per token (B*T rows: each x row reads its own),
+    at T=1, 14, 17 and 160 tokens per sample; a cond with another row count
+    raises."""
     from mode_diffusion_policy_tpu_torch.ops.kernels._common import (
         _check_attn_widths)
-    c = torch.zeros(*C_SHAPES[c_shape], D)
-    if c_shape == "per-token-c":
-        with pytest.raises(ValueError, match="per sample"):
-            _check_attn_widths(T, D, H, HD, c, B)
-    else:
-        assert _check_attn_widths(T, D, H, HD, c, B) == \
-            (0 if c_shape == "shared-c" else D)
-    if c_shape != "shared-c":
-        with pytest.raises(ValueError, match="shared"):
-            _check_attn_widths(T, D, H, HD, c)
+    for t in (1, T, 17, 160):
+        b_rows, t_rows = C_SHAPES[c_shape]
+        c = torch.zeros(b_rows, t if c_shape == "per-token-c" else t_rows, D)
+        want = {"shared-c": 1, "per-sample-c": B,
+                "per-token-c": B * t}[c_shape]
+        assert _check_attn_widths(t, D, H, HD, c, B) == want
+        if c_shape != "shared-c":
+            with pytest.raises(ValueError, match="per token"):
+                _check_attn_widths(t, D, H, HD, c, B + 1)
 
 
 @pytest.mark.parametrize("c_shape", ["shared-c", "per-sample-c"])

@@ -96,17 +96,22 @@ def test_plain_layer_per_sample_cond_matches_jax_kernel(step):
 
 
 def test_cuda_widths_take_a_cond_row_per_sample():
-    """The CUDA wrappers' check: one shared row (stride 0) or one per
-    sample [B,1,D] (stride D) for the whole-layer kernels; a per-token
-    [B,T,D] cond and a row count other than B raise."""
+    """The CUDA wrappers' check for the whole-layer kernels: one shared row
+    (1 cond row), one per sample [B,1,D] (B rows) or one per token [B,T,D]
+    (B*T rows), at T=1, 14, 17 and 160; a row count other than 1, B and
+    B*T raises."""
     from mode_diffusion_policy_tpu_torch.ops.kernels._common import \
         _check_widths
-    B, T, D = 3, 14, 256
-    assert _check_widths(T, D, 2, 128, 256, torch.zeros(1, 1, D), B) == 0
-    assert _check_widths(T, D, 2, 128, 256, torch.zeros(B, 1, D), B) == D
-    for bad in ((B, T, D), (B + 1, 1, D)):
-        with pytest.raises(ValueError, match="per sample"):
-            _check_widths(T, D, 2, 128, 256, torch.zeros(bad), B)
+    B, D = 3, 256
+    for T in (1, 14, 17, 160):
+        assert _check_widths(T, D, 2, 128, 256, torch.zeros(1, 1, D), B) == 1
+        assert _check_widths(T, D, 2, 128, 256, torch.zeros(B, 1, D),
+                             B) == B
+        assert _check_widths(T, D, 2, 128, 256, torch.zeros(B, T, D),
+                             B) == B * T
+        for bad in ((B + 1, 1, D), (B, T + 1, D), (1, T + 1, D)):
+            with pytest.raises(ValueError, match="per token"):
+                _check_widths(T, D, 2, 128, 256, torch.zeros(bad), B)
 
 
 def test_block_hidden_changes_the_act_scales():
