@@ -107,17 +107,23 @@ b=1), ``max-throughput`` (b=128), ``b1-latency`` and ``b1-latency-max``
 variants phase's rule with the launches of T=14; holds each of the five
 attention-bearing launchers (``fused_layer_q8c`` with bf16 and int8
 projections, ``fused_dit_q8c`` with both stacks, ``fused_attn_block``,
-``fused_attn_block_q8``) to its plain version at T = 17, 20, 64 and 160,
-b=128 and b=1, with a shared, a per-sample and a per-token cond (the
-layer gates; a per-token cond of rows equal within each sample is the
-per-sample launch, bit for bit) and times each beside its bound, plain
-version and library yardstick; checks at T=20 with a per-token cond that
+``fused_attn_block_q8``) to its plain version at T = 1, 14, 17, 20, 64 and
+160, b=128 and b=1, and at T=1024, b=16, with a shared, a per-sample and a
+per-token cond (the layer gates; a per-token cond of rows equal within each
+sample is the per-sample launch, bit for bit) and times each beside its
+bound, plain version and library yardstick, and its attention stage alone
+(the attn_kernel stage's device ms, the megakernel's a layer from its
+clock) beside the stage's bound and one SDPA call on the stage's q^, k^, v;
+checks at T=20 (b=128, b=1) and T=1024 (b=16) with a per-token cond that
 ``fused_attn_block`` then ``fused_top2_mlp_q8c`` equals ``fused_layer_q8c``
 on all 12 layers and the megakernel its layers chained and 12 chained
-``fused_layer_q8c`` launches, bit for bit; and runs one chain of
+``fused_layer_q8c`` launches, bit for bit (at T=1024 the two stream their
+keys in blocks of other sizes); holds both attention kernels to their
+plain versions at D=2048 with heads of 256; and runs one chain of
 ``LongHorizonEvaluator`` on the fake env under ``auto`` with 16 actions a
 chunk. One ``long_tokens`` JSON line; the five kernels' entries in the
-``kernels`` line gain a ``long_tokens`` record.
+``kernels`` line gain a ``long_tokens`` record and an ``attn_stage``
+record (phase 6 prints the stage at T=14 beside its bound and SDPA too).
 
 Phase 22 trains: the flagship with the shipped CALVIN training settings
 (``TRAIN_MODEL``, ``TRAIN_OPT``, ``TRAIN_EMA``, ``TRAIN_TRANSFORMS``,
@@ -551,6 +557,130 @@ def attn_cost(B, T, D, H):
     int8 = 2 * N * D * 3 * D + 2 * N * D * D
     nbytes = 2 * N * D * 2 + 4 * D * D + (3 * D * 3 + D * 3) * 4 + 2 * hd * 4
     return bf16, int8, nbytes
+
+
+def attn_stage_cost(B, T, H, hd, o_f32):
+    """(bf16 flops, bytes) of the attention stage alone (csrc/layer_stages.cuh
+    attn_item) over B samples of T tokens and H heads of hd: 4 hd flops for
+    each causal (query, key) pair (q^ k^T and P V), the f32 qkv rows read
+    once and o written once, f32 (``o_f32``: the int8-projection launchers)
+    or bf16."""
+    D = H * hd
+    pairs = T * (T + 1) // 2
+    return (B * H * pairs * 4 * hd,
+            B * T * 3 * D * 4 + B * T * D * (4 if o_f32 else 2))
+
+
+def attn_stage_record(ms, B, T, H, hd, o_f32, library_ms):
+    """The stage's device ``ms`` beside its bound and the SDPA yardstick's
+    ms (``library_ms``), with the cost behind the bound."""
+    flops, nbytes = attn_stage_cost(B, T, H, hd, o_f32)
+    bound, by = bound_of(flops, 0, nbytes)
+    return dict(ms=ms, bound_ms=bound, bound_by=by, library_ms=library_ms,
+                gflop_bf16=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def fmt_stage(rec):
+    """A stage record (``attn_stage_record``) as text."""
+    ms = "not measured" if rec["ms"] is None else f"{rec['ms']:.4f} ms"
+    return (f"{ms} (bound {rec['bound_ms']:.4f} ms, {rec['bound_by']}; SDPA "
+            f"{rec['library_ms']:.4f} ms)")
+
+
+def attn_sass_check(libs):
+    """The attention stage's products in the built code: the HMMA
+    (mma.sync) instructions in the attn_kernel functions of each
+    attention-bearing library and in its megakernels (whose GEMM stages
+    run HGMMA, not HMMA), counted in ``cuobjdump -sass``; exits where a
+    library has none. Returns {library: count}, or None without
+    cuobjdump."""
+    import shutil
+    from mode_diffusion_policy_tpu_torch.ops.kernels import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        print("  attention stage SASS: not checked (no cuobjdump)", flush=True)
+        return None
+    out = {}
+    for name in ("fused_attn_block", "fused_attn_block_q8",
+                 "fused_layer_q8c", "fused_dit_q8c"):
+        sass = subprocess.run([tool, "-sass", str(libs[name])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fun, n = "", 0
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fun = line
+            elif "HMMA" in line and re.search(r"attn_kernel|fused_dit_kernel",
+                                              fun):
+                n += 1
+        out[name] = n
+        if not n:
+            raise SystemExit(f"{name}: no HMMA in its attention stage's SASS")
+    print(f"  attention stage SASS, HMMA instructions: {out}", flush=True)
+    return out
+
+
+def attn_stage_ms(calls, iters=5, tries=3):
+    """Device ms per launch of the attention stage (the attn_kernel
+    __global__ that runs layer_stages.cuh attn_item) in each launcher of
+    ``calls`` (name -> call), one torch.profiler window each: the mean over
+    the stage's launches that the trace holds (a trace can miss some of a
+    window's device events; a window that holds none is tried again, up to
+    ``tries`` times). None for a launcher whose traces hold none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, fn in calls.items():
+        out[name] = None
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(tries):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # the profiler's notice
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
+                us = n = 0
+                for ev in prof.key_averages():
+                    if "attn_kernel" in ev.key:
+                        t = getattr(ev, "device_time_total", None)
+                        us += getattr(ev, "cuda_time_total", 0.0) \
+                            if t is None else t
+                        n += ev.count
+            if n:
+                out[name] = us / n / 1e3
+                break
+    return out
+
+
+def attn_stage_yardstick(x, c, ln1_g, wqkv, bqkv, q_g, k_g, iters,
+                         ln_eps=1e-6, qk_eps=1e-6):
+    """ms of one causal SDPA call (scaled_dot_product_attention) on the
+    attention stage's bf16 q^, k^ and v for this input, made by the plain
+    version's cast chain with bf16 projections: the stage's library
+    yardstick, which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from mode_diffusion_policy_tpu_torch.ops.kernels._common import (
+        _cond_rows, _headnorm, _rmsnorm_rows)
+    B, T, D = x.shape
+    hd = q_g.shape[-1]
+    H, bf = D // hd, torch.bfloat16
+    h = (_rmsnorm_rows(x.reshape(B * T, D).float(), ln1_g, ln_eps,
+                       torch.float32) + _cond_rows(c, x)).to(bf)
+    qkv = torch.matmul(h, wqkv.to(bf)).float() + bqkv.float()
+    q, k, v = qkv.split(D, dim=1)
+
+    def heads(a):
+        return a.to(bf).reshape(B, T, H, hd).transpose(1, 2).contiguous()
+
+    qn = heads(_headnorm(q, q_g, H, hd, qk_eps))
+    kn = heads(_headnorm(k, k_g, H, hd, qk_eps))
+    vb = heads(v)
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qn, kn, vb, is_causal=True, scale=hd ** -0.5), iters)
 
 
 def moe_cost(B, T, D, HH):
@@ -1854,7 +1984,12 @@ def variants_phase(zero_launches, launches_of, dev):
 # the token counts of the launchers' checks: just past 16, the shipped
 # config with act_seq_len=16 (T=20), and two long samples whose keys
 # stream through the attention stage's shared memory in blocks
-LONG_T = (17, 20, 64, 160)
+LONG_T = (1, 14, 17, 20, 64, 160)
+# the (T, B) of the launchers' checks: every T of LONG_T at b=128 and b=1,
+# and 16 samples of 1024 tokens (B H = 128 (head, sample) pairs), which
+# the per-layer launchers refused before the tensor-core stage
+LONG_SHAPES = (tuple((T, B) for T in LONG_T for B in (128, 1))
+               + ((1024, 16),))
 LONG_ACTIONS = 16
 # the served cells of the act_seq_len=16 agent: the preset (or the bf16
 # kernel configuration), the batch, and the launches of each kernel per
@@ -1895,15 +2030,18 @@ def long_launchers(policies, dev):
     projections, on one-layer slices of its stacks for the checks and the
     whole 12-layer stacks for the times): name -> dict(kern, ref: the
     kernel and its plain version; args, kw: their arguments after (x, c);
-    cost: (bf16 flops, int8 ops, bytes) of the timed call at (B, T); and
-    over (x, c) the timed call, its plain version and the library
-    yardstick)."""
+    cost: (bf16 flops, int8 ops, bytes) of the timed call at (B, T); o_f32:
+    whether its attention stage keeps o in f32; and over (x, c) the timed
+    call, its plain version and the library yardstick; the megakernel's
+    split: the device us of each stage of one step, from its clock); and
+    the attention stage's library yardstick over (x, c, iters):
+    ``attn_stage_yardstick`` on layer 0's bf16 projections."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
         fused_attn_block, fused_attn_block_q8, fused_attn_block_q8_ref,
         fused_attn_block_ref)
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c,
+        dit_stage_names, fused_dit_q8c, fused_dit_q8c_ref, fused_layer_q8c,
         fused_layer_q8c_ref)
     from mode_diffusion_policy_tpu_torch.ops.quant import dequantize_experts
     pa = policies["parity"].agent
@@ -1950,6 +2088,7 @@ def long_launchers(policies, dev):
 
     def layer(kern, ref, args, kw, cost, lib):
         return dict(kern=kern, ref=ref, args=args, kw=kw, cost=cost, lib=lib,
+                    o_f32="qattn" in kw or kern is fused_attn_block_q8,
                     time=lambda x, c: kern(x, c, *args, **kw),
                     plain=lambda x, c: ref(x, c, *args, **kw))
 
@@ -1989,13 +2128,70 @@ def long_launchers(policies, dev):
         out[name] = dict(
             kern=fused_dit_q8c, ref=fused_dit_q8c_ref,
             args=({k: v[:1] for k, v in st.items()}, idx_L[:1], p_L[:1]),
-            kw=dict(step=0, **eps),
+            kw=dict(step=0, **eps), o_f32=int8,
             cost=lambda B, T, int8=int8: dit_cost(B, T, D, H, HH, L, int8),
             lib=lib_stack,
             time=lambda x, c, st=st: fused_dit_q8c(x, c, st, idx_L, p_L,
                                                    step=0, **eps),
             plain=lambda x, c, st=st: fused_dit_q8c_ref(x, c, st, idx_L, p_L,
-                                                        step=0, **eps))
+                                                        step=0, **eps),
+            # the device us of each stage of one step, summed over layers
+            split=lambda x, c, st=st, int8=int8: dit_split(
+                fused_dit_q8c, dit_stage_names, x, c, st, idx_L, p_L, eps,
+                int8, fused_dit_q8c.last_grid[5]))
+
+    def yardstick(x, c, iters):
+        return attn_stage_yardstick(x, c, *attn_args[:5], iters,
+                                    blk.ln_1.eps, a.q_norm.eps)
+
+    return out, yardstick
+
+
+def wide_head_checks(dev):
+    """fused_attn_block and fused_attn_block_q8 against their plain versions
+    at a head dim past 128 (D=2048, 8 heads of 256; seeded random weights),
+    16 samples of 20 and of 160 tokens, a shared cond row, by the layer
+    gates: the attention stage's path for such heads (32 lanes a row in
+    its loads, P V in two column passes and, at 160 tokens, the keys
+    streamed a tile a block). Returns "name T" -> (max |diff|, share of
+    the gate used)."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
+        fused_attn_block, fused_attn_block_q8, fused_attn_block_q8_ref,
+        fused_attn_block_ref)
+    from mode_diffusion_policy_tpu_torch.ops.quant import (kmajor_attn,
+                                                           quantize_attn)
+    D, H, B = 2048, 8, 16
+    hd = D // H
+    gen = torch.Generator(device=dev).manual_seed(33)
+
+    def randn(*shape, sc=1.0, off=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * sc + off
+
+    c, ln1 = randn(1, 1, D, sc=0.2), randn(D, sc=0.1, off=1.0)
+    wqkv, bqkv = randn(D, 3 * D, sc=0.02), randn(3 * D, sc=0.02)
+    wout = randn(D, D, sc=0.02)
+    q_g, k_g = randn(hd, sc=0.1, off=1.0), randn(hd, sc=0.1, off=1.0)
+    qa = quantize_attn(wqkv, bqkv, wout)
+    q8 = (c, ln1, qa, q_g, k_g)
+    bf = (c, ln1, wqkv.to(torch.bfloat16), bqkv, q_g, k_g,
+          wout.to(torch.bfloat16))
+    kw = dict(qattn_t=kmajor_attn(qa))
+    out = {}
+    for T in (20, 160):
+        x = randn(B, T, D, sc=0.5).to(torch.bfloat16)
+        for name, kern, ref, args, k in (
+                ("fused_attn_block", fused_attn_block, fused_attn_block_ref,
+                 bf, {}),
+                ("fused_attn_block_q8", fused_attn_block_q8,
+                 fused_attn_block_q8_ref, q8, kw)):
+            got = kern(x, *args, **k)
+            torch.cuda.synchronize()
+            out[f"{name} T{T}"] = layer_gate(
+                f"{name} D={D}, {H} heads of {hd}, b={B} x {T} tokens", got,
+                ref(x, *args, **k))
+    print(f"  D={D}, {H} heads of {hd}, b={B} x 20 and 160 tokens, within "
+          f"the layer gates (max |diff|, gate share): {out}", flush=True)
     return out
 
 
@@ -2015,88 +2211,114 @@ def long_conds(agent, B, T, gen):
 
 def long_kernel_checks(policies, dev):
     """Each of the five attention-bearing launchers (``long_launchers``)
-    against its plain version at T in LONG_T, b=128 and b=1, with a shared,
-    a per-sample and a per-token cond, by the layer gates of phases 3, 12,
-    15 and 21 (the megakernel on one-layer launches of both stacks, as
-    phases 7 and 9 hold its layers); a per-token cond whose rows are equal
-    within each sample gives the per-sample launch bit for bit. Then, at
-    each T and b with the shared row (the served cond), the kernel's ms
+    against its plain version at every (T, B) of LONG_SHAPES, with a
+    shared, a per-sample and a per-token cond, by the layer gates of phases
+    3, 12, 15 and 21 (the megakernel on one-layer launches of both stacks,
+    as phases 7 and 9 hold its layers); a per-token cond whose rows are
+    equal within each sample gives the per-sample launch bit for bit. Then,
+    at each shape with the shared row (the served cond), the kernel's ms
     beside its bound (this call's bytes and operations), its plain
     version's and the library yardstick's ms, and the kernel's ms with a
     per-token cond; the megakernel's times are of its whole 12-layer
-    launch, with its attention key block. Returns name -> "b{B}_T{T}" ->
-    record."""
+    launch, with its attention key block. And the attention stage alone:
+    its device ms in each launcher (``attn_stage_ms``; the megakernel's
+    per layer from its own clock) beside the stage's bound
+    (``attn_stage_cost``) and one SDPA call on its bf16 q^, k^, v
+    (``attn_stage_yardstick``). Returns name -> "b{B}_T{T}" -> record."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
         DIT_INFO, fused_dit_q8c)
-    launchers = long_launchers(policies, dev)
+    launchers, yardstick = long_launchers(policies, dev)
     pa = policies["parity"].agent
-    D = pa.inner_model.cfg.embed_dim
+    D, H = pa.inner_model.cfg.embed_dim, pa.inner_model.cfg.n_heads
+    L = pa.inner_model.cfg.n_layers
     gen = torch.Generator(device=dev).manual_seed(31)
     out = {name: {} for name in launchers}
-    for T in LONG_T:
-        for B in (128, 1):
-            x = torch.randn(B, T, D, generator=gen, device=dev).to(
-                torch.bfloat16)
-            conds = long_conds(pa, B, T, gen)
-            line = []
-            for name, k in launchers.items():
-                kern, ref, args, kw = k["kern"], k["ref"], k["args"], k["kw"]
-                errs, shares = [], []
-                for cname, c in conds.items():
-                    got = kern(x, c, *args, **kw)
-                    torch.cuda.synchronize()
-                    err, share = layer_gate(
-                        f"{name} b={B} x {T} tokens, {cname} cond", got,
-                        ref(x, c, *args, **kw))
-                    errs.append(err)
-                    shares.append(share)
-                check_token_rows(f"{name} (T={T})", kern,
-                                 (x, conds["per-sample"], *args), kw)
-                c, big = conds["shared"], B * T > 4096
-                ms = cuda_time_ms(lambda: k["time"](x, c), 5 if big else 20)
-                ms_tok = cuda_time_ms(
-                    lambda: k["time"](x, conds["per-token"]),
-                    5 if big else 20)
-                p_ms = cuda_time_ms(lambda: k["plain"](x, c), 2)
-                l_ms = cuda_time_ms(lambda: k["lib"](x, c), 2 if big else 5)
-                bf16, int8, nbytes = k["cost"](B, T)
-                # the per-token cond's rows, read once (the cost counts the
-                # shared row's)
-                bound, by = bound_of(bf16, int8, nbytes)
-                bound_tok, _ = bound_of(bf16, int8, nbytes + 4 * B * T * D)
-                rec = dict(T=T, B=B, max_abs_err=max(errs),
-                           gate_share=max(shares), ms=ms,
-                           ms_per_token_cond=ms_tok, plain_ms=p_ms,
-                           library_ms=l_ms, bound_ms=bound, bound_by=by,
-                           bound_ms_per_token_cond=bound_tok,
-                           gflop_bf16=bf16 / 1e9, gop_int8=int8 / 1e9,
-                           mbytes=nbytes / 1e6)
-                if kern is fused_dit_q8c:
-                    rec["info"] = dict(zip(DIT_INFO, fused_dit_q8c.last_grid))
-                out[name][f"b{B}_T{T}"] = rec
-                line.append(f"{name} {ms:.4f} ms (bound {bound:.4f} {by}; "
-                            f"per-token cond {ms_tok:.4f}; plain {p_ms:.3f},"
-                            f" library {l_ms:.4f}; gate {max(shares):.2f})")
-            print(f"  b={B} x {T} tokens, shared / per-sample / per-token "
-                  "cond within the layer gates, per-token cond of equal "
-                  "rows == per-sample launch: " + "; ".join(line),
-                  flush=True)
+    for T, B in LONG_SHAPES:
+        x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+        conds = long_conds(pa, B, T, gen)
+        big = B * T > 4096
+        line = []
+        for name, k in launchers.items():
+            kern, ref, args, kw = k["kern"], k["ref"], k["args"], k["kw"]
+            errs, shares = [], []
+            for cname, c in conds.items():
+                got = kern(x, c, *args, **kw)
+                torch.cuda.synchronize()
+                err, share = layer_gate(
+                    f"{name} b={B} x {T} tokens, {cname} cond", got,
+                    ref(x, c, *args, **kw))
+                errs.append(err)
+                shares.append(share)
+            check_token_rows(f"{name} (T={T})", kern,
+                             (x, conds["per-sample"], *args), kw)
+            c = conds["shared"]
+            ms = cuda_time_ms(lambda: k["time"](x, c), 5 if big else 20)
+            ms_tok = cuda_time_ms(lambda: k["time"](x, conds["per-token"]),
+                                  5 if big else 20)
+            p_ms = cuda_time_ms(lambda: k["plain"](x, c), 2)
+            l_ms = cuda_time_ms(lambda: k["lib"](x, c), 2 if big else 5)
+            bf16, int8, nbytes = k["cost"](B, T)
+            # the per-token cond's rows, read once (the cost counts the
+            # shared row's)
+            bound, by = bound_of(bf16, int8, nbytes)
+            bound_tok, _ = bound_of(bf16, int8, nbytes + 4 * B * T * D)
+            rec = dict(T=T, B=B, max_abs_err=max(errs),
+                       gate_share=max(shares), ms=ms,
+                       ms_per_token_cond=ms_tok, plain_ms=p_ms,
+                       library_ms=l_ms, bound_ms=bound, bound_by=by,
+                       bound_ms_per_token_cond=bound_tok,
+                       gflop_bf16=bf16 / 1e9, gop_int8=int8 / 1e9,
+                       mbytes=nbytes / 1e6)
+            if kern is fused_dit_q8c:
+                rec["info"] = dict(zip(DIT_INFO, fused_dit_q8c.last_grid))
+            out[name][f"b{B}_T{T}"] = rec
+            line.append(f"{name} {ms:.4f} ms (bound {bound:.4f} {by}; "
+                        f"per-token cond {ms_tok:.4f}; plain {p_ms:.3f},"
+                        f" library {l_ms:.4f}; gate {max(shares):.2f})")
+        print(f"  b={B} x {T} tokens, shared / per-sample / per-token "
+              "cond within the layer gates, per-token cond of equal "
+              "rows == per-sample launch: " + "; ".join(line), flush=True)
+        # the attention stage alone, with the shared row
+        c = conds["shared"]
+        sdpa = yardstick(x, c, 5 if big else 20)
+        stage = attn_stage_ms({
+            name: functools.partial(k["time"], x, c)
+            for name, k in launchers.items() if k["kern"] is not
+            fused_dit_q8c}, 3 if big else 10)
+        for name, k in launchers.items():
+            if k["kern"] is fused_dit_q8c:
+                ms = k["split"](x, c)["attn"] / L / 1e3
+            else:
+                ms = stage[name]
+            out[name][f"b{B}_T{T}"]["attn_stage"] = attn_stage_record(
+                ms, B, T, H, D // H, k["o_f32"], sdpa)
+        print(f"  attention stage b={B} x {T} tokens (the megakernel's a "
+              "layer, from its clock): " + "; ".join(
+                  f"{name} {fmt_stage(out[name][f'b{B}_T{T}']['attn_stage'])}"
+                  for name in launchers), flush=True)
     return out
 
 
+# the (T, B) of the identities: the agent's T=20 at b=128 and b=1, and
+# 16 samples of 1024 tokens, whose keys the per-layer launchers stream in
+# blocks of 48 and the megakernel in blocks of a team's share (160)
+LONG_IDENTITY_SHAPES = ((20, 128), (20, 1), (1024, 16))
+
+
 def long_identities(policies, dev):
-    """At T=20 on the act_seq_len=16 agent, with one cond row per token:
-    fused_attn_block then fused_top2_mlp_q8c equals one fused_layer_q8c
-    launch on every layer (chained), and the whole megakernel launch
-    equals its one-layer launches chained (each layer within the layer
-    gates of its plain layer) and the layers' fused_layer_q8c launches
-    chained, bit for bit, at b=128 and b=1."""
+    """On the act_seq_len=16 agent's weights at each (T, B) of
+    LONG_IDENTITY_SHAPES, with one cond row per token: fused_attn_block
+    then fused_top2_mlp_q8c equals one fused_layer_q8c launch on every
+    layer (chained), and the whole megakernel launch equals its one-layer
+    launches chained (each layer within the layer gates of its plain
+    layer) and the layers' fused_layer_q8c launches chained, bit for bit:
+    the attention stage gives the same bits whatever its key blocks."""
     import torch
     from mode_diffusion_policy_tpu_torch.ops.kernels.attn_kernel import (
         fused_attn_block)
     from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
-        fused_layer_q8c)
+        fused_dit_q8c, fused_layer_q8c)
     from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
         fused_top2_mlp_q8c)
     pa = policies["parity"].agent
@@ -2105,13 +2327,13 @@ def long_identities(policies, dev):
     routing = pa.precompute_routing()
     idx_L = torch.stack([i for i, _ in routing])
     p_L = torch.stack([p for _, p in routing])
-    D, T = dit.cfg.embed_dim, dit.cfg.total_tokens
+    D = dit.cfg.embed_dim
     gen = torch.Generator(device=dev).manual_seed(32)
     blk0 = dit.blocks[0]
     eps = dict(eps1=blk0.ln_1.eps, eps_qk=blk0.attn.q_norm.eps,
                eps2=blk0.ln_2.eps)
     out = {}
-    for B in (128, 1):
+    for T, B in LONG_IDENTITY_SHAPES:
         x = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
         c = long_conds(pa, B, T, gen)["per-token"]
         y = z = x
@@ -2146,8 +2368,9 @@ def long_identities(policies, dev):
         if not torch.equal(full, z):
             raise SystemExit(f"fused_dit_q8c T={T} b={B}: differs from {L} "
                              "chained fused_layer_q8c launches")
-        out[f"b{B}"] = dict(dit_layers_gate_share=share,
-                            dit_layers_max_abs_err=err)
+        out[f"b{B}_T{T}"] = dict(dit_layers_gate_share=share,
+                                 dit_layers_max_abs_err=err,
+                                 attn_key_block=fused_dit_q8c.last_grid[8])
         print(f"  T={T} b={B}, per-token cond: fused_attn_block -> "
               f"fused_top2_mlp_q8c == fused_layer_q8c on all {L} layers "
               f"(chained); the {L}-layer megakernel == its layers chained "
@@ -2227,9 +2450,11 @@ def long_tokens_phase(zero_launches, launches_of, dev):
     variants phase's rule (``variant_cell``: launches per chunk as at T=14,
     action MAE against the same agent's reference chunk and against the
     plain evaluation within max(1e-3, 2 x floor)); the five attention-
-    bearing launchers at T in LONG_T with all three cond shapes
-    (``long_kernel_checks``); the T=20 identities (``long_identities``);
-    one long-horizon chain under auto (``long_chain``)."""
+    bearing launchers at every (T, B) of LONG_SHAPES with all three cond
+    shapes, and their attention stage alone (``long_kernel_checks``); the
+    attention kernels at heads of 256 (``wide_head_checks``); the
+    identities at T=20 and T=1024 (``long_identities``); one long-horizon
+    chain under auto (``long_chain``)."""
     import gc
 
     import torch
@@ -2255,9 +2480,10 @@ def long_tokens_phase(zero_launches, launches_of, dev):
     t = time.perf_counter()
     res["kernels"] = long_kernel_checks(policies, dev)
     phase("long tokens: the five launchers at T = "
-          f"{', '.join(map(str, LONG_T))}, b=128 and b=1, three cond shapes",
-          t)
+          f"{', '.join(map(str, LONG_T))}, b=128 and b=1, and T=1024, b=16, "
+          "three cond shapes, the attention stage alone", t)
     t = time.perf_counter()
+    res["wide_head"] = wide_head_checks(dev)
     res["identities"] = long_identities(policies, dev)
     del policies
     gc.collect()
@@ -2270,8 +2496,8 @@ def long_tokens_phase(zero_launches, launches_of, dev):
     del agent
     gc.collect()
     torch.cuda.empty_cache()
-    phase("long tokens: T=20 identities, the bf16 kernel configuration, "
-          "one auto chain", t)
+    phase("long tokens: heads of 256, T=20 and T=1024 identities, the bf16 "
+          "kernel configuration, one auto chain", t)
     return res
 
 
@@ -5355,6 +5581,7 @@ def main():
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"  {path.name}: registers per kernel {regs}, spill stores "
               f"{spills}", flush=True)
+    sass_hmma = attn_sass_check(libs)
     phase(f"phase 2: built {', '.join(sorted(libs))}", t)
 
     from mode_diffusion_policy_tpu_torch.models.agent import (
@@ -5535,12 +5762,18 @@ def main():
               f"{l_ms:.4f} ms; chunk end to end {timing[B]['chunk_ms']:.2f} ms "
               f"(median of 3: {', '.join(f'{c:.2f}' for c in chunk)})",
               flush=True)
-    stages = {}
+    stages, attn_stage = {}, {}
     for B in (128, 1):
         args, kw = layer_args(B, 0)
         stages[f"b{B}"] = kernel_stages(lambda: fused_layer_q8c(*args, **kw),
                                         f"b={B}", costs=moe_stage_costs(
                                             B * T, True, True))
+        attn_stage[f"b{B}"] = attn_stage_record(
+            (stages[f"b{B}"] or {}).get("attn_kernel"), B, T, H, D // H,
+            False, attn_stage_yardstick(*args[:7], 20, kw["eps1"],
+                                        kw["eps_qk"]))
+        print(f"  attention stage (attn_kernel) b={B}: "
+              f"{fmt_stage(attn_stage[f'b{B}'])}", flush=True)
     r1 = results[1]
     split = {"parity": chunk_split(policy, r1["obs"], r1["goal"],
                                    r1["noise"], timing[1]["chunk_ms"])}
@@ -5936,6 +6169,7 @@ def main():
         "action_floor": {"b128": results[128]["action_floor"],
                          "b1": results[1]["action_floor"]},
         "stages_ms": stages,
+        "attn_stage": attn_stage,
         "moe_stage_rates": {
             k: stage_rates(v, moe_stage_costs(B * T, True, True))
             for (k, v), B in zip(stages.items(), (128, 1))},
@@ -6108,7 +6342,7 @@ def main():
         "bench_layer": bench_layer,
         "bench_proj": bench_proj,
     })
-    # the long-token phase's launchers at T in LONG_T and served cells at
+    # the long-token phase's launchers at LONG_SHAPES and served cells at
     # T=20, on the entries of the five attention-bearing kernels
     for k in kernels:
         names, cells = {
@@ -6123,9 +6357,18 @@ def main():
         }.get(k["name"], ((), ()))
         if names:
             k["long_tokens"] = {
-                "tokens": LONG_T, "cell_tokens": long_tokens["tokens"],
+                "tokens": LONG_T, "shapes": LONG_SHAPES,
+                "cell_tokens": long_tokens["tokens"],
                 "launchers": {n: long_tokens["kernels"][n] for n in names},
                 "cells": {n: long_tokens["cells"][n] for n in cells}}
+            # the attention stage alone: device ms, bound, SDPA yardstick,
+            # the HMMA instructions of its library's SASS
+            k.setdefault("attn_stage", {})["sass_hmma"] = (
+                sass_hmma and sass_hmma[k["name"]])
+            k["attn_stage"]["long_tokens"] = {
+                n: {shape: rec["attn_stage"]
+                    for shape, rec in long_tokens["kernels"][n].items()}
+                for n in names}
     phase("done", T0)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"eval": evaluation}), flush=True)

@@ -41,7 +41,11 @@
 //   b=1 (N = 14): bytes, 8.4 MB of weights -> 2.5 us.
 // The legacy wmma tiles that this kernel ran before (64 x 64, a two-stage
 // cp.async pipeline) took 0.090 + 0.047 ms for the two projections at
-// b=128; the attention stage (attn_item) is now the largest.
+// b=128. The attention stage (attn_item, both products on mma.sync) is
+// still the largest, though close to the QKV projection at 14 tokens
+// (0.033 against 0.028 ms at b=128 on an H100 at 700 W), and the more so
+// as T grows (0.41 of the launch's 0.87 ms at 160 tokens): it reads the
+// f32 qkv rows and recomputes the scores in each of its three passes.
 
 #include "int8_stages.cuh"
 

@@ -137,6 +137,11 @@ struct DitArgs {
   float eps1, eps_qk, eps2, rs_D, rs_hd, scale;
 };
 
+// Output columns of one P V pass of the attention stage: fewer than the
+// per-layer kernels' (kAttnCols) for fewer live registers beside the GEMM
+// stages' (the sums per element do not depend on it, so the bits do not).
+constexpr int kDitAttnCols = 64;
+
 // The GEMM stages of one layer under the plan of WG consumer warpgroups.
 template <int WG, bool Q8>
 struct Ops {
@@ -305,10 +310,11 @@ __device__ __forceinline__ void dit_consumer(const DitArgs& a,
     wg::consume<typename O::Qkv>(r, la.qkv, cols, 0, wg, it);
     end_stage(false, false);
     for (int i = team; i < n_attn; i += teams) {
-      attn_item(a.qkv, a.q_g + (size_t)l * hd, a.k_g + (size_t)l * hd,
-                Q8 ? nullptr : static_cast<bf16*>(a.o),
-                Q8 ? static_cast<float*>(a.o) : nullptr, a.B, a.T, D, a.H,
-                hd, a.rs_hd, a.eps_qk, a.scale, a.attn_kb, i, scratch, tm);
+      attn_item<kDitAttnCols>(
+          a.qkv, a.q_g + (size_t)l * hd, a.k_g + (size_t)l * hd,
+          Q8 ? nullptr : static_cast<bf16*>(a.o),
+          Q8 ? static_cast<float*>(a.o) : nullptr, a.B, a.T, D, a.H, hd,
+          a.rs_hd, a.eps_qk, a.scale, a.attn_kb, i, scratch, tm);
       tm.sync();
     }
     end_stage(false, true);
@@ -408,7 +414,7 @@ int launch(const DitMaps& m, DitArgs a, int* info, cudaStream_t st) {
   const int hd = a.D / a.H, rows = attn_rows(a.B, a.H, a.T);
   a.attn_kb = attn_kb(a.T, hd, rows, avail / WG / 1024 * 1024);
   if (a.attn_kb < 1) return (int)cudaErrorInvalidValue;
-  a.team_bytes = (cmax(smem_row(a.D), smem_attn(a.T, hd, rows, a.attn_kb)) +
+  a.team_bytes = (cmax(smem_row(a.D), smem_attn(hd, rows, a.attn_kb)) +
                   1023) / 1024 * 1024;
   a.n_slots = std::min(wg::kMaxStages, avail / O::kSlot);
   a.ring_bytes = std::max(a.n_slots * O::kSlot, WG * a.team_bytes);

@@ -19,7 +19,8 @@
 //   1 ln1_kernel          per row: h = bf16(rmsnorm(x)*g1 + c)
 //   2 qkv_wg_kernel       qkv = h @ wqkv + b       (wgmma bf16, f32 accum)
 //   3 attn_kernel         one CTA per (query rows, head, sample): QK-RMSNorm,
-//                         causal softmax over any T tokens, P V (f32 FMA)
+//                         causal softmax over any T tokens, P V (mma.sync
+//                         bf16, f32 accum)
 //   4 cproj_wg_kernel     x_mid = bf16(x + o @ wout) (wgmma bf16, f32 accum)
 //   5 ln2_quant_kernel    xm = bf16(rmsnorm(x_mid)*g2); int8 rows of xm
 //   6 moe_up_wg_kernel    value/gate = xq @ W1_e (wgmma s8, s32 accum), act

@@ -92,9 +92,12 @@ cproj_wg_kernel(const __grid_constant__ CUtensorMap ta,
 }
 
 // O = float: o stays f32 for the re-quantization (int8 projections);
-// O = bf16: o rounded to bf16 (bf16 projections); kb key rows per block
-template <typename O>
-__global__ void __launch_bounds__(kThreads)
+// O = bf16: o rounded to bf16 (bf16 projections); kb key rows per block.
+// MINB: the CTAs an SM is to hold (attn_plan): 4 caps the registers at
+// 128, for many small items; 1 leaves the stage its registers. The same
+// code either way, so the same bits.
+template <typename O, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 attn_kernel(const float* qkv, const float* qg, const float* kg, O* o, int B,
             int T, int D, int H, int hd, float rs_hd, float eps_qk,
             float scale, int kb) {
@@ -164,28 +167,50 @@ cudaError_t set_smem(K kernel, int bytes) {
   return wg::grant_smem(reinterpret_cast<const void*>(kernel), bytes);
 }
 
-// The attention kernel's shared memory per CTA at most: the default
-// grant, so that several CTAs share an SM; a sample whose q, k and v rows
-// do not fit streams its keys in blocks (attn_kb).
+// The attention kernel's shared memory per CTA: all of a sample's keys
+// where they fit kAttnSmemAll (k^ and v loaded once; two CTAs an SM at
+// the flagship widths up to T = 176), else blocks of keys within
+// kAttnSmem, the default grant, so that several CTAs share an SM while
+// each pass streams its blocks (attn_kb).
+constexpr int kAttnSmemAll = 112 * 1024;
 constexpr int kAttnSmem = 48 * 1024;
+constexpr int kSmemPerSm = 228 * 1024;   // an H100 SM's shared memory
 
 // The attention stage's launch plan: the cond rows' map from their count
-// c_rows (1, B or B T), the key rows per block and the CTA's shared
-// memory; cudaErrorInvalidValue for another count or a sample too long
-// for one key row per block.
+// c_rows (1, B or B T), the key rows per block, the CTA's shared memory
+// and whether four CTAs are to share an SM (many items, each of them
+// small enough: their registers, not their shared memory, would cap the
+// CTAs an SM holds; at b=1 the stage is bound by one item's latency,
+// which spilled registers lengthen); cudaErrorInvalidValue for another
+// count of cond rows.
 struct AttnPlan {
   CondMap cond;
   int kb, smem;
+  bool four;
 };
 
 inline cudaError_t attn_plan(int c_rows, int B, int T, int D, int H,
                              AttnPlan* p) {
   const int hd = D / H, rows = attn_rows(B, H, T);
   if (!cond_map(c_rows, B, T, D, &p->cond)) return cudaErrorInvalidValue;
-  p->kb = attn_kb(T, hd, rows, kAttnSmem);
+  p->kb = smem_attn(hd, rows, round16(T)) <= kAttnSmemAll
+              ? round16(T)
+              : attn_kb(T, hd, rows,
+                        cmax(kAttnSmem, smem_attn(hd, rows, kAttnTile)));
   if (p->kb < 1) return cudaErrorInvalidValue;
-  p->smem = smem_attn(T, hd, rows, p->kb);
+  p->smem = smem_attn(hd, rows, p->kb);
+  p->four = B * H >= 128 && 4 * (p->smem + 1024) <= kSmemPerSm;
   return cudaSuccess;
+}
+
+template <typename O>
+using AttnKernel = void (*)(const float*, const float*, const float*, O*, int,
+                            int, int, int, int, float, float, float, int);
+
+// The attention stage's kernel under the plan.
+template <typename O>
+AttnKernel<O> attn_stage(const AttnPlan& ap) {
+  return ap.four ? attn_kernel<O, 4> : attn_kernel<O, 1>;
 }
 
 template <int WG, int BN, int EPI, int KIND>
@@ -244,15 +269,15 @@ inline int attn_q8_stages(
   const int M = B * T, hd = D / H;
   AttnPlan ap;
   if (const cudaError_t e = attn_plan(c_rows, B, T, D, H, &ap)) return (int)e;
-  if (const cudaError_t e = set_smem(attn_kernel<float>, ap.smem))
-    return (int)e;
+  const AttnKernel<float> attn = attn_stage<float>(ap);
+  if (const cudaError_t e = set_smem(attn, ap.smem)) return (int)e;
   ln1_quant_kernel<<<M, kThreads, smem_row(D) + 4 * D, st>>>(
       (const bf16*)x, (const bf16*)c, ap.cond.div, ap.cond.stride,
       (const float*)ln1_g, (int8_t*)hq, (float*)hs, D, rs_D, eps1);
   if (const int e = proj_stage<0>(hq, hs, wqkv_t, wqkv_s, bqkv, nullptr, qkv,
                                   M, 3 * D, D, tiles[0], tiles[1], ctas, st))
     return e;
-  attn_kernel<float><<<attn_items(B, H, T), kThreads, ap.smem, st>>>(
+  attn<<<attn_items(B, H, T), kThreads, ap.smem, st>>>(
       (const float*)qkv, (const float*)q_g, (const float*)k_g, (float*)o, B,
       T, D, H, hd, rs_hd, eps_qk, scale, ap.kb);
   quant_f32_kernel<<<M, kThreads, smem_row(D), st>>>(
@@ -275,8 +300,8 @@ inline int attn_bf16_stages(
   const int M = B * T, hd = D / H;
   AttnPlan ap;
   if (const cudaError_t e = attn_plan(c_rows, B, T, D, H, &ap)) return (int)e;
-  if (const cudaError_t e = set_smem(attn_kernel<bf16>, ap.smem))
-    return (int)e;
+  const AttnKernel<bf16> attn = attn_stage<bf16>(ap);
+  if (const cudaError_t e = set_smem(attn, ap.smem)) return (int)e;
   ln1_kernel<<<M, kThreads, smem_row(D), st>>>(
       (const bf16*)x, (const float*)c, ap.cond.div, ap.cond.stride,
       (const float*)ln1_g, (bf16*)h, D, rs_D, eps1);
@@ -284,7 +309,7 @@ inline int attn_bf16_stages(
           h, nullptr, wqkv, nullptr, bqkv, nullptr, qkv, M, 3 * D, D,
           tiles[0], tiles[1], ctas, st))
     return e;
-  attn_kernel<bf16><<<attn_items(B, H, T), kThreads, ap.smem, st>>>(
+  attn<<<attn_items(B, H, T), kThreads, ap.smem, st>>>(
       (const float*)qkv, (const float*)q_g, (const float*)k_g, (bf16*)o, B,
       T, D, H, hd, rs_hd, eps_qk, scale, ap.kb);
   return proj_stage<1, wg::kBf16>(o, nullptr, wout, nullptr, nullptr, x, out,

@@ -1,12 +1,13 @@
 // Stage bodies of one NoiseBlockMoE inference layer other than its
-// products: the row, attention, quantization and sum stages, shared by the
-// per-layer kernel (fused_layer_q8c.cu: one __global__ launch per stage),
-// the DiT megakernel (fused_dit_q8c.cu: every stage of every layer in one
-// cooperative launch, a grid-stride loop per stage), the attention kernels
-// (fused_attn_block.cu, fused_attn_block_q8.cu), the int8 MoE kernel
-// (fused_top2_mlp_q8c.cu) and the row stages of the bf16-compute MoE
-// (fused_top2_mlp.cu). Every product of those kernels runs on wgmma
-// (wgmma_stages.cuh).
+// weight products: the row, attention, quantization and sum stages, shared
+// by the per-layer kernel (fused_layer_q8c.cu: one __global__ launch per
+// stage), the DiT megakernel (fused_dit_q8c.cu: every stage of every layer
+// in one cooperative launch, a grid-stride loop per stage), the attention
+// kernels (fused_attn_block.cu, fused_attn_block_q8.cu), the int8 MoE
+// kernel (fused_top2_mlp_q8c.cu) and the row stages of the bf16-compute MoE
+// (fused_top2_mlp.cu). The projections and expert products run on wgmma
+// (wgmma_stages.cuh); the attention stage's two products (q^ k^T and P V)
+// run here on mma.sync.
 //
 // Every stage is a __device__ function that computes ONE work item (a row,
 // query rows of a (head, sample), a block of a row) with a Team of
@@ -57,12 +58,7 @@ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 constexpr int kSmemRed = 32 * 4;
 // the row stages stage one row of D floats after the 32-float reduction
 __host__ __device__ inline int smem_row(int D) { return kSmemRed + D * 4; }
-// The attention stage (attn_item): `rows` query rows of hd floats, a block
-// of kb key rows and kb value rows, their inverse norms, and the f32 score
-// row of each query row over the sample's T tokens
-__host__ __device__ inline int smem_attn(int T, int hd, int rows, int kb) {
-  return 4 * (rows * hd + 2 * kb * hd + rows + kb + rows * T);
-}
+// The attention stage's shared memory (smem_attn) is defined with it.
 
 // ---- helpers ----------------------------------------------------------------
 __device__ __forceinline__ float warp_sum(float v) {
@@ -276,30 +272,57 @@ __device__ __forceinline__ void ln1_quant_row(const bf16* x, const float* c,
 
 // ---- attention, one (query-row block, head, sample) item ----------------
 // QK-RMSNorm per head, causal softmax over any number T of tokens per
-// sample, P V; f32 FMA. An item takes query rows [i0, i1) of one (head,
-// sample) and the key and value rows 0 .. i1-1 they attend to, in blocks
-// of kb rows through shared memory. Where kb >= i1 (a short sample) q, k
-// and v come in at once and each step runs once. Else two passes run over
-// the key blocks: (1) each block's scores into the [rows, T] score tile,
-// then the f32 softmax over each whole causal row; (2) each block's P V
-// into f32 sums that wait in the q buffer. No running rescale: q and k are
-// normed in f32 and rounded to bf16, the scores are f32 times the scale,
-// the probabilities are rounded to bf16 and P V sums in f32, the JAX
-// kernel's cast chain (attn_kernel.py _kernel). Every score is one warp's
-// lane-strided dot product, every softmax row one thread's sums in key
-// order, and every output element one thread's sum over j = 0 .. i in
-// order, whatever the item's rows or kb: so neither the query block
-// (attn_rows) nor the key block (attn_kb) changes the result.
+// sample, P V; both products on the tensor cores (mma.sync m16n8k16, bf16
+// operands from ldmatrix, f32 sums). An item takes query rows [i0, i1) of
+// one (head, sample), at most kAttnRows, and the key and value rows
+// 0 .. i1-1 they attend to. Shared memory holds bf16 rows of attn_ld(hd)
+// elements (the 8 rows of an ldmatrix land on distinct banks): the item's
+// q^ rows and a block of kb key rows k^ and value rows v, kb a multiple of
+// 16 (all of the item's keys where they fit: attn_kb). The cast chain is
+// the JAX kernel's (attn_kernel.py _kernel): q and k normed per row from
+// the f32 qkv and rounded to bf16, v rounded to bf16; each score the f32
+// product times `scale` (unfused), the causal mask, an f32 softmax over
+// the whole causal row with p = bf16(exp(s - m) / den) rounded after the
+// division, P V summed in f32, o rounded to bf16 or kept f32. No running
+// rescale: three passes over the key tiles recompute the scores on the
+// tensor cores, (1) the row max, (2) den, (3) P V; where the keys do not
+// fit at once, each pass reloads the k^ blocks (and pass 3 the v blocks).
+//   Work split: warp w takes one unit, a tile of 16 query rows of the item
+// and a share of the output columns: one tile per warp where the item has
+// 3 or 4 tiles, else each tile's columns split over 2 or 4 warps (the b=1
+// items of one tile: every warp runs passes 1 and 2 of the tile and P V
+// of its quarter of the columns), the columns in P V passes of at most
+// COLS (the f32 sums stay in registers; kAttnCols in the per-layer
+// kernels).
+//   Invariants, so that neither the query rows of an item (attn_rows), nor
+// the key rows of a block (attn_kb), nor the column split changes a bit:
+// query and key tiles are 16 rows aligned at row 0 (i0 and kb multiples of
+// 16), every pass takes the key tiles in ascending order, and an mma
+// output element depends on its own row and column only. den is each
+// lane's running f32 sum over the tiles of its four columns of a tile
+// (n8 tile 0 then 1, the lower column first), then the quad's sum by xor
+// shuffles (1, then 2); a P V element is the tensor core's f32 sum over
+// the tiles in ascending order; a head norm's sum of squares is each
+// lane's fmaf chain over its 16 columns and a xor-shuffle tree over the
+// row's lanes (attn_load). So every kernel gives the same bits.
 // item -> (blk, h, b) = (item % n_blk, (item / n_blk) % H, item / (n_blk H)).
 // o_f32 != nullptr (int8 projections): o stays f32 for the per-row
 // re-quantization; else o is rounded to bf16 into o_bf16.
-constexpr int kAttnRows = 16;   // query rows of an item at most
+constexpr int kAttnTile = 16;    // rows of a query tile and of a key tile
+constexpr int kAttnRows = 64;    // query rows of an item at most: 4 tiles
+constexpr int kAttnCols = 128;   // output columns of one P V pass
+
+__host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
+
+// the row stride (bf16 elements) of the stage's tiles in shared memory
+__host__ __device__ inline int attn_ld(int hd) { return hd + 8; }
 
 __host__ __device__ inline int attn_rows(int B, int H, int T) {
-  // one query row per item while the (head, sample) pairs alone would
-  // leave most SMs idle (b=1: 8 pairs, 112 rows); blocks of up to
-  // kAttnRows query rows of a sample otherwise
-  return B * H < 128 ? 1 : (T < kAttnRows ? T : kAttnRows);
+  // one query tile per item while the (head, sample) pairs alone would
+  // leave most SMs idle (b=1: 8 pairs); blocks of up to kAttnRows query
+  // rows of a sample otherwise
+  const int t = round16(T);
+  return B * H < 128 ? kAttnTile : (t < kAttnRows ? t : kAttnRows);
 }
 
 __host__ __device__ inline int attn_items(int B, int H, int T) {
@@ -307,72 +330,186 @@ __host__ __device__ inline int attn_items(int B, int H, int T) {
   return B * H * ((T + rows - 1) / rows);
 }
 
+// an item's shared memory: `rows` q^ rows, kb k^ rows and kb v rows
+__host__ __device__ inline int smem_attn(int hd, int rows, int kb) {
+  return 2 * attn_ld(hd) * (rows + 2 * kb);
+}
+
 // The key rows per block that fit `budget` bytes of an item's shared
-// memory (smem_attn): all T where they fit (one pass), else the most that
-// fit; 0 where none does.
+// memory: all of a sample's (T rounded up to 16) where they fit, else the
+// most whole tiles that fit; 0 where not one tile does.
 __host__ __device__ inline int attn_kb(int T, int hd, int rows, int budget) {
-  if (smem_attn(T, hd, rows, T) <= budget) return T;
-  const int kb = (budget / 4 - rows * hd - rows - rows * T) / (2 * hd + 1);
-  return kb > 0 ? kb : 0;
+  const int fit =
+      (budget / (2 * attn_ld(hd)) - rows) / 2 / kAttnTile * kAttnTile;
+  return fit >= round16(T) ? round16(T) : (fit > 0 ? fit : 0);
 }
 
-// Rows [r0, r1) of one head of one sample's qkv rows (src: the head's
-// first column in the sample's first row) into shared memory, kRowLoads
-// elements of each in flight per thread: the q rows at or after q0 into
-// qs at row r - q0 (where qs != nullptr), the k rows into ks and the v
-// rows, rounded to bf16, into vs at row r - r0 (each where non-null).
-__device__ __forceinline__ void attn_load(const float* src, int D, int hd,
-                                          int r0, int r1, int q0, float* qs,
-                                          float* ks, float* vs,
-                                          const Team& tm) {
-  const int n = (r1 - r0) * hd, D3 = 3 * D;
-  for (int e0 = tm.tid; e0 < n; e0 += kRowLoads * kThreads) {
-    float q[kRowLoads], k[kRowLoads], v[kRowLoads];
+// A run of rows for attn_load: rows [r0, r0 + live) of one head's q, k or
+// v columns (src: the head's first column in the sample's row 0) into the
+// bf16 rows dst[0 ..], rows live .. n-1 zero; with the gain g (q, k) the
+// QK-RMSNorm bf16(a_r * inv_r * g), inv_r = 1 / max(|a_r| / sqrt(hd),
+// eps), without (v, g null) bf16(a_r).
+struct AttnRows {
+  const float* src;
+  const float* g;
+  bf16* dst;
+  int r0, live, n;
+};
+
+// Three runs of rows, one after the other (n = 0: none), into shared
+// memory (row stride ld). LPR lanes take a row (8 where hd <= 128, else
+// 32), lane l of its group the float4 columns l, l + LPR, l + 2 LPR,
+// l + 3 LPR (16 B loads through L2: in the megakernel this launch's QKV
+// stage wrote them), so a warp takes 32 / LPR rows at once, two such sets
+// in flight. The head norm's sum of squares: each lane's fmaf chain over
+// its columns in that order, then a xor-shuffle tree over the group (1,
+// 2, ...). The sets go through a loop that is not unrolled: in the
+// megakernel this stage's code runs cold once a layer, and a short body
+// costs the instruction cache less.
+template <int LPR>
+__device__ __forceinline__ void attn_load_lpr(AttnRows a, AttnRows b,
+                                              AttnRows c, int D3, int hd,
+                                              int ld, float rs_hd, float eps,
+                                              int tid) {
+  constexpr int kRows = 32 / LPR, kSets = 2;
+  const int lane = tid & 31, warp = tid >> 5, nw = kThreads / 32;
+  const int gl = lane % LPR, gr = lane / LPR;
+  const int nv = hd / 4, n_all = a.n + b.n + c.n, step = nw * kRows;
+  for (int r0 = 0; r0 < n_all; r0 += step * kSets) {
+    float4 v[kSets][4];
 #pragma unroll
-    for (int u = 0; u < kRowLoads; ++u) {
-      const int e = e0 + u * kThreads, t = r0 + e / hd;
-      const float* r = src + (size_t)t * D3 + e % hd;
-      const bool in = e < n;
-      q[u] = qs && in && t >= q0 ? ldf(r) : 0.f;
-      k[u] = ks && in ? ldf(r + D) : 0.f;
-      v[u] = vs && in ? ldf(r + 2 * D) : 0.f;
+    for (int s = 0; s < kSets; ++s) {
+      // row t of the runs: row tt of run k (fields picked one by one, so
+      // that the runs stay in registers)
+      const int t = r0 + (s * nw + warp) * kRows + gr;
+      const int k = t < a.n ? 0 : t < a.n + b.n ? 1 : 2;
+      const int tt = t - (k == 0 ? 0 : k == 1 ? a.n : a.n + b.n);
+      const int live = k == 0 ? a.live : k == 1 ? b.live : c.live;
+      const float* row =
+          (k == 0 ? a.src : k == 1 ? b.src : c.src) +
+          (size_t)((k == 0 ? a.r0 : k == 1 ? b.r0 : c.r0) + tt) * D3;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int col = gl + LPR * u;
+        v[s][u] = t < n_all && tt < live && col < nv
+                      ? __ldcg(reinterpret_cast<const float4*>(row) + col)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
+#pragma unroll 1
+    for (int s = 0; s < kSets; ++s) {
+      // set s from v[0], the sets after it moved down
+      float4 cur[4];
 #pragma unroll
-    for (int u = 0; u < kRowLoads; ++u) {
-      const int e = e0 + u * kThreads, t = r0 + e / hd;
-      if (e >= n) continue;
-      if (qs && t >= q0) qs[(t - q0) * hd + e % hd] = q[u];
-      if (ks) ks[e] = k[u];
-      if (vs) vs[e] = __bfloat162float(__float2bfloat16_rn(v[u]));
+      for (int u = 0; u < 4; ++u) cur[u] = v[0][u];
+#pragma unroll
+      for (int q = 0; q + 1 < kSets; ++q)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[q][u] = v[q + 1][u];
+      if (r0 + (s * nw + warp) * kRows >= n_all) break;
+      const int t = r0 + (s * nw + warp) * kRows + gr;
+      const int k = t < a.n ? 0 : t < a.n + b.n ? 1 : 2;
+      const int tt = t - (k == 0 ? 0 : k == 1 ? a.n : a.n + b.n);
+      const int live = k == 0 ? a.live : k == 1 ? b.live : c.live;
+      const float* g = k == 0 ? a.g : k == 1 ? b.g : c.g;
+      bf16* dst = (k == 0 ? a.dst : k == 1 ? b.dst : c.dst) + (size_t)tt * ld;
+      float ss = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        ss = __fmaf_rn(cur[u].x, cur[u].x, ss);
+        ss = __fmaf_rn(cur[u].y, cur[u].y, ss);
+        ss = __fmaf_rn(cur[u].z, cur[u].z, ss);
+        ss = __fmaf_rn(cur[u].w, cur[u].w, ss);
+      }
+#pragma unroll
+      for (int o = 1; o < LPR; o <<= 1)
+        ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+      const float inv =
+          __fdiv_rn(1.0f, fmaxf(__fmul_rn(sqrtf(ss), rs_hd), eps));
+      if (t >= n_all) continue;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int col = gl + LPR * u;
+        if (col >= nv) continue;
+        float e[4] = {cur[u].x, cur[u].y, cur[u].z, cur[u].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          e[q] = tt >= live ? 0.f
+                 : g        ? __fmul_rn(__fmul_rn(e[q], inv),
+                                        __ldg(g + 4 * col + q))
+                            : e[q];
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(e[0], e[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(e[2], e[3]);
+        *reinterpret_cast<uint2*>(dst + 4 * col) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                       *reinterpret_cast<const uint32_t*>(&hi));
+      }
     }
   }
 }
 
-// 1 / max(|a_r| / sqrt(hd), eps) of rows [0, n) of a [n, hd] into inv, one
-// warp per row
-__device__ __forceinline__ void head_inv_norms(const float* a, int n, int hd,
-                                               float rs_hd, float eps,
-                                               float* inv, const Team& tm) {
-  const int lane = tm.tid & 31, nw = kThreads >> 5;
-  for (int r = tm.tid >> 5; r < n; r += nw) {
-    float s = 0.f;
-    for (int d = lane; d < hd; d += 32) s += a[r * hd + d] * a[r * hd + d];
-    s = warp_sum(s);
-    if (lane == 0)
-      inv[r] = __fdiv_rn(1.0f, fmaxf(__fmul_rn(sqrtf(s), rs_hd), eps));
+__device__ __forceinline__ void attn_load(AttnRows a, AttnRows b, AttnRows c,
+                                          int D3, int hd, int ld, float rs_hd,
+                                          float eps, int tid) {
+  if (hd <= 128) attn_load_lpr<8>(a, b, c, D3, hd, ld, rs_hd, eps, tid);
+  else attn_load_lpr<32>(a, b, c, D3, hd, ld, rs_hd, eps, tid);
+}
+
+// four 8 x 8 bf16 matrices from shared memory (lanes 8 i .. 8 i + 7 give
+// matrix i's row addresses), as they are or transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// d += a b, one m16n8k16 tile: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// s = q^ k^T of one tile of 16 query rows (qs) and 16 key rows (ks), rows
+// ld apart, over hd in steps of 16. s[n][e]: n8 tile n of the mma
+// accumulator, row lane / 4 + 8 (e / 2), column 8 n + 2 (lane % 4) + e % 2.
+__device__ __forceinline__ void attn_scores(float (&s)[2][4], const bf16* qs,
+                                            const bf16* ks, int ld, int hd,
+                                            int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+  const bf16* qa = qs + ((mi & 1) * 8 + r) * ld + (mi >> 1) * 8;
+  const bf16* kr = ks + ((mi >> 1) * 8 + r) * ld + (mi & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  for (int k0 = 0; k0 < hd; k0 += 16) {
+    uint32_t a[4], b[4];
+    ldsm_x4(a, qa + k0);
+    ldsm_x4(b, kr + k0);
+    mma_bf16(s[0], a, b[0], b[1]);
+    mma_bf16(s[1], a, b[2], b[3]);
   }
 }
 
-// a_r * inv_r * g rounded to bf16, in place, rows [0, n) of a [n, hd]
-__device__ __forceinline__ void head_norm_rows(float* a, int n, int hd,
-                                               const float* inv,
-                                               const float* __restrict__ g,
-                                               const Team& tm) {
-  for (int e = tm.tid; e < n * hd; e += kThreads)
-    a[e] = __bfloat162float(__float2bfloat16_rn(
-        __fmul_rn(__fmul_rn(a[e], inv[e / hd]), g[e % hd])));
-}
-
+template <int COLS = kAttnCols>
 __device__ __forceinline__ void attn_item(const float* qkv,
                                           const float* __restrict__ qg,
                                           const float* __restrict__ kg,
@@ -383,97 +520,147 @@ __device__ __forceinline__ void attn_item(const float* qkv,
                                           unsigned char* smem,
                                           const Team& tm = cta_team()) {
   const int rows = attn_rows(B, H, T), n_blk = (T + rows - 1) / rows;
-  float* qs = reinterpret_cast<float*>(smem);   // [rows, hd]: q, then P V
-  float* ks = qs + rows * hd;                   // [kb, hd]
-  float* vs = ks + kb * hd;                     // [kb, hd]
-  float* inv_q = vs + kb * hd;                  // [rows]
-  float* inv_k = inv_q + rows;                  // [kb]
-  float* pr = inv_k + kb;                       // [rows, T]
+  const int ld = attn_ld(hd), D3 = 3 * D;
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // [rows, ld]: q^
+  bf16* ks = qs + rows * ld;                  // [kb, ld]: k^
+  bf16* vs = ks + kb * ld;                    // [kb, ld]: v
 
   const int blk = item % n_blk, h = (item / n_blk) % H, b = item / (n_blk * H);
   const int i0 = blk * rows, i1 = min(T, i0 + rows), nq = i1 - i0;
-  const int tid = tm.tid, lane = tid & 31, warp = tid >> 5;
-  const int nw = kThreads >> 5;
+  const int lane = tm.tid & 31, warp = tm.tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;    // accumulator row, column pair
   const size_t row0 = (size_t)b * T;
-  const float* src = qkv + row0 * 3 * D + h * hd;
-  // every key row of the item in one block: q, k and v come in together
+  const float* src = qkv + row0 * D3 + h * hd;
+  // every key row of the item in one block: k^ and v come in once
   const bool one = i1 <= kb;
+  // this warp's unit: query tile qt (rows q0 ..), columns [c0, c0 + cw)
+  const int n_qt = (nq + kAttnTile - 1) / kAttnTile;
+  int ns = n_qt >= 3 ? 1 : 4 / n_qt;
+  while ((hd / ns) % 16) ns >>= 1;
+  const int cw = hd / ns, qt = warp / ns, c0 = (warp % ns) * cw;
+  const bool busy = qt < n_qt;
+  const int q0 = i0 + kAttnTile * qt;
 
-  attn_load(src, D, hd, one ? 0 : i0, i1, i0, qs, one ? ks : nullptr,
-            one ? vs : nullptr, tm);
+  // q^ rows, and where they fit the k^ and v rows, in one pass of loads
+  const AttnRows none{nullptr, nullptr, nullptr, 0, 0, 0};
+  const int nk = one ? i1 : 0;
+  attn_load(AttnRows{src, qg, qs, i0, nq, round16(nq)},
+            AttnRows{src + D, kg, ks, 0, nk, round16(nk)},
+            AttnRows{src + 2 * D, nullptr, vs, 0, nk, round16(nk)}, D3, hd,
+            ld, rs_hd, eps_qk, tm.tid);
   tm.sync();
-  head_inv_norms(qs, nq, hd, rs_hd, eps_qk, inv_q, tm);
-  if (one) head_inv_norms(ks, i1, hd, rs_hd, eps_qk, inv_k, tm);
-  tm.sync();
-  head_norm_rows(qs, nq, hd, inv_q, qg, tm);
-  if (one) head_norm_rows(ks, i1, hd, inv_k, kg, tm);
-  tm.sync();
-  // pass 1: the causal scores, block by block; warp w takes the block's
-  // pairs (i, j <= i) round-robin
-  for (int j0 = 0; j0 < i1; j0 += kb) {
-    const int j1 = min(i1, j0 + kb);
-    if (!one) {
-      attn_load(src, D, hd, j0, j1, 0, nullptr, ks, nullptr, tm);
-      tm.sync();
-      head_inv_norms(ks, j1 - j0, hd, rs_hd, eps_qk, inv_k, tm);
-      tm.sync();
-      head_norm_rows(ks, j1 - j0, hd, inv_k, kg, tm);
-      tm.sync();
-    }
-    int p = 0;
-    for (int i = i0; i < i1; ++i) {
-      for (int j = j0; j < min(j1, i + 1); ++j, ++p) {
-        if (p % nw != warp) continue;
-        float s = 0.f;
-        for (int e = lane; e < hd; e += 32)
-          s += qs[(i - i0) * hd + e] * ks[(j - j0) * hd + e];
-        s = warp_sum(s);
-        if (lane == 0) pr[(i - i0) * T + j] = __fmul_rn(s, scale);
+
+  const float ninf = -__int_as_float(0x7f800000);
+  float m[2] = {ninf, ninf}, den[2] = {0.f, 0.f};
+  float acc[COLS / 8][4];
+  const int n_pv = (cw + COLS - 1) / COLS;
+  for (int pass = 0; pass < 2 + n_pv; ++pass) {
+    // P V passes: columns [p0, p0 + pw)
+    const int p0 = c0 + (pass - 2) * COLS;
+    const int pw = min(COLS, c0 + cw - p0);
+#pragma unroll
+    for (int n = 0; n < COLS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int j0 = 0; j0 < i1; j0 += kb) {
+      const int j1 = min(i1, j0 + kb);
+      if (!one) {
+        tm.sync();   // every unit is done with the block before
+        const int nb = j1 - j0, nv = pass >= 2 ? nb : 0;
+        attn_load(none, AttnRows{src + D, kg, ks, j0, nb, round16(nb)},
+                  AttnRows{src + 2 * D, nullptr, vs, j0, nv, round16(nv)}, D3,
+                  hd, ld, rs_hd, eps_qk, tm.tid);
+        tm.sync();
+      }
+      if (!busy) continue;
+      // the key tiles of the block up to the unit's diagonal tile
+      for (int t0 = j0; t0 < j1 && t0 <= q0; t0 += kAttnTile) {
+        float s[2][4];
+        attn_scores(s, qs + (q0 - i0) * ld, ks + (t0 - j0) * ld, ld, hd,
+                    lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = t0 + 8 * n + 2 * qd + (e & 1);
+            const int i = q0 + g + 8 * (e >> 1);
+            // masked: exp gives 0, which adds nothing to den and P V
+            s[n][e] = j <= i ? __fmul_rn(s[n][e], scale) : ninf;
+          }
+        if (pass == 0) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              m[e >> 1] = fmaxf(m[e >> 1], s[n][e]);
+          continue;
+        }
+        // exp(s - m): den's terms, then P's numerators (one copy of the
+        // code for both passes)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - m[e >> 1]);
+        if (pass == 1) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              den[e >> 1] = __fadd_rn(den[e >> 1], s[n][e]);
+        } else {
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[n][e] = __fdiv_rn(s[n][e], den[e >> 1]);
+          // the probabilities as the A operand: the accumulator's layout
+          const uint32_t a[4] = {pack_bf16(s[0][0], s[0][1]),
+                                 pack_bf16(s[0][2], s[0][3]),
+                                 pack_bf16(s[1][0], s[1][1]),
+                                 pack_bf16(s[1][2], s[1][3])};
+          const bf16* vb = vs + (t0 - j0 + ((lane >> 3) & 1) * 8 +
+                                 (lane & 7)) * ld + p0 + (lane >> 4) * 8;
+#pragma unroll
+          for (int n = 0; n < COLS / 8; n += 2) {
+            if (8 * n >= pw) break;
+            uint32_t bv[4];
+            ldsm_x4_t(bv, vb + 8 * n);
+            mma_bf16(acc[n], a, bv[0], bv[1]);
+            mma_bf16(acc[n + 1], a, bv[2], bv[3]);
+          }
+        }
       }
     }
-    tm.sync();
-  }
-  // the f32 softmax over each whole causal row, probabilities rounded to
-  // bf16
-  for (int il = tid; il < nq; il += kThreads) {
-    const int i = i0 + il;
-    float* row = pr + il * T;
-    float m = row[0];
-    for (int j = 1; j <= i; ++j) m = fmaxf(m, row[j]);
-    float den = 0.f;
-    for (int j = 0; j <= i; ++j) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      den += e;
-    }
-    for (int j = 0; j <= i; ++j)
-      row[j] = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(row[j], den)));
-  }
-  tm.sync();
-  // pass 2: P V, block by block; a row's sums wait in qs until the block
-  // that holds its last key (j = i) writes them out
-  for (int j0 = 0; j0 < i1; j0 += kb) {
-    const int j1 = min(i1, j0 + kb);
-    if (!one) {
-      attn_load(src, D, hd, j0, j1, 0, nullptr, nullptr, vs, tm);
-      tm.sync();
-    }
-    for (int e = tid; e < nq * hd; e += kThreads) {
-      const int il = e / hd, i = i0 + il, d = e % hd;
-      if (j0 > i) continue;
-      const int je = min(j1, i + 1);
-      float acc = j0 ? qs[e] : 0.f;
-      for (int j = j0; j < je; ++j)
-        acc += pr[il * T + j] * vs[(j - j0) * hd + d];
-      if (je <= i) {
-        qs[e] = acc;
-        continue;
+    if (pass == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
       }
-      const size_t at = (row0 + i) * D + h * hd + d;
-      if (o_f32) o_f32[at] = acc;
-      else o_bf16[at] = __float2bfloat16_rn(acc);
+    } else if (pass == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        den[r] = __fadd_rn(den[r], __shfl_xor_sync(0xffffffffu, den[r], 1));
+        den[r] = __fadd_rn(den[r], __shfl_xor_sync(0xffffffffu, den[r], 2));
+      }
+    } else if (busy) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {   // rows g and g + 8
+        const int i = q0 + g + 4 * e;
+        if (i >= i1) continue;
+        const size_t at = (row0 + i) * D + h * hd + p0 + 2 * qd;
+#pragma unroll
+        for (int n = 0; n < COLS / 8; ++n) {
+          if (8 * n >= pw) break;
+          if (o_f32)
+            *reinterpret_cast<float2*>(o_f32 + at + 8 * n) =
+                make_float2(acc[n][e], acc[n][e + 1]);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(o_bf16 + at + 8 * n) =
+                __floats2bfloat162_rn(acc[n][e], acc[n][e + 1]);
+        }
+      }
     }
-    if (!one) tm.sync();
   }
 }
 

@@ -142,9 +142,11 @@ def _check(t, name, dtype, shape, device):
 def _check_attn_widths(T, D, H, hd, c, B):
     """Check the widths the CUDA kernels take and return the count of cond
     rows: 1 for one shared [1,1,D] row, B for one row per sample [B,1,D],
-    B*T for one per token [B,T,D]. Any T >= 1 is taken; a launcher refuses
-    a sample whose attention item does not fit its shared memory with one
-    key row per block (about 600 tokens at D=1024, 8 heads)."""
+    B*T for one per token [B,T,D]. Any T >= 1 is taken: the attention
+    stage keeps a sample's keys in shared memory where they fit and
+    streams them in blocks of 16-row tiles where they do not. Head dims:
+    multiples of 32 up to 512 (the stage's products step 16 columns, its
+    loads take a float4 a lane, four at most)."""
     if T < 1:
         raise ValueError(f"the CUDA kernel takes 1 or more tokens, got {T}")
     if D % 128 or D > 4096 or H * hd != D or hd % 32 or hd > 512:

@@ -222,8 +222,7 @@ def fused_attn_block(x, c, ln_g, wqkv, bqkv, q_g, k_g, wout, *,
 
     CUDA tensors: one launch of the hand-written kernel (bf16 x, a shared
     [1,1,D] cond row, one per sample [B,1,D] or one per token [B,T,D], any
-    T tokens per sample up to the attention stage's shared memory, head dim
-    a multiple of 32). ``tiles`` (QKV rows, columns, c_proj rows, columns;
+    T >= 1 tokens per sample, head dim a multiple of 32 up to 512). ``tiles`` (QKV rows, columns, c_proj rows, columns;
     64 or 128 each) overrides the
     projections' tile plan (``proj_launch_args``): the default plan is the
     one under which the kernel equals ``fused_layer_q8c``'s attention
@@ -292,8 +291,7 @@ def fused_attn_block_q8(x, c, ln_g, qattn: QuantizedAttn, q_g, k_g, *,
 
     CUDA tensors: one launch of the hand-written kernel (bf16 x, a shared
     [1,1,D] cond row, one per sample [B,1,D] or one per token [B,T,D], any
-    T tokens per sample up to the attention stage's shared memory, head dim
-    a multiple of 32), which needs ``qattn_t``, the K-major copy of the int8
+    T >= 1 tokens per sample, head dim a multiple of 32 up to 512), which needs ``qattn_t``, the K-major copy of the int8
     projections. ``tiles`` (QKV rows,
     columns, c_proj rows, columns; 64 or 128 each) overrides the
     projections' tile plan (``proj_launch_args``). CPU tensors: the plain

@@ -192,8 +192,8 @@ def fused_layer_q8c(x, c, ln1_g, wqkv, bqkv, q_g, k_g, wout, ln2_g,
 
     CUDA tensors: one launch of the hand-written kernel (bf16 activations,
     bf16 projections or int8 ones (``qattn``), one shared [1,1,D] cond row,
-    one per sample [B,1,D] or one per token [B,T,D], any T up to the
-    attention stage's shared memory, hd a multiple of 32), which needs
+    one per sample [B,1,D] or one per token [B,T,D], any T >= 1, hd a
+    multiple of 32 up to 512), which needs
     ``qexp_t``, the K-major copy of the int8 experts, and with ``qattn``
     also ``qattn_t``, that of the int8 projections. CPU tensors: the plain
     version ``fused_layer_q8c_ref``. Returns x.dtype [B,T,D]."""
@@ -400,8 +400,10 @@ def fused_dit_q8c(x, c, stacked, top2_idx, top2_probs, *, step=None,
 
     CUDA tensors: ONE cooperative launch of the hand-written megakernel
     (bf16 activations, one shared [1,1,D] cond row, one per sample [B,1,D]
-    or one per token [B,T,D], read by every layer; any T whose attention
-    item fits a team's shared memory), which needs the K-major copies; a device without cooperative launch, a grid that does
+    or one per token [B,T,D], read by every layer; any T >= 1: a team
+    streams a long sample's keys through its share of shared memory),
+    which needs the K-major copies; a device without cooperative launch,
+    a grid that does
     not fit or a tensor map that cannot be made raises. ``times``: None, or
     a CUDA int64 tensor [1 + L * len(dit_stage_names(...)), 2] that the
     kernel fills with %globaltimer (ns) and the clock of CTA 0 after every

@@ -506,3 +506,36 @@ def test_bf16_projection_plan_covers_every_output_once(B_):
         for cta, rows, cols in proj_tiles(plan, M):
             hits[rows.start:rows.stop, cols.start:cols.stop] += 1
         assert (hits == 1).all()
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """chip_smoke.py's module namespace (its module-level code imports
+    nothing of CUDA)."""
+    import runpy
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        yield runpy.run_path(f"{root}/chip_smoke.py",
+                             run_name="chip_smoke_cost")
+    finally:
+        sys.path.remove(root)
+
+
+@pytest.mark.parametrize("T_, o_f32, flops, nbytes", [
+    (14, False, 55_050_240, 25_690_112),
+    (14, True, 55_050_240, 29_360_128),
+    (160, False, 6_752_829_440, 293_601_280),
+    (160, True, 6_752_829_440, 335_544_320)])
+def test_attn_stage_cost_counts_by_hand(smoke, T_, o_f32, flops, nbytes):
+    """The attention stage's cost (chip_smoke.attn_stage_cost) at b=128, 8
+    heads of 128, counted by hand: T (T + 1) / 2 causal pairs a (head,
+    sample) (105 at T=14, 12880 at T=160) x 4 hd flops (q^ k^T and P V);
+    the f32 qkv rows read once (B T 3 D 4 bytes) and o written once, bf16
+    (B T D 2) or f32 (B T D 4)."""
+    assert smoke["attn_stage_cost"](128, T_, 8, 128, o_f32) == (flops, nbytes)
+    rec = smoke["attn_stage_record"](None, 128, T_, 8, 128, o_f32, None)
+    assert rec["bound_by"] == "bytes"
+    assert rec["bound_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
