@@ -1,10 +1,21 @@
 """Micro-benchmarks of the PyTorch/CUDA port's kernels at the flagship hot
 shapes, on one NVIDIA GPU.
 
-Usage: python3 bench_kernels_torch.py [moe|layer|proj ...]   (default: all)
+Usage: python3 bench_kernels_torch.py [attn_proj|attn_core|encoder|moe|layer|proj ...]
+(default: all)
 
-Counterpart of ``bench_kernels.py``'s ``bench_moe`` and ``bench_layer``:
+Counterpart of ``bench_kernels.py``:
 
+- ``attn_proj``: the attention sub-block's QKV and output products at
+  b=128 x 14 tokens, D=1024, in bf16 (cuBLAS) and in int8 (per-token
+  activation quantization, ``torch._int_mm``): ms, TFLOP/s (TOP/s), bound;
+- ``attn_core``: causal attention at B=128, H=8, T=14, hd=128 as a chain
+  of torch ops (bf16 logits, f32 softmax, bf16 probabilities, ``@ v``),
+  beside ``scaled_dot_product_attention`` on the same q, k, v;
+- ``encoder``: the two FiLM-ResNet-50 camera encoders at b=128, 224 px,
+  raw, BN-folded, int8 with dynamic and with calibrated static activation
+  scales, and each int8 conv's passes (quantize, patches, ``_int_mm``,
+  epilogue) in one encoder;
 - ``moe``: the three top-2 MoE kernels, ``fused_top2_mlp`` (bf16 experts),
   ``fused_top2_mlp_q8`` (int8 experts, bf16 products) and
   ``fused_top2_mlp_q8c`` (int8 x int8 products), with ln_2 fused and the
@@ -49,6 +60,12 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 D, HH, E, T = 1024, 4096, 4, 14
+
+
+def card():
+    """The device every bench runs on: the first CUDA card."""
+    import torch
+    return torch.device("cuda", 0)
 
 
 def cuda_time_ms(fn, iters):
@@ -414,7 +431,7 @@ def bench_moe():
         fused_top2_mlp_q8_ref, fused_top2_mlp_q8c_ref, fused_top2_mlp_ref)
     from mode_diffusion_policy_tpu_torch.ops.quant import (dequantize_experts,
                                                        kmajor_experts)
-    dev = torch.device("cuda", 0)
+    dev = card()
     out = {"fused_top2_mlp": {}, "fused_top2_mlp_q8": {},
            "fused_top2_mlp_q8c": {}}
     for B in (128, 1):
@@ -524,7 +541,7 @@ def bench_layer():
     from mode_diffusion_policy_tpu_torch.ops.quant import (dequantize_experts,
                                                        kmajor_attn,
                                                        quantize_attn)
-    dev = torch.device("cuda", 0)
+    dev = card()
     B, n, H = 128, 50, 8
     w = layer_inputs(B, dev)
     L = w["stackL"]["wqkv"].shape[0]
@@ -614,7 +631,7 @@ def bench_proj():
         fused_attn_block, fused_attn_block_q8, proj_tile_plan)
     from mode_diffusion_policy_tpu_torch.ops.quant import (kmajor_attn,
                                                        quantize_attn)
-    dev = torch.device("cuda", 0)
+    dev = card()
     out = {}
     for B in (128, 1):
         w = layer_inputs(B, dev, L=1)
@@ -647,7 +664,256 @@ def bench_proj():
     return out
 
 
-ALL = {"moe": bench_moe, "layer": bench_layer, "proj": bench_proj}
+def attn_proj_cost(N, int8):
+    """(bf16 flops, int8 ops, bytes) of the QKV and output projections of
+    ``bench_attn_proj``: x [N, D] bf16 read once, the weights (bf16, or
+    int8 with f32 column scales) read once, the output written once (bf16,
+    or f32 from the int8 route)."""
+    ops = 2 * N * D * (3 * D + D)
+    if int8:
+        return 0, ops, N * D * 2 + 4 * D * D + 4 * D * 4 + N * D * 4
+    return ops, 0, N * D * 2 + 4 * D * D * 2 + N * D * 2
+
+
+def bench_attn_proj():
+    """The attention sub-block's two products at the DiT's hot shape
+    (b=128 x 14 tokens: N=1792, D=1024), as ``bench_kernels.py``'s
+    ``bench_attn_proj``: ``qkv = x @ wqkv`` then ``qkv[:, :D] @ wout``
+    in bf16 (cuBLAS through ``torch.matmul``), and the int8 route
+    (per-output-channel int8 weights, per-token activation quantization,
+    ``torch._int_mm``, the f32 scales): {"bf16"|"int8": {ms, tflops,
+    bound_ms, bound_by, bound_share}}."""
+    import torch
+    dev = card()
+    N = 128 * T
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+
+    x = randn(N, D).to(torch.bfloat16)
+    wqkv = randn(D, 3 * D, sc=0.02).to(torch.bfloat16)
+    wout = randn(D, D, sc=0.02).to(torch.bfloat16)
+
+    def q8(w):
+        s = w.float().abs().amax(dim=0) / 127.0
+        return torch.round(w.float() / s).to(torch.int8), s
+
+    (qkv_q, qkv_s), (out_q, out_s) = q8(wqkv), q8(wout)
+
+    def quant_dot(a, wq, ws):
+        ax = a.float().abs().amax(dim=-1, keepdim=True) / 127.0
+        aq = torch.round(a.float() / ax).to(torch.int8)
+        return torch._int_mm(aq, wq).float() * ax * ws
+
+    routes = {
+        "bf16": lambda: torch.matmul(torch.matmul(x, wqkv)[:, :D], wout),
+        "int8": lambda: quant_dot(quant_dot(x, qkv_q, qkv_s)[:, :D].to(
+            torch.bfloat16), out_q, out_s)}
+    out = {}
+    for name, fn in routes.items():
+        cost = attn_proj_cost(N, name == "int8")
+        ms = cuda_time_ms(fn, 50)
+        b_ms, by = bound(*cost)
+        out[name] = dict(ms=ms, tflops=(cost[0] + cost[1]) / ms / 1e9,
+                         unit="TOP/s int8" if cost[1] else "TFLOP/s bf16",
+                         bound_ms=b_ms, bound_by=by, bound_share=b_ms / ms)
+    out["shape"] = f"N={N} (b=128 x {T} tokens), D={D}"
+    return out
+
+
+def attn_core_cost(B, H, T, hd):
+    """(bf16 flops, 0, bytes) of causal attention over q, k, v [B,T,H,hd]
+    bf16: the causal (query, key) pairs' two products, q, k, v read once
+    and the output written once."""
+    pairs = T * (T + 1) // 2
+    return (B * H * pairs * hd * 4, 0, 4 * B * T * H * hd * 2)
+
+
+def bench_attn_core():
+    """The attention core at the DiT's hot shape (B=128, H=8, T=14,
+    hd=128), as ``bench_kernels.py``'s ``bench_attn_core``: bf16 logits,
+    f32 causal softmax, bf16 probabilities, ``@ v``, in torch ops; beside
+    it, as a yardstick, ``scaled_dot_product_attention`` (causal) on the
+    same q, k, v: {"chain"|"sdpa": {ms, bound_share}, bound_ms, bound_by,
+    max_abs_diff}."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    dev = card()
+    B, H, hd = 128, 8, 128
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(B, T, H, hd, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+
+    def chain():
+        logits = torch.einsum("bthd,bshd->bhts", q, k).float() \
+            / math.sqrt(hd)
+        logits = logits.masked_fill(~mask, float("-inf"))
+        p = torch.softmax(logits, dim=-1).to(torch.bfloat16)
+        return torch.einsum("bhts,bshd->bthd", p, v).reshape(B, T, H * hd)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True)
+        return o.transpose(1, 2).reshape(B, T, H * hd)
+
+    b_ms, by = bound(*attn_core_cost(B, H, T, hd))
+    out = {"bound_ms": b_ms, "bound_by": by,
+           "max_abs_diff": float((chain().float() - sdpa().float()).abs()
+                                 .max()),
+           "shape": f"B={B}, H={H}, T={T}, hd={hd}"}
+    for name, fn in (("chain", chain), ("sdpa", sdpa)):
+        ms = cuda_time_ms(fn, 100)
+        out[name] = dict(ms=ms, bound_share=b_ms / ms)
+    return out
+
+
+ENC_B, ENC_HW = 128, 224
+
+
+def encoder_agent(dev):
+    """The port agent of ``bench_kernels.py``'s ``bench_encoder`` (latent
+    1024, 1 layer, 8 heads, cond 512, 2x FiLM-ResNet-50, bf16) with every
+    parameter and every BatchNorm statistic 0.01."""
+    import itertools
+
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.agent import (
+        ENCODERS, MoDEAgent, MoDEAgentConfig)
+    cfg = MoDEAgentConfig(latent_dim=1024, n_layers=1, n_heads=8,
+                          cond_dim=512, resnet_type="50",
+                          dtype=torch.bfloat16)
+    agent = MoDEAgent(cfg, device=dev)
+    stats = itertools.chain.from_iterable(
+        getattr(agent, name).buffers() for name in ENCODERS)
+    with torch.no_grad():
+        for t in itertools.chain(agent.parameters(), stats):
+            if t.is_floating_point():
+                t.fill_(0.01)
+    return agent
+
+
+def split_forward(mod, name, rows):
+    """A forward for the int8 conv ``mod`` that computes what
+    ``QuantConv.forward`` computes, with CUDA events after each of its
+    passes; appends (name, M, K, N, events) to ``rows``."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.encoders.resnet import (
+        conv_operands_i8, int_mm)
+
+    def forward(x):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        xq, post = mod.quantize_input(x)
+        ev[1].record()
+        a, b, shape = conv_operands_i8(xq, mod.kernel_q, mod.stride, mod.pad)
+        ev[2].record()
+        y = int_mm(a, b)
+        ev[3].record()
+        out = mod.epilogue(y.reshape(shape).permute(0, 3, 1, 2), post)
+        ev[4].record()
+        rows.append((name, a.shape[0], a.shape[1], b.shape[1], ev))
+        return out
+    return forward
+
+
+CONV_PASSES = ("quantize", "patches", "int_mm", "epilogue")
+
+
+def conv_split(enc, x, cond, runs=3):
+    """Device ms of each int8 conv of ``enc`` (``QuantConv``), in forward
+    order, split into its passes: the activation quantization, the int8
+    patch and weight matrices, ``torch._int_mm`` and the epilogue (mean of
+    ``runs`` forwards, CUDA events between the passes); with the product's
+    int8 TOP/s and its bound, and whether the split forward's output
+    equals the plain forward's bit for bit."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.encoders.resnet import (
+        QuantConv)
+    want = enc(x, cond)
+    convs = [(n, m) for n, m in enc.named_modules()
+             if isinstance(m, QuantConv)]
+    rows = []
+    for n, m in convs:
+        m.forward = split_forward(m, n, rows)
+    try:
+        for _ in range(runs):
+            got = enc(x, cond)
+        torch.cuda.synchronize()
+    finally:
+        for _, m in convs:
+            del m.forward
+    per = len(convs)
+    entries = []
+    for i, (name, M, K, N, _) in enumerate(rows[:per]):
+        ms = [sum(rows[r * per + i][4][p].elapsed_time(
+            rows[r * per + i][4][p + 1]) for r in range(runs)) / runs
+            for p in range(len(CONV_PASSES))]
+        b_ms, by = bound(0, 2 * M * K * N, M * K + K * N + 4 * M * N)
+        entries.append(dict(
+            conv=name, M=M, K=K, N=N, ms=sum(ms),
+            **{f"{p}_ms": t for p, t in zip(CONV_PASSES, ms)},
+            int_mm_tops=2 * M * K * N / ms[2] / 1e9,
+            int_mm_bound_ms=b_ms, int_mm_bound_by=by))
+    return entries, bool(torch.equal(got, want))
+
+
+def bench_encoder():
+    """The two camera encoders at b=128, 224 x 224, as ``bench_kernels.py``
+    ``bench_encoder`` runs them (``encoder_agent``; both cameras' frames
+    and the goal drawn from a seed): the device ms of
+    ``embed_visual_obs`` under four routes (the raw encoders, BN-folded,
+    int8 with dynamic activation scales, int8 with static scales
+    calibrated on the same batch); for one encoder on the dynamic int8
+    route, each conv's passes (``conv_split``), their sum against that
+    encoder's ms, and the five largest convs."""
+    import torch
+    dev = card()
+    agent = encoder_agent(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rs, rg = (torch.randn(ENC_B, 1, ENC_HW, ENC_HW, 3, generator=g,
+                          device=dev) for _ in range(2))
+    goal = torch.randn(ENC_B, 1, 512, generator=g, device=dev)
+
+    def enc(serving=True):
+        return lambda: agent.embed_visual_obs(rs, rg, goal, serving=serving)
+
+    out = {"shape": f"2 cameras, b={ENC_B}, {ENC_HW}x{ENC_HW}, "
+                    "FiLM-ResNet-50 bf16, every weight 0.01"}
+    out["unfolded_ms"] = cuda_time_ms(enc(serving=False), 5)
+    agent.fold_encoders_for_inference()
+    out["folded_ms"] = cuda_time_ms(enc(), 5)
+    agent.quantize_encoders_for_inference()
+    dyn = agent.q8
+    out["int8_dynamic_ms"] = cuda_time_ms(enc(), 5)
+    agent.quantize_encoders_for_inference(calib_batch={
+        "rgb_static": rs, "rgb_gripper": rg, "lang_emb": goal})
+    out["int8_static_ms"] = cuda_time_ms(enc(), 5)
+    out["int8_static_clips"] = dict(agent.q8_clips)
+    out["finite"] = bool(torch.isfinite(
+        enc()()["state_images"].float()).all())
+    one = dyn["static_resnet"]
+    x, cond = rs[:, 0], goal[:, 0]
+    entries, same = conv_split(one, x, cond)
+    total = cuda_time_ms(lambda: one(x, cond), 5)
+    top = sorted(entries, key=lambda e: -e["ms"])[:5]
+    out["int8_dynamic_split"] = dict(
+        encoder="static_resnet", convs=entries, conv_count=len(entries),
+        sum_ms=sum(e["ms"] for e in entries), encoder_ms=total,
+        pass_sums_ms={p: sum(e[f"{p}_ms"] for e in entries)
+                      for p in CONV_PASSES},
+        largest_five=[e["conv"] for e in top],
+        split_output_equal=same)
+    return out
+
+
+ALL = {"attn_proj": bench_attn_proj, "attn_core": bench_attn_core,
+       "encoder": bench_encoder, "moe": bench_moe, "layer": bench_layer,
+       "proj": bench_proj}
 
 
 def main(argv):

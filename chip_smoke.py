@@ -190,6 +190,21 @@ that run with ``evaluate_libero`` on the fake env at 224 px under
 the b=1 floor) of ``reference``'s), runs ``SingleTaskEvaluator`` on phase
 22's EMA weights under ``parity`` and ``determinism_check --fake-env``
 twice (equal hashes), and prints one ``libero`` JSON line.
+
+Phase 28 (after phase 27) runs ``bench_kernels_torch``'s ``attn_proj``
+(the attention products at b=128 x 14 tokens in bf16 and int8),
+``attn_core`` (the causal attention chain in torch ops beside SDPA) and
+``encoder`` (both FiLM-ResNet-50 encoders at b=128, 224 px: raw, folded,
+int8 with dynamic and with calibrated static scales, and each int8 conv's
+quantize, patch, ``torch._int_mm`` and epilogue passes in one encoder,
+whose split forward must equal the plain one bit for bit) and prints their
+JSON lines; holds ``ResNetTokenEncoderWithFiLM`` (b=128, 224 px) and
+``SwishGLUDense`` (1024 -> 4096 over 128 x 14 rows, with and without bias)
+on the card against the same modules and numpy-seeded weights on the CPU
+in f32 (max |diff| within 1e-4 and 2e-5 of max(1, max |CPU|)), checks that
+``NoEncoder`` returns its input tensor, and runs ``bench_data_torch.main``
+at its defaults with 0 and 4 workers beside phase 22's B=32 step, leaving
+no loader process behind; one ``closing`` JSON line.
 """
 from __future__ import annotations
 
@@ -5553,6 +5568,182 @@ def dp_phase(smi, root, phase24_step_ms=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the closing slice (the last JAX symbols, the kernel bench's
+# attn_proj / attn_core / encoder, the host loader bench)
+
+TOKEN_B, TOKEN_HW, TOKEN_COND = 128, 224, 512
+# f32 on both sides (TF32 off): the card's convolutions and products sum
+# in other orders than the CPU's over 18 layers; max |card - CPU| within
+# this share of max |CPU|
+TOKEN_TOL = 1e-4
+SWISH_ROWS, SWISH_IN, SWISH_OUT = (128, 14), 1024, 4096
+# one f32 product of depth 1024, then SwishGLU: the f32 gate of the CPU
+# tests, on outputs of order one (max(1, max |CPU|) times this)
+SWISH_TOL = 2e-5
+LOADER_WORKERS = (0, 4)
+
+
+def seeded_state(mod, seed):
+    """A state dict for ``mod`` drawn by numpy from ``seed``: conv weights
+    and denses lecun normal, BatchNorm scales near 1, variances in [0.5,
+    1.5], means and biases small."""
+    import torch
+    r = np.random.default_rng(seed)
+    sd = {}
+    for k, v in mod.state_dict().items():
+        n = r.standard_normal(tuple(v.shape)).astype(np.float32)
+        leaf = k.rpartition(".")[2]
+        if leaf == "var":
+            n = r.uniform(0.5, 1.5, tuple(v.shape)).astype(np.float32)
+        elif leaf == "scale":
+            n = 1.0 + 0.1 * n
+        elif leaf in ("mean", "bias"):
+            n = 0.05 * n
+        elif v.ndim == 4:
+            n = n / np.sqrt(np.prod(v.shape[1:]))
+        elif v.ndim == 2:
+            n = n / np.sqrt(v.shape[0])
+        sd[k] = torch.from_numpy(n)
+    return sd
+
+
+def card_vs_cpu(make, sd, args, dev):
+    """(card output, CPU output, max |diff| / max(1, max |CPU|)) of the
+    module ``make(device)`` holding ``sd`` on both devices, in f32."""
+    import torch
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        mod = make(d)
+        mod.load_state_dict(sd)
+        outs.append(mod.eval()(*(a.to(d) for a in args)))
+    got, want = outs[0].cpu(), outs[1]
+    scale = max(1.0, float(want.abs().max()))
+    return got, want, float((got - want).abs().max()) / scale
+
+
+def closing_symbols(dev):
+    """``ResNetTokenEncoderWithFiLM`` at b=128, 224 px and
+    ``SwishGLUDense`` at 1024 -> 4096 over 128 x 14 rows, each on the card
+    against the same module and numpy-seeded weights on the CPU (f32), and
+    ``NoEncoder`` returning its input tensor on the card."""
+    import torch
+    from mode_diffusion_policy_tpu_torch.models.encoders.resnet import (
+        NoEncoder, ResNetTokenEncoderWithFiLM)
+    from mode_diffusion_policy_tpu_torch.ops.primitives import SwishGLUDense
+    r = np.random.default_rng(28)
+    x = torch.from_numpy(r.standard_normal(
+        (TOKEN_B, TOKEN_HW, TOKEN_HW, 3)).astype(np.float32))
+    cond = torch.from_numpy(r.standard_normal(
+        (TOKEN_B, TOKEN_COND)).astype(np.float32))
+
+    def token(d):
+        return ResNetTokenEncoderWithFiLM(TOKEN_COND, device=d)
+
+    t = time.perf_counter()
+    got, _, tok_err = card_vs_cpu(token, seeded_state(token("meta"), 0),
+                                  (x, cond), dev)
+    out = {"token_encoder": {
+        "shape": list(got.shape), "rel_err": tok_err, "tol": TOKEN_TOL,
+        "finite": bool(torch.isfinite(got).all()),
+        "s": time.perf_counter() - t}}
+    for bias in (True, False):
+        def swish(d):
+            return SwishGLUDense(SWISH_IN, SWISH_OUT, use_bias=bias,
+                                 device=d)
+        rows = torch.from_numpy(r.standard_normal(
+            SWISH_ROWS + (SWISH_IN,)).astype(np.float32))
+        got, _, err = card_vs_cpu(swish, seeded_state(swish("meta"), 1),
+                                  (rows,), dev)
+        out[f"swishglu_dense_bias_{bias}"] = {
+            "shape": list(got.shape), "rel_err": err, "tol": SWISH_TOL}
+    xs = torch.randn(2, 3, device=dev)
+    out["no_encoder_identity"] = NoEncoder()(xs, None, train=False) is xs
+    return out
+
+
+def closing_phase(smi, train_step_ms):
+    """Phase 28: ``bench_kernels_torch``'s ``attn_proj``, ``attn_core`` and
+    ``encoder`` (with the dynamic int8 encoder's per-conv split), the
+    closing slice's symbols on the card (``closing_symbols``), and
+    ``bench_data_torch.main`` at its defaults with 0 and 4 workers, beside
+    phase 22's B=32 step, leaving no loader process behind."""
+    import torch
+
+    import bench_data_torch
+    import bench_kernels_torch
+    from mode_diffusion_policy_tpu_torch.data.datamodule import \
+        stop_helper_processes
+    dev = torch.device("cuda", 0)
+    out = {}
+    t = time.perf_counter()
+    for name in ("attn_proj", "attn_core", "encoder"):
+        out[name] = bench_kernels_torch.ALL[name]()
+        print(json.dumps({"bench": name, "card": smi,
+                          "result": out[name]}), flush=True)
+    ap, ac, en = out["attn_proj"], out["attn_core"], out["encoder"]
+    sp = en["int8_dynamic_split"]
+    print(f"  attn_proj b=128 x 14: bf16 {ap['bf16']['ms']:.4f} ms "
+          f"({ap['bf16']['tflops']:.0f} TFLOP/s, bound "
+          f"{ap['bf16']['bound_ms']:.4f}), int8 {ap['int8']['ms']:.4f} ms "
+          f"({ap['int8']['tflops']:.0f} TOP/s, bound "
+          f"{ap['int8']['bound_ms']:.4f}); attn_core chain "
+          f"{ac['chain']['ms']:.4f} ms, SDPA {ac['sdpa']['ms']:.4f} ms, "
+          f"bound {ac['bound_ms']:.4f} ({ac['bound_by']}); encoders b=128 "
+          f"(both cameras) unfolded {en['unfolded_ms']:.2f}, folded "
+          f"{en['folded_ms']:.2f}, int8 dynamic {en['int8_dynamic_ms']:.2f},"
+          f" int8 static {en['int8_static_ms']:.2f} ms; one dynamic int8 "
+          f"encoder {sp['encoder_ms']:.2f} ms, its {sp['conv_count']} convs "
+          f"{sp['sum_ms']:.2f} ms ("
+          + ", ".join(f"{p} {v:.2f}" for p, v in sp["pass_sums_ms"].items())
+          + f"); largest five {sp['largest_five']} ({smi})", flush=True)
+    phase("phase 28a: bench_kernels_torch attn_proj, attn_core, encoder", t)
+    t = time.perf_counter()
+    out["symbols"] = sym = closing_symbols(dev)
+    print(f"  ResNetTokenEncoderWithFiLM b={TOKEN_B}, {TOKEN_HW} px: card "
+          f"vs CPU {sym['token_encoder']['rel_err']:.3e} of max |CPU| (tol "
+          f"{TOKEN_TOL:.0e}); SwishGLUDense {SWISH_IN} -> {SWISH_OUT} over "
+          f"{SWISH_ROWS[0]} x {SWISH_ROWS[1]} rows: "
+          + ", ".join(
+              f"bias {b} {sym[f'swishglu_dense_bias_{b}']['rel_err']:.3e}"
+              for b in (True, False))
+          + f" (tol {SWISH_TOL:.0e}); NoEncoder returns its input: "
+          f"{sym['no_encoder_identity']}", flush=True)
+    phase("phase 28b: ResNetTokenEncoderWithFiLM, SwishGLUDense, NoEncoder "
+          "on the card", t)
+    t = time.perf_counter()
+    out["loader"] = {}
+    before = set(descendants())
+    for w in LOADER_WORKERS:
+        out["loader"][w] = bench_data_torch.main(
+            [], env={**os.environ, "BENCH_DATA_WORKERS": str(w)})
+    stop_helper_processes()
+    out["loader_processes_left"] = sorted(set(descendants()) - before)
+    step_sps = 32 / (train_step_ms / 1e3)
+    print("  bench_data_torch (batch 32, 200 px, shm cache): " + ", ".join(
+        f"{w} workers {r['value']:.1f} samples/s" for w, r in
+        out["loader"].items()) + f", beside phase 22's B=32 step "
+        f"{train_step_ms:.1f} ms = {step_sps:.1f} samples/s; processes "
+        f"left {out['loader_processes_left']} ({smi})", flush=True)
+    out["train_step_samples_per_s"] = step_sps
+    phase("phase 28c: bench_data_torch at 0 and 4 workers", t)
+    bad = [k for k, ok in (
+        ("token encoder", sym["token_encoder"]["rel_err"] <= TOKEN_TOL
+         and sym["token_encoder"]["finite"]
+         and sym["token_encoder"]["shape"] == [TOKEN_B, 128]),
+        ("SwishGLUDense", all(v["rel_err"] <= SWISH_TOL for k, v in
+                              sym.items() if k.startswith("swish"))),
+        ("NoEncoder", sym["no_encoder_identity"]),
+        ("encoder split", sp["split_output_equal"]
+         and sp["conv_count"] == len(sp["convs"]) > 0),
+        ("loader", all(r["value"] > 0 for r in out["loader"].values())),
+        ("loader processes", not out["loader_processes_left"])) if not ok]
+    if bad:
+        raise SystemExit(f"phase 28 failed its gates: {bad}: "
+                         f"{json.dumps(out, default=str)[:3000]}")
+    return out
+
+
 def main():
     import torch
 
@@ -6130,6 +6321,9 @@ def main():
         dp = dp_phase(smi, root, cli["cli_step_ms_median_3_8"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # ---- phase 28: the closing slice ------------------------------------
+    closing = closing_phase(smi,
+                            train["bf16_full_state"]["step_ms_median_3_8"])
 
     # ---- results -----------------------------------------------------------
     t128 = timing[128]
@@ -6378,6 +6572,7 @@ def main():
     print(json.dumps({"long_tokens": long_tokens}), flush=True)
     print(json.dumps({"modules": modules}), flush=True)
     print(json.dumps({"dp": dp}, default=str), flush=True)
+    print(json.dumps({"closing": closing}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

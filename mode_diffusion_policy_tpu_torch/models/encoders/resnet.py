@@ -3,7 +3,9 @@
 ``FiLMResNetPolicy`` at depths 18, 34 (basic blocks) and 50 (bottleneck
 blocks) with stage-level FiLM, the scratch ResNet-18
 ``ResNetEncoderWithFiLM`` with per-block FiLM (``FilmModule``) and a
-projection head, the inference BatchNorm fold and the space-to-depth stem.
+projection head (and its 128-wide ``ResNetTokenEncoderWithFiLM``), the
+identity ``NoEncoder``, the inference BatchNorm fold and the space-to-depth
+stem.
 
 Public functions take the JAX package's NHWC images; convolutions run
 NCHW through ``torch.nn.functional.conv2d`` (the JAX package leaves them to
@@ -98,13 +100,12 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double()).to(torch.int32)
 
 
-def conv2d_i8(xq: torch.Tensor, w: torch.Tensor, stride: int,
-              pad) -> torch.Tensor:
-    """int8 NCHW ``xq`` conv int8 OIHW ``w`` -> int32 NCHW (a view with
-    channels-last strides), with ``pad`` ((top, bottom), (left, right)).
-    The patch matrix [B*Ho*Wo, kh*kw*C] is built in int8 from shifted
-    slices of the padded NHWC input, its K axis in the order (kh, kw, C) of
-    the HWIO kernel flattened, and multiplied by ``int_mm``."""
+def conv_operands_i8(xq: torch.Tensor, w: torch.Tensor, stride: int,
+                     pad):
+    """The two int8 operands of ``conv2d_i8`` and its NHWC output shape:
+    the patch matrix [B*Ho*Wo, kh*kw*C], built from shifted slices of the
+    padded NHWC input, its K axis in the order (kh, kw, C) of the HWIO
+    kernel flattened, and the kernel as a [kh*kw*C, O] matrix."""
     (pt, pb), (pl, pr) = pad
     O, C, kh, kw = w.shape
     xh = xq.permute(0, 2, 3, 1)
@@ -116,9 +117,17 @@ def conv2d_i8(xq: torch.Tensor, w: torch.Tensor, stride: int,
                j:j + stride * (Wo - 1) + 1:stride, :]
             for i in range(kh) for j in range(kw)]
     patches = cols[0] if len(cols) == 1 else torch.stack(cols, dim=3)
-    y = int_mm(patches.reshape(B * Ho * Wo, kh * kw * C),
-               w.permute(2, 3, 1, 0).reshape(kh * kw * C, O))
-    return y.reshape(B, Ho, Wo, O).permute(0, 3, 1, 2)
+    return (patches.reshape(B * Ho * Wo, kh * kw * C),
+            w.permute(2, 3, 1, 0).reshape(kh * kw * C, O), (B, Ho, Wo, O))
+
+
+def conv2d_i8(xq: torch.Tensor, w: torch.Tensor, stride: int,
+              pad) -> torch.Tensor:
+    """int8 NCHW ``xq`` conv int8 OIHW ``w`` -> int32 NCHW (a view with
+    channels-last strides), with ``pad`` ((top, bottom), (left, right)):
+    ``conv_operands_i8`` multiplied by ``int_mm``."""
+    a, b, shape = conv_operands_i8(xq, w, stride, pad)
+    return int_mm(a, b).reshape(shape).permute(0, 3, 1, 2)
 
 
 class QuantConv(nn.Module):
@@ -174,11 +183,16 @@ class QuantConv(nn.Module):
             post = sx * self.scale
         return torch.round(x32 * inv).clamp_(-127, 127).to(torch.int8), post
 
-    def forward(self, x):
-        xq, post = self.quantize_input(x)
-        y = conv2d_i8(xq, self.kernel_q, self.stride, self.pad)
+    def epilogue(self, y, post):
+        """int32 NCHW conv sums -> ``y * post + bias`` in f32, cast to
+        ``dtype``."""
         return (y.float() * post[None, :, None, None]
                 + self.bias[None, :, None, None]).to(self.dtype)
+
+    def forward(self, x):
+        xq, post = self.quantize_input(x)
+        return self.epilogue(
+            conv2d_i8(xq, self.kernel_q, self.stride, self.pad), post)
 
 
 class BatchNorm(nn.Module):
@@ -529,6 +543,26 @@ class ResNetEncoderWithFiLM(nn.Module):
         x = self.resnet(x.to(self.dtype), None, train, films)
         x = self.fc(x.mean(dim=(2, 3)))
         return x.reshape(B, T, self.latent_dim) if series else x
+
+
+class NoEncoder(nn.Module):
+    """Identity passthrough: ``forward(x, condition=None, train=False)``
+    returns ``x``."""
+
+    def forward(self, x, condition=None, train: bool = False):
+        return x
+
+
+class ResNetTokenEncoderWithFiLM(ResNetEncoderWithFiLM):
+    """The token-output variant of the scratch FiLM ResNet-18: the same
+    computation and parameter tree as ``ResNetEncoderWithFiLM``, with a
+    128-wide projection head by default."""
+
+    def __init__(self, condition_dim, latent_dim=128, dtype=torch.float32,
+                 folded=False, q8=False, q8_skip: Tuple[str, ...] = (),
+                 device=None, norm="batch"):
+        super().__init__(condition_dim, latent_dim, dtype, folded, q8,
+                         q8_skip, device, norm)
 
 
 def make_encoder(resnet_type: str, condition_dim, dtype=torch.float32,

@@ -78,6 +78,21 @@ class DenseP(nn.Module):
         return y
 
 
+class SwishGLUDense(nn.Module):
+    """Dense ``project`` to ``2 * out_dim``, then ``swish_glu``. With the
+    default f32 ``dtype`` this is the JAX module, whose dense promotes an
+    f32 or bf16 input to its f32 parameters."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.project = DenseP(in_dim, 2 * out_dim, use_bias=use_bias,
+                              dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swish_glu(self.project(x))
+
+
 def gumbel_topk_sample(log_probs: torch.Tensor, k: int, *,
                        generator: Optional[torch.Generator] = None,
                        gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """CALVIN long-horizon evaluation chains: the 34-task symbolic state machine
 and the deterministic 1000-chain generator (counterpart of
 ``mode_diffusion_policy_tpu/rollout/multistep_sequences.py``; numpy only,
-copied, and made faster with the same draws: see ``_sequences_for_state``).
+copied, and made faster with the same draws: ``_sequences_for_state``
+draws its permutations in blocks and checks them through a ``TaskTable``).
 
 The task condition/effect tables are the CALVIN domain definition (data, built
 here programmatically with identical dict insertion order — the order feeds
@@ -162,17 +163,130 @@ def check_sequence(state, seq) -> bool:
     return True
 
 
-def _sequences_for_state(state, num_sequences: int, seed: int):
-    """Seeded rejection sampling (multistep_sequences.py:334-344)."""
+NAMES = tuple(tasks)
+N_TASKS = len(NAMES)
+CHAIN = 5
+# the maxima of the legacy RandomState shuffle's bounded draws for one
+# permutation of the task list: N_TASKS - 1 down to 1
+SHUFFLE_MAXIMA = np.arange(N_TASKS - 1, 0, -1)
+# permutations drawn and checked at a time (the last block of a state is
+# drawn again up to its last accepted chain, to leave the stream there)
+BLOCK = 8192
+STATE_KEYS = ("led", "lightbulb", "slider", "drawer", "red_block",
+              "blue_block", "pink_block", "grasped")
+
+
+class TaskTable:
+    """Every symbolic state reachable from ``states`` by ``CHAIN - 1`` tasks
+    or fewer, numbered (the given states first), with the transition table
+    ``next[state id, task index]``: the id of the one state the task leads
+    to, or -1 where the task does not have exactly one applicable variant.
+    A chain passes ``check_sequence`` from state id ``s`` iff the walk
+    through the table never meets -1 and its categories differ."""
+
+    def __init__(self, states):
+        self.ids: Dict[tuple, int] = {}
+        self.states: List[Dict] = []
+        rows = {}
+        frontier = [self._add(s) for s in states]
+        self.starts = frozenset(frontier)
+        for _ in range(CHAIN):
+            known = len(self.states)
+            for sid in frontier:
+                rows[sid] = [self._after(sid, name) for name in NAMES]
+            frontier = range(known, len(self.states))
+        # the states first met CHAIN tasks away are never left: rows of -1
+        self.next = np.full((len(self.states), N_TASKS), -1, np.int32)
+        for sid, row in rows.items():
+            self.next[sid] = row
+        self.category = np.array([task_categories[n] for n in NAMES])
+
+    def _add(self, state) -> int:
+        key = tuple(state[k] for k in STATE_KEYS)
+        if key not in self.ids:
+            self.ids[key] = len(self.states)
+            self.states.append(state)
+        return self.ids[key]
+
+    def _after(self, sid: int, name: str) -> int:
+        nxt = valid_task(self.states[sid], tasks[name])
+        return self._add(nxt[0]) if len(nxt) == 1 else -1
+
+    def id_of(self, state) -> int:
+        """The id of one of the states the table starts from."""
+        sid = self.ids.get(tuple(state[k] for k in STATE_KEYS))
+        if sid not in self.starts:
+            raise KeyError(f"the table does not start from {state}")
+        return sid
+
+    def valid(self, sid: int, chains: np.ndarray) -> np.ndarray:
+        """Whether each row of ``chains`` ([n, CHAIN] task indices) passes
+        ``check_sequence`` from state id ``sid``."""
+        cur = np.full(len(chains), sid, np.int32)
+        ok = np.ones(len(chains), bool)
+        for t in range(CHAIN):
+            cur = self.next[cur, chains[:, t]]
+            ok &= cur >= 0
+            cur[~ok] = sid
+        cats = np.sort(self.category[chains], axis=1)
+        return ok & (cats[:, 1:] != cats[:, :-1]).all(axis=1)
+
+
+def _swap_partners(n: int) -> np.ndarray:
+    """The swap partners of ``n`` successive ``np.random.permutation(
+    N_TASKS)`` draws ([n, N_TASKS - 1]), from the same legacy
+    ``RandomState`` stream, leaving it where those draws leave it: a
+    permutation is a Fisher-Yates shuffle whose k-th partner is a masked
+    rejection draw in [0, N_TASKS - 1 - k], which is what the legacy
+    ``randint`` draws for each element of an array of upper bounds."""
+    return np.random.randint(0, np.tile(SHUFFLE_MAXIMA + 1, n),
+                             dtype=np.uint32).reshape(n, N_TASKS - 1)
+
+
+def _chains(partners: np.ndarray) -> np.ndarray:
+    """The first ``CHAIN`` entries of the permutations that ``partners``
+    (from ``_swap_partners``) shuffle ``arange(N_TASKS)`` into: [n,
+    CHAIN]."""
+    n = len(partners)
+    perm = np.tile(np.arange(N_TASKS, dtype=np.int8)[:, None], (1, n))
+    flat = perm.reshape(-1)
+    at = partners.T.astype(np.intp) * n + np.arange(n)
+    for k, i in enumerate(SHUFFLE_MAXIMA):
+        if i < CHAIN:
+            # both places are read later: swap
+            perm[i], flat[at[k]] = flat[at[k]], perm[i].copy()
+        else:
+            # place i is final and never read again
+            flat[at[k]] = perm[i]
+    return perm[:CHAIN].T.astype(np.intp)
+
+
+def _sequences_for_state(state, num_sequences: int, seed: int,
+                         table: TaskTable = None):
+    """Seeded rejection sampling (multistep_sequences.py:334-344): the
+    first ``num_sequences`` draws of ``np.random.choice(names, 5,
+    replace=False)`` after ``np.random.seed(seed)`` that pass
+    ``check_sequence``, leaving the global stream where those draws leave
+    it. ``choice`` takes the first 5 of a permutation; the permutations are
+    drawn ``BLOCK`` at a time (``_swap_partners``, ``_chains``) and checked
+    through ``table`` (a ``TaskTable`` starting from ``state``, built here
+    if not given). Each chain is an array of task names, as ``choice``
+    returns it."""
     np.random.seed(seed)
+    table = table or TaskTable([state])
+    sid = table.id_of(state)
+    names = np.array(NAMES)
     results = []
-    names = list(tasks.keys())
     while len(results) < num_sequences:
-        # np.random.choice(names, size=5, replace=False) draws exactly
-        # this: the first 5 of a permutation (numpy's legacy RandomState)
-        seq = [names[i] for i in np.random.permutation(len(names))[:5]]
-        if check_sequence(state, seq):
-            results.append(np.array(seq))
+        before = np.random.get_state()
+        chains = _chains(_swap_partners(BLOCK))
+        hits = np.flatnonzero(table.valid(sid, chains))
+        need = num_sequences - len(results)
+        results.extend(names[chains[h]] for h in hits[:need])
+        if len(hits) >= need:
+            # put the stream where the last accepted draw left it
+            np.random.set_state(before)
+            _swap_partners(int(hits[need - 1]) + 1)
     return results
 
 
@@ -208,9 +322,10 @@ def get_sequences(num_sequences: int = 1000
     # final shuffle below must see a fresh seed-0 stream. Sample first,
     # shuffle inside temp_seed(0).
     chains = []
+    table = TaskTable(states)
     for i, (state, n) in enumerate(zip(states, per_state)):
         with temp_seed(i):
-            for seq in _sequences_for_state(state, n, i):
+            for seq in _sequences_for_state(state, n, i, table):
                 chains.append(tuple(seq.tolist()))
     with temp_seed(0):
         results = list(zip(np.repeat(states, per_state), chains))

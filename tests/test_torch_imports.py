@@ -41,7 +41,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_kernels_torch.py"],
+    ROOT / "chip_smoke.py", ROOT / "bench_kernels_torch.py",
+    ROOT / "bench_data_torch.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(BANNED))
@@ -56,9 +57,10 @@ OPTIONAL = ("yaml", "regex", "cv2", "wandb", "safetensors", "h5py",
 
 def test_port_imports_with_jax_blocked():
     """Import every port module (the data and LIBERO slices, both
-    training CLIs and the auxiliary modules named), chip_smoke.py's module-level code and
-    bench_kernels_torch.py with jax, the JAX package and the optional
-    packages (``yaml``, ``h5py`` ...) made unimportable."""
+    training CLIs and the auxiliary modules named), chip_smoke.py's module-level code,
+    bench_kernels_torch.py and bench_data_torch.py with jax, the JAX
+    package and the optional packages (``yaml``, ``h5py``, ``cv2`` ...)
+    made unimportable."""
     code = f"""
 import importlib, pkgutil, sys
 for name in {BANNED + OPTIONAL!r}:
@@ -90,6 +92,14 @@ import runpy
 runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="chip_smoke_import")
 runpy.run_path({str(ROOT / "bench_kernels_torch.py")!r},
                run_name="bench_kernels_torch_import")
+runpy.run_path({str(ROOT / "bench_data_torch.py")!r},
+               run_name="bench_data_torch_import")
+# the closing slice's symbols import without cv2
+from mode_diffusion_policy_tpu_torch.models.encoders.resnet import (
+    NoEncoder, ResNetTokenEncoderWithFiLM)
+from mode_diffusion_policy_tpu_torch.ops.primitives import SwishGLUDense
+from mode_diffusion_policy_tpu_torch.utils.utils import (
+    add_text_overlay, format_sftp_path, get_portion_of_batch_ids, timeit)
 # importing builds and loads no kernel: that happens at the first CUDA call
 from mode_diffusion_policy_tpu_torch.ops.kernels import (
     _build, attn_kernel, layer_kernel, moe_kernel)
@@ -228,3 +238,18 @@ def test_layer_wrapper_rejects_other_devices():
     x = torch.zeros(1, 2, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fused_layer_q8c(x, *([None] * 11))
+
+
+@pytest.mark.parametrize("names", [["attn_proj"], ["attn_core"],
+                                   ["encoder"], []])
+def test_closing_benches_skip_without_cuda(monkeypatch, capsys, names):
+    """The attention products', the attention core's and the encoders'
+    benches, and all benches (no name), print the one skip line without
+    CUDA; the three are among the bench's names."""
+    import bench_kernels_torch
+    assert {"attn_proj", "attn_core", "encoder"} <= set(
+        bench_kernels_torch.ALL)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bench_kernels_torch.main(names)
+    assert capsys.readouterr().out.strip().splitlines() == [
+        '{"skipped": "CUDA is not available"}']

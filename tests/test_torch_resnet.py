@@ -2,9 +2,10 @@
 (random parameters and BatchNorm statistics from numpy, 32 px images, f32
 on the CPU): the unfolded eval forward, the BatchNorm fold with the
 space-to-depth stem, and the two exact rewrites on their own. Then the
-agent's other encoders the same way: the FiLM-ResNet-34 policy encoder and
-the scratch ResNet-18 with per-block FiLM and its head, unfolded, folded
-and with int8 convs (whose int32 sums are exact on both sides)."""
+agent's other encoders the same way: the FiLM-ResNet-34 policy encoder,
+the scratch ResNet-18 with per-block FiLM and its head, and its token
+variant with a 128-wide head, unfolded, folded and with int8 convs (whose
+int32 sums are exact on both sides)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,15 +122,22 @@ def test_only_resnet50_is_ported():
 def _jax_encoder(kind, **kw):
     if kind == "scratch18":
         return jres.ResNetEncoderWithFiLM(COND, latent_dim=512, **kw)
+    if kind == "token18":
+        return jres.ResNetTokenEncoderWithFiLM(COND, **kw)
     return jres.FiLMResNetPolicy(COND, depth=34, **kw)
 
 
 def _port_encoder(kind, **kw):
+    if kind == "token18":
+        return tres.ResNetTokenEncoderWithFiLM(COND, device="cpu", **kw)
     return tres.make_encoder("18" if kind == "scratch18" else "34", COND,
                              device="cpu", **kw)
 
 
-@pytest.fixture(scope="module", params=["scratch18", "policy34"])
+OUT_DIM = {"scratch18": 512, "policy34": 512, "token18": 128}
+
+
+@pytest.fixture(scope="module", params=["scratch18", "policy34", "token18"])
 def other(request):
     kind = request.param
     shapes = jax.eval_shape(
@@ -161,8 +169,9 @@ def other(request):
 
 @pytest.mark.parametrize("form", ["unfolded", "folded", "int8"])
 def test_other_encoders_match_jax(other, form):
-    """ResNet-34 and the scratch ResNet-18 against the JAX encoders:
-    unfolded and folded (f32 gate of the ResNet-50 tests), and with the
+    """ResNet-34, the scratch ResNet-18 and its token variant (the
+    default 128-wide head) against the JAX encoders: unfolded and folded
+    (f32 gate of the ResNet-50 tests), and with the
     JAX package's int8 params of the folded trunk (dynamic activation
     scales; the int8 sums are exact, so 1e-5 as the ResNet-50 int8
     encoder's test)."""
@@ -186,7 +195,7 @@ def test_other_encoders_match_jax(other, form):
     want = np.asarray(want)
     with torch.no_grad():
         got = mod(torch.from_numpy(x), torch.from_numpy(cond)).numpy()
-    assert got.shape == (2, 512)
+    assert got.shape == (2, OUT_DIM[kind])
     if form == "int8":
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     else:

@@ -1,5 +1,6 @@
-"""The port's rollout pieces against the JAX package's: the 1000-chain
-generator, the FNV hashers, the seeded scene resets, the result
+"""The port's rollout pieces against the JAX package's: the task tables
+(the 1000-chain generator is in ``test_torch_rollout_sequences.py``), the
+FNV hashers, the seeded scene resets, the result
 accounting, the env wrapper and the fake env, the long-horizon evaluator
 and its Trainer hook with a numpy stub policy (bit for bit: all numpy on
 both sides), the video buffer, and the result gathering across two
@@ -42,13 +43,6 @@ def test_task_tables_match():
     assert tms.tasks == jms.tasks
     assert tms.task_categories == jms.task_categories
     assert tms.initial_states() == jms.initial_states()
-
-
-def test_get_sequences_1000_match():
-    got, want = tms.get_sequences(1000), jms.get_sequences(1000)
-    assert len(got) == len(want) == 1000
-    for (gs, gseq), (ws, wseq) in zip(got, want):
-        assert gs == ws and tuple(gseq) == tuple(wseq)
 
 
 @pytest.mark.parametrize("name", ["fnv1_32", "fnv1a_32", "fnv1_64",
