@@ -141,8 +141,12 @@ EMA weights are served through ``parity`` at b=128 (120
 gradient of one b=8 batch in f32 and in the bf16 compute dtype against
 float64 on the card; the median step, its forward+backward and
 optimizer+EMA split, the device idle share and the peak memory with and
-without ``encoder_remat``, printed as one ``train`` JSON line before the
-``kernels`` line.
+without ``encoder_remat``; and (22e) the port's bf16 3x3 stride-2 conv on
+a [4, 64, 1, 1] map, on the card and on the CPU after NaN-filled buffers
+were freed to the allocator: the 8 padding-only taps of its weight
+gradient exactly 0, every element finite, within 2**-6 of an f32
+reference; printed as one ``train`` JSON line before the ``kernels``
+line.
 
 Phase 23 evaluates phase 22's trained EMA weights (its bf16 run directory,
 kept until then) through the ``evaluate_calvin`` CLI
@@ -2941,6 +2945,90 @@ def grad_check(weights, dev):
     return res
 
 
+# phase 22e: the encoders' bf16 conv at a geometry where 8 of its 9 taps
+# meet padding alone (3x3, stride 2, pad 1 over a 1x1 map, as the 16 px
+# gripper camera's last stage; models/encoders/resnet.Conv2d). oneDNN's
+# CPU bf16 backward left those taps of the weight gradient unwritten; the
+# check runs the port's conv on the card and on the CPU after the
+# allocator was handed freed buffers full of NaN. Gate against an f32
+# reference on the same bf16-rounded inputs (TF32 off): the cotangent, the
+# sums and the gradient are rounded to bf16 on the way (the CPU gives
+# 6.0e-3 of the largest magnitude at seed 13), so four bf16 ulps, 2**-6
+CONV_GRAD_SHAPE, CONV_GRAD_REPEATS = (4, 64, 1, 1), 10
+CONV_GRAD_REL = 2.0 ** -6
+
+
+def conv_grad_check(dev):
+    """Phase 22e: the port's bf16 ``Conv2d`` (3x3, stride 2, pad 1) on a
+    [4, 64, 1, 1] map, ``CONV_GRAD_REPEATS`` times on ``dev`` and on the
+    CPU, each after NaN-filled buffers were freed to the allocator (on
+    CUDA its cache keeps them): the weight gradient's padding-only taps
+    are exactly 0, every element is finite, and it lies within
+    ``CONV_GRAD_REL`` of the f32 reference's largest magnitude. On the
+    CPU it also counts, ungated, the repeats where ``F.conv2d``'s own
+    (oneDNN) backward leaves those taps non-zero: whether the fault the
+    port routes around shows in this build."""
+    import torch
+    import torch.nn.functional as F
+    from mode_diffusion_policy_tpu_torch.models.encoders.resnet import Conv2d
+    B, C, _, _ = CONV_GRAD_SHAPE
+    pad = torch.ones(3, 3, dtype=torch.bool)
+    pad[1, 1] = False
+    out = {"shape": list(CONV_GRAD_SHAPE), "kernel": [3, 3], "stride": 2,
+           "repeats": CONV_GRAD_REPEATS, "gate_rel": CONV_GRAD_REL}
+    for where in (dev, torch.device("cpu")):
+        gen = torch.Generator(device=where).manual_seed(13)
+        pad_nonzero = non_finite = unrouted = 0
+        worst = 0.0
+        for _ in range(CONV_GRAD_REPEATS):
+            junk = [torch.full((n,), float("nan"), device=where, dtype=dt)
+                    for n in (C * C * 9, B * C * 9, 1 << 22)
+                    for dt in (torch.bfloat16, torch.float32)]
+            del junk
+            conv = Conv2d(C, C, 3, 2, dtype=torch.bfloat16, device=where)
+            with torch.no_grad():
+                conv.weight.copy_(torch.randn(
+                    C, C, 3, 3, generator=gen, device=where) / (9 * C) ** 0.5)
+            x = torch.randn(CONV_GRAD_SHAPE, generator=gen, device=where)
+            g = torch.randn(B, C, 1, 1, generator=gen, device=where)
+            (conv(x).float() * g).sum().backward()
+            gw = conv.weight.grad
+            pad_nonzero += bool((gw[:, :, pad] != 0).any())
+            non_finite += not bool(torch.isfinite(gw).all())
+            if where.type == "cpu":   # the unrouted oneDNN backward
+                junk = [torch.full((n,), float("nan"), dtype=dt)
+                        for n in (C * C * 9, B * C * 9, 1 << 22)
+                        for dt in (torch.bfloat16, torch.float32)]
+                del junk
+                wr = conv.weight.detach().bfloat16().requires_grad_()
+                (F.conv2d(x.bfloat16(), wr, None, 2, 1).float()
+                 * g).sum().backward()
+                unrouted += bool((wr.grad[:, :, pad] != 0).any())
+            w32 = conv.weight.detach().bfloat16().float().requires_grad_()
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                y32 = F.conv2d(x.bfloat16().float(), w32, None, 2, 1)
+            ref, = torch.autograd.grad((y32 * g).sum(), w32)
+            worst = max(worst, float((gw - ref).abs().max()
+                                     / ref.abs().max()))
+        out[where.type] = {"pad_taps_not_zero": pad_nonzero,
+                           "non_finite": non_finite,
+                           "max_rel_err_vs_f32": worst}
+        if where.type == "cpu":
+            out["cpu"]["unrouted_pad_taps_not_zero"] = unrouted
+        print(f"  bf16 conv weight gradient on {where.type} "
+              f"({CONV_GRAD_SHAPE}, 3x3 stride 2, {CONV_GRAD_REPEATS} "
+              f"repeats after NaN-filled frees): padding-only taps not 0 "
+              f"in {pad_nonzero}, non-finite in {non_finite}, max error vs "
+              f"f32 {worst:.2e} of its largest (gate {CONV_GRAD_REL:.2e})"
+              + (f"; F.conv2d's oneDNN backward, not gated: padding-only "
+                 f"taps not 0 in {unrouted}" if where.type == "cpu" else ""),
+              flush=True)
+        if pad_nonzero or non_finite or not worst <= CONV_GRAD_REL:
+            raise SystemExit(f"bf16 conv weight gradient check failed on "
+                             f"{where.type}")
+    return out
+
+
 def serve_trained(state, dev, zero_launches, launches_of):
     """The trained EMA weights (and running statistics) in a new agent,
     served through RolloutPolicy.with_serving_mode(agent, "parity") at
@@ -3047,6 +3135,10 @@ def _train_phase(smi, zero_launches, launches_of, root, dev):
     t = time.perf_counter()
     out["grad_check"] = grad_check(weights, dev)
     phase("phase 22d: gradients against float64", t)
+    t = time.perf_counter()
+    out["conv_grad"] = conv_grad_check(dev)
+    phase("phase 22e: the bf16 conv weight gradient's padding-only taps",
+          t)
     for kind in ("bf16_full_state", "f32_state"):
         r = out[kind]
         print(f"  {kind}: median step {r['step_ms_median_3_8']:.1f} ms "

@@ -64,9 +64,69 @@ def fold_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
     return w.reshape(O, 4 * C, 4, 4)
 
 
+def pad_only_taps(size: int, k: int, stride: int, pad: int) -> bool:
+    """Whether some tap of a ``k``-tap window at ``stride`` over ``size``
+    rows, zero-padded by ``pad`` on each side, meets padding alone: tap
+    ``i`` reads row ``i - pad + stride * o`` for each output ``o``."""
+    n_out = (size + 2 * pad - k) // stride + 1
+    for i in range(k):
+        first = max(0, -((i - pad) // stride))  # first o with a row >= 0
+        last = min(n_out - 1, (size - 1 - i + pad) // stride)
+        if first > last:
+            return True
+    return False
+
+
+@contextlib.contextmanager
+def _onednn_off():
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = prev
+
+
+class _ConvEveryTap(torch.autograd.Function):
+    """``F.conv2d``, its forward unchanged, whose backward runs without
+    oneDNN.
+
+    PyTorch's CPU bf16 conv backward goes through oneDNN, which, for a
+    strided conv where some tap of the window meets padding alone, leaves
+    those taps of the weight gradient unwritten: they hold whatever the
+    allocator's memory held (NaN at times), where XLA writes 0. With oneDNN
+    off, ``convolution_backward`` takes ATen's own im2col + GEMM path, in
+    bf16 as before, which writes every element."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.geometry = (stride, padding, b is not None)
+        return F.conv2d(x, w, b, stride, padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, has_bias = ctx.geometry
+        need = ctx.needs_input_grad
+        with _onednn_off():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                gy, x, w, [w.shape[0]] if has_bias else None,
+                [stride, stride], list(padding), [1, 1], False, [0, 0], 1,
+                [need[0], need[1], has_bias and need[2]])
+        return gx, gw, gb, None, None
+
+
 class Conv2d(nn.Module):
     """flax ``nn.Conv`` semantics: input and weight cast to ``dtype``;
-    padding given per axis as (before, after)."""
+    padding given per axis as (before, after).
+
+    A bf16 conv on the CPU that takes gradients, with stride > 1 and a map
+    small enough that some tap of the window meets padding alone
+    (``pad_only_taps`` on either axis), runs its backward through
+    ``_ConvEveryTap``, without oneDNN, so every tap of the weight gradient
+    is written (0 at those taps, as JAX's). Its forward, and every other
+    conv (CUDA, f32, stride 1, larger maps), is ``F.conv2d`` as it was."""
 
     def __init__(self, cin, cout, k, stride=1, pad=None, use_bias=False,
                  dtype=torch.float32, device=None):
@@ -88,7 +148,20 @@ class Conv2d(nn.Module):
             x = F.pad(x, (pl, pr, pt, pb))
             padding = 0
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, padding)
+        w = self.weight.to(self.dtype)
+        if self._every_tap(x, w, padding):
+            return _ConvEveryTap.apply(x, w, b, self.stride, padding)
+        return F.conv2d(x, w, b, self.stride, padding)
+
+    def _every_tap(self, x, w, padding) -> bool:
+        if not (x.device.type == "cpu" and x.dtype == torch.bfloat16
+                and self.stride > 1 and padding != 0
+                and torch.is_grad_enabled()
+                and (x.requires_grad or w.requires_grad)):
+            return False
+        k = w.shape[-1]
+        return any(pad_only_taps(n, k, self.stride, p)
+                   for n, p in zip(x.shape[-2:], padding))
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

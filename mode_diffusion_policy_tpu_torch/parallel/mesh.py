@@ -79,27 +79,24 @@ def _env_int(name: str, default: Optional[int] = None) -> int:
 def init_distributed(backend: Optional[str] = None,
                      device=None) -> Mesh:
     """Start the process group from ``torchrun``'s environment and return
-    the world's ``Mesh``. ``backend`` defaults to NCCL on CUDA and gloo on
+    the world's ``Mesh``. ``device`` defaults to ``cuda:<local rank>`` and
+    raises without CUDA, as every entry point: the CPU only when named
+    (``device="cpu"``). ``backend`` defaults to NCCL on CUDA and gloo on
     the CPU; gloo on CUDA is taken only when named (several ranks on one
-    card). NCCL raises when it would put two ranks on one card. ``device``
-    defaults to ``cuda:<local rank>`` (the CPU when CUDA is absent and the
-    backend is gloo)."""
+    card). NCCL raises when it would put two ranks on one card."""
     rank, size = _env_int("RANK"), _env_int("WORLD_SIZE")
     local_rank = _env_int("LOCAL_RANK", rank)
     local_size = _env_int("LOCAL_WORLD_SIZE", size)
-    cuda = torch.cuda.is_available()
-    backend = backend or ("nccl" if cuda else "gloo")
+    device = resolve_device(device if device is not None
+                            else torch.device("cuda", local_rank))
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if backend == "nccl":
-        n = torch.cuda.device_count() if cuda else 0
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if local_size > n:
             raise RuntimeError(
                 f"NCCL would put {local_size} ranks on {n} card(s): it "
                 "takes one card per rank (name backend='gloo' to share a "
                 "card)")
-    if device is None:
-        device = (torch.device("cuda", local_rank) if backend == "nccl"
-                  or cuda else torch.device("cpu"))
-    device = resolve_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if dist.is_initialized():
@@ -118,18 +115,18 @@ _HOST_GROUP = None
 
 def make_mesh(device=None) -> Mesh:
     """The initialized world (``init_distributed``), or a world of 1 on
-    ``device`` (default: CUDA, as every entry point) when no process group
-    is up."""
+    ``device`` when no process group is up. ``device`` defaults to CUDA
+    (``cuda:<local rank>`` in a group) and raises without it, as every
+    entry point: the CPU only when named."""
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(device=resolve_device(device or "cuda"))
     size, rank = dist.get_world_size(), dist.get_rank()
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     local_size = int(os.environ.get("LOCAL_WORLD_SIZE", size))
-    if device is None:
-        device = (torch.device("cuda", local_rank)
-                  if torch.cuda.is_available() else torch.device("cpu"))
-    return Mesh(size, rank, local_rank, local_size, resolve_device(device),
-                None, _HOST_GROUP)
+    device = resolve_device(device if device is not None
+                            else torch.device("cuda", local_rank))
+    return Mesh(size, rank, local_rank, local_size, device, None,
+                _HOST_GROUP)
 
 
 def destroy_distributed():

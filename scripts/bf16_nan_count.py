@@ -2,7 +2,7 @@
 the JAX package and the PyTorch port, at one configuration and seed.
 
     JAX_PLATFORMS=cpu python3 scripts/bf16_nan_count.py [--runs 20] [--steps 6]
-        [--which both|jax|port] [--out counts.json]
+        [--which both|jax|port] [--jobs 1] [--out counts.json]
 
 The configuration is the LIBERO training CLI test's
 (``tests/test_torch_libero.py::test_training_libero_cli_on_the_cpu``): the
@@ -14,12 +14,17 @@ shipped bf16 precision. Each run is a fresh process of the package's
 ``training_libero.main`` for ``--steps`` epochs of one step: both trainers
 log the loss of each epoch's first step, so every step's loss is read
 from the run's ``metrics.jsonl``. Prints, per package, the runs, the
-steps, the non-finite losses and the runs that had one, as one JSON line.
-Needs ``h5py`` for the fixture store.
+steps, the non-finite losses, the runs that had one and the runs whose
+losses equal the most common run's (``identical_runs``), as one JSON
+line. ``--jobs`` runs that many processes at a time (load and threads
+change how often an allocator-dependent fault shows). Needs ``h5py`` for
+the fixture store.
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import concurrent.futures
 import json
 import math
 import os
@@ -72,6 +77,7 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=6)
     p.add_argument("--which", default="both",
                    choices=("both", "jax", "port"))
+    p.add_argument("--jobs", type=int, default=1)
     p.add_argument("--out", default=None)
     p.add_argument("--one", nargs=3, metavar=("WHICH", "STORE", "LOG_DIR"),
                    help=argparse.SUPPRESS)
@@ -93,27 +99,35 @@ def main(argv=None):
             rec = out[which] = {"runs": 0, "steps": 0, "non_finite": 0,
                                 "runs_with_non_finite": 0, "seconds": 0.0,
                                 "losses": []}
-            for r in range(args.runs):
+
+            def run(r, which=which):
                 t = time.perf_counter()
                 proc = subprocess.run(
                     [sys.executable, __file__, "--steps", str(args.steps),
                      "--one", which, str(store), f"{tmp}/{which}{r}"],
                     capture_output=True, text=True, env=env, cwd=ROOT)
+                # each run's checkpoints take gigabytes: keep none
+                shutil.rmtree(f"{tmp}/{which}{r}", ignore_errors=True)
                 if proc.returncode:
                     raise SystemExit(f"{which} run {r} failed:\n"
                                      f"{proc.stderr[-3000:]}")
-                # each run's checkpoints take gigabytes: keep none
-                shutil.rmtree(f"{tmp}/{which}{r}", ignore_errors=True)
                 losses = json.loads(proc.stdout.strip().splitlines()[-1])
+                print(f"{which} run {r}: losses {losses}", file=sys.stderr,
+                      flush=True)
+                return losses, time.perf_counter() - t
+
+            with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
+                done = list(pool.map(run, range(args.runs)))
+            for losses, seconds in done:
                 bad = sum(not math.isfinite(x) for x in losses)
                 rec["runs"] += 1
                 rec["steps"] += len(losses)
                 rec["non_finite"] += bad
                 rec["runs_with_non_finite"] += bad > 0
-                rec["seconds"] += time.perf_counter() - t
+                rec["seconds"] += seconds
                 rec["losses"].append(losses)
-                print(f"{which} run {r}: losses {losses}", file=sys.stderr,
-                      flush=True)
+            counts = collections.Counter(repr(x) for x in rec["losses"])
+            rec["identical_runs"] = counts.most_common(1)[0][1]
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

@@ -189,6 +189,33 @@ def test_init_distributed_refuses_two_ranks_on_one_card(monkeypatch):
         mesh.init_distributed("gloo", device="cpu")
 
 
+def test_distributed_entry_points_need_cuda_or_explicit_cpu(monkeypatch,
+                                                            tmp_path):
+    """Without CUDA, ``init_distributed()`` and ``make_mesh()`` under a
+    live process group raise unless the caller names ``device="cpu"``:
+    no silent fall back to gloo on the CPU."""
+    import torch.distributed as dist
+    from mode_diffusion_policy_tpu_torch.parallel import mesh
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(k, v)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mesh.make_mesh()
+        world = mesh.make_mesh("cpu")
+        assert (world.size, world.device.type) == (1, "cpu")
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.init_distributed()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.init_distributed("gloo")
+    assert not dist.is_initialized()
+
+
 def test_serving_mode_names():
     assert set(PRESET_FLAGS) | {"auto"} == set(SERVING_MODES)
     assert set(PRESET_FLAGS) == {"reference", "parity", "max-throughput",
