@@ -41,6 +41,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels.quant_math import (
     dot_i8, quant_rows)
 from mode_diffusion_policy_tpu_torch.ops.quant import (quantize_attn,
                                                        quantize_experts)
+from torch_threads import two_torch_threads  # noqa: F401
 
 B, T, D, H = 3, 14, 256, 2
 HD = D // H

@@ -57,15 +57,7 @@ from mode_diffusion_policy_tpu_torch.utils import verify_checkpoint as tvck
 from mode_diffusion_policy_tpu_torch.utils.checkpoint_convert import (
     convert_modedit, detect_layout, load_torch_checkpoint)
 from mode_diffusion_policy_tpu_torch.utils.weights import dit_state_dict
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads: the test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 # -- VLMEmbeddingCache ---------------------------------------------------------

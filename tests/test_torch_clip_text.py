@@ -23,22 +23,13 @@ from mode_diffusion_policy_tpu_torch.models.encoders import clip_text as tclip
 from mode_diffusion_policy_tpu_torch.models.encoders import lang_cache as tcache
 from mode_diffusion_policy_tpu_torch.models.encoders import tokenizer as ttok
 from mode_diffusion_policy_tpu_torch.utils.weights import from_jax_clip_text
+from torch_threads import two_torch_threads  # noqa: F401
 
 CONF = pathlib.Path(__file__).resolve().parents[1] / "conf"
 TINY = dict(width=64, heads=4, layers=2, embed_dim=32)
 TEXTS = ["push the red block to the right", "open the drawer",
          "turn on the led light", "Lift the pink block!",
          "pick up the blue block and place it in the slider"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads: the test workers share the machine's cores,
-    and these models are small."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _instructions():

@@ -15,6 +15,7 @@ import torch
 
 from mode_diffusion_policy_tpu.models.encoders import clip_visual as J
 from mode_diffusion_policy_tpu_torch.models.encoders import clip_visual as P
+from torch_threads import two_torch_threads  # noqa: F401
 
 CASES = {
     "vit": ("vit", P.CLIPViTConfig(input_resolution=32, patch_size=8,
@@ -27,15 +28,6 @@ CASES = {
         layers=(2, 1, 1, 2), width=16, output_dim=32, heads=8,
         input_resolution=64)),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads: the test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _fields(cfg):

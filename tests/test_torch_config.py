@@ -16,18 +16,9 @@ from mode_diffusion_policy_tpu_torch.config import builders as tb
 from mode_diffusion_policy_tpu_torch.config import loader as tl
 from mode_diffusion_policy_tpu_torch.config import registry as tr
 from mode_diffusion_policy_tpu_torch.models.agent import MoDEAgent
+from torch_threads import two_torch_threads  # noqa: F401
 
 CONF = pathlib.Path(__file__).resolve().parents[1] / "conf"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads: the test workers share the machine's cores,
-    and these models are small."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 OVERRIDES = [

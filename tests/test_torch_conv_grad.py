@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from mode_diffusion_policy_tpu.models.encoders import resnet as jres
 from mode_diffusion_policy_tpu_torch.models.encoders import resnet as tres
+from torch_threads import two_torch_threads  # noqa: F401
 
 C, B, REPEATS = 64, 4, 10
 # the port's and JAX's bf16 gradients differ by the rounding of a few

@@ -39,20 +39,13 @@ from mode_diffusion_policy_tpu_torch.evaluation import utils as teval
 from mode_diffusion_policy_tpu_torch.models.encoders.lang_cache import \
     LangEmbeddingCache
 from mode_diffusion_policy_tpu_torch.utils import hashing as thash
+from torch_threads import two_torch_threads  # noqa: F401
 
 BATCH_KEYS = ("rgb_static", "rgb_gripper", "actions", "robot_obs", "idx",
               "lang_emb")
 EXT = dict(key="lang", lang_folder="lang_annotations", min_window_size=10,
            max_window_size=10, pad=False, obs_seq_len=1, action_seq_len=10,
            future_range=1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -46,6 +46,7 @@ from mode_diffusion_policy_tpu_torch.parallel import mesh as tmesh
 from mode_diffusion_policy_tpu_torch.training_common import DEFAULT_PIPELINES
 from mode_diffusion_policy_tpu_torch.utils.weights import port_tree
 from torch_dp_worker import World
+from torch_threads import two_torch_threads  # noqa: F401
 
 DIMS = dict(latent_dim=64, n_layers=2, n_heads=4, cond_dim=8,
             resnet_type="18", num_experts=4, top_k=2)

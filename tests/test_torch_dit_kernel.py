@@ -32,6 +32,7 @@ from mode_diffusion_policy_tpu_torch.ops.quant import (QuantizedAttn,
                                                        QuantizedExperts,
                                                        quantize_attn,
                                                        quantize_experts)
+from torch_threads import two_torch_threads  # noqa: F401
 
 L, S = 3, 4
 # per-layer routing tables [L, S, 2]

@@ -22,6 +22,7 @@ from test_torch_data_parallel import (DIMS, LOSS_KW, NO_DROP, OPT_KW,
                                       PIPELINES, _random_variables,
                                       _raw_batches, _same)
 from torch_dp_worker import World
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -60,6 +60,7 @@ from mode_diffusion_policy_tpu_torch.utils import checkpoint_convert as tconv
 from mode_diffusion_policy_tpu_torch.utils.weights import (
     dit_state_dict, from_jax_clip_text, from_jax_params, resnet_state_dict)
 from test_torch_slice import _random_variables
+from torch_threads import two_torch_threads  # noqa: F401
 
 DIMS = dict(latent_dim=256, n_layers=2, n_heads=2, cond_dim=32,
             num_experts=4, top_k=2)
@@ -69,16 +70,6 @@ SOLVABLE = {"open_drawer", "close_drawer", "move_slider_left",
             "move_slider_right", "turn_on_led", "turn_off_led",
             "turn_on_lightbulb", "turn_off_lightbulb"}
 CAMS = ("rgb_static", "rgb_gripper")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads: the test workers share the machine's cores,
-    and these models are small."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

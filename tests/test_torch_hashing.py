@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 from mode_diffusion_policy_tpu_torch.utils import hashing as H
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 VECTORS = pathlib.Path(__file__).parent / "data" / "hash_vectors.jsonl.gz"

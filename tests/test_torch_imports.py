@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 and its entry points refuse to run without CUDA unless asked for the CPU."""
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -21,6 +22,7 @@ from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
 from mode_diffusion_policy_tpu_torch.training.loop import (Trainer,
                                                            make_train_step)
 from mode_diffusion_policy_tpu_torch.training.optim import make_optimizer
+from torch_threads import THREADS, two_torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "mode_diffusion_policy_tpu_torch"
@@ -280,3 +282,23 @@ def test_closing_benches_skip_without_cuda(monkeypatch, capsys, names):
     bench_kernels_torch.main(names)
     assert capsys.readouterr().out.strip().splitlines() == [
         '{"skipped": "CUDA is not available"}']
+
+
+def test_every_port_test_file_caps_torch_threads():
+    """Each ``tests/test_torch_*.py`` imports the shared thread cap,
+    ``torch_threads.two_torch_threads``, at its top level; in this module
+    it holds torch and the environment that a child process inherits at
+    the cap."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 30
+    missing = []
+    for path in files:
+        body = ast.parse(path.read_text()).body
+        if not any(isinstance(n, ast.ImportFrom)
+                   and n.module == "torch_threads"
+                   and "two_torch_threads" in [a.name for a in n.names]
+                   for n in body):
+            missing.append(path.name)
+    assert not missing, f"without the shared thread cap: {missing}"
+    assert torch.get_num_threads() <= THREADS
+    assert int(os.environ["OMP_NUM_THREADS"]) <= THREADS

@@ -23,6 +23,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels import layer_kernel
 from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
     fused_layer_q8c, fused_layer_q8c_ref)
 from mode_diffusion_policy_tpu_torch.ops.quant import quantize_experts
+from torch_threads import two_torch_threads  # noqa: F401
 
 IDX = np.array([[0, 2], [3, 1], [2, 3]], np.int32)
 PROBS = np.array([[0.7, 0.3], [0.55, 0.45], [0.5, 0.5]], np.float32)

@@ -20,6 +20,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from torch_threads import two_torch_threads  # noqa: F401
 
 h5py = pytest.importorskip("h5py")
 
@@ -55,14 +56,6 @@ from test_torch_evaluate import (CAMS, IMG, JaxNoisePolicy,  # noqa: E402
 CONF = pathlib.Path(__file__).resolve().parents[1] / "conf"
 TASKS = ("SCENE1_open_the_top_drawer_demo.hdf5",
          "SCENE2_put_the_bowl_on_the_plate_demo.hdf5")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -56,15 +56,8 @@ from mode_diffusion_policy_tpu_torch.ops.kernels import (attn_kernel,
 from mode_diffusion_policy_tpu_torch.ops.kernels._common import \
     autodiff_reason
 from mode_diffusion_policy_tpu_torch.utils.weights import from_jax_params
+from torch_threads import two_torch_threads  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads: the test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 A_LIN = np.array([[-0.5, 1.0], [-1.0, -0.2]])
 TS = [0.0, 0.7, 3.0]

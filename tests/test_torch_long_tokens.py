@@ -74,6 +74,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
 from mode_diffusion_policy_tpu_torch.ops.quant import (
     QuantizedExperts, quantize_attn, quantize_experts)
 from mode_diffusion_policy_tpu_torch.utils.weights import from_jax_params
+from torch_threads import two_torch_threads  # noqa: F401
 
 CONF = pathlib.Path(__file__).resolve().parents[1] / "conf"
 B, D, H, HH, E = 4, 256, 2, 256, 4
@@ -89,14 +90,6 @@ PROBS = np.array([[[0.7, 0.3], [0.55, 0.45]], [[0.6, 0.4], [0.8, 0.2]]],
                  np.float32)
 STEP = 1
 TOL = 2e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(T, cond, seed, L=1):

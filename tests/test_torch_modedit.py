@@ -16,6 +16,7 @@ from mode_diffusion_policy_tpu_torch.models.modedit import MoDeDiT as TDiT
 from mode_diffusion_policy_tpu_torch.models.modedit import \
     MoDeDiTConfig as TCfg
 from mode_diffusion_policy_tpu_torch.utils.weights import dit_state_dict
+from torch_threads import two_torch_threads  # noqa: F401
 
 DIMS = dict(obs_dim=64, goal_dim=32, embed_dim=256, n_layers=2, n_heads=2,
             num_experts=4, top_k=2)

@@ -24,6 +24,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
     fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
 from mode_diffusion_policy_tpu_torch.ops.quant import (QuantizedExperts,
                                                    quantize_experts)
+from torch_threads import two_torch_threads  # noqa: F401
 
 B, T, D, HH, E = 3, 14, 256, 256, 4
 IDX = np.array([[0, 2], [3, 1], [2, 3], [1, 0]], np.int32)

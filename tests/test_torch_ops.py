@@ -16,6 +16,7 @@ from mode_diffusion_policy_tpu_torch.ops import moe as tmoe
 from mode_diffusion_policy_tpu_torch.ops import primitives as tprim
 from mode_diffusion_policy_tpu_torch.ops import quant as tquant
 from mode_diffusion_policy_tpu_torch.ops.kernels import quant_math as tqm
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _rng(seed=0):

@@ -20,6 +20,7 @@ from mode_diffusion_policy_tpu_torch.models.agent import \
     MoDEAgentConfig as TCfg
 from mode_diffusion_policy_tpu_torch.training import optim as topt
 from mode_diffusion_policy_tpu_torch.utils.weights import port_name
+from torch_threads import two_torch_threads  # noqa: F401
 
 TOTAL = 45000
 STEPS = sorted({0, 1, 2, 450, 899, 900, 901, 4499, 4500, 4501, 4502, 9000,

@@ -20,6 +20,7 @@ from mode_diffusion_policy_tpu_torch.models.encoders import resnet as tres
 from mode_diffusion_policy_tpu_torch.ops import primitives as tprim
 from mode_diffusion_policy_tpu_torch.utils import utils as tutils
 from mode_diffusion_policy_tpu_torch.utils.weights import port_tree
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def test_no_encoder_returns_its_input():

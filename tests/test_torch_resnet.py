@@ -15,6 +15,7 @@ import torch
 from mode_diffusion_policy_tpu.models.encoders import resnet as jres
 from mode_diffusion_policy_tpu_torch.models.encoders import resnet as tres
 from mode_diffusion_policy_tpu_torch.utils.weights import resnet_state_dict
+from torch_threads import two_torch_threads  # noqa: F401
 
 COND = 16
 

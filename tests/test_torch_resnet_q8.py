@@ -34,6 +34,7 @@ from mode_diffusion_policy_tpu_torch.models.agent import \
     MoDEAgentConfig as TCfg
 from mode_diffusion_policy_tpu_torch.models.encoders import resnet as tres
 from mode_diffusion_policy_tpu_torch.utils import weights as tweights
+from torch_threads import two_torch_threads  # noqa: F401
 
 COND = 16
 IMG = 32
@@ -267,17 +268,46 @@ def agents():
     return jagent, v, batch
 
 
-def test_calibration_picks_the_jax_clips(agents, caplog):
+class _Records(logging.Handler):
+    """Keeps every record it is handed."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+@pytest.fixture(scope="module")
+def calibrated(agents):
+    """The JAX agent's variables after ``quantize_encoders_for_inference(
+    calib_batch=...)`` (its int8 calibration, run once for the module), and
+    the clip label that its ``int8 calibration`` log records name for each
+    encoder."""
     jagent, v, batch = agents
-    with caplog.at_level(logging.INFO):
+    log, records = logging.getLogger(jagent_mod.__name__), _Records()
+    level = log.level
+    log.addHandler(records)
+    log.setLevel(logging.INFO)
+    try:
         jv = jagent.quantize_encoders_for_inference(
             v, calib_batch={k: jnp.asarray(a) for k, a in batch.items()})
-    want = {}
-    for rec in caplog.records:
+    finally:
+        log.removeHandler(records)
+        log.setLevel(level)
+    labels = {}
+    for rec in records.records:
         msg = rec.getMessage()
         if msg.startswith("int8 calibration"):
             name, clip = msg.split()[2].rstrip(":"), msg.split("clip=")[1]
-            want[name] = clip.split(",")[0]
+            labels[name] = clip.split(",")[0]
+    return jv, labels
+
+
+def test_calibration_picks_the_jax_clips(agents, calibrated):
+    _, _, batch = agents
+    jv, want = calibrated
     assert set(want) == {"static_resnet", "gripper_resnet"}
     agent = tweights.from_jax_params(jax.tree.map(np.asarray, jv),
                                      TCfg(**DIMS), device="cpu")
@@ -295,12 +325,12 @@ def test_calibration_picks_the_jax_clips(agents, caplog):
                for m in agent.q8.values())
 
 
-def test_loaded_q8_encoders_embed_like_jax(agents):
+def test_loaded_q8_encoders_embed_like_jax(agents, calibrated):
     """The JAX agent's q8_encoder_params (calibrated), loaded into the port
     agent, give JAX's embed_visual_obs features within 1e-5."""
     jagent, v, batch = agents
+    jv, _ = calibrated
     jb = {k: jnp.asarray(a) for k, a in batch.items()}
-    jv = jagent.quantize_encoders_for_inference(v, calib_batch=jb)
     want, _ = jagent.embed_visual_obs(jv, jb["rgb_static"], jb["rgb_gripper"],
                                       jb["lang_emb"])
     agent = tweights.from_jax_params(jax.tree.map(np.asarray, v),

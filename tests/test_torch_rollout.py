@@ -30,6 +30,7 @@ from mode_diffusion_policy_tpu_torch.rollout import multistep_sequences as tms
 from mode_diffusion_policy_tpu_torch.rollout import rollout_long_horizon as tlh
 from mode_diffusion_policy_tpu_torch.rollout import video as tvideo
 from mode_diffusion_policy_tpu_torch.utils import hashing as thash
+from torch_threads import two_torch_threads  # noqa: F401
 
 ANNOTATIONS = {t: [f"do {t.replace('_', ' ')}"] for t in jms.tasks}
 

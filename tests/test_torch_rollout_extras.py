@@ -14,6 +14,7 @@ from mode_diffusion_policy_tpu_torch.data.calvin_dataset import (
 from mode_diffusion_policy_tpu_torch.evaluation import determinism_check as tdc
 from mode_diffusion_policy_tpu_torch.rollout import env as tenv
 from mode_diffusion_policy_tpu_torch.rollout import rollout_single_task as tst
+from torch_threads import two_torch_threads  # noqa: F401
 
 # task -> (scene coordinate that a demonstration moves, env steps a rollout
 # needs to solve it; None: never solved)

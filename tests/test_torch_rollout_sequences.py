@@ -10,6 +10,7 @@ import pytest
 
 from mode_diffusion_policy_tpu.rollout import multistep_sequences as jms
 from mode_diffusion_policy_tpu_torch.rollout import multistep_sequences as tms
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def test_get_sequences_1000_match():

@@ -26,6 +26,7 @@ from mode_diffusion_policy_tpu.models.edm import samplers as jsamplers
 from mode_diffusion_policy_tpu_torch.models.edm import samplers as tsamplers
 from mode_diffusion_policy_tpu_torch.models.edm.schedules import (
     get_noise_schedule)
+from torch_threads import two_torch_threads  # noqa: F401
 
 B, W, A = 2, 10, 7
 r = np.random.default_rng(0)

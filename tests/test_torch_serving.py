@@ -31,6 +31,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
     fused_top2_mlp)
 from mode_diffusion_policy_tpu_torch.serving import (PRESET_FLAGS,
                                                      apply_serving_mode)
+from torch_threads import two_torch_threads  # noqa: F401
 
 DIMS = dict(latent_dim=256, n_layers=2, n_heads=2, cond_dim=32,
             num_experts=4, top_k=2, dtype=torch.bfloat16)

@@ -54,6 +54,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
 from mode_diffusion_policy_tpu_torch.ops.kernels.moe_kernel import (
     fused_top2_mlp_q8c, fused_top2_mlp_q8c_ref)
 from mode_diffusion_policy_tpu_torch.utils.weights import from_jax_params
+from torch_threads import two_torch_threads  # noqa: F401
 
 DIMS = dict(latent_dim=256, n_layers=2, n_heads=2, cond_dim=32,
             num_experts=4, top_k=2)

@@ -46,6 +46,7 @@ from mode_diffusion_policy_tpu_torch.ops.kernels.layer_kernel import (
 from mode_diffusion_policy_tpu_torch.utils.weights import from_jax_params
 from test_torch_samplers import JaxNoise
 from test_torch_slice import B, DIMS, IMG, _counting, _random_variables
+from torch_threads import two_torch_threads  # noqa: F401
 
 STEPS = 4
 KEY = 7

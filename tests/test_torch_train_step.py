@@ -58,6 +58,7 @@ from mode_diffusion_policy_tpu_torch.training.loop import make_train_step
 from mode_diffusion_policy_tpu_torch.training.state import TrainState
 from mode_diffusion_policy_tpu_torch.utils.weights import (
     from_jax_params, from_jax_train_state, port_tree, resnet_state_dict)
+from torch_threads import two_torch_threads  # noqa: F401
 
 DIMS = dict(latent_dim=256, n_layers=2, n_heads=2, cond_dim=32,
             num_experts=4, top_k=2)
@@ -67,16 +68,6 @@ NO_DROP = dict(attn_pdrop=0.0, mlp_pdrop=0.0, goal_drop=0.0, embed_pdrob=0.0)
 # held to the no-remat step bit for bit in test_remat_updates_batch_stats_once
 LOSS_KW = dict(entropy_gamma=0.01, router_z_delta=0.001, encoder_remat=False)
 B, IMG, T_TOK = 2, 64, 14
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for the port's side: the test workers share
-    the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _random_variables(agent, seed=0):

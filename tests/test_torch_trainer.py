@@ -28,23 +28,13 @@ from mode_diffusion_policy_tpu_torch.training_common import (
     DEFAULT_PIPELINES, make_data_iters, make_train_preprocess,
     parse_camera_pipelines)
 from mode_diffusion_policy_tpu_torch.utils.utils import device_memory_stats
+from torch_threads import two_torch_threads  # noqa: F401
 
 IMG = 16
 CFG = dict(latent_dim=64, n_layers=1, n_heads=2, cond_dim=16,
            entropy_gamma=0.01)
 PIPES = {k: dict(v, size=IMG) for k, v in DEFAULT_PIPELINES.items()}
 OPT = {"learning_rate": 1e-3, "total_steps": 40}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads: the test workers share the machine's cores,
-    and these steps are memory-bound (a flat update over the encoders'
-    47M parameters)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -27,19 +27,12 @@ from mode_diffusion_policy_tpu_torch.evaluation import evaluate_calvin as ec
 from mode_diffusion_policy_tpu_torch.models.agent import ENCODERS
 from mode_diffusion_policy_tpu_torch.utils import checkpoint_convert as conv
 from test_torch_evaluate import _reference_state_dict
+from torch_threads import two_torch_threads  # noqa: F401
 
 SMALL = ["model.latent_dim=64", "model.model.inner_model.n_layers=1",
          "model.model.inner_model.n_heads=2", "batch_size=2"] + [
     f"datamodule.transforms.{split}.{cam}.0.size=32"
     for split in ("train", "val") for cam in ("rgb_static", "rgb_gripper")]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -66,6 +66,7 @@ from mode_diffusion_policy_tpu_torch.serving import preset_flags
 from mode_diffusion_policy_tpu_torch.utils import checkpoint_convert as tconv
 from mode_diffusion_policy_tpu_torch.utils.weights import (
     dit_state_dict, from_jax_params, load_dit_, port_tree)
+from torch_threads import two_torch_threads  # noqa: F401
 
 DIMS = dict(obs_dim=64, goal_dim=32, embed_dim=64, n_layers=2, n_heads=4)
 NO_DROP = dict(embed_pdrob=0.0, goal_drop=0.0, attn_pdrop=0.0, mlp_pdrop=0.0)
@@ -82,14 +83,6 @@ VARIANTS = {
 }
 B = 3
 TOL = 2e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _fill(path, s, r):

@@ -34,16 +34,9 @@ from test_torch_data_parallel import (DIMS, LOSS_KW, NO_DROP, OPT_KW,
                                       _batch, _draws, _random_variables,
                                       _raw_batches)
 from torch_dp_worker import World
+from torch_threads import two_torch_threads  # noqa: F401
 
 PIPES = {k: dict(v, size=32) for k, v in DEFAULT_PIPELINES.items()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _trainer(v, log_dir, epochs):

@@ -35,11 +35,13 @@ class World:
     ``results()`` waits for them."""
 
     def __init__(self, suite, run_dir, world=2):
+        from torch_threads import THREADS
         self.run_dir, self.world = str(run_dir), world
         port = _free_port()
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join([ROOT,
                                              env.get("PYTHONPATH", "")])
+        env["OMP_NUM_THREADS"] = str(THREADS)
         # the optimizer's 100 MB temporaries stay in the heap: with glibc's
         # defaults each is a fresh mapping, and its page faults doubled a
         # CPU step's time
@@ -486,7 +488,6 @@ def main(argv):
                       LOCAL_WORLD_SIZE=world, MASTER_ADDR="localhost",
                       MASTER_PORT=port)
     import torch
-    torch.set_num_threads(2)
     from mode_diffusion_policy_tpu_torch.parallel.mesh import (
         destroy_distributed, init_distributed)
     mesh = init_distributed("gloo", device="cpu")
